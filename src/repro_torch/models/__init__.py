@@ -1,0 +1,3 @@
+"""Model substrate (PyTorch): functional models over dict-of-tensor param trees."""
+
+from repro_torch.models.resnet import ResNet

@@ -1,0 +1,357 @@
+"""Real-training backend: Hippo stages driving a PyTorch model (the §5.2
+``Trainer`` counterpart), with a fused data plane.
+
+``TorchTrainer`` executes a stage as a handful of *chunks*: each chunk
+covers up to ``chunk_steps`` training steps, consuming a data slab
+prefetched in one piece (``DataPipeline.next_batches``) and uploaded once,
+and per-step hyper-parameter values uploaded once per chunk as one
+``(n_steps,)`` f32 device tensor per name and sliced on the device (the
+``setup(hp)`` hot-update of Figure 9 becomes "hp values are device values
+of the step").  No step of a chunk reads a value back to the host, so the
+host queues a whole chunk without waiting for the device.  Stage lengths
+split into descending power-of-two chunks (:func:`chunk_lengths`).
+
+The package runs eagerly: there is nothing to compile per chunk, so
+``compile_seconds`` stays 0.0 (the dispatcher reads it) and ``exec_calls``
+counts chunks issued.
+
+Chain fusion: :meth:`run_chain` executes an entire scheduler-extracted
+chain with the ``(params, opt)`` carry and the data pipeline held live
+across every stage boundary — no checkpoint round-trip, no slab
+re-prefetch between consecutive stages — while still returning a boundary
+snapshot per stage for the dispatcher's write-behind checkpointing.
+Optimizer updates write fresh tensors, so a snapshot is just a reference
+to the carry at that boundary.
+
+Everything a resumed trial needs is in the state tree:
+
+    {"params", "opt", "opt_name", "data" (pipeline position), "step"}
+
+so stage-based execution is *lossless*: training a prefix once and forking
+the checkpoint yields bit-identical parameters to training each trial
+straight through, and the fused / chain-fused paths are bit-identical to
+the per-step loop (kept as :meth:`run_stage_stepwise`) on one device.
+
+Kernel plane: ``use_kernel`` routes the optimizer update of every step
+through the fused kernel
+(:func:`repro_torch.kernels.optim.fused_apply_update`).  It defaults to on
+for a CUDA device.  ``use_kernel=True`` on the CPU runs the plain version,
+counted as a fallback and warned once; on CUDA there is no fallback.
+``kernel_calls`` / ``kernel_fallbacks`` expose the kernel plane's counters
+(cumulative since this trainer's construction) for ``EngineStats``.
+
+Device and numerics: ``device=None`` means ``"cuda"`` and raises where
+there is no CUDA device — nothing carries on on the CPU because it found
+no GPU; pass ``device="cpu"`` to ask for it.  Constructing a trainer on a
+CUDA device sets, process-wide,
+``torch.backends.cudnn.allow_tf32 = False`` and
+``torch.backends.cuda.matmul.allow_tf32 = False`` (the card computes what
+an f32 reference computes) and ``torch.backends.cudnn.deterministic =
+True``, ``benchmark = False`` (the losslessness claim is bitwise).
+
+Not here yet: the batched sibling tiers (``run_stages_batched`` /
+``run_chains_batched`` raise ``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.trainer import (ChainNotFusable, StageContext,
+                                      TrainerBackend)
+from repro_torch.core.values import desc_static, desc_values
+from repro_torch.data.pipeline import DataPipeline
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.optim import fused_apply_update
+from repro_torch.train.optimizer import apply_update, init_opt_state
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+__all__ = ["TorchTrainer", "chunk_lengths", "value_and_grad"]
+
+
+def chunk_lengths(n: int, max_chunk: int) -> List[int]:
+    """Split ``n`` steps into descending power-of-two chunk lengths capped at
+    ``max_chunk``, so every stage length reuses O(log max_chunk) distinct
+    slab shapes."""
+    if max_chunk < 1:
+        raise ValueError(f"max_chunk must be >= 1, got {max_chunk}")
+    out: List[int] = []
+    while n > 0:
+        c = min(max_chunk, 1 << (n.bit_length() - 1))
+        out.append(c)
+        n -= c
+    return out
+
+
+def value_and_grad(loss_fn, params: Any, batch: Any):
+    """``(loss, aux), grads`` of ``loss_fn(params, batch) -> (loss, aux)``
+    with ``grads`` a tree shaped like ``params``.  The parameters are not
+    touched: gradients are taken with respect to detached views."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, aux = loss_fn(leaves, batch)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+    return (loss.detach(), aux), tree_map(lambda _: next(grads), params)
+
+
+class TorchTrainer(TrainerBackend):
+    """Stage executor over any task exposing ``init(rng)`` and
+    ``loss(params, batch) -> (scalar, metrics)``."""
+
+    supports_batched_stages = False
+
+    def __init__(self, task, pipeline_factory: Callable[[], DataPipeline],
+                 eval_batch: Dict[str, np.ndarray],
+                 default_optimizer: str = "momentum", seed: int = 0,
+                 objective_from: str = "acc", fused: bool = True,
+                 chunk_steps: int = 8,
+                 use_kernel: Optional[bool] = None,
+                 device: Union[str, torch.device, None] = None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchTrainer runs on a CUDA device and none is "
+                    "available; pass device='cpu' to ask for the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+        self.task = task
+        self.pipeline_factory = pipeline_factory
+        self.eval_batch = self._upload(eval_batch)
+        self.default_optimizer = default_optimizer
+        self.seed = seed
+        self.objective_from = objective_from
+        self.fused = fused
+        self.chunk_steps = int(chunk_steps)
+        if self.chunk_steps < 1:
+            raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
+        self.use_kernel = (self.device.type == "cuda") if use_kernel is None \
+            else bool(use_kernel)
+        self._update = fused_apply_update if self.use_kernel else apply_update
+        self._kernel_stats0 = kernel_ops.KERNEL_STATS.snapshot()
+        self.compile_seconds = 0.0   # eager: nothing is compiled per chunk
+        self.exec_calls = 0          # chunks (or single steps) issued
+
+    # ------------------------------------------------- kernel-plane counters
+    @property
+    def kernel_calls(self) -> int:
+        """Optimizer updates that went through the kernel since
+        construction (one per training step)."""
+        return kernel_ops.KERNEL_STATS.calls - self._kernel_stats0[0]
+
+    @property
+    def kernel_fallbacks(self) -> int:
+        """Kernel→plain-version fallbacks since construction."""
+        return kernel_ops.KERNEL_STATS.fallbacks - self._kernel_stats0[1]
+
+    @property
+    def supports_chain_fusion(self) -> bool:  # type: ignore[override]
+        return self.fused
+
+    def clone_state(self, state):
+        # leaves are never mutated in place — a fresh container tree is a
+        # full-depth safe copy
+        return tree_map(lambda x: x, state)
+
+    # ------------------------------------------------------------------ state
+    def init_state(self) -> Dict[str, Any]:
+        gen = torch.Generator().manual_seed(self.seed)
+        params = tree_map(lambda x: x.to(self.device), self.task.init(gen))
+        pipe = self.pipeline_factory()
+        return {
+            "params": params,
+            "opt": None,               # lazy: optimizer choice is a static hp
+            "opt_name": None,
+            "data": pipe.state(),
+            "step": 0,
+        }
+
+    # -------------------------------------------------------------- stage prep
+    def _stage_plan(self, ctx: StageContext):
+        """Per-step value arrays, static scalar hps, optimizer, hp names."""
+        vals = desc_values(ctx.desc, ctx.node_start, ctx.start, ctx.stop)
+        static = desc_static(ctx.desc)
+        opt_name = static.get("optimizer", self.default_optimizer)
+        static_hp = {k: float(v) for k, v in static.items()
+                     if isinstance(v, (int, float)) and not k.startswith("_")}
+        names = [k for k in vals if k != "bs"]
+        return vals, static_hp, opt_name, names
+
+    @staticmethod
+    def _bs_runs(vals: Dict[str, List[float]], n: int
+                 ) -> List[Tuple[int, int, Optional[int]]]:
+        """Maximal runs ``[(i0, i1, bs)]`` of constant batch size; ``bs`` is
+        None when the stage has no batch-size sequence (pipeline keeps its
+        restored size)."""
+        if "bs" not in vals:
+            return [(0, n, None)]
+        sizes = [int(round(v)) for v in vals["bs"]]
+        runs, i0 = [], 0
+        for i in range(1, n + 1):
+            if i == n or sizes[i] != sizes[i0]:
+                runs.append((i0, i, sizes[i0]))
+                i0 = i
+        return runs
+
+    # ----------------------------------------------------------------- upload
+    def _upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host arrays → device tensors, one transfer per field.  Integer
+        fields (labels are int32 in the datasets) become int64 here, once,
+        so no step converts them."""
+        out = {}
+        for k, v in arrays.items():
+            v = np.asarray(v)
+            if np.issubdtype(v.dtype, np.integer):
+                v = v.astype(np.int64)
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        return out
+
+    def _scalars(self, values: Dict[str, float]) -> Dict[str, torch.Tensor]:
+        return {k: torch.tensor(v, dtype=torch.float32, device=self.device)
+                for k, v in values.items()}
+
+    def _init_opt(self, state: Dict[str, Any], opt_name: str):
+        opt = state["opt"]
+        if opt is None or state["opt_name"] != opt_name:
+            opt = init_opt_state(opt_name, state["params"])
+        return opt
+
+    # ------------------------------------------------------------- chunk body
+    def _run_chunk(self, opt_name: str, carry, static_hp, hp_xs, slab, steps):
+        """``len(steps)`` training steps over device-resident slab / hp /
+        step arrays; indexing a device tensor is a view, never a read-back."""
+        params, opt = carry
+        for i in range(steps.shape[0]):
+            hp = dict(static_hp)
+            hp.update({k: v[i] for k, v in hp_xs.items()})
+            batch = {k: v[i] for k, v in slab.items()}
+            _, grads = value_and_grad(self.task.loss, params, batch)
+            params, opt = self._update(opt_name, params, grads, opt, hp,
+                                       steps[i])
+        self.exec_calls += 1
+        return params, opt
+
+    # -------------------------------------------------------------- execute
+    def run_stage(self, state: Dict[str, Any], ctx: StageContext
+                  ) -> Dict[str, Any]:
+        if not self.fused:
+            return self.run_stage_stepwise(state, ctx)
+        return self._run_fused_chain(state, [ctx])[-1]
+
+    def run_chain(self, state: Dict[str, Any],
+                  ctxs: Sequence[StageContext]) -> List[Dict[str, Any]]:
+        """Chain-fused execution: the carry stays on device across every
+        stage boundary (one persistent pipeline, no host round-trip) and a
+        boundary snapshot is returned per stage — bit-identical to running
+        :meth:`run_stage` per stage."""
+        if not self.fused:
+            return super().run_chain(state, ctxs)
+        return self._run_fused_chain(state, list(ctxs))
+
+    def run_stages_batched(self, states, ctxs):
+        raise NotImplementedError(
+            "batched sibling stages are not in repro_torch yet "
+            "(ROADMAP queue A, slice 2)")
+
+    def run_chains_batched(self, states, chains):
+        raise NotImplementedError(
+            "batched sibling chains are not in repro_torch yet "
+            "(ROADMAP queue A, slice 2)")
+
+    def _run_fused_chain(self, state: Dict[str, Any],
+                         chain: List[StageContext]) -> List[Dict[str, Any]]:
+        """Run one chain, returning the boundary state of every stage.  The
+        carry ``(params, opt)`` and the data pipeline persist across stage
+        boundaries; each boundary only snapshots the carry so the
+        dispatcher can checkpoint it, then execution continues."""
+        plans = [self._stage_plan(c) for c in chain]
+        step = chain[0].start
+        for c in chain:   # stages of one chain must be contiguous
+            if c.start != step:
+                raise ChainNotFusable(
+                    f"chain stages must be contiguous: stage starts at "
+                    f"{c.start}, previous stopped at {step}")
+            step = c.stop
+        assert state["step"] == chain[0].start, (state["step"], chain[0].start)
+
+        opt_name = plans[0][2]
+        carry = (state["params"], self._init_opt(state, opt_name))
+        pipe = self.pipeline_factory()
+        pipe.restore(state["data"])
+        boundaries: List[Dict[str, Any]] = []
+
+        for ctx, (vals, static_hp, stage_opt, names) in zip(chain, plans):
+            if stage_opt != opt_name:
+                # optimizer switch at the boundary: fresh slots, exactly as
+                # run_stage would re-init on the restored state
+                carry = (carry[0], init_opt_state(stage_opt, carry[0]))
+                opt_name = stage_opt
+            static_dev = self._scalars(static_hp)
+            for i0, i1, bs in self._bs_runs(vals, ctx.stop - ctx.start):
+                if bs is not None:
+                    pipe.set_batch_size(bs)
+                w0 = i0
+                for k_len in chunk_lengths(i1 - i0, self.chunk_steps):
+                    w1 = w0 + k_len
+                    slab = self._upload(pipe.next_batches(k_len))
+                    steps = torch.arange(ctx.start + w0, ctx.start + w1,
+                                         dtype=torch.int32,
+                                         device=self.device)
+                    hp_xs = {k: torch.tensor(
+                        np.asarray(vals[k][w0:w1], np.float32),
+                        device=self.device) for k in names}
+                    carry = self._run_chunk(opt_name, carry, static_dev,
+                                            hp_xs, slab, steps)
+                    w0 = w1
+            boundaries.append(
+                {"params": carry[0], "opt": carry[1], "opt_name": opt_name,
+                 "data": pipe.state(), "step": ctx.stop})
+        return boundaries
+
+    # ---------------------------------------------------- per-step reference
+    def run_stage_stepwise(self, state: Dict[str, Any], ctx: StageContext
+                           ) -> Dict[str, Any]:
+        """The plain data plane: one batch materialised on the host and
+        uploaded per training step, hp values uploaded per step.  Kept as
+        the bit-exactness reference for the fused paths."""
+        assert state["step"] == ctx.start, (state["step"], ctx.start)
+        vals, static_hp, opt_name, names = self._stage_plan(ctx)
+        carry = (state["params"], self._init_opt(state, opt_name))
+        pipe = self.pipeline_factory()
+        pipe.restore(state["data"])
+        static_dev = self._scalars(static_hp)
+
+        for i, step in enumerate(range(ctx.start, ctx.stop)):
+            if "bs" in vals:
+                pipe.set_batch_size(int(round(vals["bs"][i])))
+            batch = pipe.next_batch()
+            slab = self._upload({k: v[None] for k, v in batch.items()})
+            hp_xs = {k: torch.tensor([vals[k][i]], dtype=torch.float32,
+                                     device=self.device) for k in names}
+            steps = torch.tensor([step], dtype=torch.int32,
+                                 device=self.device)
+            carry = self._run_chunk(opt_name, carry, static_dev, hp_xs,
+                                    slab, steps)
+
+        return {"params": carry[0], "opt": carry[1], "opt_name": opt_name,
+                "data": pipe.state(), "step": ctx.stop}
+
+    # ------------------------------------------------------------- evaluate
+    def evaluate(self, state: Dict[str, Any], ctx: StageContext
+                 ) -> Dict[str, float]:
+        with torch.no_grad():
+            loss, metrics = self.task.loss(state["params"], self.eval_batch)
+        out = {"loss": float(loss)}
+        out["val_acc"] = float(metrics.get(self.objective_from, -loss))
+        for k, v in metrics.items():
+            out[k] = float(v)
+        return out
+
+    def stage_seconds(self, ctx: StageContext) -> Optional[float]:
+        return None  # wall-clock measured by the engine

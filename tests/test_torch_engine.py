@@ -1,0 +1,397 @@
+"""Execution engine of the PyTorch package held against the JAX package.
+
+Over ``SimulatedTrainer`` (pure Python in both packages) the whole engine —
+search plan, stage trees, scheduler, dispatcher, aggregator, tuners, study
+service — must produce ``EngineStats`` equal **field for field**, per-study
+breakdown included; only the wall-clock timers ``ckpt_save_seconds`` /
+``ckpt_load_seconds`` are left out.  Over ``TorchTrainer(device="cpu")`` a
+small SHA study runs end to end (ports of ``tests/test_system.py``), and the
+options this package does not have yet must raise, not be ignored.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as R
+import repro.core.tuners as RT
+import repro_torch.core as T
+import repro_torch.core.tuners as TT
+from repro.core.trainer import SimulatedTrainer as RefSimulatedTrainer
+from repro.train.checkpoint import CheckpointStore as RefCheckpointStore
+from repro_torch.core.trainer import SimulatedTrainer
+from repro_torch.data import DataPipeline, synthetic_cifar
+from repro_torch.models.resnet import ResNet
+from repro_torch.train.checkpoint import CheckpointStore
+from repro_torch.train.torch_trainer import TorchTrainer
+from repro_torch.utils.tree import tree_leaves
+
+# the suite runs several worker processes side by side: one intra-op
+# thread each, or the workers fight over the cores
+torch.set_num_threads(1)
+
+WALL_CLOCK = ("ckpt_save_seconds", "ckpt_load_seconds")
+
+
+class Side:
+    def __init__(self, core, tuners, sim, store):
+        self.core, self.tuners, self.sim, self.store = core, tuners, sim, store
+
+
+REF = Side(R, RT, RefSimulatedTrainer, RefCheckpointStore)
+PORT = Side(T, TT, SimulatedTrainer, CheckpointStore)
+
+
+def det(stats):
+    """Every EngineStats field but the wall-clock timers, by_study as dicts."""
+    d = dataclasses.asdict(stats)
+    for k in WALL_CLOCK:
+        d.pop(k)
+    return d
+
+
+def engine_space(side):
+    C = side.core
+    return side.tuners.GridSearchSpace(
+        fns={"lr": [C.Constant(0.1), C.StepLR(0.1, 0.1, [100, 150]),
+                    C.Warmup(5, 0.1, C.StepLR(0.1, 0.1, [90, 135])),
+                    C.Warmup(5, 0.1, C.Exponential(0.1, 0.95))],
+             "bs": [C.Constant(128),
+                    C.MultiStep(128, [70], values=[128, 256])]})
+
+
+def quickstart_space(side):
+    C = side.core
+    return side.tuners.GridSearchSpace(
+        fns={"lr": [C.StepLR(0.1, 0.1, [90, 135]),
+                    C.StepLR(0.1, 0.1, [100, 150]),
+                    C.Warmup(5, 0.1, C.StepLR(0.1, 0.1, [90, 135])),
+                    C.Warmup(5, 0.1, C.Exponential(0.1, 0.95))],
+             "bs": [C.Constant(128),
+                    C.MultiStep(128, [70], values=[128, 256])]},
+        static={"wd": [1e-4, 1e-3]})
+
+
+def make_tuner(side, kind, trials, steps):
+    if kind == "grid":
+        return side.tuners.GridTuner(trials)
+    return side.tuners.SHATuner(trials, min_steps=25, max_steps=steps, eta=2)
+
+
+def tuner_outcome(tuner):
+    best = getattr(tuner, "best", None)
+    return (tuner.is_done(), getattr(best, "trial_id", None),
+            getattr(tuner, "best_score", None))
+
+
+# ------------------------------------------------------------------ scenarios
+
+
+def single_study(side, kind, share, n_workers=8, steps=200, **kw):
+    db = side.core.SearchPlanDB()
+    st = side.core.Study.create(db, "m", "d", ("lr", "bs"))
+    tuner = make_tuner(side, kind, engine_space(side).trials(steps), steps)
+    stats = st.run(tuner, side.sim(), n_workers=n_workers, share=share, **kw)
+    plan = db.get(st.key)
+    return det(stats), tuner_outcome(tuner), sorted(plan.nodes), \
+        plan.pending_requests()
+
+
+def quickstart(side, share):
+    C = side.core
+    trials = quickstart_space(side).trials(200)
+    spec = C.StudySpec("resnet56", "cifar10", ("lr", "bs", "wd"))
+    svc = C.StudyService(C.SearchPlanDB(),
+                         side.sim(base_seconds_per_step=60), n_workers=8,
+                         share=share)
+    fut = svc.submit(spec, side.tuners.GridTuner(list(trials)))
+    stats = svc.close()
+    return det(stats), fut.done(), C.merge_rate(trials)
+
+
+def multi_study(side, share):
+    C = side.core
+    db = C.SearchPlanDB()
+    studies = []
+    # different horizons: distinct trial ids, shared prefixes
+    for kind, steps in (("grid", 150), ("sha", 200)):
+        st = C.Study.create(db, "m", "d", ("lr", "bs"))
+        studies.append((st, make_tuner(side, kind,
+                                       engine_space(side).trials(steps),
+                                       steps)))
+    stats = C.run_studies(studies, side.sim(), n_workers=6, share=share)
+    return det(stats), [tuner_outcome(t) for _, t in studies]
+
+
+def staggered_service(side, policy):
+    C = side.core
+    spec = C.StudySpec("m", "d", ("lr", "bs"))
+    store = side.store()
+    with C.StudyService(C.SearchPlanDB(), side.sim(), n_workers=4,
+                        policy=policy, store=store) as svc:
+        f1 = svc.submit(spec, make_tuner(side, "sha",
+                                         engine_space(side).trials(160), 160))
+        f2 = svc.submit(spec, make_tuner(side, "grid",
+                                         engine_space(side).trials(120), 120),
+                        at=900.0)
+        svc.run_until(400.0)
+        mid = (svc.time, f1.status, f2.status, det(svc.stats))
+        f3 = svc.submit(spec, make_tuner(side, "grid",
+                                         engine_space(side).trials(80), 80),
+                        study_id="late")
+        one = dataclasses.asdict(f1.result())
+    return (mid, one, det(svc.stats), [f.status for f in (f1, f2, f3)],
+            len(store), store.puts, store.gets, store.pending_writes)
+
+
+def cancel_mid_run(side):
+    C = side.core
+    spec = C.StudySpec("m", "d", ("lr", "bs"))
+    store = side.store()
+    svc = C.StudyService(C.SearchPlanDB(), side.sim(), n_workers=3,
+                         store=store)
+    keep = svc.submit(spec, make_tuner(side, "grid",
+                                       engine_space(side).trials(100)[:3],
+                                       100))
+    drop = svc.submit(spec, make_tuner(side, "grid",
+                                       engine_space(side).trials(200), 200))
+    svc.run_until(150.0)
+    assert drop.cancel()
+    stats = svc.close()
+    return det(stats), keep.status, drop.status, len(store)
+
+
+class _FusingSim:
+    """Mixin: claim chain fusion so the dispatcher takes ``_run_chain_fused``
+    (the default ``run_chain`` loop is semantically the per-stage path)."""
+    supports_chain_fusion = True
+
+
+def fused_over_simulator(side, share):
+    sim = type("FusingSim", (_FusingSim, side.sim), {})
+    C = side.core
+    db = C.SearchPlanDB()
+    st = C.Study.create(db, "m", "d", ("lr", "bs"))
+    store = side.store()
+    tuner = make_tuner(side, "sha", engine_space(side).trials(200), 200)
+    stats = st.run(tuner, sim(), n_workers=4, share=share, store=store,
+                   max_steps_per_chain=90)
+    return det(stats), tuner_outcome(tuner), store.pending_writes, \
+        store.async_puts
+
+
+SCENARIOS = {
+    "grid-share": lambda s: single_study(s, "grid", True),
+    "grid-trial": lambda s: single_study(s, "grid", False),
+    "sha-share": lambda s: single_study(s, "sha", True),
+    "sha-trial": lambda s: single_study(s, "sha", False),
+    "sha-2workers-truncated": lambda s: single_study(
+        s, "sha", True, n_workers=2, max_steps_per_chain=30),
+    "grid-weighted-paths": lambda s: single_study(
+        s, "grid", True, n_workers=3, weighted_paths=True),
+    "quickstart-share": lambda s: quickstart(s, True),
+    "quickstart-trial": lambda s: quickstart(s, False),
+    "multi-study-share": lambda s: multi_study(s, True),
+    "multi-study-trial": lambda s: multi_study(s, False),
+    "cancel-mid-run": cancel_mid_run,
+    "chain-fused-share": lambda s: fused_over_simulator(s, True),
+    "chain-fused-trial": lambda s: fused_over_simulator(s, False),
+}
+SCENARIOS.update({f"service-staggered-{p}":
+                  (lambda s, p=p: staggered_service(s, p))
+                  for p in sorted(R.POLICIES)})
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_engine_stats_equal_field_for_field(name):
+    ref = SCENARIOS[name](REF)
+    port = SCENARIOS[name](PORT)
+    assert port == ref
+    first = port[0] if isinstance(port[0], dict) else port[0][3]
+    assert first["steps_run"] > 0 and first["gpu_seconds"] > 0
+
+
+def test_engine_stats_fields_are_the_reference_fields():
+    """All fields kept, so later slices only fill them."""
+    names = lambda cls: [f.name for f in dataclasses.fields(cls)]
+    assert names(T.EngineStats) == names(R.EngineStats)
+    assert names(T.StudyStats) == names(R.StudyStats)
+    assert T.EngineStats().dedup_ratio == 1.0 and T.EngineStats().gpu_hours == 0
+
+
+# --------------------------------------------------- real training on the CPU
+
+
+@pytest.fixture(scope="module")
+def backend():
+    data = synthetic_cifar(256, seed=0)
+    eval_data = synthetic_cifar(128, seed=1)
+    return TorchTrainer(ResNet(n=1, width=8),
+                        lambda: DataPipeline(data, batch_size=32, seed=3),
+                        eval_data, default_optimizer="momentum", device="cpu")
+
+
+def small_space():
+    return TT.GridSearchSpace(fns={
+        "lr": [T.Constant(0.05),
+               T.MultiStep(0.05, [10], values=[0.05, 0.005]),
+               T.MultiStep(0.05, [10], values=[0.05, 0.02]),
+               T.MultiStep(0.05, [16], values=[0.05, 0.005])],
+        "bs": [T.Constant(32)]})
+
+
+def test_single_study_stage_vs_trial(backend):
+    trials = small_space().trials(24)
+    assert T.merge_rate(trials) > 1.5                 # the space does share
+    st1 = T.Study.create(T.SearchPlanDB(), "resnet8", "synth", ("lr", "bs"))
+    stage = st1.run(TT.GridTuner(small_space().trials(24)), backend,
+                    n_workers=2)
+    st2 = T.Study.create(T.SearchPlanDB(), "resnet8", "synth", ("lr", "bs"))
+    trial = st2.run(TT.GridTuner(small_space().trials(24)), backend,
+                    n_workers=2, share=False)
+    assert stage.steps_run < trial.steps_run
+    assert trial.steps_run == 4 * 24
+    # one worker never re-derives a prefix to keep a second one busy (which
+    # measured step times may make the critical path prefer): exactly the
+    # unique steps — shared prefix [0,16) + per-trial tails
+    st3 = T.Study.create(T.SearchPlanDB(), "resnet8", "synth", ("lr", "bs"))
+    solo = st3.run(TT.GridTuner(small_space().trials(24)), backend,
+                   n_workers=1)
+    assert solo.steps_run == (24 + 14 + 14 + 8)
+    assert solo.steps_run <= stage.steps_run
+
+
+def test_multi_study_shares_across_studies(backend):
+    db = T.SearchPlanDB()
+    s1 = T.Study.create(db, "resnet8", "synth", ("lr", "bs"))
+    s2 = T.Study.create(db, "resnet8", "synth", ("lr", "bs"))
+    stats = T.run_studies(
+        [(s1, TT.GridTuner(small_space().trials(24))),
+         (s2, TT.GridTuner(small_space().trials(24)))],
+        backend, n_workers=1)
+    # study 2 is identical to study 1 → costs nothing extra in steps
+    assert stats.steps_run == (24 + 14 + 14 + 8)
+    assert stats.by_study["study-0"].steps_run == \
+        stats.by_study["study-1"].steps_run == stats.steps_run
+
+
+class RecordingSHA(TT.SHATuner):
+    """SHA that keeps every (trial, step) -> metrics it was told."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.history = {}
+
+    def on_result(self, trial, step, metrics):
+        self.history[(trial.trial_id, step)] = dict(metrics)
+        super().on_result(trial, step, metrics)
+
+
+def test_sha_on_real_training_stage_vs_trial(backend):
+    """A small SHA study finishes; chain fusion and write-behind
+    checkpoints are live; stage-based trains fewer steps than trial-based,
+    and — training being deterministic on one device — every metric either
+    run reports is bit-equal in the other, so both pick the same best:
+    accuracy over a finite eval set ties between different schedules, and
+    the tuner breaks ties by position in the search space, not by the
+    arrival order of a wall-clock backend."""
+    out = {}
+    for share in (True, False):
+        db = T.SearchPlanDB()
+        st = T.Study.create(db, "resnet8", "synth", ("lr", "bs"))
+        tuner = RecordingSHA(small_space().trials(24), min_steps=6,
+                             max_steps=24, eta=2)
+        store = CheckpointStore()
+        calls0 = backend.exec_calls
+        stats = st.run(tuner, backend, n_workers=2, share=share, store=store)
+        assert tuner.is_done() and tuner.best is not None
+        assert np.isfinite(tuner.best_score)
+        assert stats.chain_fused_stages > 0
+        assert stats.ckpt_async_writes == stats.ckpt_saves > 0
+        assert store.pending_writes == 0          # close() flushed
+        assert stats.kernel_calls == 0 and stats.kernel_fallbacks == 0
+        assert backend.exec_calls > calls0 and backend.compile_seconds == 0.0
+        for cid in store.committed_ids():
+            for leaf in tree_leaves(store.get(cid)["params"]):
+                assert bool(leaf.isfinite().all())
+        out[share] = (stats, tuner)
+    assert out[True][0].steps_run < out[False][0].steps_run
+    assert out[True][1].history == out[False][1].history
+    assert out[True][1].best_score == out[False][1].best_score
+    assert out[True][1].best.trial_id == out[False][1].best.trial_id
+
+
+# ------------------------------------------------------- NotImplemented gates
+
+
+@pytest.mark.parametrize("kw", [{"worker_meshes": [None]},
+                                {"fault_injector": object()},
+                                {"batch_siblings": True}],
+                         ids=["worker_meshes", "fault_injector",
+                              "batch_siblings"])
+def test_engine_refuses_options_of_unported_planes(kw):
+    plan = T.SearchPlan("gate")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.ExecutionEngine(plan, SimulatedTrainer(), **kw)
+    st = T.Study.create(T.SearchPlanDB(), "m", "d", ("lr",))
+    with pytest.raises(NotImplementedError):
+        st.run(TT.GridTuner([]), SimulatedTrainer(), **kw)
+
+
+@pytest.mark.parametrize("call", [
+    lambda svc: svc.snapshot("x.pkl"),
+    lambda svc: svc.snapshot_rotated(),
+    lambda svc: svc.enable_auto_snapshot("x", 10.0),
+    lambda svc: T.StudyService.restore(T.SearchPlanDB(), "x.pkl",
+                                       SimulatedTrainer()),
+    lambda svc: T.StudyService.restore_latest(T.SearchPlanDB(), "x",
+                                              SimulatedTrainer())],
+    ids=["snapshot", "snapshot_rotated", "enable_auto_snapshot", "restore",
+         "restore_latest"])
+def test_service_refuses_snapshots(call):
+    svc = T.StudyService(T.SearchPlanDB(), SimulatedTrainer())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(svc)
+
+
+@pytest.mark.parametrize("kw", [{"directory": "ckpts"}, {"remote": object()}],
+                         ids=["directory", "remote"])
+def test_store_refuses_serialized_tiers(kw, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CheckpointStore(**kw)
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_trainer_refuses_batched_tiers_and_missing_gpu(backend):
+    assert backend.supports_batched_stages is False
+    assert backend.supports_chain_fusion is True
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        backend.run_stages_batched([], [])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        backend.run_chains_batched([], [])
+    if not torch.cuda.is_available():
+        # device=None means "cuda": no silent CPU run
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TorchTrainer(backend.task, backend.pipeline_factory,
+                         synthetic_cifar(8, seed=1))
+
+
+def test_service_key_mismatch_and_closed_session():
+    svc = T.StudyService(T.SearchPlanDB(), SimulatedTrainer(), n_workers=2)
+    a = T.StudySpec("m", "d", ("lr",))
+    svc.submit(a, TT.GridTuner([T.Trial(T.HpConfig({"lr": T.Constant(0.1)}),
+                                        10)]))
+    with pytest.raises(T.PlanKeyMismatch) as ei:
+        svc.submit(T.StudySpec("m2", "d", ("lr",)), TT.GridTuner([]))
+    assert ei.value.session_key == a.key
+    svc.close()
+    with pytest.raises(RuntimeError):
+        svc.submit(a, TT.GridTuner([]))
+    with pytest.raises(ValueError):
+        T.run_studies(
+            [(T.Study.create(svc.db, "m", "d", ("lr",)), TT.GridTuner([])),
+             (T.Study.create(svc.db, "x", "d", ("lr",)), TT.GridTuner([]))],
+            SimulatedTrainer())
