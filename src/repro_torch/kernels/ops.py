@@ -1,8 +1,9 @@
-"""Kernel-plane accounting: counted calls, counted and warned-once fallbacks.
+"""Kernel-plane accounting and the differentiable attention binding.
 
 Every kernel wrapper of this package reports here.  ``KERNEL_STATS.calls``
 counts kernel-plane **calls** — one per ``fused_apply_update`` that went
-through its kernel, i.e. one per training step — and
+through its kernel (one per training step) and one per
+:func:`flash_attention` call (one per attention layer per forward) — and
 ``KERNEL_STATS.fallbacks`` counts calls that took the plain PyTorch
 version instead, tagged with a reason and warned once per (kernel,
 reason).  The only reason a wrapper may fall back is that its tensors lie
@@ -13,7 +14,15 @@ runs eagerly, so its counts move per call.  ``kernel_calls > 0`` and
 ``kernel_fallbacks == 0`` mean the same thing in both.)  Surfaced via
 ``TorchTrainer.kernel_calls`` / ``EngineStats.kernel_fallbacks``.  Each
 wrapper additionally keeps its own plain integer ``launches`` counter of
-kernel launches (for the optimizer: one per parameter leaf per step).
+kernel launches (for the optimizer: one per parameter leaf per step; for
+attention: one forward launch per call, one dq and one dk/dv launch per
+backward).
+
+:func:`flash_attention` is the counterpart of the JAX package's
+``custom_vjp`` binding (``repro/kernels/ops.py:161-189``): a
+``torch.autograd.Function`` whose forward is B2 (with the lse residual)
+and whose backward is B3 + B4.  The member-folding ``vmap`` rule of the
+JAX binding belongs to the batched tiers (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -23,8 +32,14 @@ from collections import Counter
 from dataclasses import dataclass, field
 from typing import Tuple
 
+import torch
+
+from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                 flash_attention_fwd)
+
 __all__ = ["KernelFallbackWarning", "KernelStats", "KERNEL_STATS",
-           "reset_kernel_stats", "note_call", "note_fallback"]
+           "reset_kernel_stats", "note_call", "note_fallback",
+           "flash_attention"]
 
 
 class KernelFallbackWarning(UserWarning):
@@ -66,3 +81,38 @@ def note_fallback(kernel: str, reason: str) -> None:
             f"kernel {kernel!r} took its plain PyTorch version "
             f"({reason}); the kernel plane is inactive for these calls",
             KernelFallbackWarning, stacklevel=3)
+
+
+# ------------------------------------------------------- flash attention
+class _FlashAttention(torch.autograd.Function):
+    """Forward B2 (keeping ``out`` and ``lse`` as residuals), backward
+    B3 + B4 — or, for CPU tensors, their plain versions inside the same
+    function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B,S,Hq,hd) GQA flash attention, differentiable through the
+    backward kernels.  CPU tensors take the plain versions, counted as a
+    fallback ``flash_attention:device:cpu`` and warned once."""
+    if q.device.type == "cpu":
+        note_fallback("flash_attention", "device:cpu")
+    else:
+        note_call("flash_attention")
+    return _FlashAttention.apply(q, k, v, causal, int(window))

@@ -34,9 +34,12 @@ the per-step loop (kept as :meth:`run_stage_stepwise`) on one device.
 
 Kernel plane: ``use_kernel`` routes the optimizer update of every step
 through the fused kernel
-(:func:`repro_torch.kernels.optim.fused_apply_update`).  It defaults to on
-for a CUDA device.  ``use_kernel=True`` on the CPU runs the plain version,
-counted as a fallback and warned once; on CUDA there is no fallback.
+(:func:`repro_torch.kernels.optim.fused_apply_update`) and, as in the JAX
+package, sets ``task.use_kernel`` on a task that has the attribute (the
+LM's attention then goes through the flash-attention kernels).  It
+defaults to on for a CUDA device.  ``use_kernel=True`` on the CPU runs the
+plain versions, counted as fallbacks and warned once; on CUDA there is no
+fallback.
 ``kernel_calls`` / ``kernel_fallbacks`` expose the kernel plane's counters
 (cumulative since this trainer's construction) for ``EngineStats``.
 
@@ -133,16 +136,21 @@ class TorchTrainer(TrainerBackend):
             raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
         self.use_kernel = (self.device.type == "cuda") if use_kernel is None \
             else bool(use_kernel)
+        if self.use_kernel and hasattr(task, "use_kernel"):
+            task.use_kernel = True      # e.g. the LM's attention kernels
         self._update = fused_apply_update if self.use_kernel else apply_update
         self._kernel_stats0 = kernel_ops.KERNEL_STATS.snapshot()
         self.compile_seconds = 0.0   # eager: nothing is compiled per chunk
         self.exec_calls = 0          # chunks (or single steps) issued
+        self.evaluations = 0         # evaluate() calls
+        self._params0 = None         # initial parameters, drawn at first use
 
     # ------------------------------------------------- kernel-plane counters
     @property
     def kernel_calls(self) -> int:
-        """Optimizer updates that went through the kernel since
-        construction (one per training step)."""
+        """Kernel-plane calls since construction: one per training step
+        for the optimizer update, one per attention layer per forward for
+        an LM run with its kernels."""
         return kernel_ops.KERNEL_STATS.calls - self._kernel_stats0[0]
 
     @property
@@ -161,8 +169,15 @@ class TorchTrainer(TrainerBackend):
 
     # ------------------------------------------------------------------ state
     def init_state(self) -> Dict[str, Any]:
-        gen = torch.Generator().manual_seed(self.seed)
-        params = tree_map(lambda x: x.to(self.device), self.task.init(gen))
+        """The state every root stage starts from.  The parameters are
+        drawn from the seed once per trainer and shared by every root
+        stage: they are never updated in place (a 0.5B-parameter LM takes
+        tens of seconds to draw on the host)."""
+        if self._params0 is None:
+            gen = torch.Generator().manual_seed(self.seed)
+            self._params0 = tree_map(lambda x: x.to(self.device),
+                                     self.task.init(gen))
+        params = tree_map(lambda x: x, self._params0)
         pipe = self.pipeline_factory()
         return {
             "params": params,
@@ -347,6 +362,7 @@ class TorchTrainer(TrainerBackend):
                  ) -> Dict[str, float]:
         with torch.no_grad():
             loss, metrics = self.task.loss(state["params"], self.eval_batch)
+        self.evaluations += 1
         out = {"loss": float(loss)}
         out["val_acc"] = float(metrics.get(self.objective_from, -loss))
         for k, v in metrics.items():

@@ -20,13 +20,23 @@ from repro_torch.utils.tree import tree_map
 __all__ = ["tree_from_numpy", "tree_to_numpy", "state_from_numpy"]
 
 
+def _leaf_from_numpy(x: Any, device, dtype: Optional[torch.dtype]):
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        # ml_dtypes.bfloat16 (what np.asarray gives for a JAX bf16 array)
+        # is not a dtype torch.tensor takes: widen to f32 (exact), then
+        # cast back to bfloat16 on the torch side
+        return torch.tensor(x.astype(np.float32), device=device,
+                            dtype=dtype or torch.bfloat16)
+    return torch.tensor(x, device=device, dtype=dtype)
+
+
 def tree_from_numpy(tree: Any, device: Union[str, torch.device],
                     dtype: Optional[torch.dtype] = None) -> Any:
     """Numpy leaves → tensors on ``device`` (copied; cast to ``dtype`` when
-    given), same container structure."""
-    return tree_map(
-        lambda x: torch.tensor(np.asarray(x), device=device, dtype=dtype),
-        tree)
+    given), same container structure.  ``ml_dtypes.bfloat16`` leaves
+    become ``torch.bfloat16`` bit for bit."""
+    return tree_map(lambda x: _leaf_from_numpy(x, device, dtype), tree)
 
 
 def tree_to_numpy(tree: Any) -> Any:

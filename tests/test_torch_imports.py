@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert lines["TRITON"] == "False"
 
 
-@pytest.mark.parametrize("module", ["chip_smoke", "torch_hpo_resnet"])
+@pytest.mark.parametrize("module", ["chip_smoke", "torch_hpo_resnet",
+                                    "torch_hpo_lm"])
 def test_entry_scripts_import_without_jax_or_the_jax_package(module):
     lines = run_walk(module)
     assert lines["BAD"] == "[]"
@@ -59,7 +60,8 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     import re
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)")
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "torch_hpo_resnet.py")]
+             os.path.join(ROOT, "examples", "torch_hpo_resnet.py"),
+             os.path.join(ROOT, "examples", "torch_hpo_lm.py")]
     for d, _, fs in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 30
