@@ -6,13 +6,17 @@
 Drives the package's main paths once — whole hyper-parameter studies
 through ``Study.run`` → engine → ``TorchTrainer`` → the kernels — at full
 width: the paper's ResNet56 (``ResNet(n=9, width=16)``, batch 128,
-momentum) and qwen2-0.5b (24 layers, d_model 896, 14 / 2 heads, vocab
-151,936, bf16, batch 4 × 1024 tokens, AdamW), random weights from a seed,
-and holds every kernel of those paths against its plain PyTorch version on
-the card.  Needs one CUDA device and no network; fails (non-zero exit, no
-result line) without a GPU or outside a checkout of the repository.
-Imports nothing of JAX and nothing of the JAX package.  Phases, each
-printing one JSON line:
+momentum), qwen2-0.5b (24 layers, d_model 896, 14 / 2 heads, vocab
+151,936, bf16, batch 4 × 1024 tokens, AdamW) and mamba2-2.7b (d_model
+2560, 80 SSD heads of 64, state 128, chunk 128, vocab 50,280, bf16, batch
+1 × 2048 tokens, AdamW; the study at 32 of its 64 layers, the steps at
+all 64), random weights from a seed, and holds every kernel of those paths
+against its plain PyTorch version on the card.  Needs one CUDA device and
+no network; fails (non-zero exit, no result line) without a GPU or outside
+a checkout of the repository.
+Imports nothing of JAX and nothing of the JAX package.  Each phase is a
+function, so the device tensors it made are freed when it returns.
+Phases, each printing one JSON line:
 
 1. ``device``   — the card, as ``nvidia-smi`` names it, with its power limit;
    the CUDA kernels' ``nvcc`` build starts here, in the background.
@@ -31,8 +35,8 @@ printing one JSON line:
 4. ``study``    — the SHA study of ``examples/torch_hpo_resnet.py`` at full
    width, stage-based and trial-based; launch counts are zeroed just before
    and read just after, and must equal steps × 114 leaves (``main_path``).
-5. ``step`` / ``profile`` — where a ResNet56 step's time goes (host clock),
-   and the device's busy and idle share over one 8-step chunk.
+5. ``step`` / ``profile`` — where a ResNet56 step's time goes, and the
+   device's busy and idle share over one 8-step chunk.
 6. ``attention_kernels`` — the flash-attention kernels B2 (forward), B3
    (dq) and B4 (per-query-head dk / dv), built by ``nvcc`` from
    ``src/repro_torch/kernels/csrc/flash_attention.cu``, against their plain
@@ -53,18 +57,47 @@ printing one JSON line:
    width, stage-based then trial-based (the first run's checkpoints are
    dropped before the second starts); every launch count is zeroed just
    before and read just after: B2 = 24 × (steps + evaluations), B3 = B4 =
-   24 × steps, B1 = 14 leaves × steps, no fallback, fewer steps stage-based,
-   the same best trial and every reported metric bit-equal across modes.
+   24 × steps, B1 = 14 leaves × steps, no SSD launch, no fallback, fewer
+   steps stage-based, the same best trial and every reported metric
+   bit-equal across modes.
 8. ``lm_update`` / ``lm_step`` / ``lm_profile`` — the AdamW update of the
    whole bf16 tree against its plain version and a ``torch._fused_adamw_``
    yardstick; where a qwen2-0.5b step's time goes; the device's busy and
    idle share over one 4-step chunk.
-9. last lines   — the card and its power limit, the ``kernels`` line (B1–B4)
-   and ``{"ok": true, "device": {...}}``.
+9. ``ssd_kernels`` — the SSD kernels B5 (forward) and B6 (backward),
+   built by ``nvcc`` from ``src/repro_torch/kernels/csrc/ssd_scan.cu``
+   (beside the attention kernels' build), against their plain versions on
+   the SSD grid of ``tests/test_kernels.py`` plus a ragged case with the
+   model's decays × f32 and bf16 (forward f32 2e-5, bf16 2e-2; gradients
+   2e-3, 2e-2 where rounded to bf16), then at the main path's own shape,
+   one mamba2-2.7b layer (B 1, nc 16, Q 128, H 80, P 64, N 128): bf16 with
+   the model's decays, so that ``cum`` falls to about −1,000 and ``exp``
+   above the diagonal would overflow, and bf16 and f32 with the JAX tests'
+   small decays, so that the tiles far off the diagonal carry weight (bf16
+   outputs within one bf16 ulp beyond 2^-16 of the tensor's largest value,
+   f32 outputs within 1e-5 of it); every output finite, each kernel run
+   twice and bit-equal; timed beside the plain versions and the bound.
+   ``mamba2_small``: mamba2-2.7b reduced (f32), loss and gradients through
+   the kernels against the plain SSD path (atol 1e-5 / 1e-4).
+10. ``mamba2_study`` — the SHA study of ``examples/torch_hpo_lm.py`` with
+   mamba2-2.7b at full width and 32 layers, stage-based then trial-based
+   (the first run's checkpoints are dropped before the second starts);
+   every launch count is zeroed just before and read just after: B5 = 32 ×
+   (steps + evaluations), B6 = 32 × steps, B1 = 16 leaves × steps, no
+   attention launch, no fallback, fewer steps stage-based, the same best
+   trial and every reported metric bit-equal across modes; the peak device
+   memory.
+11. ``mamba2_step`` / ``mamba2_profile`` — the full 64-layer model: step
+   time, tokens/s, the share of B5 + B6 in a step, the AdamW update alone,
+   peak memory; the device's busy and idle share over one 2-step chunk and
+   its top device time by kernel name.
+12. last lines  — the card and its power limit, the ``kernels`` line
+   (B1–B6) and ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; nothing is caught and passed over.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -72,11 +105,16 @@ import sys
 import threading
 import time
 
+import numpy as np
+import torch
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 KERNEL_SOURCE = "src/repro_torch/kernels/optim.py"
 KERNEL_REPLACES = "src/repro/kernels/optim.py:130"
+CUDA_SOURCES = ("flash_attention", "ssd_scan")
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_REPLACES = {"B2": "src/repro/kernels/flash_attention.py:202",
                "B3": "src/repro/kernels/flash_attention.py:386",
@@ -87,6 +125,17 @@ FA_SHAPES = [(1, 128, 4, 4, 64), (2, 128, 8, 2, 64), (1, 256, 8, 1, 32),
 FA_MASKS = [(True, 0), (False, 0), (True, 48)]
 QWEN = dict(B=4, S=1024, Hq=14, Hkv=2, hd=64)     # qwen2-0.5b's attention
 LM_FULL = dict(batch=4, seq_len=1024, n_train=256, n_eval=8)
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_REPLACES = {"B5": "src/repro/kernels/ssd_scan.py:87",
+                "B6": "src/repro/kernels/ssd_scan.py:189"}
+# the SSD grid of tests/test_kernels.py: (B, nc, Q, H, P, N)
+SSD_SHAPES = [(1, 2, 16, 2, 16, 16), (2, 3, 32, 4, 16, 24),
+              (1, 1, 64, 1, 32, 32), (1, 4, 8, 8, 8, 8)]
+SSD_RAGGED = (1, 2, 96, 2, 40, 20)     # ragged tiles, the model's decays
+MAMBA = dict(B=1, nc=16, Q=128, H=80, P=64, N=128)   # mamba2-2.7b's SSD
+MAMBA_STUDY = dict(batch=1, seq_len=2048, n_train=64, n_eval=2, layers=32)
+RESNET_FULL = dict(n=9, width=16, n_train=8192, n_eval=512, batch=128)
+RESNET_LEAVES = 114
 
 SHAPES = [(3, 3, 64, 64), (64,), (64, 10), (3, 3, 5, 7)]   # last one ragged
 HPS = {"lr": 0.05, "wd": 0.01, "mom": 0.9, "b1": 0.9, "b2": 0.999,
@@ -98,43 +147,161 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "examples")]
-    import numpy as np
-    import torch_hpo_resnet as example
-    from repro_torch.core import Constant, HpConfig, MultiStep
-    from repro_torch.core.searchplan import SearchPlan
-    from repro_torch.core.trainer import StageContext
-    from repro_torch.core.trial import Trial
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.optim import (_SPEC, fused_apply_update,
-                                           stacked_leaf_update)
-    from repro_torch.models.resnet import ResNet
-    from repro_torch.train.optimizer import (OPTIMIZERS, apply_update,
-                                             init_opt_state, leaf_update)
-    from repro_torch.train.torch_trainer import value_and_grad
-    from repro_torch.utils.tree import tree_leaves, tree_map
+def free():
+    """Give back to the card what the phase that returned left behind."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    dev = torch.device("cuda")
 
-    def time_ms(fn, reps=30, warm=5):
-        for _ in range(warm):
-            fn()
+def time_ms(fn, reps=30, warm=5):
+    """Mean milliseconds of ``fn`` on CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def host_ms(fn, reps):
+    """Mean milliseconds of ``fn`` on the host clock, synchronised at both
+    ends, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def bf16_ulps(a, c, slack=1e-6):
+    """|a - c| in bf16 ulps at the larger magnitude, beyond an f32 slack
+    (a sum that cancels can land on either side of 0)."""
+    af, cf = a.float(), c.float()
+    diff = (af - cf).abs()
+    _, exp = torch.frexp(torch.maximum(af.abs(), cf.abs()))
+    ulp = torch.ldexp(torch.ones_like(cf), exp - 8)
+    return (diff - slack).clamp(min=0) / ulp
+
+
+def within(a, b, atol, rtol):
+    """(max |a - b|, whether every element is within atol + rtol |b|)."""
+    a, b = a.float(), b.float()
+    assert bool(a.isfinite().all()) and bool(b.isfinite().all())
+    return float((a - b).abs().max()), bool(
+        ((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def at_scale(a, b, f32_rule):
+    """One output of a kernel against its plain version on the same inputs
+    at the main path's shape: a bf16 output within one bf16 ulp of the
+    value beyond an f32 slack of 2^-16 of the tensor's largest value (both
+    sides do f32 math and round once; the sums only run in another order);
+    an f32 output by ``f32_rule`` = (its text, ok(diff, b, scale)).
+    Returns (the row to print, whether it holds)."""
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert bool(a.isfinite().all()) and bool(b.isfinite().all())
+    diff = (a.float() - b.float()).abs()
+    scale = float(b.float().abs().max())
+    assert scale > 0
+    row = {"max_abs_err": float(diff.max()), "scale": scale,
+           "err_over_scale": float(diff.max()) / scale}
+    if a.dtype == torch.float32:
+        row["tolerance"], ok_fn = f32_rule
+        return row, ok_fn(diff, b, scale)
+    ulps = float(bf16_ulps(a, b, slack=scale * 2 ** -16).max())
+    row.update(max_err_bf16_in_ulps=ulps,
+               tolerance="1 bf16 ulp beyond 2^-16 x scale")
+    return row, ulps <= 1.0
+
+
+def device_profile(fn, n_steps, chunk_ms, match=None, top=8):
+    """The device's busy and idle share while ``fn`` runs one
+    ``n_steps``-step chunk: device time of the CUDA kernels in the
+    profiler's trace (the profiler slows the host, not the kernels) against
+    ``chunk_ms``, the chunk's wall time measured without it.  ``match``
+    picks the package's own kernels out by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
+    dev_time = lambda e: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    rows = sorted(((dev_time(e), e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_time(e) > 0),
+                  reverse=True)
+    seen = lambda x: x if rows else "not measured"
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    out = {"window": f"one {n_steps}-step chunk",
+           "chunk_ms_without_profiler": chunk_ms,
+           "device_busy_ms": seen(busy_ms),
+           "device_idle_share": seen(1.0 - busy_ms / chunk_ms),
+           "device_kernel_launches_per_step": sum(r[1] for r in rows)
+           / n_steps}
+    if match is not None:
+        mine_ms = sum(r[0] for r in rows if match in r[2]) / 1e3
+        out.update(port_kernels=match, port_kernels_device_ms=seen(mine_ms),
+                   port_kernels_share_of_busy=seen(mine_ms / max(busy_ms,
+                                                                 1e-9)))
+    out["top_device_time"] = [{"ms": r[0] / 1e3, "count": r[1],
+                               "name": r[2][:80]} for r in rows[:top]]
+    return out
 
-    # ------------------------------------------------------------ 1. device
+
+def held_checkpoints(store, n_leaves):
+    """How many checkpoints a finished study's store holds; each one's
+    parameters on the card, finite, ``n_leaves`` leaves."""
+    from repro_torch.utils.tree import tree_leaves
+    n = 0
+    for cid in store.committed_ids():
+        leaves = tree_leaves(store.get(cid)["params"])
+        assert len(leaves) == n_leaves
+        assert all(l.is_cuda and bool(l.isfinite().all()) for l in leaves)
+        n += 1
+    assert n > 0
+    return n
+
+
+def start_builds():
+    """Build every CUDA source in the background, one ``nvcc`` each, all
+    at once; returns ``join(name)`` → the seconds the build of
+    ``csrc/<name>.cu`` took, raising its failure."""
+    from repro_torch.kernels import _cuda
+    builds = {}
+
+    def build(name):
+        t0 = time.perf_counter()
+        try:
+            _cuda.load(name)
+        except BaseException as exc:          # re-raised by join()
+            builds[name] = exc
+            return
+        builds[name] = time.perf_counter() - t0
+
+    threads = {name: threading.Thread(target=build, args=(name,))
+               for name in CUDA_SOURCES}
+    for thread in threads.values():
+        thread.start()
+
+    def join(name):
+        threads[name].join()
+        if isinstance(builds[name], BaseException):
+            raise builds[name]
+        return builds[name]
+    return join
+
+
+# ------------------------------------------------------------------ 1. device
+def device_phase():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -142,24 +309,23 @@ def main():
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    return smi, kind
 
-    # the CUDA kernels build (one nvcc) while the Triton phases run; a
-    # failed build is raised where the attention phase joins it
-    from repro_torch.kernels import _cuda
-    build = {}
 
-    def build_cuda():
-        t0 = time.perf_counter()
-        try:
-            _cuda.load("flash_attention")
-        except BaseException as exc:          # re-raised after join()
-            build["error"] = exc
-        build["seconds"] = time.perf_counter() - t0
+# ---------------------------------------------- 2. B1 against its plain version
+def b1_phase():
+    """B1 over the optimizer × members × dtype × shape grid, then the
+    whole-tree update at ResNet56's shapes and strides; returns B1's row
+    for the ResNet56 tree."""
+    import torch_hpo_resnet as example
+    from repro_torch.kernels.optim import (_SPEC, fused_apply_update,
+                                           stacked_leaf_update)
+    from repro_torch.models.resnet import ResNet
+    from repro_torch.train.optimizer import (OPTIMIZERS, apply_update,
+                                             leaf_update)
+    from repro_torch.train.torch_trainer import value_and_grad
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
-    builder = threading.Thread(target=build_cuda)
-    builder.start()
-
-    # ------------------------------------------- 2. kernel vs plain version
     def operands(name, M, shape, dtype, seed):
         rng = np.random.default_rng(seed)
         narr, snames, _ = _SPEC[name]
@@ -167,7 +333,7 @@ def main():
         arrs = [rng.normal(size=full), 0.1 * rng.normal(size=full)]
         arrs += [0.01 + 0.01 * rng.uniform(size=full)
                  for _ in range(narr - 2)]
-        arrs = [torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
+        arrs = [torch.tensor(a, dtype=torch.float32, device=DEV).to(dtype)
                 for a in arrs]
         base = ADAM_HPS if narr == 4 else HPS
         spread = 1.0 + 0.1 * np.arange(M)          # divergent per member
@@ -180,17 +346,8 @@ def main():
         t = np.arange(M, dtype=np.float32) + 1.0
         vals["bc1"] = (1.0 - vals["b1"] ** t).astype(np.float32)
         vals["bc2"] = (1.0 - vals["b2"] ** t).astype(np.float32)
-        scal = [torch.tensor(vals[k], device=dev) for k in snames]
+        scal = [torch.tensor(vals[k], device=DEV) for k in snames]
         return arrs, scal, snames
-
-    def bf16_ulps(a, c, slack=1e-6):
-        """|a - c| in bf16 ulps at the larger magnitude, beyond an f32
-        slack (a sum that cancels can land on either side of 0)."""
-        af, cf = a.float(), c.float()
-        diff = (af - cf).abs()
-        _, exp = torch.frexp(torch.maximum(af.abs(), cf.abs()))
-        ulp = torch.ldexp(torch.ones_like(cf), exp - 8)
-        return (diff - slack).clamp(min=0) / ulp
 
     def plain(name, arrs, scal, snames):
         bshape = (arrs[0].shape[0],) + (1,) * (arrs[0].dim() - 1)
@@ -251,30 +408,30 @@ def main():
         worst_f32 = max(worst_f32, err_f32)
         variants.append({"name": name, "cases": cases,
                          "max_abs_err_f32": err_f32,
-                         "max_err_bf16_in_ulps": ulp_bf16, "bit_equal_twice": True,
+                         "max_err_bf16_in_ulps": ulp_bf16,
+                         "bit_equal_twice": True,
                          "leaf_3x3x64x64": timing})
 
     # the whole-tree update at the main path's shapes and strides:
     # ResNet56, momentum, gradients as the loss's backward hands them over
     # (convolution weights' come as non-contiguous HWIO views, which the
     # wrapper copies before the launch — that copy is part of its time)
-    full = dict(n=9, width=16, n_train=8192, n_eval=512, batch=128)
-    backend56 = example.make_backend(use_kernel=True, **full)
-    params = ResNet(n=9, width=16).init(0, device=dev)
-    batch0 = {k: v[0] for k, v in backend56._upload(
-        backend56.pipeline_factory().next_batches(1)).items()}
-    _, grads = value_and_grad(backend56.task.loss, params, batch0)
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    params = ResNet(n=9, width=16).init(0, device=DEV)
+    batch0 = {k: v[0] for k, v in backend._upload(
+        backend.pipeline_factory().next_batches(1)).items()}
+    _, grads = value_and_grad(backend.task.loss, params, batch0)
     n_strided = sum(not g.is_contiguous() for g in tree_leaves(grads))
     assert n_strided > 0, "expected strided weight gradients on this path"
     gen = torch.Generator(device="cuda").manual_seed(1)
-    state = tree_map(lambda p: 0.01 * torch.rand(p.shape, device=dev,
+    state = tree_map(lambda p: 0.01 * torch.rand(p.shape, device=DEV,
                                                  generator=gen),
                      {"m": params})
     n_leaves = len(tree_leaves(params))
     n_params = sum(p.numel() for p in tree_leaves(params))
-    assert n_leaves == 114, n_leaves
-    hp = {"lr": torch.tensor(0.05, device=dev)}
-    step = torch.tensor(3, dtype=torch.int32, device=dev)
+    assert n_leaves == RESNET_LEAVES, n_leaves
+    hp = {"lr": torch.tensor(0.05, device=DEV)}
+    step = torch.tensor(3, dtype=torch.int32, device=DEV)
     ps, gs, ms = (tree_leaves(params), tree_leaves(grads),
                   tree_leaves(state["m"]))
 
@@ -296,7 +453,7 @@ def main():
     for a, b in zip(tree_leaves((new_p, st_p["m"])), list(lib_p) + list(lib_m)):
         assert float((a - b).abs().max()) <= 1e-5     # yardstick is the same fn
     tree_bytes = 5 * n_params * 4          # read p, g, m; write p, m (f32)
-    kernel_row = {
+    row = {
         "name": "opt_update", "route": "triton", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": None,
         "max_abs_err": max(worst_f32, tree_err),
@@ -314,22 +471,22 @@ def main():
         "variants": variants}
     emit({"phase": "kernels", "build_seconds": build_s,
           "variants_ok": [v["name"] for v in variants],
-          "max_abs_err_f32": kernel_row["max_abs_err"],
-          "tree_update_ms": kernel_row["ms"],
-          "tree_update_plain_ms": kernel_row["plain_ms"],
-          "tree_update_library_ms": kernel_row["library_ms"],
-          "tree_update_bound_ms": kernel_row["bound_ms"]})
+          "max_abs_err_f32": row["max_abs_err"],
+          "tree_update_ms": row["ms"],
+          "tree_update_plain_ms": row["plain_ms"],
+          "tree_update_library_ms": row["library_ms"],
+          "tree_update_bound_ms": row["bound_ms"]})
+    return row
 
-    # ------------------------------------- 3. small input, agreement on card
-    def stages_of(trial, steps):
-        plan = SearchPlan("solo-" + trial.trial_id)
-        node, _, _ = plan.submit(trial, steps)
-        path = plan.path_to_root(node.node_id)
-        return [StageContext(n.node_id, n.desc, n.start, n.start,
-                             steps if i == len(path) - 1
-                             else path[i + 1].start,
-                             plan.path_key(n.node_id))
-                for i, n in enumerate(path)]
+
+# -------------------------------------------- 3. small input, agreement on card
+def small_phase():
+    import torch_hpo_resnet as example
+    from repro_torch.core import Constant, HpConfig, MultiStep
+    from repro_torch.core.searchplan import SearchPlan
+    from repro_torch.core.trainer import StageContext
+    from repro_torch.core.trial import Trial
+    from repro_torch.utils.tree import tree_leaves
 
     small = dict(n=1, width=8, n_train=256, n_eval=128, batch=32)
     t_kernel = example.make_backend(use_kernel=True, **small)
@@ -339,7 +496,13 @@ def main():
     assert not torch.backends.cuda.matmul.allow_tf32
     trial = Trial(HpConfig({"lr": MultiStep(0.05, [4], values=[0.05, 0.01]),
                             "bs": Constant(32)}), 6)
-    ctxs = stages_of(trial, 6)
+    plan = SearchPlan("solo-" + trial.trial_id)
+    node, _, _ = plan.submit(trial, 6)
+    path = plan.path_to_root(node.node_id)
+    ctxs = [StageContext(n.node_id, n.desc, n.start, n.start,
+                         6 if i == len(path) - 1 else path[i + 1].start,
+                         plan.path_key(n.node_id))
+            for i, n in enumerate(path)]
     chain = t_kernel.run_chain(t_kernel.init_state(), ctxs)[-1]
     s_step, s_plain = t_kernel.init_state(), t_plain.init_state()
     for ctx in ctxs:
@@ -359,21 +522,28 @@ def main():
           "kernel_vs_plain_max_abs_err": small_err, "atol": 1e-4,
           "fused_chain_equals_stepwise_bitwise": bitwise})
 
-    # ------------------------------------------ 4. main path at full width
+
+# ------------------------------------------------- 4-5. ResNet56 main path
+def resnet_study_phase():
+    """Both modes of the ResNet56 study; returns B1's launches in them."""
+    import torch_hpo_resnet as example
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.optim import stacked_leaf_update
+
     kops.reset_kernel_stats()
     stacked_leaf_update.launches = 0            # counts to 0 just before
     runs = {}
     for share in (True, False):
-        backend = example.make_backend(use_kernel=True, **full)
+        backend = example.make_backend(use_kernel=True, **RESNET_FULL)
         stats, tuner, store, wall = example.run_study(
-            backend, share, batch=full["batch"], name="resnet56")
+            backend, share, batch=RESNET_FULL["batch"], name="resnet56")
         torch.cuda.synchronize()
-        runs[share] = (stats, tuner, store, wall, backend)
+        runs[share] = (stats, tuner, store, wall)
     launches = stacked_leaf_update.launches     # ... and read just after
     calls, fallbacks = kops.KERNEL_STATS.snapshot()
 
     total_steps = 0
-    for share, (stats, tuner, store, wall, backend) in runs.items():
+    for share, (stats, tuner, store, wall) in runs.items():
         assert tuner.is_done() and tuner.best is not None
         assert stats.kernel_calls > 0 and stats.kernel_fallbacks == 0
         assert stats.kernel_calls == stats.steps_run, (
@@ -381,16 +551,10 @@ def main():
         assert stats.chain_fused_stages > 0
         assert stats.ckpt_async_writes == stats.ckpt_saves > 0
         assert store.pending_writes == 0
-        n_ckpts = 0
-        for cid in store.committed_ids():
-            leaves = tree_leaves(store.get(cid)["params"])
-            assert len(leaves) == n_leaves
-            assert all(l.is_cuda and bool(l.isfinite().all()) for l in leaves)
-            n_ckpts += 1
-        assert n_ckpts > 0
+        n_ckpts = held_checkpoints(store, RESNET_LEAVES)
         total_steps += stats.steps_run
         emit({"phase": "study", "mode": "stage" if share else "trial",
-              "model": "ResNet(n=9, width=16)", "batch": full["batch"],
+              "model": "ResNet(n=9, width=16)", "batch": RESNET_FULL["batch"],
               "steps_run": stats.steps_run, "stages_run": stats.stages_run,
               "chain_fused_stages": stats.chain_fused_stages,
               "ckpt_saves": stats.ckpt_saves,
@@ -403,7 +567,7 @@ def main():
               "best_trial": tuner.best.trial_id,
               "best_val_acc": tuner.best_score})
     assert fallbacks == 0 and calls == total_steps, (calls, fallbacks)
-    assert launches == total_steps * n_leaves, (launches, total_steps)
+    assert launches == total_steps * RESNET_LEAVES, (launches, total_steps)
     (s_stats, s_tuner), (t_stats, t_tuner) = runs[True][:2], runs[False][:2]
     assert s_stats.steps_run < t_stats.steps_run
     assert set(s_tuner.history) == set(t_tuner.history)
@@ -413,72 +577,11 @@ def main():
     same_best = s_tuner.best.trial_id == t_tuner.best.trial_id
     assert same_best, (s_tuner.best.trial_id, t_tuner.best.trial_id)
     assert abs(s_tuner.best_score - t_tuner.best_score) <= 1e-4
-
-    # where a step's time goes (host clock around work that ends in a sync)
-    backend = runs[True][4]
-    st = backend.init_state()
-    carry = (st["params"], init_opt_state("momentum", st["params"]))
-    slab = backend._upload(backend.pipeline_factory().next_batches(8))
-    steps8 = torch.arange(8, dtype=torch.int32, device=dev)
-    hp_xs = {"lr": torch.full((8,), 0.05, device=dev)}
-    batch0 = {k: v[0] for k, v in slab.items()}
-
-    def host_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
-    step_ms = host_ms(lambda: backend._run_chunk(
-        "momentum", carry, {}, hp_xs, slab, steps8), 3) / 8
-    grad_ms = host_ms(lambda: value_and_grad(
-        backend.task.loss, carry[0], batch0), 16)
-    _, g0 = value_and_grad(backend.task.loss, carry[0], batch0)
-    upd_ms = host_ms(lambda: fused_apply_update(
-        "momentum", carry[0], g0, carry[1], {"lr": hp_xs["lr"][0]},
-        steps8[0]), 16)
-    emit({"phase": "step", "model": "ResNet(n=9, width=16)", "batch": 128,
-          "step_ms": step_ms, "seconds_per_step": step_ms / 1e3,
-          "steps_per_second": 1e3 / step_ms, "loss_fwd_bwd_ms": grad_ms,
-          "optimizer_update_ms": upd_ms,
-          "optimizer_update_share_of_step": upd_ms / step_ms,
-          "clock": "host, synchronised at both ends"})
-    # device busy share over one 8-step chunk: device time of the CUDA
-    # kernels in the profiler's trace (the profiler slows the host, not the
-    # kernels) against the chunk's wall time measured above without it
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        backend._run_chunk("momentum", carry, {}, hp_xs, slab, steps8)
-        torch.cuda.synchronize()
-    dev_time = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
-    rows = sorted(((dev_time(e), e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_time(e) > 0),
-                  reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    chunk_ms = step_ms * 8
-    emit({"phase": "profile", "window": "one 8-step chunk",
-          "chunk_ms_without_profiler": chunk_ms,
-          "device_busy_ms": busy_ms if rows else "not measured",
-          "device_idle_share": (1.0 - busy_ms / chunk_ms) if rows
-          else "not measured",
-          "device_kernel_launches": sum(r[1] for r in rows),
-          "device_kernel_launches_per_step": sum(r[1] for r in rows) / 8,
-          "top_device_time": [{"ms": r[0] / 1e3, "count": r[1],
-                               "name": r[2][:80]} for r in rows[:6]]})
-
-    kernel_row["launches"] = launches
     emit({"phase": "main_path", "ok": True, "launches": launches,
           "kernel_calls": calls, "kernel_fallbacks": fallbacks,
           "steps_run": {"stage": s_stats.steps_run,
                         "trial": t_stats.steps_run},
-          "launches_per_step": n_leaves,
+          "launches_per_step": RESNET_LEAVES,
           "same_best_trial": same_best,
           "best_trial": s_tuner.best.trial_id,
           "best_scores_bit_equal":
@@ -487,25 +590,104 @@ def main():
           "all_reported_metrics_bit_equal":
               s_tuner.history == t_tuner.history,
           "max_reported_loss_difference": worst})
+    return launches
 
-    # ------------------------------- 6. attention kernels vs plain version
+
+def step_profile(prefix, model, backend, opt, lr, n_chunk, profile_steps,
+                 tokens=None, port=None):
+    """Where one training step's time goes — a chunk of ``n_chunk`` steps
+    and the loss's forward + backward alone (host clock, synchronised at
+    both ends, mean of two runs), the update alone on CUDA events against
+    its bound, ``port`` = (label, ms per step, kernel-name match) for the
+    package's own kernels, the peak device memory — then the device's busy
+    and idle share over one ``profile_steps``-step chunk.  Prints phases
+    ``<prefix>step`` and ``<prefix>profile``."""
+    from repro_torch.kernels.optim import fused_apply_update
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.torch_trainer import value_and_grad
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params0 = backend.init_state()["params"]
+    draw_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params0))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params0))
+    # the carry advances chunk by chunk, so that no step keeps an older
+    # training state alive beside the current one
+    carry = [(params0, init_opt_state(opt, params0))]
+    n_slots = len(carry[0][1])
+    del params0
+    slab = backend._upload(backend.pipeline_factory().next_batches(n_chunk))
+    steps = torch.arange(n_chunk, dtype=torch.int32, device=DEV)
+    lrs = torch.full((n_chunk,), lr, device=DEV)
+
+    def chunk(n):
+        carry[0] = backend._run_chunk(
+            opt, carry[0], {}, {"lr": lrs[:n]},
+            {k: v[:n] for k, v in slab.items()}, steps[:n])
+
+    step_ms = host_ms(lambda: chunk(n_chunk), 2) / n_chunk
+    batch0 = {k: v[0] for k, v in slab.items()}
+    grad_ms = host_ms(lambda: value_and_grad(
+        backend.task.loss, carry[0][0], batch0), 2)
+    _, grads = value_and_grad(backend.task.loss, carry[0][0], batch0)
+    upd_ms = time_ms(lambda: fused_apply_update(
+        opt, carry[0][0], grads, carry[0][1], {"lr": lrs[0]}, steps[-1]),
+        reps=5, warm=1)
+    del grads
+    # read p, g and each state slot; write p and each slot: leaf dtypes
+    upd_bytes = (2 * n_slots + 3) * param_bytes
+    peak = torch.cuda.max_memory_allocated()
+    row = {"phase": prefix + "step", "model": model, "parameters": n_params,
+           "init_draw_seconds": draw_s, "step_ms": step_ms,
+           "steps_per_second": 1e3 / step_ms}
+    if tokens is not None:
+        row["tokens_per_second"] = tokens * 1e3 / step_ms
+    row["loss_fwd_bwd_ms"] = grad_ms
+    if port is not None:
+        label, port_ms, _ = port
+        row.update({f"{label}_ms": port_ms,
+                    f"{label}_share_of_step": port_ms / step_ms})
+    row.update(optimizer_update_ms=upd_ms,
+               optimizer_update_share_of_step=upd_ms / step_ms,
+               optimizer_update_bound_ms=upd_bytes / HBM_BYTES_PER_S * 1e3,
+               peak_device_memory_bytes=peak,
+               peak_device_memory_gib=peak / 2 ** 30,
+               clock="step and forward + backward: host, synchronised at "
+                     "both ends; the update alone: CUDA events"
+                     + ("" if port is None else
+                        f"; {label}: the layers x the kernels' CUDA-event "
+                        f"times at the main path's shape"))
+    emit(row)
+    emit({"phase": prefix + "profile",
+          **device_profile(lambda: chunk(profile_steps), profile_steps,
+                           step_ms * profile_steps,
+                           match=None if port is None else port[2])})
+
+
+def resnet_step_phase():
+    import torch_hpo_resnet as example
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    step_profile("", "ResNet(n=9, width=16)", backend, "momentum", 0.05,
+                 n_chunk=8, profile_steps=8)
+
+
+# ------------------------------- 6. attention kernels vs plain version
+def attention_phase(join_build):
+    """B2–B4 on the grid and at qwen2-0.5b's shape; returns their rows."""
+    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    builder.join()
-    if "error" in build:
-        raise build["error"]
+    build_s = join_build("flash_attention")
     fa._lib()                                   # load, check tile sizes
     gen = torch.Generator().manual_seed(12)
 
     def fa_inputs(B, S, Hq, Hkv, hd, dtype):
-        return [torch.randn(shape, generator=gen).to(dev, dtype)
+        return [torch.randn(shape, generator=gen).to(DEV, dtype)
                 for shape in ((B, S, Hq, hd), (B, S, Hkv, hd),
                               (B, S, Hkv, hd), (B, S, Hq, hd))]
-
-    def within(a, b, atol, rtol):
-        a, b = a.float(), b.float()
-        assert bool(a.isfinite().all()) and bool(b.isfinite().all())
-        return float((a - b).abs().max()), bool(
-            ((a - b).abs() <= atol + rtol * b.abs()).all())
 
     fa_err = {k: {"float32": 0.0, "bfloat16": 0.0}
               for k in ("B2", "B3", "B4")}
@@ -557,11 +739,8 @@ def main():
                 fa_cases += 1
 
     # the main path's own shape: qwen2-0.5b's training attention (GQA 7,
-    # 16 × 16 tiles, causal, bf16).  Each kernel against its plain version
-    # on the same inputs: bf16 outputs within one bf16 ulp of the value
-    # beyond an f32 slack of 2^-16 of the tensor's largest value (both sides
-    # do f32 math and round once; the sums only run in another order), the
-    # f32 lse within the grid's forward f32 tolerance
+    # 16 × 16 tiles, causal, bf16); the f32 lse within the grid's forward
+    # f32 tolerance
     B, S, Hq, Hkv, hd = (QWEN[x] for x in ("B", "S", "Hq", "Hkv", "hd"))
     shape_s = f"B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, hd {hd}, causal, bf16"
     q, k, v, do = fa_inputs(B, S, Hq, Hkv, hd, torch.bfloat16)
@@ -582,33 +761,21 @@ def main():
     want = B * Hq * fa.fa_tile_counts(S, S, fa.BLOCK_Q, fa.BLOCK_K, True,
                                       0)[0]
     assert int(tiles) == int(again[2]) == want, (int(tiles), want)
+    lse_rule = ("atol 2e-5 + rtol 2e-5",
+                lambda diff, b, scale: bool((diff <= 2e-5 + 2e-5
+                                             * b.abs()).all()))
     main_err = {}
     for key, name, a, b in (("B2", "out", out, p_out),
                             ("B2", "lse", lse, p_lse),
                             ("B3", "dq", dq, p_dq),
                             ("B4", "dk_h", dk_h, p_dk),
                             ("B4", "dv_h", dv_h, p_dv)):
-        assert a.shape == b.shape and a.dtype == b.dtype
-        assert bool(a.isfinite().all()) and bool(b.isfinite().all())
-        diff = (a.float() - b.float()).abs()
-        scale = float(b.float().abs().max())
-        assert scale > 0, (key, name)
-        row = {"max_abs_err": float(diff.max()), "scale": scale,
-               "err_over_scale": float(diff.max()) / scale}
-        if a.dtype == torch.float32:
-            ok = bool((diff <= 2e-5 + 2e-5 * b.abs()).all())
-            row["tolerance"] = "atol 2e-5 + rtol 2e-5"
-        else:
-            ulps = float(bf16_ulps(a, b, slack=scale * 2 ** -16).max())
-            ok = ulps <= 1.0
-            row.update(max_err_bf16_in_ulps=ulps,
-                       tolerance="1 bf16 ulp beyond 2^-16 x scale")
+        row, ok = at_scale(a, b, lse_rule)
         main_err.setdefault(key, {})[name] = row
         assert ok, (f"{key} disagrees with its plain version at the main "
                     f"path's shape", name, row)
     del again, p_out, p_lse, p_dq, p_dk, p_dv
 
-    import torch.nn.functional as F
     # yardsticks only — the package never calls these.  The forward is
     # SDPA with GQA.  The backward is the library's flash backward alone,
     # on its own forward's residuals, over K / V repeated onto the query
@@ -660,24 +827,23 @@ def main():
     bwd_bound_ms = max(bwd_flops / BF16_FLOP_PER_S,
                        bwd_bytes / HBM_BYTES_PER_S) * 1e3
     fa_fn = {
-        "B2": (lambda: fa.flash_attention_fwd(q, k, v, return_lse=True),
+        "B2": (fa.flash_attention_fwd,
+               lambda: fa.flash_attention_fwd(q, k, v, return_lse=True),
                lambda: fa.fwd_plain(q, k, v)),
-        "B3": (lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+        "B3": (fa.flash_attention_bwd_dq,
+               lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
                lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta)),
-        "B4": (lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+        "B4": (fa.flash_attention_bwd_dkv,
+               lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta))}
     lib_fwd_ms = time_ms(sdpa_fwd, reps=20, warm=3)
     lib_bwd_ms = time_ms(sdpa_bwd, reps=20, warm=3)
-    fa_wrappers = {"B2": fa.flash_attention_fwd,
-                   "B3": fa.flash_attention_bwd_dq,
-                   "B4": fa.flash_attention_bwd_dkv}
-    fa_rows = {}
-    for key, (kern, plain_fn) in fa_fn.items():
+    rows = {}
+    for key, (wrapper, kern, plain_fn) in fa_fn.items():
         flops, nbytes = work[key]
         t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-        fa_rows[key] = {
-            "name": fa_wrappers[key].__name__, "route": "cuda",
-            "source": FA_SOURCE,
+        rows[key] = {
+            "name": wrapper.__name__, "route": "cuda", "source": FA_SOURCE,
             "replaces": FA_REPLACES[key], "launches": None,
             "max_abs_err": max(list(fa_err[key].values())
                                + [r["max_abs_err"]
@@ -695,135 +861,151 @@ def main():
             "shape": shape_s, "flops": flops, "bytes": nbytes,
             "max_abs_err_by_dtype": fa_err[key], "cases": fa_cases,
             "main_shape_vs_plain": main_err[key]}
-    backward = {"ms": fa_rows["B3"]["ms"] + fa_rows["B4"]["ms"],
+    backward = {"ms": rows["B3"]["ms"] + rows["B4"]["ms"],
                 "bound_ms": bwd_bound_ms, "bound_by": "operations"
                 if bwd_flops / BF16_FLOP_PER_S >= bwd_bytes / HBM_BYTES_PER_S
                 else "bytes",
                 "flops": bwd_flops, "bytes": bwd_bytes,
-                "per_kernel_bound_ms": fa_rows["B3"]["bound_ms"]
-                + fa_rows["B4"]["bound_ms"],
+                "per_kernel_bound_ms": rows["B3"]["bound_ms"]
+                + rows["B4"]["bound_ms"],
                 "library_ms": lib_bwd_ms,
                 "library": "aten._scaled_dot_product_flash_attention_backward"
                            " over K / V repeated onto the query heads"}
     emit({"phase": "attention_kernels",
-          "build_seconds": build["seconds"], "cases": fa_cases,
+          "build_seconds": build_s, "cases": fa_cases,
           "bit_equal_twice": True, "tiles_equal_fa_tile_counts": True,
           "max_abs_err": fa_err, "shape": shape_s,
           "main_shape_vs_plain": main_err,
           "library_vs_kernel_err_over_scale": lib_err,
           "timing": {key: {x: r[x] for x in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}
-                     for key, r in fa_rows.items()},
+                     for key, r in rows.items()},
           "backward_b3_plus_b4": backward})
-    del q, k, v, do, out, lse, delta, dq, dk_h, dv_h, qt, kt, vt, dot, ke, \
-        ve, res
+    return rows
 
-    # the LM on the card through the autograd binding of B2–B4, against its
-    # plain attention path: qwen2-0.5b reduced (2 layers, f32), a ragged
-    # sequence, loss and every gradient leaf (the CPU tests' tolerances
-    # against the JAX package)
+
+def lm_small_phase(phase, arch, tokens, seed):
+    """A reduced LM (f32) on the card through the kernels' autograd
+    bindings against its plain path: loss and every gradient leaf, at the
+    CPU tests' tolerances against the JAX package."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import LM
-    small_cfg = get_config("qwen2-0.5b").reduced()
-    small_params = LM(small_cfg).init(0, device=dev)
-    small_batch = {"tokens": torch.randint(
-        0, small_cfg.vocab_size, (2, 200),
-        generator=torch.Generator().manual_seed(4)).to(dev)}
-    lm_small = {}
+    from repro_torch.train.torch_trainer import value_and_grad
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_config(arch).reduced()
+    params = LM(cfg).init(0, device=DEV)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, tokens,
+        generator=torch.Generator().manual_seed(seed)).to(DEV)}
+    got = {}
     for use_kernel in (True, False):
         (loss, _), grads = value_and_grad(
-            LM(small_cfg, use_kernel=use_kernel).loss, small_params,
-            small_batch)
-        lm_small[use_kernel] = (loss, tree_leaves(grads))
-    loss_err = abs(float(lm_small[True][0]) - float(lm_small[False][0]))
+            LM(cfg, use_kernel=use_kernel).loss, params, batch)
+        got[use_kernel] = (loss, tree_leaves(grads))
+    loss_err = abs(float(got[True][0]) - float(got[False][0]))
     grad_err = max(float((a - b).abs().max())
-                   for a, b in zip(lm_small[True][1], lm_small[False][1]))
-    assert all(bool(g.isfinite().all()) for g in lm_small[True][1])
+                   for a, b in zip(got[True][1], got[False][1]))
+    assert all(bool(g.isfinite().all()) for g in got[True][1])
     assert loss_err <= 1e-5 and grad_err <= 1e-4, (loss_err, grad_err)
-    emit({"phase": "lm_small", "model": "qwen2-0.5b reduced",
-          "layers": small_cfg.num_layers, "dtype": small_cfg.dtype,
-          "tokens": [2, 200], "loss": float(lm_small[True][0]),
+    emit({"phase": phase, "model": f"{arch} reduced",
+          "layers": cfg.num_layers, "dtype": cfg.dtype,
+          "tokens": list(tokens), "loss": float(got[True][0]),
           "kernel_vs_plain_loss_err": loss_err, "loss_atol": 1e-5,
           "kernel_vs_plain_grad_max_abs_err": grad_err, "grad_atol": 1e-4})
-    del small_params, lm_small, grads
 
-    # --------------------------- 7. qwen2-0.5b study: the LM's main path
+
+# --------------------------------------------------- an LM study, both modes
+def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
+    """Both modes of the SHA study of ``examples/torch_hpo_lm.py`` on one
+    trainer, made by ``make_backend()`` after the kernel-plane accounting is
+    reset (a trainer counts its calls and fallbacks from its construction);
+    its initial parameters are drawn once, first, outside the timed runs
+    (the draw launches no kernel).  Every launch count is zeroed just
+    before and read just after: each of the ``fwd`` kernels = layers ×
+    (steps + evaluations), each of the ``bwd`` kernels = layers × steps,
+    B1 = leaves × steps, every other kernel 0; no fallback; fewer steps
+    stage-based; the same best trial and every reported metric bit-equal.
+    The first run's checkpoints are dropped before the second starts.
+    Returns the launch counts and the trainer."""
     import torch_hpo_lm as lm_example
-    counters = (stacked_leaf_update, *fa_wrappers.values())
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan as ssk
+    from repro_torch.kernels.optim import stacked_leaf_update
+    from repro_torch.utils.tree import tree_leaves
+
+    kops.reset_kernel_stats()
+    backend = make_backend()
+    cfg = backend.task.cfg
+    assert backend.task.use_kernel and cfg.dtype == "bfloat16"
+    t0 = time.perf_counter()
+    params0 = backend.init_state()["params"]
+    draw_s = time.perf_counter() - t0
+    n_leaves = len(tree_leaves(params0))
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    assert n_params == cfg.param_count(), n_params
+    del params0
+    counters = (stacked_leaf_update, fa.flash_attention_fwd,
+                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                ssk.ssd_intra_fwd, ssk.ssd_intra_bwd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kops.reset_kernel_stats()
     for c in counters:                          # counts to 0 just before
         c.launches = 0
-    # one trainer for both modes: its initial parameters are drawn once,
-    # here, outside the timed runs (the draw launches no kernel)
-    lm_backend = lm_example.make_backend(use_kernel=True, **LM_FULL)
-    lm_cfg = lm_backend.task.cfg
-    assert lm_backend.task.use_kernel and lm_cfg.dtype == "bfloat16"
-    assert (lm_cfg.num_layers, lm_cfg.d_model, lm_cfg.num_heads,
-            lm_cfg.num_kv_heads, lm_cfg.vocab_size) == (24, 896, 14, 2,
-                                                        151936)
-    t0 = time.perf_counter()
-    lm_params0 = lm_backend.init_state()["params"]
-    lm_init_s = time.perf_counter() - t0
-    lm_leaves = len(tree_leaves(lm_params0))
-    lm_n_params = sum(p.numel() for p in tree_leaves(lm_params0))
-    assert lm_n_params == lm_cfg.param_count(), lm_n_params
-    n_layers = lm_cfg.num_layers
-    lm_runs = {}
+    runs = {}
     for share in (True, False):
-        evals0 = lm_backend.evaluations
+        evals0 = backend.evaluations
         calls0 = kops.KERNEL_STATS.calls
         stats, tuner, store, wall = lm_example.run_study(
-            lm_backend, share, batch=LM_FULL["batch"])
+            backend, share, batch=batch, name=cfg.name)
         torch.cuda.synchronize()
         assert tuner.is_done() and tuner.best is not None
         assert stats.kernel_fallbacks == 0 and stats.kernel_calls > 0
         assert stats.chain_fused_stages > 0
         assert stats.ckpt_async_writes == stats.ckpt_saves > 0
         assert store.pending_writes == 0
-        n_ckpts = 0
-        for cid in store.committed_ids():
-            leaves = tree_leaves(store.get(cid)["params"])
-            assert len(leaves) == lm_leaves
-            assert all(l.is_cuda and bool(l.isfinite().all())
-                       for l in leaves)
-            n_ckpts += 1
-        assert n_ckpts > 0
-        lm_runs[share] = dict(stats=stats, tuner=tuner, wall=wall,
-                              ckpts=n_ckpts,
-                              evals=lm_backend.evaluations - evals0,
-                              calls=kops.KERNEL_STATS.calls - calls0)
-        del store       # this run's checkpoints go before the next run
-        torch.cuda.empty_cache()
-    lm_launches = {c.__name__: c.launches for c in counters}  # just after
-    lm_calls, lm_fallbacks = kops.KERNEL_STATS.snapshot()
-    lm_peak = torch.cuda.max_memory_allocated()
+        runs[share] = dict(stats=stats, history=tuner.history,
+                           best=tuner.best.trial_id,
+                           best_score=tuner.best_score, wall=wall,
+                           ckpts=held_checkpoints(store, n_leaves),
+                           evals=backend.evaluations - evals0,
+                           calls=kops.KERNEL_STATS.calls - calls0,
+                           peak=torch.cuda.max_memory_allocated())
+        lm_example.drop_checkpoints(store)  # this run's go before the next
+        assert len(store) == 0
+        del store, tuner
+        free()
+        torch.cuda.reset_peak_memory_stats()
+    launches = {c.__name__: c.launches for c in counters}   # just after
+    calls, fallbacks = kops.KERNEL_STATS.snapshot()
+    peak = max(r["peak"] for r in runs.values())
 
-    lm_steps = sum(r["stats"].steps_run for r in lm_runs.values())
-    lm_evals = sum(r["evals"] for r in lm_runs.values())
-    assert lm_fallbacks == 0, kops.KERNEL_STATS.reasons
-    assert lm_launches["flash_attention_fwd"] == \
-        n_layers * (lm_steps + lm_evals), (lm_launches, lm_steps, lm_evals)
-    assert lm_launches["flash_attention_bwd_dq"] == n_layers * lm_steps
-    assert lm_launches["flash_attention_bwd_dkv"] == n_layers * lm_steps
-    assert lm_launches["stacked_leaf_update"] == lm_leaves * lm_steps
-    assert lm_calls == lm_steps + n_layers * (lm_steps + lm_evals)
-    s_run, t_run = lm_runs[True], lm_runs[False]
+    L = cfg.num_layers
+    steps = sum(r["stats"].steps_run for r in runs.values())
+    evals = sum(r["evals"] for r in runs.values())
+    expected = {name: 0 for name in launches}
+    expected.update({name: L * (steps + evals) for name in fwd})
+    expected.update({name: L * steps for name in bwd})
+    expected["stacked_leaf_update"] = n_leaves * steps
+    assert fallbacks == 0, kops.KERNEL_STATS.reasons
+    assert launches == expected, (launches, expected, steps, evals)
+    assert calls == steps + L * (steps + evals), (calls, steps, evals)
+    s_run, t_run = runs[True], runs[False]
     assert s_run["stats"].steps_run < t_run["stats"].steps_run
-    s_hist, t_hist = s_run["tuner"].history, t_run["tuner"].history
-    assert s_hist == t_hist, "a reported metric differs across modes"
-    assert all(m["loss"] == m["loss"] for m in s_hist.values())  # no NaN
-    lm_best = s_run["tuner"].best.trial_id
-    assert lm_best == t_run["tuner"].best.trial_id
-    assert s_run["tuner"].best_score == t_run["tuner"].best_score
-    emit({"phase": "lm_study", "model": "qwen2-0.5b", "dtype": "bfloat16",
-          "layers": n_layers, "d_model": lm_cfg.d_model,
-          "heads": [lm_cfg.num_heads, lm_cfg.num_kv_heads],
-          "vocab": lm_cfg.vocab_size, "parameters": lm_n_params,
-          "leaves": lm_leaves, "init_draw_seconds": lm_init_s,
-          "batch": LM_FULL["batch"],
-          "seq_len": LM_FULL["seq_len"], "optimizer": "adamw",
+    assert s_run["history"] == t_run["history"], \
+        "a reported metric differs across modes"
+    assert all(m["loss"] == m["loss"]                          # no NaN
+               for m in s_run["history"].values())
+    assert s_run["best"] == t_run["best"]
+    assert s_run["best_score"] == t_run["best_score"]
+    text = {name: "0" for name in launches}
+    text.update({name: f"{L} x (steps + evaluations)" for name in fwd})
+    text.update({name: f"{L} x steps" for name in bwd})
+    text["stacked_leaf_update"] = f"{n_leaves} x steps"
+    emit({"phase": phase, "model": cfg.name, "dtype": cfg.dtype,
+          "layers": L, **model_fields, "parameters": n_params,
+          "leaves": n_leaves, "init_draw_seconds": draw_s, "batch": batch,
+          "seq_len": seq_len, "optimizer": "adamw",
           "modes": {("stage" if share else "trial"): {
               "steps_run": r["stats"].steps_run,
               "stages_run": r["stats"].stages_run,
@@ -833,38 +1015,44 @@ def main():
               "checkpoints_held": r["ckpts"],
               "kernel_calls": r["calls"],
               "wall_seconds": r["wall"],
-              "steps_per_second": r["stats"].steps_run / r["wall"]}
-              for share, r in lm_runs.items()},
-          "launches": lm_launches, "kernel_calls": lm_calls,
-          "kernel_fallbacks": lm_fallbacks,
-          "expected": {
-              "flash_attention_fwd": f"{n_layers} x (steps + evaluations)",
-              "flash_attention_bwd_dq": f"{n_layers} x steps",
-              "flash_attention_bwd_dkv": f"{n_layers} x steps",
-              "stacked_leaf_update": f"{lm_leaves} x steps"},
-          "best_trial": lm_best, "same_best_trial": True,
-          "best_val_acc": s_run["tuner"].best_score,
+              "steps_per_second": r["stats"].steps_run / r["wall"],
+              "peak_device_memory_gib": r["peak"] / 2 ** 30}
+              for share, r in runs.items()},
+          "launches": launches, "kernel_calls": calls,
+          "kernel_fallbacks": fallbacks, "expected": text,
+          "best_trial": s_run["best"], "same_best_trial": True,
+          "best_val_acc": s_run["best_score"],
           "all_reported_metrics_bit_equal": True,
-          "reported_results": len(s_hist),
-          "peak_device_memory_bytes": lm_peak,
-          "peak_device_memory_gib": lm_peak / 2 ** 30})
+          "reported_results": len(s_run["history"]),
+          "peak_device_memory_bytes": peak,
+          "peak_device_memory_gib": peak / 2 ** 30})
+    return launches, backend
 
-    # ------------------- 8. the LM's AdamW update, step and device profile
-    lm_slab = lm_backend._upload(lm_backend.pipeline_factory().next_batches(4))
-    lm_batch0 = {k: v[0] for k, v in lm_slab.items()}
-    (_, _), lm_grads = value_and_grad(lm_backend.task.loss, lm_params0,
-                                      lm_batch0)
-    lm_strided = sum(not g.is_contiguous() for g in tree_leaves(lm_grads))
-    gen_s = torch.Generator(device="cuda").manual_seed(2)
-    lm_opt = {slot: tree_map(lambda p: (1e-3 * torch.rand(
-        p.shape, device=dev, generator=gen_s)).to(p.dtype), lm_params0)
+
+# ------------------------------------------- 7-8. qwen2-0.5b: the LM's path
+def lm_update_phase(backend, b1_resnet):
+    """B1 on the whole qwen2-0.5b AdamW bf16 tree against its plain version
+    and a ``torch._fused_adamw_`` yardstick; returns B1's row."""
+    from repro_torch.kernels.optim import fused_apply_update
+    from repro_torch.train.optimizer import apply_update
+    from repro_torch.train.torch_trainer import value_and_grad
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    params0 = backend.init_state()["params"]
+    n_leaves = len(tree_leaves(params0))
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    slab = backend._upload(backend.pipeline_factory().next_batches(1))
+    batch0 = {k: v[0] for k, v in slab.items()}
+    _, grads = value_and_grad(backend.task.loss, params0, batch0)
+    n_strided = sum(not g.is_contiguous() for g in tree_leaves(grads))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    opt = {slot: tree_map(lambda p: (1e-3 * torch.rand(
+        p.shape, device=DEV, generator=gen)).to(p.dtype), params0)
         for slot in ("m", "v")}
-    lm_hp = {"lr": torch.tensor(3e-4, device=dev)}
-    lm_step_t = torch.tensor(3, dtype=torch.int32, device=dev)
-    new_k, st_k = fused_apply_update("adamw", lm_params0, lm_grads, lm_opt,
-                                     lm_hp, lm_step_t)
-    new_p, st_p = apply_update("adamw", lm_params0, lm_grads, lm_opt, lm_hp,
-                               lm_step_t)
+    hp = {"lr": torch.tensor(3e-4, device=DEV)}
+    step = torch.tensor(3, dtype=torch.int32, device=DEV)
+    new_k, st_k = fused_apply_update("adamw", params0, grads, opt, hp, step)
+    new_p, st_p = apply_update("adamw", params0, grads, opt, hp, step)
     torch.cuda.synchronize()
     upd_ulps, upd_err = 0.0, 0.0
     for a, c in zip(tree_leaves((new_k, st_k)), tree_leaves((new_p, st_p))):
@@ -872,107 +1060,340 @@ def main():
         upd_ulps = max(upd_ulps, float(bf16_ulps(a, c).max()))
         upd_err = max(upd_err, float((a.float() - c.float()).abs().max()))
     assert upd_ulps <= 1.0, upd_ulps
-    del new_k, st_k, new_p, st_p
+    del new_k, st_k, st_p
     lib_lists = [[t.clone() for t in tree_leaves(x)]
-                 for x in (lm_params0, lm_grads, lm_opt["m"], lm_opt["v"])]
-    lib_steps = [torch.tensor(4.0, device=dev) for _ in lib_lists[0]]
+                 for x in (params0, grads, opt["m"], opt["v"])]
+    lib_steps = [torch.tensor(4.0, device=DEV) for _ in lib_lists[0]]
 
     def fused_adamw():   # yardstick only — the package never calls this
         torch._fused_adamw_(*lib_lists, [], lib_steps, lr=3e-4, beta1=0.9,
                             beta2=0.999, weight_decay=0.0, eps=1e-8,
                             amsgrad=False, maximize=False)
 
-    ref_p, _ = apply_update("adamw", lm_params0, lm_grads, lm_opt, lm_hp,
-                            lm_step_t)
     fused_adamw()
     torch.cuda.synchronize()
     lib_ulps = max(float(bf16_ulps(a, c).max())
-                   for a, c in zip(lib_lists[0], tree_leaves(ref_p)))
+                   for a, c in zip(lib_lists[0], tree_leaves(new_p)))
     assert lib_ulps <= 1.0, lib_ulps               # the same function
-    del ref_p
-    tree_bytes = 7 * lm_n_params * 2     # read p, g, m, v; write p, m, v
-    b1_row = {
+    del new_p
+    tree_bytes = 7 * n_params * 2        # read p, g, m, v; write p, m, v
+    row = {
         "name": "opt_update", "route": "triton", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": lm_launches["stacked_leaf_update"],
-        "launches_resnet56_study": launches,
+        "replaces": KERNEL_REPLACES, "launches": None,
         "max_abs_err": upd_err,
         "ms": time_ms(lambda: fused_apply_update(
-            "adamw", lm_params0, lm_grads, lm_opt, lm_hp, lm_step_t),
-            reps=10, warm=2),
+            "adamw", params0, grads, opt, hp, step), reps=10, warm=2),
         "plain_ms": time_ms(lambda: apply_update(
-            "adamw", lm_params0, lm_grads, lm_opt, lm_hp, lm_step_t),
-            reps=10, warm=2),
+            "adamw", params0, grads, opt, hp, step), reps=10, warm=2),
         "bound_ms": tree_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": time_ms(fused_adamw, reps=10, warm=2),
         "library": "torch._fused_adamw_",
-        "shape": f"qwen2-0.5b tree, adamw, bf16: {lm_leaves} leaves "
-                 f"(12 stacked (24, ...)), {lm_n_params} parameters, one "
-                 f"launch per leaf; {lm_strided} gradient leaves strided",
+        "shape": f"qwen2-0.5b tree, adamw, bf16: {n_leaves} leaves "
+                 f"(12 stacked (24, ...)), {n_params} parameters, one "
+                 f"launch per leaf; {n_strided} gradient leaves strided",
         "max_err_bf16_in_ulps": upd_ulps,
-        "resnet56_momentum_f32": {x: kernel_row[x] for x in (
+        "resnet56_momentum_f32": {x: b1_resnet[x] for x in (
             "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err",
             "shape")},
-        "variants": kernel_row["variants"]}
-    del lib_lists
+        "launches_resnet56_study": b1_resnet["launches"],
+        "variants": b1_resnet["variants"]}
     emit({"phase": "lm_update", "optimizer": "adamw", "dtype": "bfloat16",
-          "leaves": lm_leaves, "parameters": lm_n_params,
-          "strided_gradient_leaves": lm_strided,
+          "leaves": n_leaves, "parameters": n_params,
+          "strided_gradient_leaves": n_strided,
           "max_err_bf16_in_ulps": upd_ulps,
           "library_max_err_bf16_in_ulps": lib_ulps,
-          **{x: b1_row[x] for x in ("ms", "plain_ms", "bound_ms",
-                                    "library_ms")}})
+          **{x: row[x] for x in ("ms", "plain_ms", "bound_ms",
+                                 "library_ms")}})
+    return row
 
-    lm_carry = (lm_params0, lm_opt)
-    lm_steps4 = torch.arange(4, dtype=torch.int32, device=dev)
-    lm_hp_xs = {"lr": torch.full((4,), 3e-4, device=dev)}
-    lm_step_ms = host_ms(lambda: lm_backend._run_chunk(
-        "adamw", lm_carry, {}, lm_hp_xs, lm_slab, lm_steps4), 2) / 4
-    lm_grad_ms = host_ms(lambda: value_and_grad(
-        lm_backend.task.loss, lm_params0, lm_batch0), 3)
-    lm_upd_ms = host_ms(lambda: fused_apply_update(
-        "adamw", lm_params0, lm_grads, lm_opt, lm_hp, lm_step_t), 3)
-    attn_fwd_ms = n_layers * fa_rows["B2"]["ms"]
-    attn_bwd_ms = n_layers * (fa_rows["B3"]["ms"] + fa_rows["B4"]["ms"])
-    emit({"phase": "lm_step", "model": "qwen2-0.5b",
-          "batch": LM_FULL["batch"], "seq_len": LM_FULL["seq_len"],
-          "step_ms": lm_step_ms, "steps_per_second": 1e3 / lm_step_ms,
-          "tokens_per_second": LM_FULL["batch"] * LM_FULL["seq_len"]
-          * 1e3 / lm_step_ms,
-          "loss_fwd_bwd_ms": lm_grad_ms,
-          "attention_fwd_ms": attn_fwd_ms, "attention_bwd_ms": attn_bwd_ms,
-          "attention_share_of_step": (attn_fwd_ms + attn_bwd_ms)
-          / lm_step_ms,
-          "optimizer_update_ms": lm_upd_ms,
-          "optimizer_update_share_of_step": lm_upd_ms / lm_step_ms,
-          "clock": "host, synchronised at both ends; attention = 24 x the "
-                   "kernels' CUDA-event times of phase attention_kernels"})
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        lm_backend._run_chunk("adamw", lm_carry, {}, lm_hp_xs, lm_slab,
-                              lm_steps4)
+
+def qwen2_phase(fa_rows, b1_resnet):
+    """The qwen2-0.5b study, B1 on its tree, its step and profile; returns
+    B1's row and the study's launch counts."""
+    import torch_hpo_lm as lm_example
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-0.5b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.vocab_size) == (24, 896, 14, 2, 151936)
+    launches, backend = lm_study(
+        "lm_study", lambda: lm_example.make_backend(use_kernel=True,
+                                                    **LM_FULL),
+        LM_FULL["batch"], LM_FULL["seq_len"],
+        fwd=("flash_attention_fwd",),
+        bwd=("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+        model_fields={"d_model": cfg.d_model,
+                      "heads": [cfg.num_heads, cfg.num_kv_heads],
+                      "vocab": cfg.vocab_size})
+    assert backend.task.cfg == cfg
+    b1_row = lm_update_phase(backend, b1_resnet)
+    b1_row["launches"] = launches["stacked_leaf_update"]
+    attn_ms = cfg.num_layers * sum(fa_rows[k]["ms"]
+                                   for k in ("B2", "B3", "B4"))
+    step_profile("lm_", cfg.name, backend, "adamw", 3e-4, n_chunk=4,
+                 profile_steps=4,
+                 tokens=LM_FULL["batch"] * LM_FULL["seq_len"],
+                 port=("attention_kernels", attn_ms, "::fa_"))
+    return b1_row, launches
+
+
+# ------------------------------------------ 9. SSD kernels vs plain version
+def ssd_work(B, nc, Q, H, P, N, e_x):
+    """(flops, bytes) of B5 and B6 at one shape.  Flops: the products and
+    the elementwise work each function needs, over the Q(Q+1)/2 pairs
+    j <= i (above the diagonal everything is 0); cb = C·Bᵀ depends on no
+    head, so it is formed once per cell.  B5 per cell: cb, 2TN; per head
+    y = att·x, 2TP, and seg, exp, ·dt, ·cb, 4T.  B6 per cell: cb, 2TN, and
+    dB = dcbᵀ·C, dC = dcb·B, 4TN; per head datt = g·xᵀ and dx = attᵀ·g,
+    4TP, and seg, exp, att (2), dad, ddt (2), dseg, its row and column sums
+    (2), the head sum of dcb (2), 12T.  Bytes at the tensors' dtypes, each
+    input read once and each output written once."""
+    T, cells = Q * (Q + 1) // 2, B * nc
+    n_x, n_row, n_bc = cells * Q * H * P, cells * Q * H, cells * Q * N
+    return {"B5": (cells * (2 * T * N + H * (2 * T * P + 4 * T)),
+                   e_x * (2 * n_x + 2 * n_bc) + 4 * 2 * n_row),
+            "B6": (cells * (6 * T * N + H * (4 * T * P + 12 * T)),
+                   e_x * (3 * n_x + 4 * n_bc) + 4 * 4 * n_row)}
+
+
+def ssd_phase(join_build):
+    """B5 and B6 on the grid and at mamba2-2.7b's shape; returns their
+    rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_scan as ssk
+    build_s = join_build("ssd_scan")
+    ssk._lib()                                  # load, check the tile size
+    names = ("y", "dx", "ddt", "dlt", "dB", "dC")
+
+    def inputs(B, nc, Q, H, P, N, dtype, model_decay, seed):
+        """x, dt, ltT, B, C and a cotangent g on the card.  The JAX tests'
+        small decays (|lt| <= 0.1 |N(0,1)|), or the model's at init: dt =
+        softplus(N(0,1)), A = -exp(A_log) = -linspace(1, 16, H), so that
+        cum falls to about -1,000 within a chunk of 128 and exp(cum_i -
+        cum_j) above the diagonal overflows."""
+        gen = torch.Generator().manual_seed(seed)
+        rnd = lambda *shape: torch.randn(shape, generator=gen)
+        x, g = rnd(B, nc, Q, H, P), rnd(B, nc, Q, H, P)
+        Bm, Cm = rnd(B, nc, Q, N), rnd(B, nc, Q, N)
+        dt = F.softplus(rnd(B, nc, Q, H))
+        lt = (dt * -torch.linspace(1.0, 16.0, H)).movedim(-1, -2) \
+            if model_decay else -rnd(B, nc, H, Q).abs() * 0.1
+        return (x.to(DEV, dtype), dt.to(DEV), lt.contiguous().to(DEV),
+                Bm.to(DEV, dtype), Cm.to(DEV, dtype), g.to(DEV, dtype))
+
+    def plain(x, dt, lt, Bm, Cm, g=None):
+        """What the wrappers compute, through the plain versions: the same
+        cumsum in torch, the same suffix sum for dltT."""
+        cum = torch.cumsum(lt, -1).contiguous()
+        if g is None:
+            return ssk.fwd_plain(x, dt, cum, Bm, Cm)
+        dx, ddt, dcum, dB, dC = ssk.bwd_plain(x, dt, cum, Bm, Cm, g)
+        return dx, ddt, ssk.dlt_from_dcum(dcum, lt.dtype), dB, dC
+
+    def run(x, dt, lt, Bm, Cm, g):
+        """B5 + B6 twice (required bit-equal), and the plain versions on
+        the same inputs; every output finite, shaped and typed alike."""
+        runs = [(ssk.ssd_intra_fwd(x, dt, lt, Bm, Cm),)
+                + ssk.ssd_intra_bwd(x, dt, lt, Bm, Cm, g) for _ in range(2)]
+        want = (plain(x, dt, lt, Bm, Cm),) + plain(x, dt, lt, Bm, Cm, g)
         torch.cuda.synchronize()
-    rows = sorted(((dev_time(e), e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_time(e) > 0),
-                  reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    chunk_ms = lm_step_ms * 4
-    emit({"phase": "lm_profile", "window": "one 4-step chunk",
-          "chunk_ms_without_profiler": chunk_ms,
-          "device_busy_ms": busy_ms if rows else "not measured",
-          "device_idle_share": (1.0 - busy_ms / chunk_ms) if rows
-          else "not measured",
-          "device_kernel_launches_per_step": sum(r[1] for r in rows) / 4,
-          "top_device_time": [{"ms": r[0] / 1e3, "count": r[1],
-                               "name": r[2][:80]} for r in rows[:8]]})
-    for key, c in fa_wrappers.items():
-        fa_rows[key]["launches"] = lm_launches[c.__name__]
+        for name, a, b, c in zip(names, runs[0], runs[1], want):
+            assert torch.equal(a, b), ("two launches differ", name)
+            assert a.shape == c.shape and a.dtype == c.dtype, name
+            assert bool(a.isfinite().all()) and bool(c.isfinite().all()), (
+                "not finite", name)
+        return runs[0], want
+
+    err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in names}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for shape in SSD_SHAPES + [SSD_RAGGED]:
+            outs, want = run(*inputs(*shape, dtype, shape == SSD_RAGGED,
+                                     seed=cases))
+            for name, a, b in zip(names, outs, want):
+                # the JAX tests' tolerances: forward f32 2e-5, bf16 2e-2;
+                # gradients 2e-3, and 2e-2 for a gradient rounded to bf16
+                if name == "y":
+                    tol = 2e-5 if dtype == torch.float32 else 2e-2
+                else:
+                    tol = 2e-3 if a.dtype == torch.float32 else 2e-2
+                e, ok = within(a, b, tol, tol)
+                err[name][dname] = max(err[name][dname], e)
+                assert ok, ("SSD kernel disagrees with its plain version",
+                            name, dname, shape, e)
+            cases += 1
+
+    # the main path's shape: one mamba2-2.7b layer's SSD at 1 x 2048 tokens
+    # (16 chunks x 80 heads).  bf16 with the model's decays, which the
+    # study runs and which would overflow above the diagonal; bf16 and f32
+    # with the JAX tests' small decays, under which the 64 x 64 tile below
+    # the diagonal tile carries weight to its far corner (every element of
+    # B6's cross-tile sums counts).  bf16 outputs within one bf16 ulp
+    # beyond 2^-16 of the tensor's largest value; f32 outputs within 1e-5
+    # of it
+    Bs, nc, Q, H, P, N = (MAMBA[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    shape_s = f"B {Bs}, nc {nc}, Q {Q}, H {H}, P {P}, N {N}"
+    f32_rule = ("1e-5 x scale",
+                lambda diff, b, scale: float(diff.max()) <= 1e-5 * scale)
+    main, cum_min, far_decay = {}, {}, {}
+    for case, dtype, model_decay, seed in (
+            ("bf16, model decays", torch.bfloat16, True, 99),
+            ("bf16, small decays", torch.bfloat16, False, 98),
+            ("f32, small decays", torch.float32, False, 97)):
+        x, dt, lt, Bm, Cm, g = inputs(Bs, nc, Q, H, P, N, dtype,
+                                      model_decay, seed)
+        cum = torch.cumsum(lt, -1)
+        cum_min[case] = float(cum.min())
+        # the decay from a chunk's first position to its last, per (cell,
+        # head): its smallest and its median
+        far = torch.exp(cum[..., -1] - cum[..., 0]).flatten()
+        far_decay[case] = {"min": float(far.min()),
+                           "median": float(far.median())}
+        outs, want = run(x, dt, lt, Bm, Cm, g)
+        for name, a, b in zip(names, outs, want):
+            row, ok = at_scale(a, b, f32_rule)
+            main.setdefault(name, {})[case] = row
+            assert ok, ("SSD kernel disagrees with its plain version at the "
+                        "main path's shape", case, name, row)
+        del outs, want
+    assert cum_min["bf16, model decays"] < -500.0, cum_min  # overflow in reach
+    assert far_decay["f32, small decays"]["median"] > 2 ** -16, far_decay
+
+    # timed on the study's own inputs: bf16, the model's decays
+    x, dt, lt, Bm, Cm, g = inputs(Bs, nc, Q, H, P, N, torch.bfloat16, True,
+                                  99)
+    repo_fwd_flops = Bs * nc * H * (2 * Q * Q * (N + P) + 6 * Q * Q)
+    work = ssd_work(Bs, nc, Q, H, P, N, x.element_size())
+    fns = {
+        "B5": (ssk.ssd_intra_fwd,
+               lambda: ssk.ssd_intra_fwd(x, dt, lt, Bm, Cm),
+               lambda: plain(x, dt, lt, Bm, Cm), repo_fwd_flops),
+        "B6": (ssk.ssd_intra_bwd,
+               lambda: ssk.ssd_intra_bwd(x, dt, lt, Bm, Cm, g),
+               lambda: plain(x, dt, lt, Bm, Cm, g), 3 * repo_fwd_flops)}
+    rows = {}
+    for key, (wrapper, kern, plain_fn, repo_flops) in fns.items():
+        flops, nbytes = work[key]
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        outs_of = names[:1] if key == "B5" else names[1:]
+        rows[key] = {
+            "name": wrapper.__name__, "route": "cuda", "source": SSD_SOURCE,
+            "replaces": SSD_REPLACES[key], "launches": None,
+            "max_abs_err": max([err[n][d] for n in outs_of for d in err[n]]
+                               + [r["max_abs_err"] for n in outs_of
+                                  for r in main[n].values()]),
+            "ms": time_ms(kern, reps=20, warm=3),
+            "plain_ms": time_ms(plain_fn, reps=10, warm=2),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes this function",
+            "shape": shape_s + ", bf16, the model's decays",
+            "flops": flops, "bytes": nbytes,
+            # benchmarks/bench_kernels.py:77-85: B·nc·H·(2Q²(N+P) + 6Q²)
+            # forward, 3x backward — whole (Q, Q) tiles, cb per head
+            "flops_repo_numerator": repo_flops,
+            "max_abs_err_by_dtype": {n: err[n] for n in outs_of},
+            "cases": cases,
+            "main_shape_vs_plain": {n: main[n] for n in outs_of}}
+    emit({"phase": "ssd_kernels", "build_seconds": build_s,
+          "cases": cases, "bit_equal_twice": True, "all_finite": True,
+          "max_abs_err": err, "shape": shape_s, "cum_min": cum_min,
+          "far_corner_decay_min": far_decay, "main_shape_vs_plain": main,
+          "timing": {key: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "flops", "bytes")}
+                     for key, r in rows.items()}})
+    return rows
+
+
+# -------------------------------------------- 10-11. mamba2-2.7b: the SSD path
+def mamba2_study_phase():
+    """The mamba2-2.7b study at full width and 32 layers (a study at full
+    depth holds more checkpoints than the card has room for); returns its
+    launch counts."""
+    import torch_hpo_lm as lm_example
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-2.7b")
+    assert (cfg.num_layers, cfg.d_model, cfg.ssm_inner, cfg.ssm_heads,
+            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, cfg.vocab_size,
+            cfg.dtype, cfg.param_count()) == (
+        64, 2560, 5120, 80, 64, 128, 128, 50280, "bfloat16", 2_702_235_136)
+    launches, backend = lm_study(
+        "mamba2_study", lambda: lm_example.make_backend(
+            arch="mamba2-2.7b", use_kernel=True, **MAMBA_STUDY),
+        MAMBA_STUDY["batch"], MAMBA_STUDY["seq_len"],
+        fwd=("ssd_intra_fwd",), bwd=("ssd_intra_bwd",),
+        model_fields={"published_layers": cfg.num_layers,
+                      "published_parameters": cfg.param_count(),
+                      "d_model": cfg.d_model, "ssd_heads": cfg.ssm_heads,
+                      "state": cfg.ssm_state, "chunk": cfg.ssm_chunk,
+                      "vocab": cfg.vocab_size})
+    assert backend.task.cfg.num_layers == MAMBA_STUDY["layers"]
+    return launches
+
+
+def mamba2_step_phase(ssd_rows):
+    """The full 64-layer mamba2-2.7b: step, update and profile."""
+    import torch_hpo_lm as lm_example
+    backend = lm_example.make_backend(arch="mamba2-2.7b", use_kernel=True,
+                                      batch=1, seq_len=2048, n_train=8,
+                                      n_eval=1)
+    cfg = backend.task.cfg
+    assert cfg.num_layers == 64 and cfg.param_count() == 2_702_235_136
+    ssd_ms = cfg.num_layers * (ssd_rows["B5"]["ms"] + ssd_rows["B6"]["ms"])
+    step_profile("mamba2_", cfg.name, backend, "adamw", 3e-4, n_chunk=4,
+                 profile_steps=2, tokens=2048,
+                 port=("ssd_kernels", ssd_ms, "::ssd_"))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "examples")]
+    import repro_torch      # noqa: F401 — outside a checkout, fail here
+    import torch_hpo_lm     # noqa: F401
+    import torch_hpo_resnet  # noqa: F401
+
+    smi, kind = device_phase()                                   # 1
+    # the CUDA kernels build while the Triton phases run; a failed build
+    # is raised where its phase joins it
+    join_build = start_builds()
+    b1_resnet = b1_phase()                                       # 2
+    small_phase()                                                # 3
+    free()
+    b1_resnet["launches"] = resnet_study_phase()                 # 4
+    free()
+    resnet_step_phase()                                          # 5
+    free()
+    fa_rows = attention_phase(join_build)                        # 6
+    free()
+    lm_small_phase("lm_small", "qwen2-0.5b", (2, 200), seed=4)
+    free()
+    b1_row, lm_launches = qwen2_phase(fa_rows, b1_resnet)        # 7, 8
+    for key in ("B2", "B3", "B4"):
+        fa_rows[key]["launches"] = lm_launches[fa_rows[key]["name"]]
+    free()
+    emit({"phase": "free", "device_memory_allocated_bytes":
+          torch.cuda.memory_allocated()})
+    ssd_rows = ssd_phase(join_build)                             # 9
+    free()
+    lm_small_phase("mamba2_small", "mamba2-2.7b", (2, 192), seed=5)
+    free()
+    m_launches = mamba2_study_phase()                            # 10
+    for key in ("B5", "B6"):
+        ssd_rows[key]["launches"] = m_launches[ssd_rows[key]["name"]]
+    b1_row["launches_mamba2_study"] = m_launches["stacked_leaf_update"]
+    free()
+    mamba2_step_phase(ssd_rows)                                  # 11
+    free()
 
     # ------------------------------------------------------------ last lines
     print(smi, flush=True)
-    emit({"kernels": [b1_row, fa_rows["B2"], fa_rows["B3"], fa_rows["B4"]]})
+    emit({"kernels": [b1_row, fa_rows["B2"], fa_rows["B3"], fa_rows["B4"],
+                      ssd_rows["B5"], ssd_rows["B6"]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,25 +1,32 @@
 """End-to-end example: a hyper-parameter study of a language model, in PyTorch.
 
-Trains qwen2-0.5b (``repro_torch.configs``) on a synthetic token stream
-through the full Hippo stack — search plan, stage tree, scheduler,
-chain-fused execution with write-behind checkpoints, SHA tuner — once
-stage-based and once trial-based, over four AdamW learning-rate schedules
-that share their first eight steps.  On a CUDA device every attention call
-goes through the flash-attention kernels (forward, backward dq, backward
-dk/dv) and every optimizer update through the fused update kernel.
+Trains qwen2-0.5b or mamba2-2.7b (``repro_torch.configs``) on a synthetic
+token stream through the full Hippo stack — search plan, stage tree,
+scheduler, chain-fused execution with write-behind checkpoints, SHA tuner
+— once stage-based and once trial-based, over four AdamW learning-rate
+schedules that share their first eight steps.  On a CUDA device every
+attention call goes through the flash-attention kernels (forward, backward
+dq, backward dk/dv), every SSD layer through the SSD kernels (forward,
+backward) and every optimizer update through the fused update kernel.
 
     PYTHONPATH=src python examples/torch_hpo_lm.py --full         # GPU, full width
     PYTHONPATH=src python examples/torch_hpo_lm.py                # GPU, reduced
     PYTHONPATH=src python examples/torch_hpo_lm.py --device cpu   # CPU, reduced
+    PYTHONPATH=src python examples/torch_hpo_lm.py --arch mamba2-2.7b \
+        --full --layers 32                                        # GPU
 
-``--full`` is qwen2-0.5b at its published width and depth (24 layers, d_model
-896, 14 / 2 heads, vocab 151,936, bf16), batch 4 × 1024 tokens; the default
-is its ``reduced()`` variant (2 layers, d_model 256, vocab 512, f32), batch
-4 × 128.  With one worker, stage-based and trial-based execution report the
-same metrics bit for bit and pick the same best trial.
+``--full`` is the model at its published width and depth — qwen2-0.5b: 24
+layers, d_model 896, 14 / 2 heads, vocab 151,936, bf16, batch 4 × 1024
+tokens; mamba2-2.7b: 64 layers, d_model 2560, 80 SSD heads of 64, state
+128, chunk 128, vocab 50,280, bf16, batch 1 × 2048 tokens — and
+``--layers`` cuts its depth; the default is the ``reduced()`` variant (2
+layers, d_model 256, vocab 512, f32), batch 4 × 128.  With one worker,
+stage-based and trial-based execution report the same metrics bit for bit
+and pick the same best trial.
 """
 
 import argparse
+import dataclasses
 import time
 
 from torch_hpo_resnet import RecordingSHATuner
@@ -33,6 +40,8 @@ from repro_torch.train.checkpoint import CheckpointStore
 from repro_torch.train.torch_trainer import TorchTrainer
 
 MIN_STEPS, MAX_STEPS, ETA = 4, 16, 2
+# (batch, sequence length) of a full-width study
+FULL_SHAPE = {"qwen2-0.5b": (4, 1024), "mamba2-2.7b": (1, 2048)}
 
 
 def space(batch=4):
@@ -45,12 +54,16 @@ def space(batch=4):
 
 
 def make_backend(arch="qwen2-0.5b", reduced=False, batch=4, seq_len=1024,
-                 n_train=256, n_eval=8, device=None, use_kernel=None):
-    """A ``TorchTrainer`` over ``LM(arch)`` with AdamW.  One draw of the
-    synthetic corpus, split into train and eval."""
+                 n_train=256, n_eval=8, device=None, use_kernel=None,
+                 layers=None):
+    """A ``TorchTrainer`` over ``LM(arch)`` with AdamW, ``layers`` deep
+    when given.  One draw of the synthetic corpus, split into train and
+    eval."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     full = synthetic_lm_dataset(n_train + n_eval, seq_len, cfg.vocab_size,
                                 seed=0)
     data = {k: v[:n_train] for k, v in full.items()}
@@ -75,29 +88,45 @@ def run_study(backend, share, batch=4, name="qwen2-0.5b"):
     return stats, tuner, store, time.perf_counter() - t0
 
 
+def drop_checkpoints(store):
+    """Evict the checkpoints a finished study left in ``store``, so that
+    the next run starts without them.  Dropping the name is not enough:
+    the tuner's study handle keeps the engine, and with it the store,
+    alive, and so does the store's write-behind thread until it retires."""
+    for cid in list(store.committed_ids()):
+        store.evict(cid)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=sorted(FULL_SHAPE))
     ap.add_argument("--full", action="store_true",
-                    help="qwen2-0.5b at its published size, batch 4 x 1024")
+                    help="the published size: qwen2-0.5b batch 4 x 1024, "
+                         "mamba2-2.7b batch 1 x 2048")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many layers")
     ap.add_argument("--device", default=None,
                     help="'cpu' to ask for the CPU (default: cuda)")
     args = ap.parse_args()
-    cfg = dict(reduced=not args.full, seq_len=1024 if args.full else 128)
+    batch, seq_len = FULL_SHAPE[args.arch] if args.full else (4, 128)
+    cfg = dict(arch=args.arch, reduced=not args.full, batch=batch,
+               seq_len=seq_len, layers=args.layers)
+    backend = make_backend(device=args.device, **cfg)   # one initial draw
     results = {}
     for share, label in ((True, "stage"), (False, "trial")):
-        backend = make_backend(device=args.device, **cfg)
-        stats, tuner, store, wall = run_study(backend, share)
-        del store        # drop one run's checkpoints before the next starts
-        results[label] = (stats, tuner)
+        stats, tuner, store, wall = run_study(backend, share, batch=batch,
+                                              name=args.arch)
+        drop_checkpoints(store)
+        results[label] = (stats, tuner.best.trial_id, tuner.history)
         print(f"{label}-based: best val_acc (-loss) {tuner.best_score:.4f}  "
               f"steps trained {stats.steps_run}  wall {wall:.1f}s  "
               f"kernel calls {stats.kernel_calls}  "
               f"fallbacks {stats.kernel_fallbacks}")
+        del store, tuner
     s, t = results["stage"], results["trial"]
     print(f"\nstage-based trained {t[0].steps_run / s[0].steps_run:.2f}x "
           f"fewer steps for the same search; same best trial: "
-          f"{s[1].best.trial_id == t[1].best.trial_id}; every reported "
-          f"metric bit-equal: {s[1].history == t[1].history}")
+          f"{s[1] == t[1]}; every reported metric bit-equal: {s[2] == t[2]}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA C++ kernels.
 
-Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface and loaded with ``ctypes``
+Each source under ``kernels/csrc/`` (``flash_attention.cu``,
+``ssd_scan.cu``) is compiled by its own ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers: seconds to build, not minutes).  The build happens at
 first use, into ``build/cuda/`` beside ``src/`` (git-ignored), under a name
 keyed by the hash of the source and the flags, so an edited source is
@@ -20,7 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-__all__ = ["load"]
+
+__all__ = ["load", "call"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -71,3 +73,11 @@ def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, building it first if
     needed."""
     return ctypes.CDLL(_build(name))
+
+
+def call(fn, *args) -> None:
+    """Call a launcher of a built library and raise on the CUDA error it
+    returns: a refused launch never runs, and no synchronise reports it."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")

@@ -236,12 +236,6 @@ def _check(name, q, k, v, do=None, lse=None, delta=None):
         raise RuntimeError(f"{name}: unsupported device {q.device}")
 
 
-def _call(fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")
-
-
 def _shape_args(q, k, causal, window):
     B, Sq, Hq, hd = q.shape
     return (_DTYPES[q.dtype], B, Sq, k.shape[1], Hq, k.shape[2], hd,
@@ -266,9 +260,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                             device=q.device)
         if out.numel():
             with torch.cuda.device(q.device):
-                _call(_lib().fa_fwd, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                      slots.data_ptr(), *_shape_args(q, k, causal, window))
+                _cuda.call(_lib().fa_fwd, q.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                           slots.data_ptr(),
+                           *_shape_args(q, k, causal, window))
             flash_attention_fwd.launches += 1
         tiles = int(slots.sum(dtype=torch.int64)) if count_tiles else None
     res = (out,)
@@ -293,9 +288,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     dq = torch.empty_like(q)
     if dq.numel():
         with torch.cuda.device(q.device):
-            _call(_lib().fa_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dq.data_ptr(), *_shape_args(q, k, causal, window))
+            _cuda.call(_lib().fa_bwd_dq, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), dq.data_ptr(),
+                       *_shape_args(q, k, causal, window))
         flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -316,10 +312,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     dv_h = torch.empty_like(dk_h)
     if dk_h.numel():
         with torch.cuda.device(q.device):
-            _call(_lib().fa_bwd_dkv, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
-                  *_shape_args(q, k, causal, window))
+            _cuda.call(_lib().fa_bwd_dkv, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
+                       *_shape_args(q, k, causal, window))
         flash_attention_bwd_dkv.launches += 1
     return dk_h, dv_h
 

@@ -1,9 +1,10 @@
-"""Kernel-plane accounting and the differentiable attention binding.
+"""Kernel-plane accounting and the differentiable kernel bindings.
 
 Every kernel wrapper of this package reports here.  ``KERNEL_STATS.calls``
 counts kernel-plane **calls** — one per ``fused_apply_update`` that went
-through its kernel (one per training step) and one per
-:func:`flash_attention` call (one per attention layer per forward) — and
+through its kernel (one per training step), one per
+:func:`flash_attention` call (one per attention layer per forward) and one
+per :func:`ssd_intra` call (one per SSD layer per forward) — and
 ``KERNEL_STATS.fallbacks`` counts calls that took the plain PyTorch
 version instead, tagged with a reason and warned once per (kernel,
 reason).  The only reason a wrapper may fall back is that its tensors lie
@@ -16,13 +17,15 @@ runs eagerly, so its counts move per call.  ``kernel_calls > 0`` and
 wrapper additionally keeps its own plain integer ``launches`` counter of
 kernel launches (for the optimizer: one per parameter leaf per step; for
 attention: one forward launch per call, one dq and one dk/dv launch per
-backward).
+backward; for SSD: one B5 launch per call, one B6 launch per backward).
 
 :func:`flash_attention` is the counterpart of the JAX package's
 ``custom_vjp`` binding (``repro/kernels/ops.py:161-189``): a
 ``torch.autograd.Function`` whose forward is B2 (with the lse residual)
-and whose backward is B3 + B4.  The member-folding ``vmap`` rule of the
-JAX binding belongs to the batched tiers (ROADMAP queue A).
+and whose backward is B3 + B4.  :func:`ssd_intra` is the counterpart of
+``repro/kernels/ops.py:193-240``: forward B5, backward B6.  The
+member-folding ``vmap`` rules of the JAX bindings belong to the batched
+tiers (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_fwd)
+from repro_torch.kernels.ssd_scan import ssd_intra_bwd, ssd_intra_fwd
 
 __all__ = ["KernelFallbackWarning", "KernelStats", "KERNEL_STATS",
            "reset_kernel_stats", "note_call", "note_fallback",
-           "flash_attention"]
+           "flash_attention", "ssd_intra"]
 
 
 class KernelFallbackWarning(UserWarning):
@@ -116,3 +120,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         note_call("flash_attention")
     return _FlashAttention.apply(q, k, v, causal, int(window))
+
+
+# ------------------------------------------------------------ ssd intra
+class _SSDIntra(torch.autograd.Function):
+    """Forward B5 (keeping the inputs as residuals), backward B6 — or, for
+    CPU tensors, their plain versions inside the same function."""
+
+    @staticmethod
+    def forward(ctx, xr, dtr, ltT, Br, Cr):
+        xr, dtr, ltT, Br, Cr = (t.contiguous() for t in (xr, dtr, ltT, Br,
+                                                         Cr))
+        ctx.save_for_backward(xr, dtr, ltT, Br, Cr)
+        return ssd_intra_fwd(xr, dtr, ltT, Br, Cr)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ssd_intra_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+def ssd_intra(xr: torch.Tensor, dtr: torch.Tensor, ltT: torch.Tensor,
+              Br: torch.Tensor, Cr: torch.Tensor) -> torch.Tensor:
+    """Intra-chunk SSD term (``xr (B,nc,Q,H,P)``, ``dtr (B,nc,Q,H)``,
+    ``ltT (B,nc,H,Q)``, ``Br / Cr (B,nc,Q,N)`` → ``y (B,nc,Q,H,P)``),
+    differentiable through the backward kernel.  CPU tensors take the plain
+    versions, counted as a fallback ``ssd_intra:device:cpu`` and warned
+    once."""
+    if xr.device.type == "cpu":
+        note_fallback("ssd_intra", "device:cpu")
+    else:
+        note_call("ssd_intra")
+    return _SSDIntra.apply(xr, dtr, ltT, Br, Cr)

@@ -1,11 +1,13 @@
-"""Decoder LM assembly for the attention families (``attn`` / ``local``).
+"""Decoder LM assembly for the attention and SSM families (``attn`` /
+``local`` / ``ssm`` blocks).
 
 The counterpart of ``repro/models/transformer.py:141-269`` for dense
-attention models: the parameter tree is the JAX package's —
+attention models and Mamba2: the parameter tree is the JAX package's —
 ``{"embed", "final_norm", ["lm_head"], "cycles": [one dict of
 (n_full, ...) stacked leaves per pattern slot], "rest": [per-layer dicts]}``
 — so weights carry across leaf for leaf.  Blocks are pre-norm residual:
-``x += attn(norm1(x)); x += mlp(norm2(x))``.
+``x += mixer(norm1(x)); x += mlp(norm2(x))``, the mixer being attention or
+the SSD layer (SSD blocks carry no FFN, matching Mamba2).
 
 The JAX layer ``scan`` becomes a Python loop.  Each stacked leaf is split
 once per forward with ``torch.unbind`` (whose backward is one ``stack``),
@@ -17,8 +19,8 @@ bit-reproducible there.  The tied output head is ``F.linear(x, embed)``,
 whose weight gradient comes back contiguous.
 
 Not here yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue A slice: SSM (Mamba2) and RG-LRU blocks, Mixture-of-Experts,
-vision / audio frontends, decode with caches.
+queue A slice: RG-LRU blocks, Mixture-of-Experts, vision / audio
+frontends, decode with caches.
 """
 
 from __future__ import annotations
@@ -33,11 +35,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import MOE_SLICE, init_mlp, mlp_forward
 from repro_torch.models.layers import (dense_init, embed_init, init_rms,
                                        rms_norm)
+from repro_torch.models.ssm import init_ssm, ssm_forward
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["LM"]
 
-SSM_SLICE = "ROADMAP queue A, slice 4"
+RGLRU_SLICE = "ROADMAP queue A, slice 12"
 DECODE_SLICE = "ROADMAP queue A, slice 10"
 
 
@@ -45,11 +48,19 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    """SSD blocks carry no FFN (Mamba2); MoE blocks are not built here."""
+    return kind != "ssm" and cfg.d_ff > 0
+
+
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
                 dtype: torch.dtype) -> Dict[str, Any]:
-    p: Dict[str, Any] = {"norm1": init_rms(cfg.d_model, dtype),
-                         "attn": init_attention(cfg, gen, dtype)}
-    if cfg.d_ff > 0:
+    p: Dict[str, Any] = {"norm1": init_rms(cfg.d_model, dtype)}
+    if kind == "ssm":
+        p["ssm"] = init_ssm(cfg, gen, dtype)
+    else:
+        p["attn"] = init_attention(cfg, gen, dtype)
+    if _has_ffn(cfg, kind):
         p["norm2"] = init_rms(cfg.d_model, dtype)
         p["ffn"] = init_mlp(cfg.d_model, cfg.d_ff, gen, dtype,
                             gated=cfg.mlp_gated)
@@ -59,10 +70,14 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
 def _block_forward(cfg: ModelConfig, kind: str, p, x, positions,
                    use_kernel: bool) -> torch.Tensor:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    window = cfg.sliding_window if kind == "attn" else cfg.local_window
-    x = x + attention_forward(p["attn"], cfg, h, positions, window=window,
+    if kind == "ssm":
+        h = ssm_forward(p["ssm"], cfg, h, use_kernel=use_kernel)
+    else:
+        window = cfg.sliding_window if kind == "attn" else cfg.local_window
+        h = attention_forward(p["attn"], cfg, h, positions, window=window,
                               use_kernel=use_kernel)
-    if cfg.d_ff > 0:
+    x = x + h
+    if _has_ffn(cfg, kind):
         x = x + mlp_forward(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
     return x
 
@@ -84,15 +99,15 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 
 class LM:
-    """Decoder LM / encoder (``causal=False``) over ``attn`` / ``local``
-    layer patterns."""
+    """Decoder LM / encoder (``causal=False``) over ``attn`` / ``local`` /
+    ``ssm`` layer patterns."""
 
     def __init__(self, cfg: ModelConfig, use_kernel: bool = False):
-        kinds = set(cfg.layer_kinds())
-        if kinds - {"attn", "local"}:
+        kinds = set(cfg.layer_kinds()) - {"attn", "local", "ssm"}
+        if kinds:
             raise NotImplementedError(
-                f"{cfg.name}: {sorted(kinds - {'attn', 'local'})} blocks are "
-                f"not in repro_torch yet ({SSM_SLICE})")
+                f"{cfg.name}: {sorted(kinds)} blocks are not in repro_torch "
+                f"yet ({RGLRU_SLICE})")
         if cfg.n_experts:
             raise NotImplementedError(f"{cfg.name}: Mixture-of-Experts is "
                                       f"not in repro_torch yet ({MOE_SLICE})")

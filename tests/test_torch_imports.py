@@ -11,6 +11,14 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+CHECK = r"""
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+print("TRITON", "triton" in sys.modules)
+"""
+
 WALK = r"""
 import importlib, pkgutil, sys
 import repro_torch
@@ -21,19 +29,20 @@ for n in names:
 print("MODULES", len(names))
 for extra in sys.argv[1:]:
     importlib.import_module(extra)
-bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "repro" or m.startswith("repro."))
-print("BAD", bad)
-print("TRITON", "triton" in sys.modules)
-"""
+""" + CHECK
+
+ALONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+""" + CHECK
 
 
-def run_walk(*extra):
+def run_walk(*extra, script=WALK):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT, os.path.join(ROOT, "examples")])
-    out = subprocess.run([sys.executable, "-W", "error", "-c", WALK, *extra],
+    out = subprocess.run([sys.executable, "-W", "error", "-c", script,
+                          *extra],
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=300)
     assert out.returncode == 0, out.stderr
@@ -53,6 +62,16 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 def test_entry_scripts_import_without_jax_or_the_jax_package(module):
     lines = run_walk(module)
     assert lines["BAD"] == "[]"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.kernels.ssd_scan",
+                                    "repro_torch.models.ssm"])
+def test_ssd_modules_import_alone_without_jax_or_the_jax_package(module):
+    """The SSD slice's modules, each imported on its own in a fresh
+    interpreter, before anything else of the package."""
+    lines = run_walk(module, script=ALONE)
+    assert lines["BAD"] == "[]"
+    assert lines["TRITON"] == "False"
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
