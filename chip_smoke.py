@@ -37,27 +37,38 @@ Phases, each printing one JSON line:
    and read just after, and must equal steps × 114 leaves (``main_path``).
 5. ``step`` / ``profile`` — where a ResNet56 step's time goes, and the
    device's busy and idle share over one 8-step chunk.
-6. ``attention_kernels`` — the flash-attention kernels B2 (forward), B3
-   (dq) and B4 (per-query-head dk / dv), built by ``nvcc`` from
+6. ``attention_kernels`` — the flash-attention kernels B2 (forward: bf16
+   on the tensor cores, ``fa_fwd_tc``; f32 on the CUDA cores, ``fa_fwd``),
+   B3 (dq) and B4 (per-query-head dk / dv), built by ``nvcc`` from
    ``src/repro_torch/kernels/csrc/flash_attention.cu``, against their plain
-   versions over MHA / GQA 4:1 / MQA / ragged 96 / head dim 128 × causal,
-   non-causal, window 48 × f32 and bf16 (forward f32 2e-5, bf16 2e-2;
-   gradients f32 atol 2e-4 + rtol 2e-3, bf16 2e-2), each run twice and
-   required bit-equal, executed tiles equal to ``fa_tile_counts``; then at
-   the main path's own shape, qwen2-0.5b's (B 4, S 1024, Hq 14, Hkv 2, hd
-   64, causal, bf16): again against the plain versions on the same inputs
-   (bf16 outputs within one bf16 ulp beyond 2^-16 of the tensor's largest
-   value, lse atol 2e-5 + rtol 2e-5), twice bit-equal, tiles counted; timed
-   there beside the plain versions, each kernel's bound, the backward's
-   bound as a whole, and the library's flash forward and flash backward
-   (yardsticks the package never calls).  ``lm_small``: qwen2-0.5b reduced
-   (f32) on the card, loss and gradients through the kernels against the
-   plain attention path (atol 1e-5 / 1e-4).
+   versions over MHA / GQA 4:1 / MQA / ragged 96 / head dim 32, 64, 128 ×
+   causal, non-causal, window 48 × f32 and bf16 (forward f32 2e-5; bf16
+   ``out`` by ``p_rounding_rule`` against the plain version with f32
+   probabilities — one bf16 ulp + 2^-16 × scale + what rounding each
+   probability to bf16 can move, 2^-8 (p/l)|v| —, lse atol 2e-5 + rtol
+   2e-5; gradients f32 atol 2e-4 + rtol 2e-3, bf16
+   2e-2), each run twice and required bit-equal, executed tiles equal to
+   ``fa_tile_counts`` at the tiles of the kernel the dtype routes to
+   (every bf16 case on the tensor-core kernel, every f32 one on the other);
+   then at the main path's own shape, qwen2-0.5b's (B 4, S 1024, Hq 14, Hkv
+   2, hd 64, causal, bf16): again against the plain versions on the same
+   inputs (B2's out by the same rule; dq / dk_h / dv_h within one bf16 ulp
+   beyond 2^-16 of the tensor's largest value, lse atol 2e-5 + rtol 2e-5),
+   twice bit-equal, tiles counted; timed there beside the plain versions,
+   each kernel's bound, the backward's bound as a whole, and the library's
+   flash forward and flash backward (yardsticks the package never calls),
+   the earlier CUDA-core B2's time beside, marked as a figure from the
+   record; and B2 at hd 128, qwen3-8b's attention (B 1, S 2048, Hq 32,
+   Hkv 8, causal), checked and timed beside SDPA the same way.
+   ``lm_small``: qwen2-0.5b reduced (f32) on the card, loss and gradients
+   through the kernels against the plain attention path (atol 1e-5 /
+   1e-4), B2 on the CUDA-core kernel only.
 7. ``lm_study`` — the SHA study of ``examples/torch_hpo_lm.py`` at full
    width, stage-based then trial-based (the first run's checkpoints are
    dropped before the second starts); every launch count is zeroed just
-   before and read just after: B2 = 24 × (steps + evaluations), B3 = B4 =
-   24 × steps, B1 = 14 leaves × steps, no SSD launch, no fallback, fewer
+   before and read just after: B2 = 24 × (steps + evaluations) = 1,392,
+   every one on the tensor-core kernel, B3 = B4 = 24 × steps, B1 = 14
+   leaves × steps, no SSD launch, no fallback, fewer
    steps stage-based, the same best trial and every reported metric
    bit-equal across modes.
 8. ``lm_update`` / ``lm_step`` / ``lm_profile`` — the AdamW update of the
@@ -124,6 +135,13 @@ FA_SHAPES = [(1, 128, 4, 4, 64), (2, 128, 8, 2, 64), (1, 256, 8, 1, 32),
              (1, 96, 4, 2, 64), (2, 64, 2, 1, 128)]
 FA_MASKS = [(True, 0), (False, 0), (True, 48)]
 QWEN = dict(B=4, S=1024, Hq=14, Hkv=2, hd=64)     # qwen2-0.5b's attention
+QWEN3 = dict(B=1, S=2048, Hq=32, Hkv=8, hd=128)   # qwen3-8b's, at hd 128
+# B2 at qwen2-0.5b's shape before the tensor-core kernel: the CUDA-core
+# kernel's bf16 instantiation, median of four runs on an NVIDIA H100 80GB
+# HBM3, 700.00 W (PERF.md, kernel table).  A figure from the record,
+# printed as such in the attention_kernels line and never in the kernels
+# line; it cannot be measured here, since that instantiation is gone.
+B2_CUDA_CORE_MS = 0.615
 LM_FULL = dict(batch=4, seq_len=1024, n_train=256, n_eval=8)
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_REPLACES = {"B5": "src/repro/kernels/ssd_scan.py:87",
@@ -166,6 +184,39 @@ def time_ms(fn, reps=30, warm=5):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps=20):
+    """Device time of the CUDA kernels one call of ``fn`` launches, from
+    the profiler's trace: unlike ``time_ms`` it leaves out the host's time
+    between launches, which a kernel of tens of microseconds can wait on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else "not measured"
+
+
+def launch_us(fn, reps=200):
+    """Host microseconds per call of ``fn`` while the device keeps up: the
+    calls are not synchronised, so this is the wrapper's own time (checks,
+    allocation, the launch) that a kernel can wait on between launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def host_ms(fn, reps):
@@ -219,6 +270,39 @@ def at_scale(a, b, f32_rule):
     row.update(max_err_bf16_in_ulps=ulps,
                tolerance="1 bf16 ulp beyond 2^-16 x scale")
     return row, ulps <= 1.0
+
+
+def p_rounding_rule(a, ref, env):
+    """B2's bf16 ``out`` against its plain version with f32 probabilities
+    (``fwd_plain`` on the same inputs cast to f32; ``ref`` f32).  The
+    kernel rounds every probability to bf16 before p·v, as the bf16 plain
+    version does, but the two round on different grids, for two causes:
+    their f32 probabilities differ in the last bits (scores summed in
+    other orders; exp2 of log2-scaled scores), and, in a row that spans
+    more than one key tile, the kernel rounds against the running max and
+    then rescales its accumulator by a factor that is not a power of 2, so
+    most of that row's probabilities round to another neighbour.  Hence
+    the reference here is the unrounded one, and the allowance only the
+    kernel's own rounding: each probability moves by at most half a bf16
+    ulp, 2^-8 of itself, so an output moves by at most 2^-8 · ``env`` with
+    ``env = (p/l)·|v|`` in f32.  Allowed per element: that, plus one bf16
+    ulp of the value (the output's own rounding) and 2^-16 of the
+    tensor's largest value (f32 sums in another order).
+    Returns (the row to print, whether it holds)."""
+    assert a.shape == ref.shape == env.shape
+    assert a.dtype == torch.bfloat16 and ref.dtype == torch.float32
+    assert bool(a.isfinite().all()) and bool(ref.isfinite().all())
+    diff = (a.float() - ref).abs()
+    scale = float(ref.abs().max())
+    _, exp = torch.frexp(torch.maximum(a.float().abs(), ref.abs()))
+    ulp = torch.ldexp(torch.ones_like(diff), exp - 8)
+    ratio = float((diff / (scale * 2 ** -16 + ulp + 2 ** -8 * env)).max())
+    return ({"max_abs_err": float(diff.max()), "scale": scale,
+             "err_over_scale": float(diff.max()) / scale,
+             "max_err_over_allowed": ratio,
+             "reference": "fwd_plain on the inputs cast to f32 (f32 p)",
+             "tolerance": "1 bf16 ulp + 2^-16 x scale + 2^-8 x (p/l)|v|"},
+            ratio <= 1.0)
 
 
 def device_profile(fn, n_steps, chunk_ms, match=None, top=8):
@@ -676,13 +760,68 @@ def resnet_step_phase():
 
 
 # ------------------------------- 6. attention kernels vs plain version
+def b2_case(fa, q, k, v, lse_rule, label):
+    """B2 in bf16 at a main path's shape (causal): two launches bit-equal,
+    executed tiles equal to ``fa_tile_counts``, ``out`` by
+    ``p_rounding_rule`` and ``lse`` by ``lse_rule`` against the plain
+    version on the same inputs; timed by CUDA events and by the profiler
+    beside SDPA (a yardstick the package never calls), with its bound.
+    Returns (out, lse, row)."""
+    import torch.nn.functional as F
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    runs = [fa.flash_attention_fwd(q, k, v, return_lse=True,
+                                   count_tiles=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][:2], runs[1][:2])), (
+        "two launches differ", label)
+    want = B * Hq * fa.fa_tile_counts(S, S, *fa.fwd_blocks(torch.bfloat16),
+                                      True, 0)[0]
+    assert int(runs[0][2]) == int(runs[1][2]) == want, (
+        "executed tiles", label, int(runs[0][2]), want)
+    out, lse = runs[0][:2]
+    del runs
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out_row, ok = p_rounding_rule(out, fa.fwd_plain(qf, kf, vf)[0],
+                                  fa.fwd_plain(qf, kf, vf.abs())[0])
+    assert ok, ("B2 disagrees with its plain version", label, out_row)
+    del qf, kf, vf
+    lse_row, ok = at_scale(lse, fa.fwd_plain(q, k, v)[1], lse_rule)
+    assert ok, ("B2 lse disagrees with its plain version", label, lse_row)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kern = lambda: fa.flash_attention_fwd(q, k, v, return_lse=True)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - out.float()).abs().max()
+                    ) / float(out.float().abs().max())
+    assert lib_err <= 2e-2, ("yardstick differs", label, lib_err)
+    ms, lib_ms = time_ms(kern, reps=20, warm=3), time_ms(lib, reps=20, warm=3)
+    flops = 4.0 * B * Hq * S * S * hd * 0.5                 # causal
+    # each input read once, each output written once
+    nbytes = 2 * 2 * B * S * (Hq + Hkv) * hd + 4 * B * Hq * S
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return out, lse, {
+        "shape": label, "ms": ms,
+        "plain_ms": time_ms(lambda: fa.fwd_plain(q, k, v), reps=5, warm=1),
+        "library_ms": lib_ms, "ms_over_library_ms": ms / lib_ms,
+        "device_ms": device_ms(kern), "library_device_ms": device_ms(lib),
+        "wrapper_host_us": launch_us(kern), "library_host_us": launch_us(lib),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes, "tiles": want,
+        "vs_plain": {"out": out_row, "lse": lse_row},
+        "library_vs_kernel_err_over_scale": lib_err}
+
+
 def attention_phase(join_build):
     """B2–B4 on the grid and at qwen2-0.5b's shape; returns their rows."""
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     build_s = join_build("flash_attention")
     fa._lib()                                   # load, check tile sizes
     gen = torch.Generator().manual_seed(12)
+    lse_rule = ("atol 2e-5 + rtol 2e-5",
+                lambda diff, b, scale: bool((diff <= 2e-5 + 2e-5
+                                             * b.abs()).all()))
 
     def fa_inputs(B, S, Hq, Hkv, hd, dtype):
         return [torch.randn(shape, generator=gen).to(DEV, dtype)
@@ -692,10 +831,12 @@ def attention_phase(join_build):
     fa_err = {k: {"float32": 0.0, "bfloat16": 0.0}
               for k in ("B2", "B3", "B4")}
     fa_cases = 0
+    grid_b2_bf16 = {"max_err_over_allowed": 0.0, "lse_max_abs_err": 0.0}
+    tc0, all0 = fa.flash_attention_fwd.launches_tc, \
+        fa.flash_attention_fwd.launches
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         f32 = dtype == torch.float32
-        fwd_tol = (2e-5, 2e-5) if f32 else (2e-2, 2e-2)
         grad_tol = (2e-4, 2e-3) if f32 else (2e-2, 2e-2)
         for B, S, Hq, Hkv, hd in FA_SHAPES:
             for causal, window in FA_MASKS:
@@ -719,14 +860,31 @@ def attention_phase(join_build):
                 for a, b in zip(runs[0][:2] + (dqs[0],) + dkvs[0],
                                 runs[1][:2] + (dqs[1],) + dkvs[1]):
                     assert torch.equal(a, b), ("two launches differ", case)
-                want = B * Hq * fa.fa_tile_counts(S, S, fa.BLOCK_Q,
-                                                  fa.BLOCK_K, causal,
-                                                  window)[0]
+                want = B * Hq * fa.fa_tile_counts(S, S, *fa.fwd_blocks(dtype),
+                                                  causal, window)[0]
                 assert int(tiles) == int(runs[1][2]) == p_tiles == want, (
                     "executed tiles", case, int(tiles), want)
                 assert float(dqs[0].float().abs().max()) > 0
-                for key, pairs, (atol, rtol) in (
-                        ("B2", ((out, p_out), (lse, p_lse)), fwd_tol),
+                if f32:       # B2 in f32: the CUDA-core kernel, f32 p
+                    b2_pairs = (("B2", ((out, p_out), (lse, p_lse)),
+                                 (2e-5, 2e-5)),)
+                else:         # B2 in bf16: the tensor-core kernel, bf16 p
+                    qf, kf, vf = q.float(), k.float(), v.float()
+                    row, ok = p_rounding_rule(
+                        out, fa.fwd_plain(qf, kf, vf, **mk)[0],
+                        fa.fwd_plain(qf, kf, vf.abs(), **mk)[0])
+                    assert ok, ("B2 disagrees with its plain version", case,
+                                row)
+                    lse_err, ok = within(lse, p_lse, 2e-5, 2e-5)
+                    assert ok, ("B2 lse disagrees", case, lse_err)
+                    fa_err["B2"][dname] = max(fa_err["B2"][dname],
+                                              row["max_abs_err"])
+                    for x, y in (("max_err_over_allowed",
+                                  row["max_err_over_allowed"]),
+                                 ("lse_max_abs_err", lse_err)):
+                        grid_b2_bf16[x] = max(grid_b2_bf16[x], y)
+                    b2_pairs = ()
+                for key, pairs, (atol, rtol) in b2_pairs + (
                         ("B3", ((dqs[0], p_dq),), grad_tol),
                         ("B4", ((dkvs[0][0], p_dk), (dkvs[0][1], p_dv)),
                          grad_tol)):
@@ -737,57 +895,50 @@ def attention_phase(join_build):
                         assert ok, (f"{key} disagrees with its plain "
                                     f"version", case, err)
                 fa_cases += 1
+    n_grid = len(FA_SHAPES) * len(FA_MASKS)
+    # each case launches B2 twice: f32 on the CUDA-core kernel, bf16 on the
+    # tensor-core one
+    assert fa.flash_attention_fwd.launches_tc - tc0 == 2 * n_grid
+    assert fa.flash_attention_fwd.launches - all0 == 4 * n_grid
 
     # the main path's own shape: qwen2-0.5b's training attention (GQA 7,
-    # 16 × 16 tiles, causal, bf16); the f32 lse within the grid's forward
-    # f32 tolerance
+    # causal, bf16); B3 / B4 fed B2's lse, each within one bf16 ulp beyond
+    # 2^-16 of its largest value; then B2 at hd 128, qwen3-8b's attention
     B, S, Hq, Hkv, hd = (QWEN[x] for x in ("B", "S", "Hq", "Hkv", "hd"))
     shape_s = f"B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, hd {hd}, causal, bf16"
     q, k, v, do = fa_inputs(B, S, Hq, Hkv, hd, torch.bfloat16)
-    out, lse, tiles = fa.flash_attention_fwd(q, k, v, return_lse=True,
-                                             count_tiles=True)
+    out, lse, b2_main = b2_case(fa, q, k, v, lse_rule, shape_s)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
     dk_h, dv_h = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-    again = (fa.flash_attention_fwd(q, k, v, return_lse=True, count_tiles=True)
-             + (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),)
+    again = ((fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),)
              + fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
-    p_out, p_lse, _ = fa.fwd_plain(q, k, v)
     p_dq = fa.bwd_dq_plain(q, k, v, do, lse, delta)
     p_dk, p_dv = fa.bwd_dkv_plain(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
-    for a, b in zip((out, lse, dq, dk_h, dv_h), again[:2] + again[3:]):
+    for a, b in zip((dq, dk_h, dv_h), again):
         assert torch.equal(a, b), ("two launches differ", shape_s)
-    want = B * Hq * fa.fa_tile_counts(S, S, fa.BLOCK_Q, fa.BLOCK_K, True,
-                                      0)[0]
-    assert int(tiles) == int(again[2]) == want, (int(tiles), want)
-    lse_rule = ("atol 2e-5 + rtol 2e-5",
-                lambda diff, b, scale: bool((diff <= 2e-5 + 2e-5
-                                             * b.abs()).all()))
-    main_err = {}
-    for key, name, a, b in (("B2", "out", out, p_out),
-                            ("B2", "lse", lse, p_lse),
-                            ("B3", "dq", dq, p_dq),
+    main_err = {"B2": b2_main["vs_plain"]}
+    for key, name, a, b in (("B3", "dq", dq, p_dq),
                             ("B4", "dk_h", dk_h, p_dk),
                             ("B4", "dv_h", dv_h, p_dv)):
         row, ok = at_scale(a, b, lse_rule)
         main_err.setdefault(key, {})[name] = row
         assert ok, (f"{key} disagrees with its plain version at the main "
                     f"path's shape", name, row)
-    del again, p_out, p_lse, p_dq, p_dk, p_dv
+    del again, p_dq, p_dk, p_dv
+    q3 = fa_inputs(*(QWEN3[x] for x in ("B", "S", "Hq", "Hkv", "hd")),
+                   torch.bfloat16)[:3]
+    hd128 = b2_case(fa, *q3, lse_rule, "B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, "
+                    "hd {hd}, causal, bf16 (qwen3-8b)".format(**QWEN3))[2]
+    del q3
 
-    # yardsticks only — the package never calls these.  The forward is
-    # SDPA with GQA.  The backward is the library's flash backward alone,
-    # on its own forward's residuals, over K / V repeated onto the query
-    # heads: one call that computes what B3 and B4 compute together (dq and
-    # the per-query-head dk_h, dv_h)
+    # yardstick only — the package never calls it: the library's flash
+    # backward alone, on its own forward's residuals, over K / V repeated
+    # onto the query heads: one call that computes what B3 and B4 compute
+    # together (dq and the per-query-head dk_h, dv_h)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     ke, ve = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
     res = torch.ops.aten._scaled_dot_product_flash_attention(
         qt, ke, ve, 0.0, True, False)
 
@@ -796,10 +947,10 @@ def attention_phase(join_build):
             dot, qt, ke, ve, res[0], res[1], res[2], res[3], res[4], res[5],
             0.0, True, res[6], res[7])
 
-    lib_err = {}     # the yardsticks compute the same functions (bf16 P, dS)
-    for name, a, b in zip(("out", "dq", "dk_h", "dv_h"),
-                          (sdpa_fwd(),) + tuple(sdpa_bwd()),
-                          (out, dq, dk_h, dv_h)):
+    # the yardsticks compute the same functions (bf16 P, dS)
+    lib_err = {"out": b2_main["library_vs_kernel_err_over_scale"]}
+    for name, a, b in zip(("dq", "dk_h", "dv_h"), sdpa_bwd(),
+                          (dq, dk_h, dv_h)):
         a = a.transpose(1, 2)
         assert a.shape == b.shape, (name, a.shape, b.shape)
         lib_err[name] = float((a.float() - b.float()).abs().max()) / float(
@@ -808,13 +959,12 @@ def attention_phase(join_build):
 
     e_bf16, e_f32 = 2, 4
     n_q, n_kv, n_row = B * S * Hq * hd, B * S * Hkv * hd, B * Hq * S
-    fwd_flops = 4.0 * B * Hq * S * S * hd * 0.5          # causal
-    # (flops, bytes) of each kernel's function: each input read once, each
-    # output written once.  Alone, B3 must recompute s and dp and form ds·K
-    # (three products of the forward's two: 1.5x); B4 must recompute them
-    # and form dsᵀ·Q and pᵀ·dO (2x).
+    fwd_flops = b2_main["flops"]
+    # (flops, bytes) of each backward kernel's function: each input read
+    # once, each output written once.  Alone, B3 must recompute s and dp
+    # and form ds·K (three products of the forward's two: 1.5x); B4 must
+    # recompute them and form dsᵀ·Q and pᵀ·dO (2x).
     work = {
-        "B2": (fwd_flops, e_bf16 * (2 * n_q + 2 * n_kv) + e_f32 * n_row),
         "B3": (1.5 * fwd_flops,
                e_bf16 * (3 * n_q + 2 * n_kv) + e_f32 * 2 * n_row),
         "B4": (2.0 * fwd_flops,
@@ -827,40 +977,46 @@ def attention_phase(join_build):
     bwd_bound_ms = max(bwd_flops / BF16_FLOP_PER_S,
                        bwd_bytes / HBM_BYTES_PER_S) * 1e3
     fa_fn = {
-        "B2": (fa.flash_attention_fwd,
-               lambda: fa.flash_attention_fwd(q, k, v, return_lse=True),
-               lambda: fa.fwd_plain(q, k, v)),
         "B3": (fa.flash_attention_bwd_dq,
                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
                lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta)),
         "B4": (fa.flash_attention_bwd_dkv,
                lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta))}
-    lib_fwd_ms = time_ms(sdpa_fwd, reps=20, warm=3)
     lib_bwd_ms = time_ms(sdpa_bwd, reps=20, warm=3)
-    rows = {}
+
+    def kernel_row(key, name):
+        return {"name": name, "route": "cuda", "source": FA_SOURCE,
+                "replaces": FA_REPLACES[key], "launches": None,
+                "max_abs_err": max(list(fa_err[key].values())
+                                   + [r["max_abs_err"]
+                                      for r in main_err[key].values()]),
+                "shape": shape_s, "max_abs_err_by_dtype": fa_err[key],
+                "cases": fa_cases, "main_shape_vs_plain": main_err[key]}
+
+    rows = {"B2": dict(
+        kernel_row("B2", fa.flash_attention_fwd.__name__),
+        **{x: b2_main[x] for x in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "ms_over_library_ms", "device_ms", "library_device_ms",
+            "wrapper_host_us", "library_host_us", "flops", "bytes")},
+        library="F.scaled_dot_product_attention(enable_gqa=True)",
+        route_bf16="wgmma (fa_fwd_tc)", route_f32="simt (fa_fwd)",
+        grid_bf16=grid_b2_bf16, qwen3_8b_hd128=hd128)}
     for key, (wrapper, kern, plain_fn) in fa_fn.items():
         flops, nbytes = work[key]
         t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-        rows[key] = {
-            "name": wrapper.__name__, "route": "cuda", "source": FA_SOURCE,
-            "replaces": FA_REPLACES[key], "launches": None,
-            "max_abs_err": max(list(fa_err[key].values())
-                               + [r["max_abs_err"]
-                                  for r in main_err[key].values()]),
-            "ms": time_ms(kern, reps=20, warm=3),
-            "plain_ms": time_ms(plain_fn, reps=5, warm=1),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        rows[key] = dict(
+            kernel_row(key, wrapper.__name__),
+            ms=time_ms(kern, reps=20, warm=3),
+            plain_ms=time_ms(plain_fn, reps=5, warm=1),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
             # no one library call computes dq alone or dk_h / dv_h alone:
             # the library's backward is held against B3 + B4 together in
             # the attention_kernels line
-            "library_ms": lib_fwd_ms if key == "B2" else None,
-            "library": ("F.scaled_dot_product_attention(enable_gqa=True)"
-                        if key == "B2" else None),
-            "shape": shape_s, "flops": flops, "bytes": nbytes,
-            "max_abs_err_by_dtype": fa_err[key], "cases": fa_cases,
-            "main_shape_vs_plain": main_err[key]}
+            library_ms=None, library=None, flops=flops, bytes=nbytes)
+    b2 = rows["B2"]
     backward = {"ms": rows["B3"]["ms"] + rows["B4"]["ms"],
                 "bound_ms": bwd_bound_ms, "bound_by": "operations"
                 if bwd_flops / BF16_FLOP_PER_S >= bwd_bytes / HBM_BYTES_PER_S
@@ -880,15 +1036,26 @@ def attention_phase(join_build):
           "timing": {key: {x: r[x] for x in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}
                      for key, r in rows.items()},
+          "b2": dict({x: b2[x] for x in (
+              "ms", "library_ms", "ms_over_library_ms", "device_ms",
+              "library_device_ms", "wrapper_host_us", "library_host_us",
+              "grid_bf16", "qwen3_8b_hd128")},
+              cuda_core_ms_not_from_this_run={
+                  "ms": B2_CUDA_CORE_MS,
+                  "what": "the CUDA-core kernel's bf16 instantiation "
+                          "at this shape, median of four runs (PERF.md); "
+                          "not measured here, it is gone"}),
           "backward_b3_plus_b4": backward})
     return rows
 
 
-def lm_small_phase(phase, arch, tokens, seed):
+def lm_small_phase(phase, arch, tokens, seed, attention):
     """A reduced LM (f32) on the card through the kernels' autograd
     bindings against its plain path: loss and every gradient leaf, at the
-    CPU tests' tolerances against the JAX package."""
+    CPU tests' tolerances against the JAX package.  With ``attention``, B2
+    must have run, in f32 on the CUDA-core kernel only."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.transformer import LM
     from repro_torch.train.torch_trainer import value_and_grad
     from repro_torch.utils.tree import tree_leaves
@@ -898,6 +1065,8 @@ def lm_small_phase(phase, arch, tokens, seed):
         0, cfg.vocab_size, tokens,
         generator=torch.Generator().manual_seed(seed)).to(DEV)}
     got = {}
+    n0, tc0 = (fa.flash_attention_fwd.launches,
+               fa.flash_attention_fwd.launches_tc)
     for use_kernel in (True, False):
         (loss, _), grads = value_and_grad(
             LM(cfg, use_kernel=use_kernel).loss, params, batch)
@@ -907,7 +1076,11 @@ def lm_small_phase(phase, arch, tokens, seed):
                    for a, b in zip(got[True][1], got[False][1]))
     assert all(bool(g.isfinite().all()) for g in got[True][1])
     assert loss_err <= 1e-5 and grad_err <= 1e-4, (loss_err, grad_err)
+    b2_f32 = fa.flash_attention_fwd.launches - n0
+    assert fa.flash_attention_fwd.launches_tc == tc0     # never the bf16 one
+    assert (b2_f32 > 0) == attention, b2_f32
     emit({"phase": phase, "model": f"{arch} reduced",
+          "b2_launches": b2_f32, "b2_tensor_core_launches": 0,
           "layers": cfg.num_layers, "dtype": cfg.dtype,
           "tokens": list(tokens), "loss": float(got[True][0]),
           "kernel_vs_plain_loss_err": loss_err, "loss_atol": 1e-5,
@@ -952,6 +1125,7 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:                          # counts to 0 just before
         c.launches = 0
+    fa.flash_attention_fwd.launches_tc = 0
     runs = {}
     for share in (True, False):
         evals0 = backend.evaluations
@@ -977,6 +1151,7 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
         free()
         torch.cuda.reset_peak_memory_stats()
     launches = {c.__name__: c.launches for c in counters}   # just after
+    b2_tc = fa.flash_attention_fwd.launches_tc
     calls, fallbacks = kops.KERNEL_STATS.snapshot()
     peak = max(r["peak"] for r in runs.values())
 
@@ -989,6 +1164,8 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
     expected["stacked_leaf_update"] = n_leaves * steps
     assert fallbacks == 0, kops.KERNEL_STATS.reasons
     assert launches == expected, (launches, expected, steps, evals)
+    # a bf16 model's forwards all went through the tensor-core kernel
+    assert b2_tc == launches["flash_attention_fwd"], (b2_tc, launches)
     assert calls == steps + L * (steps + evals), (calls, steps, evals)
     s_run, t_run = runs[True], runs[False]
     assert s_run["stats"].steps_run < t_run["stats"].steps_run
@@ -1018,7 +1195,8 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
               "steps_per_second": r["stats"].steps_run / r["wall"],
               "peak_device_memory_gib": r["peak"] / 2 ** 30}
               for share, r in runs.items()},
-          "launches": launches, "kernel_calls": calls,
+          "launches": launches, "b2_tensor_core_launches": b2_tc,
+          "kernel_calls": calls,
           "kernel_fallbacks": fallbacks, "expected": text,
           "best_trial": s_run["best"], "same_best_trial": True,
           "best_val_acc": s_run["best_score"],
@@ -1126,6 +1304,8 @@ def qwen2_phase(fa_rows, b1_resnet):
                       "heads": [cfg.num_heads, cfg.num_kv_heads],
                       "vocab": cfg.vocab_size})
     assert backend.task.cfg == cfg
+    # 24 layers x (48 steps + 10 evaluations), all on the tensor cores
+    assert launches["flash_attention_fwd"] == 1392, launches
     b1_row = lm_update_phase(backend, b1_resnet)
     b1_row["launches"] = launches["stacked_leaf_update"]
     attn_ms = cfg.num_layers * sum(fa_rows[k]["ms"]
@@ -1370,7 +1550,8 @@ def main():
     free()
     fa_rows = attention_phase(join_build)                        # 6
     free()
-    lm_small_phase("lm_small", "qwen2-0.5b", (2, 200), seed=4)
+    lm_small_phase("lm_small", "qwen2-0.5b", (2, 200), seed=4,
+                   attention=True)
     free()
     b1_row, lm_launches = qwen2_phase(fa_rows, b1_resnet)        # 7, 8
     for key in ("B2", "B3", "B4"):
@@ -1380,7 +1561,8 @@ def main():
           torch.cuda.memory_allocated()})
     ssd_rows = ssd_phase(join_build)                             # 9
     free()
-    lm_small_phase("mamba2_small", "mamba2-2.7b", (2, 192), seed=5)
+    lm_small_phase("mamba2_small", "mamba2-2.7b", (2, 192), seed=5,
+                   attention=False)
     free()
     m_launches = mamba2_study_phase()                            # 10
     for key in ("B5", "B6"):

@@ -2,7 +2,8 @@
 // backward per-query-head dk / dv (B4), hand-written CUDA C++.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
-//   fa_fwd      <- _fa_kernel          (flash_attention_fwd, :100 / :202)
+//   fa_fwd_tc   <- _fa_kernel          (flash_attention_fwd, :100 / :202), bf16
+//   fa_fwd      <- _fa_kernel          (the same function), f32
 //   fa_bwd_dq   <- _fa_bwd_dq_kernel   (flash_attention_bwd, :242 / :386)
 //   fa_bwd_dkv  <- _fa_bwd_dkv_kernel  (flash_attention_bwd, :287 / :406)
 //
@@ -10,10 +11,12 @@
 // math; query head h reads KV head h / (Hq/Hkv); scale = hd^-0.5; a key is
 // visible to a query when k_pos < Sk, k_pos <= q_pos if causal and
 // k_pos > q_pos - window if window > 0):
-//   fa_fwd     out = softmax(q k^T * scale) v by the online softmax, and
+//   fa_fwd(_tc) out = softmax(q k^T * scale) v by the online softmax, and
 //              lse = m + log l per row (1e30 for a row that saw no key,
 //              whose output is 0), plus the number of (q-tile, kv-tile)
-//              pairs it executed, one int32 per block;
+//              pairs it executed, one int32 per block; in bf16 the
+//              probabilities are rounded to bf16 before p v (l sums the f32
+//              probabilities), as the TPU's matrix unit and SDPA do;
 //   fa_bwd_dq  dq = sum over live kv tiles of ds k, with p = exp(s - lse),
 //              dp = dO v^T, ds = p (dp - delta) * scale;
 //   fa_bwd_dkv dk_h = sum over live q tiles of ds^T q, dv_h = p^T dO, per
@@ -21,46 +24,74 @@
 //              fixed order, as in the JAX package.
 // delta = rowsum(dO * O) is computed outside (torch), as in the JAX package.
 //
-// Design.  One block of 256 threads (a 16 x 16 grid) per (q-tile, head,
-// batch) for fa_fwd / fa_bwd_dq and per (kv-tile, head, batch) for
-// fa_bwd_dkv; tiles are 64 x 64.  The block loops over the live tiles of
-// the other axis: the TPU's pl.when(_tile_live) skip becomes the loop's
-// bounds (lo / hi below, mirrored by _live_range in flash_attention.py and
-// checked there against the predicate).  Operand tiles are staged in shared
-// memory as f32 (row stride hd_pad + 1, so a column walk hits 16 distinct
-// banks); each thread owns a 4 x 4 piece of the 64 x 64 score tile (rows
-// ty + 16 i, columns tx + 16 j) and the same 4 rows of the accumulators
-// (columns tx + 16 c), so a row's statistics (m, l) live in the registers of
-// the 16 threads of one half-warp and are reduced with xor shuffles.
-// Inputs are read in place through the (B, S, H, hd) layout: no transpose,
-// no padding copy; the ragged edges (S not a multiple of 64, hd below its
-// padded width 32 / 64 / 128) are masked in the kernel.
-//
-// Determinism: no atomics; every sum is taken in a fixed order, so two
-// identical launches give identical bits (the engine's losslessness check
-// is bitwise).
-//
 // Bound on an H100 SXM (the JAX package's roofline numerators,
 // benchmarks/bench_kernels.py:66-74): forward 4 B Hq S^2 hd (x 1/2 causal)
 // flops, the backward as a whole 2.5x that (five products: s and dp formed
 // once, then dv, dk, dq); time bound = max(flops / 989 TFLOP/s (bf16 dense,
-// tensor cores), bytes / 3.35 TB/s).  Split in two kernels as on the TPU,
-// each must form s and dp itself: fa_bwd_dq alone does three products
+// tensor cores), bytes / 3.35 TB/s).  At qwen2-0.5b's training shape (B 4,
+// S 1024, Hq 14, Hkv 2, hd 64, causal, bf16) the forward is 7.52 GFLOP over
+// 989 TFLOP/s = 0.0076 ms, bound by operations: only the tensor cores can
+// approach it.
+//
+// B2 in bf16, fa_fwd_tc_kernel: what the design does about that bound.
+// One block per (q-tile of 128 rows, head, batch), two consumer warpgroups
+// of 64 rows each, 256 threads; under causal masking the q-tiles are
+// launched heaviest first (the q-tile is the grid's slowest axis, taken in
+// reverse), so the short tiles of the causal tail fill the last wave.
+// Q, K and V arrive by TMA, read in place from the (B, S, H, hd) layouts
+// through 4-D tensor maps over (hd, H, S, B) with boxes (64, 1, rows, 1):
+// 64 bf16 columns are one 128-byte swizzle row, so hd 128 is two boxes per
+// tile and hd <= 64 one; TMA's zero fill covers S past its end and the
+// columns past hd.  Q is loaded once; K / V tiles of 128 keys go through a
+// ring of 2 stages with a full and an empty mbarrier each.  The loads are
+// issued by one elected consumer thread (thread 0), not by a producer
+// warp: with 256 threads each thread may hold 255 registers without
+// setmaxnreg rebalancing, there is no role split to keep apart, and the
+// next tile's loads are in flight while the current one is computed.
+// S = Q K^T is a wgmma m64n128k16 (bf16 -> f32) per 16 columns of hd, both
+// operands read from shared memory through 128-byte-swizzle descriptors.
+// The online softmax runs on the accumulator fragment: the scale times
+// log2(e) folded into one FMA before ex2.approx, masked only on tiles that
+// cross the causal diagonal, the window's edge or Sk, the row max and row
+// sum reduced with xor shuffles over the four threads of a quad that share
+// a row, l summed from the f32 probabilities.  O += P V is a wgmma
+// m64n64k16 per 16 keys and per 64 columns of hd, with P converted to bf16
+// in registers as the A operand (the accumulator layout of S is the
+// register layout of A) and V the B operand from shared memory, N-major,
+// through the transpose bit; O is rescaled by alpha in registers.  Only
+// out, lse and the tile count are written to device memory.
+//
+// B3, B4 and B2 in f32: one block of 256 threads (a 16 x 16 grid) per
+// (q-tile, head, batch) for fa_fwd / fa_bwd_dq and per (kv-tile, head,
+// batch) for fa_bwd_dkv; tiles are 64 x 64.  The block loops over the live
+// tiles of the other axis: the TPU's pl.when(_tile_live) skip becomes the
+// loop's bounds (lo / hi below, mirrored by _live_range in
+// flash_attention.py and checked there against the predicate).  Operand
+// tiles are staged in shared memory as f32 (row stride hd_pad + 1, so a
+// column walk hits 16 distinct banks); each thread owns a 4 x 4 piece of
+// the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and the same 4
+// rows of the accumulators (columns tx + 16 c), so a row's statistics (m,
+// l) live in the registers of the 16 threads of one half-warp and are
+// reduced with xor shuffles.  Inputs are read in place through the (B, S,
+// H, hd) layout; the ragged edges are masked in the kernel.  These kernels
+// do not use the tensor cores (no wgmma, no TMA, not even mma.sync): every
+// product is an f32 FMA on the CUDA cores, whose peak is 67 TFLOP/s, and
+// the 4 x 4 register tiles read two shared memory words per FMA pair, so
+// they run far from the bound.  Split in two kernels as on the TPU, the
+// backward must form s and dp in each: fa_bwd_dq alone does three products
 // (1.5x the forward), fa_bwd_dkv four (2x), so the pair is held to 3.5x and
 // the split costs 40 % over the backward's 2.5x.  chip_smoke.py reports
-// each kernel against its own count and the pair against 2.5x.  At
-// qwen2-0.5b's training shape (B 4, S 1024, Hq 14, hd 64, causal) the
-// forward is 7.5 GFLOP, 7.6 us, operations-bound.  These kernels do not
-// use the tensor cores (no wgmma, no TMA, no mma.sync): every product is an
-// f32 FMA on the CUDA cores, whose peak is 67 TFLOP/s, and the 4 x 4
-// register tiles read two shared memory words per FMA pair, so they run far
-// from that bound.  That is the
-// price of "simple and right first"; the time is written down in PERF.md.
-// What the design does do about the bound: it skips dead tiles entirely
-// (causal halves the work), never materialises the S x S matrices, reads
-// each K / V tile once per q-tile (and each Q / dO tile once per kv-tile),
-// and keeps every accumulator in registers.
+// each kernel against its own count and the pair against 2.5x.  What these
+// designs do about the bound: skip dead tiles entirely (causal halves the
+// work), never materialise the S x S matrices, read each K / V tile once
+// per q-tile (and each Q / dO tile once per kv-tile), and keep every
+// accumulator in registers.
+//
+// Determinism: no atomics; every sum is taken in a fixed order, so two
+// identical launches give identical bits (the engine's losslessness check
+// is bitwise).
 
+#include <cuda.h>  // CUtensorMap, the driver's enums: header only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,16 +159,18 @@ __device__ __forceinline__ float half_warp_max(float x) {
   return x;
 }
 
-// Live kv tiles [lo, hi] of q-tile qi (fa_fwd, fa_bwd_dq).
+// Live kv tiles [lo, hi] of q-tile qi for TQ x TK tiles (fa_fwd,
+// fa_bwd_dq: 64 x 64; fa_fwd_tc: 128 x 128).
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ void kv_range(int qi, int nk, int causal,
                                          int window, int* lo, int* hi) {
-  const int first_q = qi * BQ, last_q = first_q + BQ - 1;
+  const int first_q = qi * TQ, last_q = first_q + TQ - 1;
   *hi = nk - 1;
-  if (causal) *hi = min(*hi, last_q / BK);
+  if (causal) *hi = min(*hi, last_q / TK);
   *lo = 0;
   if (window > 0) {
-    const int x = first_q - window + 2 - BK;
-    if (x > 0) *lo = (x + BK - 1) / BK;
+    const int x = first_q - window + 2 - TK;
+    if (x > 0) *lo = (x + TK - 1) / TK;
   }
 }
 
@@ -266,8 +299,368 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lse[((int64_t)b * Hq + h) * Sq + row] =
           empty ? LSE_EMPTY : m[i] + logf(l[i]);
   }
-  if (threadIdx.x == 0)
+  if (threadIdx.x == 0 && tiles != nullptr)
     tiles[((int64_t)b * Hq + h) * gridDim.x + qi] = hi >= lo ? hi - lo + 1 : 0;
+}
+
+// ------------------------------------------------- B2, bf16, tensor cores
+constexpr int TC_BQ = 128;      // query rows per block: two warpgroups of 64
+constexpr int TC_BK = 128;      // keys per K / V tile
+constexpr int TC_STAGES = 2;    // K / V ring depth
+constexpr int TC_NT = 256;      // two consumer warpgroups
+constexpr int SW_ROW = 128;     // bytes of one 64-column bf16 swizzle row
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Returns once the phase of parity `parity` has completed.  A wait that
+// outlasts 2^22 tries (seconds) traps: a fault in the pipeline then ends
+// the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 22)) __trap();
+  }
+}
+
+// One TMA box of a 4-D map over (hd, H, S, B) into shared memory, counted
+// on `bar` in bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma descriptor of a tile of 128-byte rows in TMA's 128-byte swizzle:
+// 8-row groups 1024 bytes apart.  K-major operands (Q, K) take the group
+// stride from SBO; the N-major operand (V, transposed) takes its 8-key
+// stride from SBO too, and never spans two 64-column swizzle atoms in one
+// instruction, so LBO is never read; it is set to the same 1024 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads of an accumulator across the wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
+
+// d (64 x 128, f32) += A (64 x 16) B (16 x 128): A and B K-major in shared
+// memory.  Accumulator element i of thread t (warp w = t / 32, lane l) is
+// row 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4) + i % 2.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : F16(0), F16(16), F16(32), F16(48)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64): B
+// N-major in shared memory (the transpose bit).  A's four registers hold
+// (row r, k 2 (l % 4) + {0, 1}), (r + 8, same), (r, k + 8), (r + 8, k + 8)
+// with r = 16 w + l / 4, the lower column in the lower half.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : F16(0), F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F16
+#undef F4
+
+// 2^x on the special-function unit (inputs below -126 give 0, -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int NCB>
+__host__ __device__ constexpr int tc_q_bytes() { return NCB * TC_BQ * SW_ROW; }
+template <int NCB>
+__host__ __device__ constexpr int tc_kv_bytes() {  // one K or one V tile
+  return NCB * TC_BK * SW_ROW;
+}
+template <int NCB>
+constexpr size_t tc_fwd_smem() {   // + 1024 to align the tiles by hand
+  return 1024 + tc_q_bytes<NCB>() + 2 * TC_STAGES * tc_kv_bytes<NCB>() +
+         8 * (2 * TC_STAGES + 1);
+}
+
+// NCB 64-column blocks of the padded head dim (hd <= 64: 1, <= 128: 2).
+template <int NCB>
+__global__ void __launch_bounds__(TC_NT, 1)
+fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int* __restrict__ tiles, int Sq, int Sk, int Hq, int Hkv,
+                 int hd, int causal, int window, float scale_log2) {
+  constexpr int QB = tc_q_bytes<NCB>(), KVB = tc_kv_bytes<NCB>();
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t kv_s = q_s + QB;   // stage st: K at kv_s + 2 st KVB, V after
+  const uint32_t bar_s = kv_s + 2 * TC_STAGES * KVB;
+  // full[st] = bar_s + 8 st, empty[st] = bar_s + 8 (TC_STAGES + st)
+  const uint32_t q_bar = bar_s + 16 * TC_STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y, nq = gridDim.z;
+  const int qi = causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int first_q = qi * TC_BQ, wg_q = first_q + 64 * wg;
+  int lo, hi;
+  kv_range<TC_BQ, TC_BK>(qi, (Sk + TC_BK - 1) / TC_BK, causal, window, &lo,
+                         &hi);
+  const int n_tiles = hi >= lo ? hi - lo + 1 : 0;
+
+  auto load_kv = [&](int i) {     // tile lo + i into stage i % TC_STAGES
+    const int st = i % TC_STAGES, row0 = (lo + i) * TC_BK;
+    const uint32_t full = bar_s + 8 * st, k_dst = kv_s + 2 * st * KVB;
+    mbar_expect_tx(full, 2 * KVB);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load_4d(k_dst + cb * TC_BK * SW_ROW, &tm_k, full, 64 * cb, hk,
+                  row0, b);
+      tma_load_4d(k_dst + KVB + cb * TC_BK * SW_ROW, &tm_v, full, 64 * cb,
+                  hk, row0, b);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < TC_STAGES; ++st) {
+      mbar_init(bar_s + 8 * st, 1);
+      mbar_init(bar_s + 8 * (TC_STAGES + st), TC_NT);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, QB);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+      tma_load_4d(q_s + cb * TC_BQ * SW_ROW, &tm_q, q_bar, 64 * cb, h,
+                  first_q, b);
+    for (int i = 0; i < TC_STAGES && i < n_tiles; ++i) load_kv(i);
+  }
+
+  // this thread's rows of the block: r0 and r0 + 8
+  const int r0 = wg_q + 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float o[NCB][32];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  const uint32_t q_wg = q_s + wg * 64 * SW_ROW;
+
+  mbar_wait(q_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % TC_STAGES, ki = lo + i;
+    const uint32_t phase = (i / TC_STAGES) & 1;
+    const uint32_t k_t = kv_s + 2 * st * KVB, v_t = k_t + KVB;
+    mbar_wait(bar_s + 8 * st, phase);
+
+    // S = Q K^T over hd in steps of 16 (32 bytes of a swizzle row)
+    float s[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) s[j] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4 * NCB; ++t)
+      wgmma_ss_n128(s,
+                    sw128_desc(q_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
+                    sw128_desc(k_t + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+
+    // online softmax on the fragment: m in log2 units (m = max(s) scale
+    // log2(e), the scale positive), p = 2^(s scale log2(e) - m) by one FMA
+    const int k0 = ki * TC_BK;
+    const bool edge = k0 + TC_BK > Sk ||
+                      (causal && k0 + TC_BK - 1 > wg_q) ||
+                      (window > 0 && k0 <= wg_q + 63 - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        const int r = r0 + 8 * ((j >> 1) & 1);
+        const int c = k0 + 8 * (j >> 2) + c0 + (j & 1);
+        if (!visible(r, c, Sk, causal, window))
+          s[j] = __uint_as_float(0xff800000u);   // -inf
+      }
+    }
+    float mx[2] = {__uint_as_float(0xff800000u), __uint_as_float(0xff800000u)};
+#pragma unroll
+    for (int j = 0; j < 64; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+      const float m_new = fmaxf(m_r[x], mx[x] * scale_log2);
+      alpha[x] = ex2(m_r[x] - m_new);
+      m_r[x] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {   // masked: 2^-inf = 0
+      s[j] = ex2(fmaf(s[j], scale_log2, -m_r[(j >> 1) & 1]));
+      rs[(j >> 1) & 1] += s[j];
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      rs[x] += __shfl_xor_sync(0xffffffffu, rs[x], 1);
+      rs[x] += __shfl_xor_sync(0xffffffffu, rs[x], 2);
+      l_r[x] = alpha[x] * l_r[x] + rs[x];
+    }
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) o[cb][j] *= alpha[(j >> 1) & 1];
+
+    // P as bf16 A fragments: keys 16 t .. 16 t + 15 are S's columns 8 (2t)
+    // and 8 (2t + 1), registers 8 t .. 8 t + 7
+    uint32_t pa[TC_BK / 16][4];
+#pragma unroll
+    for (int t = 0; t < TC_BK / 16; ++t)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[t][x] = pack_bf16(s[8 * t + 2 * x], s[8 * t + 2 * x + 1]);
+
+    // O += P V over the tile's keys in steps of 16 (16 swizzle rows)
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < TC_BK / 16; ++t)
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb)
+        wgmma_rs_n64(o[cb], pa[t],
+                     sw128_desc(v_t + cb * TC_BK * SW_ROW + t * 16 * SW_ROW));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) reg_fence(o[cb]);
+
+    // release the stage; thread 0 refills it once all 256 threads have
+    mbar_arrive(bar_s + 8 * (TC_STAGES + st));
+    if (tid == 0 && i + TC_STAGES < n_tiles) {
+      mbar_wait(bar_s + 8 * (TC_STAGES + st), phase);
+      load_kv(i + TC_STAGES);
+    }
+    __syncwarp();
+  }
+
+  // epilogue: out = O / l (0 for a row that saw no key), lse, tile count
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int row = r0 + 8 * x;
+    if (row >= Sq) continue;
+    const bool empty = l_r[x] == 0.f;
+    __nv_bfloat16* o_row = out + row_off(b, row, h, Sq, Hq, hd);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cb + 8 * j + c0;
+        if (col < hd) {
+          const float a = empty ? 0.f : o[cb][4 * j + 2 * x] / l_r[x];
+          const float c = empty ? 0.f : o[cb][4 * j + 2 * x + 1] / l_r[x];
+          *reinterpret_cast<__nv_bfloat162*>(o_row + col) =
+              __floats2bfloat162_rn(a, c);
+        }
+      }
+    if ((lane & 3) == 0)
+      lse[((int64_t)b * Hq + h) * Sq + row] =
+          empty ? LSE_EMPTY : m_r[x] * LN2 + logf(l_r[x]);
+  }
+  if (tid == 0 && tiles != nullptr)
+    tiles[((int64_t)b * Hq + h) * nq + qi] = n_tiles;
 }
 
 // ------------------------------------------------------------------ B3
@@ -572,6 +965,75 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A bf16 (B, S, H, hd) tensor as a 4-D map over (hd, H, S, B) with boxes of
+// (64 columns, 1 head, `rows` rows, 1 batch) in 128-byte swizzle; reads
+// past S or hd fill with zeros.
+bool encode_bshd(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B,
+                 int S, int H, int hd, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
+                                 (cuuint64_t)S * H * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NCB>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* out,
+                  void* lse, void* tiles, int B, int Sq, int Sk, int Hq,
+                  int Hkv, int hd, int causal, int window, float scale,
+                  cudaStream_t stream) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_bshd(enc, &tm_q, q, B, Sq, Hq, hd, TC_BQ) ||
+      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, TC_BK) ||
+      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, TC_BK))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tc_fwd_smem<NCB>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_tc_kernel<NCB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hq, B, (Sq + TC_BQ - 1) / TC_BQ);   // q-tiles slowest
+  fa_fwd_tc_kernel<NCB><<<grid, TC_NT, smem, stream>>>(
+      tm_q, tm_k, tm_v, (__nv_bfloat16*)out, (float*)lse, (int*)tiles, Sq,
+      Sk, Hq, Hkv, hd, causal, window, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 // hd <= 32 / 64 / 128 -> padded width 32 / 64 / 128; dtype 0 = f32, 1 = bf16
 #define FA_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                   \
@@ -591,17 +1053,48 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// Tile sizes, for the wrapper's tile accounting.
+// Tile sizes, for the wrapper's tile accounting: fa_fwd (f32), fa_bwd_dq
+// and fa_bwd_dkv use 64 x 64, fa_fwd_tc (bf16) 128 x 128.
 int fa_block_q() { return BQ; }
 int fa_block_k() { return BK; }
+int fa_fwd_block_q() { return TC_BQ; }
+int fa_fwd_block_k() { return TC_BK; }
 
-// out (B,Sq,Hq,hd) in the input dtype, lse (B,Hq,Sq) f32, tiles
-// (B,Hq,ceil(Sq/64)) int32.  Returns cudaGetLastError() after the launch.
+// f32 only (dtype 0): out (B,Sq,Hq,hd) f32, lse (B,Hq,Sq) f32, tiles
+// (B,Hq,ceil(Sq/64)) int32 or null (not counted).  Returns
+// cudaGetLastError() after the launch.
 int fa_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
            void* tiles, int dtype, int B, int Sq, int Sk, int Hq, int Hkv,
            int hd, int causal, int window, float scale, void* stream) {
-  FA_DISPATCH(launch_fwd, q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv, hd,
-              causal, window, scale, (cudaStream_t)stream);
+  if (dtype != 0 || hd <= 0 || hd > 128) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (hd <= 32)
+    return launch_fwd<float, 32>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq,
+                                 Hkv, hd, causal, window, scale, st);
+  if (hd <= 64)
+    return launch_fwd<float, 64>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq,
+                                 Hkv, hd, causal, window, scale, st);
+  return launch_fwd<float, 128>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv,
+                                hd, causal, window, scale, st);
+}
+
+// bf16 only (dtype 1), on the tensor cores: hd a multiple of 8 (TMA needs
+// the row stride H hd 2 bytes to be a multiple of 16), at most 128; Sk > 0;
+// q, k, v 16-byte aligned.  out (B,Sq,Hq,hd) bf16, lse (B,Hq,Sq) f32, tiles
+// (B,Hq,ceil(Sq/128)) int32 or null (not counted).  Returns
+// cudaGetLastError() after the launch.
+int fa_fwd_tc(const void* q, const void* k, const void* v, void* out,
+              void* lse, void* tiles, int dtype, int B, int Sq, int Sk,
+              int Hq, int Hkv, int hd, int causal, int window, float scale,
+              void* stream) {
+  if (dtype != 1 || hd <= 0 || hd > 128 || hd % 8 != 0 || Sk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (hd <= 64)
+    return launch_fwd_tc<1>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv, hd,
+                            causal, window, scale, st);
+  return launch_fwd_tc<2>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv, hd,
+                          causal, window, scale, st);
 }
 
 // dq (B,Sq,Hq,hd) in the input dtype.

@@ -13,7 +13,10 @@ Three wrappers, one per kernel, each with the JAX package's layouts
 f32) and a plain integer ``launches`` counter:
 
 * :func:`flash_attention_fwd` (B2) — ``out``, optionally ``lse`` and the
-  executed-tile count;
+  executed-tile count.  It routes by dtype (:func:`fwd_route`): bf16 goes
+  to ``fa_fwd_tc``, the tensor-core kernel (``wgmma`` over TMA-fed tiles of
+  128 × 128, counted also in ``flash_attention_fwd.launches_tc``), f32 to
+  ``fa_fwd``, the CUDA-core kernel of 64 × 64 tiles;
 * :func:`flash_attention_bwd_dq` (B3) — ``dq``;
 * :func:`flash_attention_bwd_dkv` (B4) — per-query-head ``dk_h, dv_h``
   ``(B,Sk,Hq,hd)`` in the k / v dtype.
@@ -25,17 +28,19 @@ each kernel is its plain PyTorch version on whole matrices
 takes the plain version only for tensors that lie on the CPU; on a CUDA
 tensor it launches its kernel or raises.
 
-Tiles are 64 × 64 (``BLOCK_Q``, ``BLOCK_K``).  The TPU kernel's
-``pl.when(_tile_live)`` skip becomes loop bounds in the CUDA kernels;
-:func:`_live_range` mirrors those bounds here, and the tests hold them
-against :func:`_tile_live`.  The executed-tile count is one int32 per block,
-summed on demand (``count_tiles=True``); the plain version reports the same
-count from :func:`fa_tile_counts`, so the result does not depend on the
-device.
+Tiles are 64 × 64 (``BLOCK_Q``, ``BLOCK_K``) but for the bf16 forward's
+128 × 128 (``FWD_BLOCK_Q``, ``FWD_BLOCK_K``; :func:`fwd_blocks`).  The TPU
+kernel's ``pl.when(_tile_live)`` skip becomes loop bounds in the CUDA
+kernels; :func:`_live_range` mirrors those bounds here, and the tests hold
+them against :func:`_tile_live`.  The executed-tile count is one int32 per
+block, summed on demand (``count_tiles=True``); the plain version reports
+the same count from :func:`fa_tile_counts` at the tile sizes of the kernel
+its dtype routes to, so the result does not depend on the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -48,7 +53,8 @@ from repro_torch.kernels.ref import attention_mask
 __all__ = ["flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "fwd_plain", "bwd_dq_plain", "bwd_dkv_plain", "fa_tile_counts",
-           "BLOCK_Q", "BLOCK_K", "NEG_INF", "LSE_EMPTY"]
+           "fwd_route", "fwd_blocks", "BLOCK_Q", "BLOCK_K",
+           "FWD_BLOCK_Q", "FWD_BLOCK_K", "NEG_INF", "LSE_EMPTY"]
 
 NEG_INF = -1e30
 # LSE filler for rows that saw no valid key (and for padded Q rows in the
@@ -56,6 +62,8 @@ NEG_INF = -1e30
 LSE_EMPTY = 1e30
 BLOCK_Q = 64          # must equal BQ / BK in csrc/flash_attention.cu
 BLOCK_K = 64
+FWD_BLOCK_Q = 128     # bf16 forward: must equal TC_BQ / TC_BK there
+FWD_BLOCK_K = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -115,6 +123,32 @@ def _live_range(tile: int, n_other: int, *, kv_loop: bool, causal: bool,
     return lo, hi
 
 
+def fwd_route(dtype: torch.dtype, hd: int) -> str:
+    """Which B2 kernel serves a CUDA call: ``"wgmma"`` (``fa_fwd_tc``, bf16
+    on the tensor cores) or ``"simt"`` (``fa_fwd``, f32 on the CUDA cores).
+    Raises ``ValueError`` for a bf16 head dim that TMA cannot address
+    (``hd % 8``: the row stride ``H·hd·2`` bytes must be a multiple of 16) or
+    that the kernel does not hold (``hd > 128``)."""
+    if dtype == torch.bfloat16:
+        if hd % 8:
+            raise ValueError(f"flash_attention_fwd: bf16 head dim {hd} is not "
+                             f"a multiple of 8, so TMA cannot address its "
+                             f"rows (their stride H*hd*2 bytes must be a "
+                             f"multiple of 16)")
+        if not 0 < hd <= 128:
+            raise ValueError(f"flash_attention_fwd: bf16 head dim {hd} "
+                             f"outside (0, 128]")
+        return "wgmma"
+    return "simt"
+
+
+def fwd_blocks(dtype: torch.dtype) -> Tuple[int, int]:
+    """(query, key) tile sizes of the B2 kernel that ``dtype`` routes to."""
+    if dtype == torch.bfloat16:
+        return FWD_BLOCK_Q, FWD_BLOCK_K
+    return BLOCK_Q, BLOCK_K
+
+
 # ----------------------------------------------------------- plain versions
 def _heads(x, group=1):
     """(B,S,H,hd) -> f32 (B,H·group,S,hd), each head repeated ``group``
@@ -130,7 +164,10 @@ def _scores(q, k, scale):
 
 def fwd_plain(q, k, v, *, causal: bool = True, window: int = 0):
     """B2's plain version on whole matrices: ``(out, lse, tiles)`` with
-    ``tiles`` the count of executed 64 × 64 tiles (Python int)."""
+    ``tiles`` the count of executed tiles (Python int) at the tile sizes of
+    the kernel that q's dtype routes to (:func:`fwd_blocks`).  For a bf16
+    ``v`` the probabilities are rounded to bf16 before the product with v,
+    as the tensor-core kernel does; ``l`` sums the f32 probabilities."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     s = _scores(q, k, hd ** -0.5)
@@ -139,11 +176,12 @@ def fwd_plain(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     empty = l == 0.0
-    acc = torch.matmul(p, _heads(v, Hq // Hkv))
+    pv = p.to(torch.bfloat16).float() if v.dtype == torch.bfloat16 else p
+    acc = torch.matmul(pv, _heads(v, Hq // Hkv))
     out = torch.where(empty, 0.0, acc / torch.where(empty, 1.0, l))
     lse = torch.where(empty, LSE_EMPTY,
                       m + torch.log(torch.where(empty, 1.0, l)))[..., 0]
-    tiles = B * Hq * fa_tile_counts(Sq, Sk, BLOCK_Q, BLOCK_K, causal,
+    tiles = B * Hq * fa_tile_counts(Sq, Sk, *fwd_blocks(q.dtype), causal,
                                     window)[0]
     return out.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse, tiles
 
@@ -191,14 +229,20 @@ def _lib():
     # dtype, B, Sq, Sk, Hq, Hkv, hd, causal, window, scale, stream
     shape = [I] * 9 + [F, P]
     lib.fa_fwd.argtypes = [P] * 6 + shape
+    lib.fa_fwd_tc.argtypes = [P] * 6 + shape
     lib.fa_bwd_dq.argtypes = [P] * 7 + shape
     lib.fa_bwd_dkv.argtypes = [P] * 8 + shape
-    for fn in (lib.fa_fwd, lib.fa_bwd_dq, lib.fa_bwd_dkv, lib.fa_block_q,
-               lib.fa_block_k):
+    for fn in (lib.fa_fwd, lib.fa_fwd_tc, lib.fa_bwd_dq, lib.fa_bwd_dkv,
+               lib.fa_block_q, lib.fa_block_k, lib.fa_fwd_block_q,
+               lib.fa_fwd_block_k):
         fn.restype = I
     if (lib.fa_block_q(), lib.fa_block_k()) != (BLOCK_Q, BLOCK_K):
         raise RuntimeError("csrc/flash_attention.cu tile sizes differ from "
                            "BLOCK_Q / BLOCK_K")
+    if (lib.fa_fwd_block_q(), lib.fa_fwd_block_k()) != (FWD_BLOCK_Q,
+                                                         FWD_BLOCK_K):
+        raise RuntimeError("csrc/flash_attention.cu forward tile sizes "
+                           "differ from FWD_BLOCK_Q / FWD_BLOCK_K")
     return lib
 
 
@@ -238,9 +282,17 @@ def _check(name, q, k, v, do=None, lse=None, delta=None):
 
 def _shape_args(q, k, causal, window):
     B, Sq, Hq, hd = q.shape
+    # the current stream's handle, without building a Stream object
     return (_DTYPES[q.dtype], B, Sq, k.shape[1], Hq, k.shape[2], hd,
             int(bool(causal)), int(window), hd ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch._C._cuda_getCurrentRawStream(q.device.index))
+
+
+def _on(device):
+    """The device guard of a launch: none when ``device`` is current."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -248,23 +300,33 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     """B2.  q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd) → out (B, Sq, Hq, hd)
     in q's dtype; with ``return_lse`` also ``lse`` (B, Hq, Sq) f32; with
     ``count_tiles`` also the number of executed tiles (an int; reading it
-    waits for the kernel)."""
+    waits for the kernel).  On a CUDA tensor bf16 launches the tensor-core
+    kernel and f32 the CUDA-core one (:func:`fwd_route`)."""
     if q.device.type == "cpu":
         out, lse, tiles = fwd_plain(q, k, v, causal=causal, window=window)
     else:
         _check("flash_attention_fwd", q, k, v)
-        B, Sq, Hq, _ = q.shape
+        B, Sq, Hq, hd = q.shape
+        tc = fwd_route(q.dtype, hd) == "wgmma"
+        if tc and (k.shape[1] == 0 or any(t.data_ptr() % 16
+                                          for t in (q, k, v))):
+            raise ValueError("flash_attention_fwd: the bf16 kernel reads "
+                             "q, k, v by TMA, which needs Sk > 0 and "
+                             "16-byte-aligned tensors")
         out = torch.empty_like(q)
         lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-        slots = torch.empty((B, Hq, -(-Sq // BLOCK_Q)), dtype=torch.int32,
-                            device=q.device)
+        slots = torch.empty((B, Hq, -(-Sq // fwd_blocks(q.dtype)[0])),
+                            dtype=torch.int32, device=q.device) \
+            if count_tiles else None       # the kernel counts only if asked
         if out.numel():
-            with torch.cuda.device(q.device):
-                _cuda.call(_lib().fa_fwd, q.data_ptr(), k.data_ptr(),
-                           v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                           slots.data_ptr(),
+            fn = _lib().fa_fwd_tc if tc else _lib().fa_fwd
+            with _on(q.device):
+                _cuda.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), lse.data_ptr(),
+                           slots.data_ptr() if count_tiles else None,
                            *_shape_args(q, k, causal, window))
             flash_attention_fwd.launches += 1
+            flash_attention_fwd.launches_tc += tc
         tiles = int(slots.sum(dtype=torch.int64)) if count_tiles else None
     res = (out,)
     if return_lse:
@@ -274,7 +336,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     return res if len(res) > 1 else out
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fwd.launches = 0      # every launch of B2
+flash_attention_fwd.launches_tc = 0   # those of the tensor-core kernel
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -287,7 +350,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     _check("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     if dq.numel():
-        with torch.cuda.device(q.device):
+        with _on(q.device):
             _cuda.call(_lib().fa_bwd_dq, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                        delta.data_ptr(), dq.data_ptr(),
@@ -311,7 +374,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     dk_h = torch.empty((B, Sk, Hq, hd), dtype=k.dtype, device=k.device)
     dv_h = torch.empty_like(dk_h)
     if dk_h.numel():
-        with torch.cuda.device(q.device):
+        with _on(q.device):
             _cuda.call(_lib().fa_bwd_dkv, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                        delta.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),

@@ -7,13 +7,20 @@ packages:
 
 * the plain forward (``out``, ``lse``, executed-tile count) against
   ``flash_attention_fwd(..., interpret=True, return_lse=True,
-  count_tiles=True)`` with the port's 64 × 64 tiles;
+  count_tiles=True)`` with the tiles of the port's kernel for the dtype
+  (f32 64 × 64, bf16 128 × 128), and the plain forward's rounding of the
+  probabilities to bf16 for a bf16 ``v`` (only then);
 * the plain backward (dq, dk, dv) against ``flash_attention_bwd(...,
   interpret=True)``;
 * the ``torch.autograd.Function`` binding's gradients against
   ``torch.autograd`` through ``attention_ref``;
 * ``fa_tile_counts`` against the JAX package's, and the CUDA kernels' loop
-  bounds (``_live_range``) against the tile predicate;
+  bounds (``_live_range``) against the tile predicate, at 64 × 64 and at
+  the bf16 forward's 128 × 128;
+* the forward's route by dtype and head dim (``fwd_route``);
+* the tensor-core kernel's register and shared-memory maps (``wgmma``
+  fragments, TMA's 128-byte swizzle, the descriptors' offsets) mirrored in
+  Python, held against plain products of one tile;
 * the fallback on CPU tensors counted and warned once.
 
 Grid and tolerances are those of ``tests/test_kernels.py``: forward f32
@@ -21,6 +28,7 @@ Grid and tolerances are those of ``tests/test_kernels.py``: forward f32
 """
 
 import warnings
+from typing import Tuple
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,17 +86,20 @@ def f32(x):
     return np.asarray(x, np.float32)
 
 
-FWD_CASES = [("float32", s, m) for s in SHAPES for m in MASKS] + \
-            [("bfloat16", s, m) for s in SHAPES[1:4:2] for m in MASKS]
+FWD_CASES = [(dtype, s, m) for dtype in ("float32", "bfloat16")
+             for s in SHAPES for m in MASKS]
 
 
 @pytest.mark.parametrize("dtype,shape,mask", FWD_CASES)
 def test_plain_forward_matches_jax_kernel(dtype, shape, mask):
+    """The JAX kernel runs at the tiles of the port's kernel for the dtype
+    (it clamps a tile to a shorter sequence; the count stays one tile)."""
     causal, window = mask
     q, k, v = inputs(*shape, seed=sum(shape))
+    bq, bk = fa.fwd_blocks(to_torch(q[:0], dtype).dtype)
     jo, jl, jt = jax_fwd(*(to_jax(a, dtype) for a in (q, k, v)),
                          causal=causal, window=window,
-                         block_q=fa.BLOCK_Q, block_k=fa.BLOCK_K,
+                         block_q=bq, block_k=bk,
                          return_lse=True, count_tiles=True, interpret=True)
     to, tl, tt = fa.flash_attention_fwd(
         *(to_torch(a, dtype) for a in (q, k, v)), causal=causal,
@@ -189,6 +200,206 @@ def test_kernel_loop_bounds_are_the_live_tiles(S, causal, window):
         by_k |= {(qi, ki) for qi in range(lo, hi + 1)}
     assert by_q == live == by_k
     assert len(live) == fa.fa_tile_counts(S, S, bq, bk, causal, window)[0]
+
+
+@pytest.mark.parametrize("S", [64, 96, 128, 130, 1024, 2048])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 1),
+                                           (True, 48), (True, 127),
+                                           (True, 128), (True, 300),
+                                           (False, 100)])
+def test_forward_loop_bounds_are_the_live_tiles(S, causal, window):
+    """The bf16 forward's loop bounds (``kv_range<128, 128>``, mirrored by
+    ``_live_range`` at ``fwd_blocks``) cover exactly the live tiles, and
+    their count is the JAX package's at the same tiles."""
+    bq, bk = fa.fwd_blocks(torch.bfloat16)
+    assert (bq, bk) == (fa.FWD_BLOCK_Q, fa.FWD_BLOCK_K) == (128, 128)
+    nq, nk = -(-S // bq), -(-S // bk)
+    live = {(qi, ki) for qi in range(nq) for ki in range(nk)
+            if fa._tile_live(qi, ki, causal=causal, window=window, bq=bq,
+                             bk=bk, seq_k=S)}
+    by_q = set()
+    for qi in range(nq):
+        lo, hi = fa._live_range(qi, nk, kv_loop=True, causal=causal,
+                                window=window, bq=bq, bk=bk)
+        by_q |= {(qi, ki) for ki in range(lo, hi + 1)}
+    assert by_q == live
+    assert fa.fa_tile_counts(S, S, bq, bk, causal, window) == \
+        jax_tile_counts(S, S, bq, bk, causal, window)
+    assert len(live) == fa.fa_tile_counts(S, S, bq, bk, causal, window)[0]
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 8, "wgmma"), (torch.float32, 64, "simt"),
+    (torch.float32, 20, "simt"), (torch.float32, 128, "simt")])
+def test_forward_routes_by_dtype(dtype, hd, route):
+    assert fa.fwd_route(dtype, hd) == route
+    assert fa.fwd_blocks(dtype) == ((128, 128) if route == "wgmma"
+                                    else (fa.BLOCK_Q, fa.BLOCK_K))
+
+
+@pytest.mark.parametrize("hd,match", [(20, "multiple of 8"),
+                                      (100, "multiple of 8"),
+                                      (136, "outside"), (256, "outside")])
+def test_forward_route_refuses_what_tma_cannot_address(hd, match):
+    with pytest.raises(ValueError, match=match):
+        fa.fwd_route(torch.bfloat16, hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plain_forward_rounds_probabilities_for_bf16_v_only(dtype):
+    """For a bf16 ``v`` the plain forward rounds ``p`` to bf16 before
+    ``p·v`` (as the tensor-core kernel does) and keeps ``l`` from the f32
+    ``p``; for an f32 ``v`` it keeps ``p`` in f32."""
+    q, k, v = (torch.tensor(a).to(dtype)
+               for a in inputs(2, 96, 4, 2, 32, seed=11))
+    out, lse, _ = fa.fwd_plain(q, k, v, causal=True)
+    s = fa._scores(q, k, 32 ** -0.5)
+    mask = fa.attention_mask(96, 96, True, 0, q.device)
+    m = s.masked_fill(~mask, fa.NEG_INF).amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    vh = fa._heads(v, 2)
+    ref = {rounded: (torch.matmul(p.to(torch.bfloat16).float() if rounded
+                                  else p, vh) / l).permute(0, 2, 1, 3)
+           for rounded in (True, False)}
+    want = ref[dtype == torch.bfloat16].to(dtype)
+    assert torch.equal(out, want)
+    assert torch.equal(lse, (m + torch.log(l))[..., 0])
+    # the rounding shows before the output's own rounding
+    assert not torch.equal(ref[True], ref[False])
+
+
+# The tensor-core kernel's maps: plain-Python mirrors of what
+# fa_fwd_tc_kernel (csrc/flash_attention.cu) relies on, held against a
+# plain product below.  A warpgroup is 128 threads; ``tid`` is the
+# thread's index in it (warp tid // 32, lane tid % 32).
+def wgmma_acc_coord(tid: int, i: int) -> Tuple[int, int]:
+    """(row, column) of f32 accumulator register ``i`` of thread ``tid`` in
+    a ``wgmma`` m64nN product."""
+    warp, lane = tid // 32, tid % 32
+    return (16 * warp + lane // 4 + 8 * ((i // 2) % 2),
+            8 * (i // 4) + 2 * (lane % 4) + i % 2)
+
+
+def wgmma_a_coord(tid: int, reg: int, half: int) -> Tuple[int, int]:
+    """(row, k) of the bf16 in half ``half`` (0: the low 16 bits) of A
+    register ``reg`` (0–3) of thread ``tid`` in a ``wgmma`` m64nNk16 that
+    reads A from registers."""
+    warp, lane = tid // 32, tid % 32
+    return (16 * warp + lane // 4 + 8 * (reg % 2),
+            8 * (reg // 2) + 2 * (lane % 4) + half)
+
+
+def p_fragment_source(t: int, reg: int, half: int) -> int:
+    """The S accumulator register that the kernel packs into half ``half``
+    of A register ``reg`` for P·V's k-step ``t`` (keys 16t … 16t+15):
+    ``pa[t][reg] = pack(s[8t + 2 reg], s[8t + 2 reg + 1])``."""
+    return 8 * t + 2 * reg + half
+
+
+def sw128_offset(byte: int) -> int:
+    """The 128-byte swizzle of TMA and of ``wgmma``'s descriptors, on a byte
+    offset from a 1024-aligned tile: the 16-byte chunk (bits 4–6) XOR the
+    row within its 8-row group (bits 7–9)."""
+    return byte ^ (((byte >> 7) & 7) << 4)
+
+
+def tma_offset(row: int, col: int, rows: int) -> int:
+    """Unswizzled byte offset at which the kernel's TMA boxes put element
+    (``row``, ``col``) of a bf16 tile of ``rows`` rows: one box of 64
+    columns (128-byte rows) after another."""
+    return (col // 64) * rows * 128 + row * 128 + (col % 64) * 2
+
+
+def desc_start(operand: str, t: int, *, wg: int = 0, cb: int = 0) -> int:
+    """Start offset of the kernel's descriptor for k-step ``t``: ``"q"``
+    (warpgroup ``wg``'s 64 rows, hd columns 16t …), ``"k"`` (all 128 keys,
+    hd columns 16t …) or ``"v"`` (keys 16t …, columns 64cb …)."""
+    if operand == "q":
+        return wg * 64 * 128 + (t // 4) * fa.FWD_BLOCK_Q * 128 + (t % 4) * 32
+    if operand == "k":
+        return (t // 4) * fa.FWD_BLOCK_K * 128 + (t % 4) * 32
+    return cb * fa.FWD_BLOCK_K * 128 + t * 16 * 128
+
+
+def desc_offset(start: int, mn: int, k: int, *, k_major: bool) -> int:
+    """Unswizzled byte offset that a 128-byte-swizzle descriptor starting at
+    ``start`` (8-row groups 1024 bytes apart) names for element (``mn``,
+    ``k``) of one k16 step: K-major, row ``mn`` and its ``k``-th of 16
+    elements; N-major (the transpose bit), row ``k`` and its ``mn``-th of
+    64 columns."""
+    if k_major:
+        return start + (mn // 8) * 1024 + (mn % 8) * 128 + 2 * k
+    return start + (k // 8) * 1024 + (k % 8) * 128 + 2 * mn
+
+
+def _tma_tile(x, rows):
+    """The bf16 slots of shared memory that the kernel's TMA boxes fill
+    with tile ``x`` (``rows`` × 64·ncb), 128-byte swizzle applied."""
+    r, c = np.meshgrid(np.arange(x.shape[0]), np.arange(x.shape[1]),
+                       indexing="ij")
+    off = np.vectorize(sw128_offset)(np.vectorize(tma_offset)(
+        r, c, rows))
+    slots = np.full(x.size, np.nan)
+    slots[off // 2] = x
+    assert not np.isnan(slots).any()          # every slot written once
+    return slots
+
+
+def _desc_read(slots, start, n_mn, k_major):
+    """(n_mn, 16) matrix of a k16 step that a descriptor at ``start``
+    names: element (mn, k)."""
+    mn, kk = np.meshgrid(np.arange(n_mn), np.arange(16), indexing="ij")
+    off = np.vectorize(desc_offset)(start, mn, kk, k_major=k_major)
+    return slots[np.vectorize(sw128_offset)(off) // 2]
+
+
+def _bf16_values(rng, shape):
+    return torch.tensor(rng.normal(size=shape)).to(torch.bfloat16).double(
+        ).numpy()
+
+
+@pytest.mark.parametrize("ncb", [1, 2])
+def test_tensor_core_maps_reproduce_the_tile_products(ncb):
+    """One 128 × 128 tile of the bf16 forward, hd padded to 64·ncb: Q, K,
+    V placed as TMA leaves them, read back through the kernel's
+    descriptors k-step by k-step, give Q·Kᵀ; an accumulator spread over
+    the threads by the ``wgmma`` map and packed into A fragments as the
+    kernel packs P gives back the same matrix, and its product with V read
+    N-major gives P·V (bf16 values: every sum exact in f64)."""
+    rng = np.random.default_rng(ncb)
+    hdp, bq, bk = 64 * ncb, fa.FWD_BLOCK_Q, fa.FWD_BLOCK_K
+    Q, K, V = (_bf16_values(rng, (n, hdp)) for n in (bq, bk, bk))
+    sq, sk, sv = _tma_tile(Q, bq), _tma_tile(K, bk), _tma_tile(V, bk)
+    tid, reg = np.meshgrid(np.arange(128), np.arange(bk // 2), indexing="ij")
+    rows, cols = np.vectorize(wgmma_acc_coord)(tid, reg)
+    assert len(set(zip(rows.ravel(), cols.ravel()))) == 64 * bk
+    for wg in (0, 1):
+        S = sum(_desc_read(sq, desc_start("q", t, wg=wg), 64, True)
+                @ _desc_read(sk, desc_start("k", t), bk, True).T
+                for t in range(4 * ncb))
+        np.testing.assert_array_equal(S, Q[64 * wg:64 * wg + 64] @ K.T)
+
+        P = _bf16_values(rng, (64, bk))
+        acc = P[rows, cols]                      # (thread, register)
+        A = np.full((64, bk), np.nan)
+        for t in range(bk // 16):
+            for r in range(4):
+                for half in range(2):
+                    a_rows, a_k = np.vectorize(wgmma_a_coord)(
+                        np.arange(128), r, half)
+                    assert np.isnan(A[a_rows, 16 * t + a_k]).all()
+                    A[a_rows, 16 * t + a_k] = acc[
+                        :, p_fragment_source(t, r, half)]
+        np.testing.assert_array_equal(A, P)
+        O = np.zeros((64, hdp))
+        for t in range(bk // 16):
+            for cb in range(ncb):
+                Bv = _desc_read(sv, desc_start("v", t, cb=cb), 64, False)
+                O[:, 64 * cb:64 * cb + 64] += A[:, 16 * t:16 * t + 16] @ Bv.T
+        np.testing.assert_array_equal(O, P @ V)
 
 
 def test_rows_without_keys_give_zero_output_and_empty_lse():
