@@ -37,38 +37,38 @@ Phases, each printing one JSON line:
    and read just after, and must equal steps × 114 leaves (``main_path``).
 5. ``step`` / ``profile`` — where a ResNet56 step's time goes, and the
    device's busy and idle share over one 8-step chunk.
-6. ``attention_kernels`` — the flash-attention kernels B2 (forward: bf16
-   on the tensor cores, ``fa_fwd_tc``; f32 on the CUDA cores, ``fa_fwd``),
-   B3 (dq) and B4 (per-query-head dk / dv), built by ``nvcc`` from
-   ``src/repro_torch/kernels/csrc/flash_attention.cu``, against their plain
-   versions over MHA / GQA 4:1 / MQA / ragged 96 / head dim 32, 64, 128 ×
-   causal, non-causal, window 48 × f32 and bf16 (forward f32 2e-5; bf16
-   ``out`` by ``p_rounding_rule`` against the plain version with f32
-   probabilities — one bf16 ulp + 2^-16 × scale + what rounding each
-   probability to bf16 can move, 2^-8 (p/l)|v| —, lse atol 2e-5 + rtol
-   2e-5; gradients f32 atol 2e-4 + rtol 2e-3, bf16
-   2e-2), each run twice and required bit-equal, executed tiles equal to
-   ``fa_tile_counts`` at the tiles of the kernel the dtype routes to
-   (every bf16 case on the tensor-core kernel, every f32 one on the other);
-   then at the main path's own shape, qwen2-0.5b's (B 4, S 1024, Hq 14, Hkv
-   2, hd 64, causal, bf16): again against the plain versions on the same
-   inputs (B2's out by the same rule; dq / dk_h / dv_h within one bf16 ulp
-   beyond 2^-16 of the tensor's largest value, lse atol 2e-5 + rtol 2e-5),
-   twice bit-equal, tiles counted; timed there beside the plain versions,
-   each kernel's bound, the backward's bound as a whole, and the library's
-   flash forward and flash backward (yardsticks the package never calls),
-   the earlier CUDA-core B2's time beside, marked as a figure from the
-   record; and B2 at hd 128, qwen3-8b's attention (B 1, S 2048, Hq 32,
-   Hkv 8, causal), checked and timed beside SDPA the same way.
-   ``lm_small``: qwen2-0.5b reduced (f32) on the card, loss and gradients
-   through the kernels against the plain attention path (atol 1e-5 /
-   1e-4), B2 on the CUDA-core kernel only.
+6. ``attention_kernels`` — the flash-attention kernels B2 (forward), B3
+   (dq) and B4 (per-query-head dk / dv), built by ``nvcc`` from
+   ``src/repro_torch/kernels/csrc/flash_attention.cu``: bf16 on the tensor
+   cores (``fa_fwd_tc``, ``fa_bwd_dq_tc``, ``fa_bwd_dkv_tc``), f32 on the
+   CUDA cores (``fa_fwd``, ``fa_bwd_dq``, ``fa_bwd_dkv``).  Against their
+   plain versions over MHA / GQA 4:1 / MQA / ragged 96 / head dim 32, 64,
+   128 × causal, non-causal, window 48 × f32 and bf16 (forward f32 2e-5;
+   bf16 ``out``, ``dq``, ``dk_h``, ``dv_h`` by ``rounding_rule`` against
+   the plain version on the inputs cast to f32 — one bf16 ulp + 2^-16 ×
+   scale + what rounding p or dS to bf16 before a product can move, 2^-8
+   × (p/l)|v|, |dS||K|, |dS|ᵀ|Q|, pᵀ|dO| —, lse atol 2e-5 + rtol 2e-5;
+   gradients also f32 atol 2e-4 + rtol 2e-3, bf16 2e-2), each run twice
+   and required bit-equal, executed tiles equal to ``fa_tile_counts`` at
+   the tiles of the kernel the dtype routes to (every bf16 case on the
+   tensor-core kernels, every f32 one on the others, counted); then at the
+   main path's own shape, qwen2-0.5b's (B 4, S 1024, Hq 14, Hkv 2, hd 64,
+   causal, bf16), and at qwen3-8b's hd-128 attention (B 1, S 2048, Hq 32,
+   Hkv 8, causal): again against the plain versions on the same inputs by
+   the same rules, twice bit-equal, tiles counted, and the backward within
+   2e-2 of the library's; timed there beside the plain versions, each
+   kernel's bound, the backward's bound as a whole, and the library's flash
+   forward and flash backward (yardsticks the package never calls), the
+   earlier CUDA-core kernels' times beside, marked as figures from the
+   record.  ``lm_small``: qwen2-0.5b reduced (f32) on the card, loss and
+   gradients through the kernels against the plain attention path (atol
+   1e-5 / 1e-4), B2–B4 on the CUDA-core kernels only.
 7. ``lm_study`` — the SHA study of ``examples/torch_hpo_lm.py`` at full
    width, stage-based then trial-based (the first run's checkpoints are
    dropped before the second starts); every launch count is zeroed just
    before and read just after: B2 = 24 × (steps + evaluations) = 1,392,
-   every one on the tensor-core kernel, B3 = B4 = 24 × steps, B1 = 14
-   leaves × steps, no SSD launch, no fallback, fewer
+   B3 = B4 = 24 × steps = 1,152, every one on the tensor-core kernels, B1
+   = 14 leaves × steps, no SSD launch, no fallback, fewer
    steps stage-based, the same best trial and every reported metric
    bit-equal across modes.
 8. ``lm_update`` / ``lm_step`` / ``lm_profile`` — the AdamW update of the
@@ -142,6 +142,12 @@ QWEN3 = dict(B=1, S=2048, Hq=32, Hkv=8, hd=128)   # qwen3-8b's, at hd 128
 # printed as such in the attention_kernels line and never in the kernels
 # line; it cannot be measured here, since that instantiation is gone.
 B2_CUDA_CORE_MS = 0.615
+# B3 and B4 at the same shape before the tensor-core kernels: the CUDA-core
+# kernels' bf16 instantiations, medians of five runs on an NVIDIA H100 80GB
+# HBM3, 700.00 W (PERF.md, kernel table); figures from the record, printed
+# as such, as B2's above.
+B3_CUDA_CORE_MS = 0.746
+B4_CUDA_CORE_MS = 0.971
 LM_FULL = dict(batch=4, seq_len=1024, n_train=256, n_eval=8)
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_REPLACES = {"B5": "src/repro/kernels/ssd_scan.py:87",
@@ -272,22 +278,24 @@ def at_scale(a, b, f32_rule):
     return row, ulps <= 1.0
 
 
-def p_rounding_rule(a, ref, env):
-    """B2's bf16 ``out`` against its plain version with f32 probabilities
-    (``fwd_plain`` on the same inputs cast to f32; ``ref`` f32).  The
-    kernel rounds every probability to bf16 before p·v, as the bf16 plain
-    version does, but the two round on different grids, for two causes:
-    their f32 probabilities differ in the last bits (scores summed in
-    other orders; exp2 of log2-scaled scores), and, in a row that spans
-    more than one key tile, the kernel rounds against the running max and
-    then rescales its accumulator by a factor that is not a power of 2, so
-    most of that row's probabilities round to another neighbour.  Hence
-    the reference here is the unrounded one, and the allowance only the
-    kernel's own rounding: each probability moves by at most half a bf16
-    ulp, 2^-8 of itself, so an output moves by at most 2^-8 · ``env`` with
-    ``env = (p/l)·|v|`` in f32.  Allowed per element: that, plus one bf16
-    ulp of the value (the output's own rounding) and 2^-16 of the
-    tensor's largest value (f32 sums in another order).
+def rounding_rule(a, ref, env, reference, env_text):
+    """A bf16 output of a tensor-core kernel against its plain version on
+    the inputs cast to f32 (``ref``, f32).  The kernel rounds an
+    intermediate to bf16 before a product: B2 every probability before
+    p·v (``env = (p/l)·|v|``), B3 / B4 dS before dS·K and dSᵀ·Q (``env``
+    = |dS|·|K|, |dS|ᵀ·|Q|) and p before pᵀ·dO (``env = pᵀ·|dO|``), as the
+    library's kernels do.  Each rounded value moves by at most half a bf16
+    ulp, 2^-8 of itself, so an output moves by at most 2^-8 · ``env``, the
+    same product on absolute values, in f32.  Allowed per element: that,
+    plus one bf16 ulp of the value (the output's own rounding) and 2^-16
+    of the tensor's largest value (f32 sums in another order).  The
+    reference is the unrounded one, not a plain version that rounds too,
+    because the two would round on different grids: their f32
+    intermediates differ in the last bits (sums in other orders; exp2 of
+    log2-scaled scores), and, in a row that spans more than one key tile,
+    B2 rounds p against the running max and then rescales its accumulator
+    by a factor that is not a power of 2, so most of that row's
+    probabilities round to another neighbour.
     Returns (the row to print, whether it holds)."""
     assert a.shape == ref.shape == env.shape
     assert a.dtype == torch.bfloat16 and ref.dtype == torch.float32
@@ -299,10 +307,46 @@ def p_rounding_rule(a, ref, env):
     ratio = float((diff / (scale * 2 ** -16 + ulp + 2 ** -8 * env)).max())
     return ({"max_abs_err": float(diff.max()), "scale": scale,
              "err_over_scale": float(diff.max()) / scale,
-             "max_err_over_allowed": ratio,
-             "reference": "fwd_plain on the inputs cast to f32 (f32 p)",
-             "tolerance": "1 bf16 ulp + 2^-16 x scale + 2^-8 x (p/l)|v|"},
+             "max_err_over_allowed": ratio, "reference": reference,
+             "tolerance": f"1 bf16 ulp + 2^-16 x scale + 2^-8 x {env_text}"},
             ratio <= 1.0)
+
+
+def p_rounding_rule(a, ref, env):
+    """B2's bf16 ``out`` by :func:`rounding_rule` against ``fwd_plain``
+    with f32 probabilities, ``env = (p/l)·|v|``."""
+    return rounding_rule(a, ref, env,
+                         "fwd_plain on the inputs cast to f32 (f32 p)",
+                         "(p/l)|v|")
+
+
+def ds_rounding_rule(fa, q, k, v, do, lse, delta, got, mk):
+    """B3's dq and B4's dk_h, dv_h (``got``, bf16) by :func:`rounding_rule`
+    against the plain backward on the inputs cast to f32 (f32 p and dS),
+    with ``env`` = |dS|·|K|, |dS|ᵀ·|Q| and pᵀ·|dO|.  Returns {name: row}
+    and whether all three hold."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    p, ds = fa._probs_and_ds(qf, kf, vf, lse, delta, dof, mk["causal"],
+                             mk["window"])
+    group = q.shape[2] // k.shape[2]
+    kh, qh, doh = fa._heads(kf, group), fa._heads(qf), fa._heads(dof)
+    del qf, kf, vf, dof
+    pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
+    parts = {"dq": (lambda: ds @ kh, lambda: ds.abs() @ kh.abs(),
+                    "|dS||K|"),
+             "dk_h": (lambda: dst @ qh, lambda: dst.abs() @ qh.abs(),
+                      "|dS|^T|Q|"),
+             "dv_h": (lambda: pt @ doh, lambda: pt @ doh.abs(),
+                      "P^T|dO|")}
+    rows, ok_all = {}, True
+    for name, a in zip(("dq", "dk_h", "dv_h"), got):
+        ref_fn, env_fn, env_text = parts[name]
+        row, ok = rounding_rule(
+            a, ref_fn().transpose(1, 2), env_fn().transpose(1, 2),
+            "the plain backward on the inputs cast to f32 (f32 p, dS)",
+            env_text)
+        rows[name], ok_all = row, ok_all and ok
+    return rows, ok_all
 
 
 def device_profile(fn, n_steps, chunk_ms, match=None, top=8):
@@ -813,8 +857,110 @@ def b2_case(fa, q, k, v, lse_rule, label):
         "library_vs_kernel_err_over_scale": lib_err}
 
 
+def bwd_case(fa, q, k, v, do, out, lse, label):
+    """B3 and B4 in bf16 at a main path's shape (causal), fed B2's ``lse``:
+    two launches of each bit-equal, every one on the tensor-core kernels;
+    dq, dk_h, dv_h by ``ds_rounding_rule`` against the plain versions and
+    within 2e-2 of the largest value of the library's flash backward (a
+    yardstick the package never calls); each kernel timed by CUDA events
+    and by the profiler beside its plain version and its bound, the pair
+    beside the library's backward and the backward's bound as a whole.
+    Returns ({"B3": row, "B4": row}, the pair's row)."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    kern = {"B3": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+            "B4": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                     delta)}
+    plain = {"B3": lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta),
+             "B4": lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta)}
+    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    tc0 = [w.launches_tc for w in wrappers]
+    got = (kern["B3"](),) + kern["B4"]()
+    again = (kern["B3"](),) + kern["B4"]()
+    torch.cuda.synchronize()
+    assert [w.launches_tc - t for w, t in zip(wrappers, tc0)] == [2, 2], label
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), ("two launches differ", label)
+    del again
+    vs_plain, ok = ds_rounding_rule(fa, q, k, v, do, lse, delta, got,
+                                    dict(causal=True, window=0))
+    assert ok, ("B3 / B4 disagree with their plain versions", label,
+                vs_plain)
+
+    # yardstick only — the package never calls it: the library's flash
+    # backward alone, on its own forward's residuals, over K / V repeated
+    # onto the query heads: one call that computes what B3 and B4 compute
+    # together (dq and the per-query-head dk_h, dv_h; bf16 P and dS)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    ke, ve = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
+    res = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, ke, ve, 0.0, True, False)
+
+    def sdpa_bwd():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, ke, ve, res[0], res[1], res[2], res[3], res[4], res[5],
+            0.0, True, res[6], res[7])
+
+    lib_err = {}
+    for name, a, b in zip(("dq", "dk_h", "dv_h"), sdpa_bwd(), got):
+        a = a.transpose(1, 2)
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        lib_err[name] = float((a.float() - b.float()).abs().max()) / float(
+            b.float().abs().max())
+        assert lib_err[name] <= 2e-2, ("yardstick differs", name, lib_err)
+    del got
+
+    e_bf16, e_f32 = 2, 4
+    n_q, n_kv, n_row = B * S * Hq * hd, B * S * Hkv * hd, B * Hq * S
+    fwd_flops = 4.0 * B * Hq * S * S * hd * 0.5                 # causal
+    # (flops, bytes) of each backward kernel's function: each input read
+    # once, each output written once.  Alone, B3 must recompute s and dp
+    # and form ds·K (three products of the forward's two: 1.5x); B4 must
+    # recompute them and form dsᵀ·Q and pᵀ·dO (2x).
+    work = {"B3": (1.5 * fwd_flops,
+                   e_bf16 * (3 * n_q + 2 * n_kv) + e_f32 * 2 * n_row),
+            "B4": (2.0 * fwd_flops,
+                   e_bf16 * (4 * n_q + 2 * n_kv) + e_f32 * 2 * n_row)}
+    rows = {}
+    for key, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        rows[key] = {
+            "ms": time_ms(kern[key], reps=20, warm=3),
+            "device_ms": device_ms(kern[key]),
+            "wrapper_host_us": launch_us(kern[key]),
+            "plain_ms": time_ms(plain[key], reps=5, warm=1),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+    # the backward as a whole (the repo's numerator,
+    # benchmarks/bench_kernels.py:68-74): five products, s and dp formed
+    # once, 2.5x the forward's flops and bytes
+    bwd_flops = 2.5 * fwd_flops
+    bwd_bytes = 2.5 * e_bf16 * (2 * n_q + 2 * n_kv)
+    t_ops, t_bytes = bwd_flops / BF16_FLOP_PER_S, bwd_bytes / HBM_BYTES_PER_S
+    pair_ms = rows["B3"]["ms"] + rows["B4"]["ms"]
+    lib_ms = time_ms(sdpa_bwd, reps=20, warm=3)
+    dev = [rows[key]["device_ms"] for key in ("B3", "B4")]
+    pair = {"shape": label, "ms": pair_ms,
+            "device_ms": sum(dev) if all(isinstance(x, float) for x in dev)
+            else "not measured",
+            "library_ms": lib_ms, "library_device_ms": device_ms(sdpa_bwd),
+            "ms_over_library_ms": pair_ms / lib_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": bwd_flops, "bytes": bwd_bytes,
+            "per_kernel_bound_ms": rows["B3"]["bound_ms"]
+            + rows["B4"]["bound_ms"],
+            "library": "aten._scaled_dot_product_flash_attention_backward"
+                       " over K / V repeated onto the query heads",
+            "vs_plain": vs_plain, "library_vs_kernel_err_over_scale": lib_err}
+    return rows, pair
+
+
 def attention_phase(join_build):
-    """B2–B4 on the grid and at qwen2-0.5b's shape; returns their rows."""
+    """B2–B4 on the grid and at qwen2-0.5b's and qwen3-8b's shapes;
+    returns their rows."""
     from repro_torch.kernels import flash_attention as fa
     build_s = join_build("flash_attention")
     fa._lib()                                   # load, check tile sizes
@@ -832,8 +978,10 @@ def attention_phase(join_build):
               for k in ("B2", "B3", "B4")}
     fa_cases = 0
     grid_b2_bf16 = {"max_err_over_allowed": 0.0, "lse_max_abs_err": 0.0}
-    tc0, all0 = fa.flash_attention_fwd.launches_tc, \
-        fa.flash_attention_fwd.launches
+    grid_bwd_bf16 = {"dq": 0.0, "dk_h": 0.0, "dv_h": 0.0}
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    n0 = [(w.launches, w.launches_tc) for w in wrappers]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         f32 = dtype == torch.float32
@@ -884,6 +1032,14 @@ def attention_phase(join_build):
                                  ("lse_max_abs_err", lse_err)):
                         grid_b2_bf16[x] = max(grid_b2_bf16[x], y)
                     b2_pairs = ()
+                    # B3 / B4 in bf16: the tensor-core kernels, bf16 p, dS
+                    rows, ok = ds_rounding_rule(fa, q, k, v, do, lse, delta,
+                                                (dqs[0],) + dkvs[0], mk)
+                    assert ok, ("B3 / B4 disagree with their plain "
+                                "versions", case, rows)
+                    for name, row in rows.items():
+                        grid_bwd_bf16[name] = max(
+                            grid_bwd_bf16[name], row["max_err_over_allowed"])
                 for key, pairs, (atol, rtol) in b2_pairs + (
                         ("B3", ((dqs[0], p_dq),), grad_tol),
                         ("B4", ((dkvs[0][0], p_dk), (dkvs[0][1], p_dv)),
@@ -896,94 +1052,31 @@ def attention_phase(join_build):
                                     f"version", case, err)
                 fa_cases += 1
     n_grid = len(FA_SHAPES) * len(FA_MASKS)
-    # each case launches B2 twice: f32 on the CUDA-core kernel, bf16 on the
-    # tensor-core one
-    assert fa.flash_attention_fwd.launches_tc - tc0 == 2 * n_grid
-    assert fa.flash_attention_fwd.launches - all0 == 4 * n_grid
+    # each case launches B2, B3 and B4 twice each: f32 on the CUDA-core
+    # kernels, bf16 on the tensor-core ones
+    for w, (all0, tc0) in zip(wrappers, n0):
+        assert w.launches - all0 == 4 * n_grid, w.__name__
+        assert w.launches_tc - tc0 == 2 * n_grid, w.__name__
 
-    # the main path's own shape: qwen2-0.5b's training attention (GQA 7,
-    # causal, bf16); B3 / B4 fed B2's lse, each within one bf16 ulp beyond
-    # 2^-16 of its largest value; then B2 at hd 128, qwen3-8b's attention
+    # the main path's own shapes, bf16, causal: qwen2-0.5b's training
+    # attention (GQA 7), then qwen3-8b's at hd 128; B3 / B4 fed B2's lse
     B, S, Hq, Hkv, hd = (QWEN[x] for x in ("B", "S", "Hq", "Hkv", "hd"))
     shape_s = f"B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, hd {hd}, causal, bf16"
     q, k, v, do = fa_inputs(B, S, Hq, Hkv, hd, torch.bfloat16)
     out, lse, b2_main = b2_case(fa, q, k, v, lse_rule, shape_s)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
-    dk_h, dv_h = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-    again = ((fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),)
-             + fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
-    p_dq = fa.bwd_dq_plain(q, k, v, do, lse, delta)
-    p_dk, p_dv = fa.bwd_dkv_plain(q, k, v, do, lse, delta)
-    torch.cuda.synchronize()
-    for a, b in zip((dq, dk_h, dv_h), again):
-        assert torch.equal(a, b), ("two launches differ", shape_s)
-    main_err = {"B2": b2_main["vs_plain"]}
-    for key, name, a, b in (("B3", "dq", dq, p_dq),
-                            ("B4", "dk_h", dk_h, p_dk),
-                            ("B4", "dv_h", dv_h, p_dv)):
-        row, ok = at_scale(a, b, lse_rule)
-        main_err.setdefault(key, {})[name] = row
-        assert ok, (f"{key} disagrees with its plain version at the main "
-                    f"path's shape", name, row)
-    del again, p_dq, p_dk, p_dv
+    bwd_rows, pair = bwd_case(fa, q, k, v, do, out, lse, shape_s)
+    main_err = {"B2": b2_main["vs_plain"],
+                "B3": {"dq": pair["vs_plain"]["dq"]},
+                "B4": {x: pair["vs_plain"][x] for x in ("dk_h", "dv_h")}}
+    del q, k, v, do, out, lse
+    free()
+    shape3 = ("B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, hd {hd}, causal, bf16 "
+              "(qwen3-8b)".format(**QWEN3))
     q3 = fa_inputs(*(QWEN3[x] for x in ("B", "S", "Hq", "Hkv", "hd")),
-                   torch.bfloat16)[:3]
-    hd128 = b2_case(fa, *q3, lse_rule, "B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, "
-                    "hd {hd}, causal, bf16 (qwen3-8b)".format(**QWEN3))[2]
-    del q3
-
-    # yardstick only — the package never calls it: the library's flash
-    # backward alone, on its own forward's residuals, over K / V repeated
-    # onto the query heads: one call that computes what B3 and B4 compute
-    # together (dq and the per-query-head dk_h, dv_h)
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    ke, ve = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
-    res = torch.ops.aten._scaled_dot_product_flash_attention(
-        qt, ke, ve, 0.0, True, False)
-
-    def sdpa_bwd():
-        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            dot, qt, ke, ve, res[0], res[1], res[2], res[3], res[4], res[5],
-            0.0, True, res[6], res[7])
-
-    # the yardsticks compute the same functions (bf16 P, dS)
-    lib_err = {"out": b2_main["library_vs_kernel_err_over_scale"]}
-    for name, a, b in zip(("dq", "dk_h", "dv_h"), sdpa_bwd(),
-                          (dq, dk_h, dv_h)):
-        a = a.transpose(1, 2)
-        assert a.shape == b.shape, (name, a.shape, b.shape)
-        lib_err[name] = float((a.float() - b.float()).abs().max()) / float(
-            b.float().abs().max())
-        assert lib_err[name] <= 2e-2, ("yardstick differs", name, lib_err)
-
-    e_bf16, e_f32 = 2, 4
-    n_q, n_kv, n_row = B * S * Hq * hd, B * S * Hkv * hd, B * Hq * S
-    fwd_flops = b2_main["flops"]
-    # (flops, bytes) of each backward kernel's function: each input read
-    # once, each output written once.  Alone, B3 must recompute s and dp
-    # and form ds·K (three products of the forward's two: 1.5x); B4 must
-    # recompute them and form dsᵀ·Q and pᵀ·dO (2x).
-    work = {
-        "B3": (1.5 * fwd_flops,
-               e_bf16 * (3 * n_q + 2 * n_kv) + e_f32 * 2 * n_row),
-        "B4": (2.0 * fwd_flops,
-               e_bf16 * (4 * n_q + 2 * n_kv) + e_f32 * 2 * n_row)}
-    # the backward as a whole (the repo's numerator,
-    # benchmarks/bench_kernels.py:68-74): five products, s and dp formed
-    # once, 2.5x the forward's flops and bytes
-    bwd_flops = 2.5 * fwd_flops
-    bwd_bytes = 2.5 * e_bf16 * (2 * n_q + 2 * n_kv)
-    bwd_bound_ms = max(bwd_flops / BF16_FLOP_PER_S,
-                       bwd_bytes / HBM_BYTES_PER_S) * 1e3
-    fa_fn = {
-        "B3": (fa.flash_attention_bwd_dq,
-               lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-               lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta)),
-        "B4": (fa.flash_attention_bwd_dkv,
-               lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-               lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta))}
-    lib_bwd_ms = time_ms(sdpa_bwd, reps=20, warm=3)
+                   torch.bfloat16)
+    out3, lse3, hd128 = b2_case(fa, *q3[:3], lse_rule, shape3)
+    bwd3_rows, pair3 = bwd_case(fa, *q3, out3, lse3, shape3)
+    del q3, out3, lse3
 
     def kernel_row(key, name):
         return {"name": name, "route": "cuda", "source": FA_SOURCE,
@@ -1003,40 +1096,35 @@ def attention_phase(join_build):
         library="F.scaled_dot_product_attention(enable_gqa=True)",
         route_bf16="wgmma (fa_fwd_tc)", route_f32="simt (fa_fwd)",
         grid_bf16=grid_b2_bf16, qwen3_8b_hd128=hd128)}
-    for key, (wrapper, kern, plain_fn) in fa_fn.items():
-        flops, nbytes = work[key]
-        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    for key, wrapper, route in (
+            ("B3", fa.flash_attention_bwd_dq, "fa_bwd_dq"),
+            ("B4", fa.flash_attention_bwd_dkv, "fa_bwd_dkv")):
         rows[key] = dict(
-            kernel_row(key, wrapper.__name__),
-            ms=time_ms(kern, reps=20, warm=3),
-            plain_ms=time_ms(plain_fn, reps=5, warm=1),
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            kernel_row(key, wrapper.__name__), **bwd_rows[key],
             # no one library call computes dq alone or dk_h / dv_h alone:
             # the library's backward is held against B3 + B4 together in
             # the attention_kernels line
-            library_ms=None, library=None, flops=flops, bytes=nbytes)
-    b2 = rows["B2"]
-    backward = {"ms": rows["B3"]["ms"] + rows["B4"]["ms"],
-                "bound_ms": bwd_bound_ms, "bound_by": "operations"
-                if bwd_flops / BF16_FLOP_PER_S >= bwd_bytes / HBM_BYTES_PER_S
-                else "bytes",
-                "flops": bwd_flops, "bytes": bwd_bytes,
-                "per_kernel_bound_ms": rows["B3"]["bound_ms"]
-                + rows["B4"]["bound_ms"],
-                "library_ms": lib_bwd_ms,
-                "library": "aten._scaled_dot_product_flash_attention_backward"
-                           " over K / V repeated onto the query heads"}
+            library_ms=None, library=None,
+            route_bf16=f"wgmma ({route}_tc)", route_f32=f"simt ({route})",
+            grid_bf16_max_err_over_allowed={
+                x: grid_bwd_bf16[x] for x in (
+                    ("dq",) if key == "B3" else ("dk_h", "dv_h"))},
+            qwen3_8b_hd128=dict(bwd3_rows[key], shape=shape3))
     emit({"phase": "attention_kernels",
           "build_seconds": build_s, "cases": fa_cases,
           "bit_equal_twice": True, "tiles_equal_fa_tile_counts": True,
+          "bf16_on_tensor_cores": ["B2", "B3", "B4"],
           "max_abs_err": fa_err, "shape": shape_s,
+          "grid_bf16_max_err_over_allowed": dict(
+              grid_bwd_bf16, out=grid_b2_bf16["max_err_over_allowed"]),
           "main_shape_vs_plain": main_err,
-          "library_vs_kernel_err_over_scale": lib_err,
+          "library_vs_kernel_err_over_scale": dict(
+              pair["library_vs_kernel_err_over_scale"],
+              out=b2_main["library_vs_kernel_err_over_scale"]),
           "timing": {key: {x: r[x] for x in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}
                      for key, r in rows.items()},
-          "b2": dict({x: b2[x] for x in (
+          "b2": dict({x: rows["B2"][x] for x in (
               "ms", "library_ms", "ms_over_library_ms", "device_ms",
               "library_device_ms", "wrapper_host_us", "library_host_us",
               "grid_bf16", "qwen3_8b_hd128")},
@@ -1045,15 +1133,28 @@ def attention_phase(join_build):
                   "what": "the CUDA-core kernel's bf16 instantiation "
                           "at this shape, median of four runs (PERF.md); "
                           "not measured here, it is gone"}),
-          "backward_b3_plus_b4": backward})
+          "backward_b3_plus_b4": dict(
+              {x: y for x, y in pair.items() if x != "vs_plain"},
+              device_ms_by_kernel={key: bwd_rows[key]["device_ms"]
+                                   for key in ("B3", "B4")},
+              cuda_core_ms_not_from_this_run={
+                  "B3": B3_CUDA_CORE_MS, "B4": B4_CUDA_CORE_MS,
+                  "B3_plus_B4": B3_CUDA_CORE_MS + B4_CUDA_CORE_MS,
+                  "what": "the CUDA-core kernels' bf16 instantiations at "
+                          "this shape, medians of five runs (PERF.md); "
+                          "not measured here, they are gone"}),
+          "backward_b3_plus_b4_qwen3_8b_hd128": dict(
+              {x: y for x, y in pair3.items() if x != "vs_plain"},
+              vs_plain=pair3["vs_plain"],
+              cuda_core_ms_not_from_this_run="none in the record")})
     return rows
 
 
 def lm_small_phase(phase, arch, tokens, seed, attention):
     """A reduced LM (f32) on the card through the kernels' autograd
     bindings against its plain path: loss and every gradient leaf, at the
-    CPU tests' tolerances against the JAX package.  With ``attention``, B2
-    must have run, in f32 on the CUDA-core kernel only."""
+    CPU tests' tolerances against the JAX package.  With ``attention``, B2,
+    B3 and B4 must have run, in f32 on the CUDA-core kernels only."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.transformer import LM
@@ -1065,8 +1166,9 @@ def lm_small_phase(phase, arch, tokens, seed, attention):
         0, cfg.vocab_size, tokens,
         generator=torch.Generator().manual_seed(seed)).to(DEV)}
     got = {}
-    n0, tc0 = (fa.flash_attention_fwd.launches,
-               fa.flash_attention_fwd.launches_tc)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    n0 = [(w.launches, w.launches_tc) for w in wrappers]
     for use_kernel in (True, False):
         (loss, _), grads = value_and_grad(
             LM(cfg, use_kernel=use_kernel).loss, params, batch)
@@ -1076,11 +1178,15 @@ def lm_small_phase(phase, arch, tokens, seed, attention):
                    for a, b in zip(got[True][1], got[False][1]))
     assert all(bool(g.isfinite().all()) for g in got[True][1])
     assert loss_err <= 1e-5 and grad_err <= 1e-4, (loss_err, grad_err)
-    b2_f32 = fa.flash_attention_fwd.launches - n0
-    assert fa.flash_attention_fwd.launches_tc == tc0     # never the bf16 one
-    assert (b2_f32 > 0) == attention, b2_f32
+    f32_launches = {w.__name__: w.launches - all0
+                    for w, (all0, _) in zip(wrappers, n0)}
+    for w, (_, tc0) in zip(wrappers, n0):       # never the bf16 kernels
+        assert w.launches_tc == tc0, w.__name__
+    assert all((n > 0) == attention for n in f32_launches.values()), \
+        f32_launches
     emit({"phase": phase, "model": f"{arch} reduced",
-          "b2_launches": b2_f32, "b2_tensor_core_launches": 0,
+          "attention_launches": f32_launches,
+          "attention_tensor_core_launches": 0,
           "layers": cfg.num_layers, "dtype": cfg.dtype,
           "tokens": list(tokens), "loss": float(got[True][0]),
           "kernel_vs_plain_loss_err": loss_err, "loss_atol": 1e-5,
@@ -1123,9 +1229,12 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
                 ssk.ssd_intra_fwd, ssk.ssd_intra_bwd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    tc_counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                   fa.flash_attention_bwd_dkv)
     for c in counters:                          # counts to 0 just before
         c.launches = 0
-    fa.flash_attention_fwd.launches_tc = 0
+    for c in tc_counters:
+        c.launches_tc = 0
     runs = {}
     for share in (True, False):
         evals0 = backend.evaluations
@@ -1151,7 +1260,7 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
         free()
         torch.cuda.reset_peak_memory_stats()
     launches = {c.__name__: c.launches for c in counters}   # just after
-    b2_tc = fa.flash_attention_fwd.launches_tc
+    launches_tc = {c.__name__: c.launches_tc for c in tc_counters}
     calls, fallbacks = kops.KERNEL_STATS.snapshot()
     peak = max(r["peak"] for r in runs.values())
 
@@ -1164,8 +1273,9 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
     expected["stacked_leaf_update"] = n_leaves * steps
     assert fallbacks == 0, kops.KERNEL_STATS.reasons
     assert launches == expected, (launches, expected, steps, evals)
-    # a bf16 model's forwards all went through the tensor-core kernel
-    assert b2_tc == launches["flash_attention_fwd"], (b2_tc, launches)
+    # a bf16 model's attention all went through the tensor-core kernels
+    assert launches_tc == {name: launches[name] for name in launches_tc}, (
+        launches_tc, launches)
     assert calls == steps + L * (steps + evals), (calls, steps, evals)
     s_run, t_run = runs[True], runs[False]
     assert s_run["stats"].steps_run < t_run["stats"].steps_run
@@ -1195,7 +1305,7 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
               "steps_per_second": r["stats"].steps_run / r["wall"],
               "peak_device_memory_gib": r["peak"] / 2 ** 30}
               for share, r in runs.items()},
-          "launches": launches, "b2_tensor_core_launches": b2_tc,
+          "launches": launches, "tensor_core_launches": launches_tc,
           "kernel_calls": calls,
           "kernel_fallbacks": fallbacks, "expected": text,
           "best_trial": s_run["best"], "same_best_trial": True,
@@ -1304,8 +1414,11 @@ def qwen2_phase(fa_rows, b1_resnet):
                       "heads": [cfg.num_heads, cfg.num_kv_heads],
                       "vocab": cfg.vocab_size})
     assert backend.task.cfg == cfg
-    # 24 layers x (48 steps + 10 evaluations), all on the tensor cores
+    # 24 layers x (48 steps + 10 evaluations) forwards, 24 x 48 backwards,
+    # all on the tensor cores (lm_study holds launches_tc to these)
     assert launches["flash_attention_fwd"] == 1392, launches
+    assert launches["flash_attention_bwd_dq"] == 1152, launches
+    assert launches["flash_attention_bwd_dkv"] == 1152, launches
     b1_row = lm_update_phase(backend, b1_resnet)
     b1_row["launches"] = launches["stacked_leaf_update"]
     attn_ms = cfg.num_layers * sum(fa_rows[k]["ms"]

@@ -2,10 +2,12 @@
 // backward per-query-head dk / dv (B4), hand-written CUDA C++.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
-//   fa_fwd_tc   <- _fa_kernel          (flash_attention_fwd, :100 / :202), bf16
-//   fa_fwd      <- _fa_kernel          (the same function), f32
-//   fa_bwd_dq   <- _fa_bwd_dq_kernel   (flash_attention_bwd, :242 / :386)
-//   fa_bwd_dkv  <- _fa_bwd_dkv_kernel  (flash_attention_bwd, :287 / :406)
+//   fa_fwd_tc      <- _fa_kernel         (flash_attention_fwd, :100 / :202), bf16
+//   fa_fwd         <- _fa_kernel         (the same function), f32
+//   fa_bwd_dq_tc   <- _fa_bwd_dq_kernel  (flash_attention_bwd, :242 / :386), bf16
+//   fa_bwd_dq      <- _fa_bwd_dq_kernel  (the same function), f32
+//   fa_bwd_dkv_tc  <- _fa_bwd_dkv_kernel (flash_attention_bwd, :287 / :406), bf16
+//   fa_bwd_dkv     <- _fa_bwd_dkv_kernel (the same function), f32
 //
 // What they compute (q (B,Sq,Hq,hd), k/v (B,Sk,Hkv,hd), f32 or bf16, f32
 // math; query head h reads KV head h / (Hq/Hkv); scale = hd^-0.5; a key is
@@ -22,6 +24,8 @@
 //   fa_bwd_dkv dk_h = sum over live q tiles of ds^T q, dv_h = p^T dO, per
 //              QUERY head; the GQA group sum stays outside, in torch, in a
 //              fixed order, as in the JAX package.
+//   In bf16 the backward (the _tc kernels) rounds p and ds to bf16 before
+//   the products dv, dk and dq, as the library's flash backward does.
 // delta = rowsum(dO * O) is computed outside (torch), as in the JAX package.
 //
 // Bound on an H100 SXM (the JAX package's roofline numerators,
@@ -61,6 +65,30 @@
 // through the transpose bit; O is rescaled by alpha in registers.  Only
 // out, lse and the tile count are written to device memory.
 //
+// B3 and B4 in bf16, fa_bwd_dq_tc_kernel / fa_bwd_dkv_tc_kernel: the split
+// of the TPU kernels is kept (each block owns its output: no atomics, no
+// partial dq summed across blocks), on B2's machinery: TMA maps over (hd,
+// H, S, B), a 2-stage mbarrier ring, 128-byte-swizzle descriptors, two
+// consumer warpgroups of 64 rows, loads issued by thread 0.  Each of the
+// five products is one wgmma form: S = Q K^T and dP = dO V^T (B3), S^T =
+// K Q^T and dP^T = V dO^T (B4) with both operands K-major in shared
+// memory; dQ += dS K, dV += P^T dO and dK += dS^T Q with the A operand
+// from registers (the accumulator layout of S / S^T is the A layout, so
+// P and dS are packed to bf16 in place) and B N-major through the
+// transpose bit, the same K / Q / dO tile read through a second
+// descriptor.  B3 takes a q-tile of 128 rows and walks K / V tiles of 128
+// keys (heaviest q-tiles first under causal masking), B4 a kv-tile of 128
+// keys and walks Q / dO tiles of 64 rows (m64n64 products: four 128-row
+// accumulators at hd 128 would not fit in 255 registers); P = 2^(s scale
+// log2(e) - lse log2(e)) by one FMA, masked with -inf only on edge tiles,
+// the rows' lse / delta (B3) or the columns' (B4, 16 per thread, guarded
+// plain loads: TMA cannot map a ragged (B, Hq, Sq) f32 row) read into
+// registers, a row past Sq read as LSE_EMPTY / 0.  scale multiplies dq
+// and dk once, in the epilogue.  The products run in series (commit, then
+// wait) within a warpgroup; the other warpgroup and the next tile's loads
+// overlap them.  Split in two, the pair does 3.5x the forward's flops
+// (s and dp formed in each) against the backward's 2.5x.
+//
 // B3, B4 and B2 in f32: one block of 256 threads (a 16 x 16 grid) per
 // (q-tile, head, batch) for fa_fwd / fa_bwd_dq and per (kv-tile, head,
 // batch) for fa_bwd_dkv; tiles are 64 x 64.  The block loops over the live
@@ -73,19 +101,19 @@
 // rows of the accumulators (columns tx + 16 c), so a row's statistics (m,
 // l) live in the registers of the 16 threads of one half-warp and are
 // reduced with xor shuffles.  Inputs are read in place through the (B, S,
-// H, hd) layout; the ragged edges are masked in the kernel.  These kernels
-// do not use the tensor cores (no wgmma, no TMA, not even mma.sync): every
-// product is an f32 FMA on the CUDA cores, whose peak is 67 TFLOP/s, and
-// the 4 x 4 register tiles read two shared memory words per FMA pair, so
-// they run far from the bound.  Split in two kernels as on the TPU, the
-// backward must form s and dp in each: fa_bwd_dq alone does three products
-// (1.5x the forward), fa_bwd_dkv four (2x), so the pair is held to 3.5x and
-// the split costs 40 % over the backward's 2.5x.  chip_smoke.py reports
-// each kernel against its own count and the pair against 2.5x.  What these
-// designs do about the bound: skip dead tiles entirely (causal halves the
-// work), never materialise the S x S matrices, read each K / V tile once
-// per q-tile (and each Q / dO tile once per kv-tile), and keep every
-// accumulator in registers.
+// H, hd) layout; the ragged edges are masked in the kernel.  These f32
+// kernels do not use the tensor cores (no wgmma, no TMA, not even
+// mma.sync): every product is an f32 FMA on the CUDA cores, whose peak is
+// 67 TFLOP/s, and the 4 x 4 register tiles read two shared memory words
+// per FMA pair, so they run far from the bound.  Split in two kernels as
+// on the TPU, the backward must form s and dp in each: fa_bwd_dq alone
+// does three products (1.5x the forward), fa_bwd_dkv four (2x), so the
+// pair is held to 3.5x and the split costs 40 % over the backward's 2.5x.
+// chip_smoke.py reports each kernel against its own count and the pair
+// against 2.5x.  What every design here does about the bound: skip dead
+// tiles entirely (causal halves the work), never materialise the S x S
+// matrices, read each K / V tile once per q-tile (and each Q / dO tile
+// once per kv-tile), and keep every accumulator in registers.
 //
 // Determinism: no atomics; every sum is taken in a fixed order, so two
 // identical launches give identical bits (the engine's losslessness check
@@ -105,16 +133,9 @@ constexpr float NEG = -1e30f;
 constexpr float LSE_EMPTY = 1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // Row `s` of head `h` of a contiguous (B, S, H, hd) tensor.
@@ -174,17 +195,19 @@ __device__ __forceinline__ void kv_range(int qi, int nk, int causal,
   }
 }
 
-// Live q tiles [lo, hi] of kv-tile ki (fa_bwd_dkv).
+// Live q tiles [lo, hi] of kv-tile ki for TQ x TK tiles (fa_bwd_dkv:
+// 64 x 64; fa_bwd_dkv_tc: 64 x 128).
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ void q_range(int ki, int nq, int causal,
                                         int window, int* lo, int* hi) {
-  const int first_k = ki * BK, last_k = first_k + BK - 1;
+  const int first_k = ki * TK, last_k = first_k + TK - 1;
   *lo = 0;
   if (causal) {
-    const int x = first_k - BQ + 1;
-    if (x > 0) *lo = (x + BQ - 1) / BQ;
+    const int x = first_k - TQ + 1;
+    if (x > 0) *lo = (x + TQ - 1) / TQ;
   }
   *hi = nq - 1;
-  if (window > 0) *hi = min(*hi, (last_k + window - 1) / BQ);
+  if (window > 0) *hi = min(*hi, (last_k + window - 1) / TQ);
 }
 
 // ------------------------------------------------------------------ B2
@@ -306,7 +329,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ------------------------------------------------- B2, bf16, tensor cores
 constexpr int TC_BQ = 128;      // query rows per block: two warpgroups of 64
 constexpr int TC_BK = 128;      // keys per K / V tile
-constexpr int TC_STAGES = 2;    // K / V ring depth
+constexpr int TC_STAGES = 2;    // tile ring depth (K / V; B4: Q / dO)
 constexpr int TC_NT = 256;      // two consumer warpgroups
 constexpr int SW_ROW = 128;     // bytes of one 64-column bf16 swizzle row
 constexpr float LOG2E = 1.4426950408889634f;
@@ -349,6 +372,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (done) return;
     if (tries == (1u << 22)) __trap();
   }
+}
+
+// The tile ring's barriers at bar_s: full[st] = bar_s + 8 st (one arrival,
+// the expect_tx of the thread that loads the stage) and empty[st] = bar_s +
+// 8 (TC_STAGES + st) (all TC_NT threads), and `once` (one arrival) for the
+// tiles loaded once.  Thread 0 initialises them; every thread returns after
+// the block has synchronised.
+__device__ __forceinline__ void ring_init(uint32_t bar_s, uint32_t once) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < TC_STAGES; ++st) {
+      mbar_init(bar_s + 8 * st, 1);
+      mbar_init(bar_s + 8 * (TC_STAGES + st), TC_NT);
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 }
 
 // One TMA box of a 4-D map over (hd, H, S, B) into shared memory, counted
@@ -440,6 +481,25 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64): A and B K-major in shared
+// memory; the accumulator map is wgmma_ss_n128's over 64 columns.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : F16(0), F16(16)
+      : "l"(da), "l"(db), "r"(1));
+}
+
 #undef F16
 #undef F4
 
@@ -510,16 +570,7 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   };
 
-  if (tid == 0) {
-#pragma unroll
-    for (int st = 0; st < TC_STAGES; ++st) {
-      mbar_init(bar_s + 8 * st, 1);
-      mbar_init(bar_s + 8 * (TC_STAGES + st), TC_NT);
-    }
-    mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring_init(bar_s, q_bar);
   if (tid == 0) {
     mbar_expect_tx(q_bar, QB);
 #pragma unroll
@@ -661,6 +712,400 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   if (tid == 0 && tiles != nullptr)
     tiles[((int64_t)b * Hq + h) * nq + qi] = n_tiles;
+}
+
+// ------------------------------------------ B3 and B4, bf16, tensor cores
+constexpr int DKV_BQ = 64;      // fa_bwd_dkv_tc: query rows per Q / dO tile
+
+template <int NCB>
+__host__ __device__ constexpr int tc_qt_bytes() {  // one Q or dO tile of B4
+  return NCB * DKV_BQ * SW_ROW;
+}
+template <int NCB>
+constexpr size_t tc_dq_smem() {
+  return 1024 + 2 * tc_q_bytes<NCB>() + 2 * TC_STAGES * tc_kv_bytes<NCB>() +
+         8 * (2 * TC_STAGES + 1);
+}
+template <int NCB>
+constexpr size_t tc_dkv_smem() {
+  return 1024 + 2 * tc_kv_bytes<NCB>() + 2 * TC_STAGES * tc_qt_bytes<NCB>() +
+         8 * (2 * TC_STAGES + 1);
+}
+
+// B3: one block per (q-tile of 128 rows, head, batch), q-tiles heaviest
+// first under causal masking; Q and dO by TMA once, K / V tiles of 128 keys
+// through the ring.  Per tile S = Q K^T and dP = dO V^T (both operands
+// K-major), P = 2^(S scale log2(e) - lse log2(e)), dS = P (dP - delta),
+// then dQ += dS K with dS packed to bf16 A fragments and K the N-major B
+// operand (B2's V path).  dq = scale dQ.
+template <int NCB>
+__global__ void __launch_bounds__(TC_NT, 1)
+fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq,
+                    int Hkv, int hd, int causal, int window, float scale,
+                    float scale_log2) {
+  constexpr int QB = tc_q_bytes<NCB>(), KVB = tc_kv_bytes<NCB>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t do_s = q_s + QB;
+  const uint32_t kv_s = do_s + QB;  // stage st: K at kv_s + 2 st KVB, V after
+  const uint32_t bar_s = kv_s + 2 * TC_STAGES * KVB;
+  // full[st] = bar_s + 8 st, empty[st] = bar_s + 8 (TC_STAGES + st)
+  const uint32_t q_bar = bar_s + 16 * TC_STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y, nq = gridDim.z;
+  const int qi = causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int first_q = qi * TC_BQ, wg_q = first_q + 64 * wg;
+  int lo, hi;
+  kv_range<TC_BQ, TC_BK>(qi, (Sk + TC_BK - 1) / TC_BK, causal, window, &lo,
+                         &hi);
+  const int n_tiles = hi >= lo ? hi - lo + 1 : 0;
+
+  auto load_kv = [&](int i) {     // tile lo + i into stage i % TC_STAGES
+    const int st = i % TC_STAGES, row0 = (lo + i) * TC_BK;
+    const uint32_t full = bar_s + 8 * st, k_dst = kv_s + 2 * st * KVB;
+    mbar_expect_tx(full, 2 * KVB);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load_4d(k_dst + cb * TC_BK * SW_ROW, &tm_k, full, 64 * cb, hk,
+                  row0, b);
+      tma_load_4d(k_dst + KVB + cb * TC_BK * SW_ROW, &tm_v, full, 64 * cb,
+                  hk, row0, b);
+    }
+  };
+
+  ring_init(bar_s, q_bar);
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, 2 * QB);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load_4d(q_s + cb * TC_BQ * SW_ROW, &tm_q, q_bar, 64 * cb, h,
+                  first_q, b);
+      tma_load_4d(do_s + cb * TC_BQ * SW_ROW, &tm_do, q_bar, 64 * cb, h,
+                  first_q, b);
+    }
+    for (int i = 0; i < TC_STAGES && i < n_tiles; ++i) load_kv(i);
+  }
+
+  // this thread's rows r0 and r0 + 8: lse in log2 units and delta, read
+  // once; a row past Sq reads as one that saw no key (2^-huge = 0)
+  const int r0 = wg_q + 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int row = r0 + 8 * x;
+    const int64_t o = ((int64_t)b * Hq + h) * Sq + row;
+    lse2[x] = (row < Sq ? lse[o] : LSE_EMPTY) * LOG2E;
+    dlt[x] = row < Sq ? delta[o] : 0.f;
+  }
+  float acc[NCB][32];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+  const uint32_t q_wg = q_s + wg * 64 * SW_ROW, do_wg = do_s + wg * 64 * SW_ROW;
+
+  mbar_wait(q_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % TC_STAGES, ki = lo + i;
+    const uint32_t phase = (i / TC_STAGES) & 1;
+    const uint32_t k_t = kv_s + 2 * st * KVB, v_t = k_t + KVB;
+    mbar_wait(bar_s + 8 * st, phase);
+
+    // S = Q K^T and dP = dO V^T over hd in steps of 16, one commit group
+    float s[64], dp[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) s[j] = dp[j] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4 * NCB; ++t)
+      wgmma_ss_n128(s,
+                    sw128_desc(q_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
+                    sw128_desc(k_t + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32));
+#pragma unroll
+    for (int t = 0; t < 4 * NCB; ++t)
+      wgmma_ss_n128(dp,
+                    sw128_desc(do_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
+                    sw128_desc(v_t + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    const int k0 = ki * TC_BK;
+    const bool edge = k0 + TC_BK > Sk ||
+                      (causal && k0 + TC_BK - 1 > wg_q) ||
+                      (window > 0 && k0 <= wg_q + 63 - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        const int r = r0 + 8 * ((j >> 1) & 1);
+        const int c = k0 + 8 * (j >> 2) + c0 + (j & 1);
+        if (!visible(r, c, Sk, causal, window))
+          s[j] = __uint_as_float(0xff800000u);   // -inf
+      }
+    }
+    // dS = P (dP - delta) with P = 2^(s scale log2(e) - lse log2(e)) by
+    // one FMA (masked: 2^-inf = 0), packed as bf16 A fragments in place:
+    // keys 16 t .. 16 t + 15 are registers 8 t .. 8 t + 7
+    uint32_t da[TC_BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int x = (j >> 1) & 1;
+      s[j] = ex2(fmaf(s[j], scale_log2, -lse2[x])) * (dp[j] - dlt[x]);
+    }
+#pragma unroll
+    for (int t = 0; t < TC_BK / 16; ++t)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        da[t][x] = pack_bf16(s[8 * t + 2 * x], s[8 * t + 2 * x + 1]);
+
+    // dQ += dS K over the tile's keys in steps of 16: K N-major
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < TC_BK / 16; ++t)
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb)
+        wgmma_rs_n64(acc[cb], da[t],
+                     sw128_desc(k_t + cb * TC_BK * SW_ROW + t * 16 * SW_ROW));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) reg_fence(acc[cb]);
+
+    // release the stage; thread 0 refills it once all 256 threads have
+    mbar_arrive(bar_s + 8 * (TC_STAGES + st));
+    if (tid == 0 && i + TC_STAGES < n_tiles) {
+      mbar_wait(bar_s + 8 * (TC_STAGES + st), phase);
+      load_kv(i + TC_STAGES);
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int row = r0 + 8 * x;
+    if (row >= Sq) continue;
+    __nv_bfloat16* o_row = dq + row_off(b, row, h, Sq, Hq, hd);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cb + 8 * j + c0;
+        if (col < hd)
+          *reinterpret_cast<__nv_bfloat162*>(o_row + col) =
+              __floats2bfloat162_rn(scale * acc[cb][4 * j + 2 * x],
+                                    scale * acc[cb][4 * j + 2 * x + 1]);
+      }
+  }
+}
+
+// B4: one block per (kv-tile of 128 keys, query head, batch), two
+// warpgroups of 64 keys; under causal masking the first kv-tiles are the
+// heaviest and are launched first.  K and V by TMA once, Q / dO tiles of
+// 64 rows through the ring.  The transposed form keeps every A operand in
+// shared memory or registers: S^T = K Q^T and dP^T = V dO^T (m64n64, both
+// K-major), P^T = 2^(S^T scale log2(e) - lse_col log2(e)), dS^T = P^T
+// (dP^T - delta_col), dV += P^T dO and dK += dS^T Q with P^T / dS^T as
+// bf16 A fragments and dO / Q the N-major B operand (the same dO and Q
+// tiles as above, read through another descriptor).  dk_h = scale dK.
+template <int NCB>
+__global__ void __launch_bounds__(TC_NT, 1)
+fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk_h,
+                     __nv_bfloat16* __restrict__ dv_h, int Sq, int Sk,
+                     int Hq, int Hkv, int hd, int causal, int window,
+                     float scale, float scale_log2) {
+  constexpr int KVB = tc_kv_bytes<NCB>(), QTB = tc_qt_bytes<NCB>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t k_s = raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t v_s = k_s + KVB;
+  const uint32_t ring = v_s + KVB;  // stage st: Q at ring + 2 st QTB, dO after
+  const uint32_t bar_s = ring + 2 * TC_STAGES * QTB;
+  // full[st] = bar_s + 8 st, empty[st] = bar_s + 8 (TC_STAGES + st)
+  const uint32_t kv_bar = bar_s + 16 * TC_STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y, ki = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int first_k = ki * TC_BK, wg_k = first_k + 64 * wg;
+  int lo, hi;
+  q_range<DKV_BQ, TC_BK>(ki, (Sq + DKV_BQ - 1) / DKV_BQ, causal, window, &lo,
+                         &hi);
+  const int n_tiles = hi >= lo ? hi - lo + 1 : 0;
+
+  auto load_q = [&](int i) {      // q-tile lo + i into stage i % TC_STAGES
+    const int st = i % TC_STAGES, row0 = (lo + i) * DKV_BQ;
+    const uint32_t full = bar_s + 8 * st, q_dst = ring + 2 * st * QTB;
+    mbar_expect_tx(full, 2 * QTB);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load_4d(q_dst + cb * DKV_BQ * SW_ROW, &tm_q, full, 64 * cb, h,
+                  row0, b);
+      tma_load_4d(q_dst + QTB + cb * DKV_BQ * SW_ROW, &tm_do, full, 64 * cb,
+                  h, row0, b);
+    }
+  };
+
+  ring_init(bar_s, kv_bar);
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * KVB);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load_4d(k_s + cb * TC_BK * SW_ROW, &tm_k, kv_bar, 64 * cb, hk,
+                  first_k, b);
+      tma_load_4d(v_s + cb * TC_BK * SW_ROW, &tm_v, kv_bar, 64 * cb, hk,
+                  first_k, b);
+    }
+    for (int i = 0; i < TC_STAGES && i < n_tiles; ++i) load_q(i);
+  }
+
+  // this thread's keys r0 and r0 + 8; its 16 query columns of a tile are
+  // 8 (j / 2) + c0 + j % 2 (accumulator element i: j = 2 (i / 4) + i % 2)
+  const int r0 = wg_k + 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  const float* lse_bh = lse + ((int64_t)b * Hq + h) * Sq;
+  const float* delta_bh = delta + ((int64_t)b * Hq + h) * Sq;
+  float dk[NCB][32], dv[NCB][32];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[cb][i] = dv[cb][i] = 0.f;
+  const uint32_t k_wg = k_s + wg * 64 * SW_ROW, v_wg = v_s + wg * 64 * SW_ROW;
+
+  mbar_wait(kv_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % TC_STAGES, q0 = (lo + i) * DKV_BQ;
+    const uint32_t phase = (i / TC_STAGES) & 1;
+    const uint32_t q_t = ring + 2 * st * QTB, do_t = q_t + QTB;
+
+    // the columns' lse (log2 units) and delta, guarded plain loads: a
+    // query row past Sq reads as one that saw no key
+    float lse2[16], dlt[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = q0 + 8 * (j >> 1) + c0 + (j & 1);
+      const bool in = col < Sq;
+      lse2[j] = (in ? lse_bh[col] : LSE_EMPTY) * LOG2E;
+      dlt[j] = in ? delta_bh[col] : 0.f;
+    }
+    mbar_wait(bar_s + 8 * st, phase);
+
+    // S^T = K Q^T and dP^T = V dO^T over hd in steps of 16
+    float s[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4 * NCB; ++t)
+      wgmma_ss_n64(s,
+                   sw128_desc(k_wg + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32),
+                   sw128_desc(q_t + (t >> 2) * DKV_BQ * SW_ROW + (t & 3) * 32));
+#pragma unroll
+    for (int t = 0; t < 4 * NCB; ++t)
+      wgmma_ss_n64(dp,
+                   sw128_desc(v_wg + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32),
+                   sw128_desc(do_t + (t >> 2) * DKV_BQ * SW_ROW + (t & 3) * 32));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    const bool edge = wg_k + 63 >= Sk || (causal && wg_k + 63 > q0) ||
+                      (window > 0 && wg_k <= q0 + DKV_BQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int key = r0 + 8 * ((j >> 1) & 1);
+        const int col = q0 + 8 * (j >> 2) + c0 + (j & 1);
+        if (!visible(col, key, Sk, causal, window))
+          s[j] = __uint_as_float(0xff800000u);   // -inf
+      }
+    }
+    // P^T and dS^T on the fragment, packed as bf16 A fragments: queries
+    // 16 t .. 16 t + 15 are registers 8 t .. 8 t + 7
+    uint32_t pa[DKV_BQ / 16][4], da[DKV_BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 2 * (j >> 2) + (j & 1);
+      s[j] = ex2(fmaf(s[j], scale_log2, -lse2[c]));
+      dp[j] = s[j] * (dp[j] - dlt[c]);
+    }
+#pragma unroll
+    for (int t = 0; t < DKV_BQ / 16; ++t)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        pa[t][x] = pack_bf16(s[8 * t + 2 * x], s[8 * t + 2 * x + 1]);
+        da[t][x] = pack_bf16(dp[8 * t + 2 * x], dp[8 * t + 2 * x + 1]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries in steps of 16
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < DKV_BQ / 16; ++t)
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) {
+        wgmma_rs_n64(dv[cb], pa[t],
+                     sw128_desc(do_t + cb * DKV_BQ * SW_ROW + t * 16 * SW_ROW));
+        wgmma_rs_n64(dk[cb], da[t],
+                     sw128_desc(q_t + cb * DKV_BQ * SW_ROW + t * 16 * SW_ROW));
+      }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      reg_fence(dv[cb]);
+      reg_fence(dk[cb]);
+    }
+
+    // release the stage; thread 0 refills it once all 256 threads have
+    mbar_arrive(bar_s + 8 * (TC_STAGES + st));
+    if (tid == 0 && i + TC_STAGES < n_tiles) {
+      mbar_wait(bar_s + 8 * (TC_STAGES + st), phase);
+      load_q(i + TC_STAGES);
+    }
+    __syncwarp();
+  }
+
+  // per-query-head outputs, laid out (B, Sk, Hq, hd)
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int row = r0 + 8 * x;
+    if (row >= Sk) continue;
+    __nv_bfloat16* k_row = dk_h + row_off(b, row, h, Sk, Hq, hd);
+    __nv_bfloat16* v_row = dv_h + row_off(b, row, h, Sk, Hq, hd);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cb + 8 * j + c0;
+        if (col < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(k_row + col) =
+              __floats2bfloat162_rn(scale * dk[cb][4 * j + 2 * x],
+                                    scale * dk[cb][4 * j + 2 * x + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(v_row + col) =
+              __floats2bfloat162_rn(dv[cb][4 * j + 2 * x],
+                                    dv[cb][4 * j + 2 * x + 1]);
+        }
+      }
+  }
 }
 
 // ------------------------------------------------------------------ B3
@@ -1034,31 +1479,94 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// hd <= 32 / 64 / 128 -> padded width 32 / 64 / 128; dtype 0 = f32, 1 = bf16
+template <int NCB>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, int B, int Sq, int Sk, int Hq, int Hkv, int hd,
+                 int causal, int window, float scale, cudaStream_t stream) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!encode_bshd(enc, &tm_q, q, B, Sq, Hq, hd, TC_BQ) ||
+      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, TC_BK) ||
+      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, TC_BK) ||
+      !encode_bshd(enc, &tm_do, dout, B, Sq, Hq, hd, TC_BQ))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tc_dq_smem<NCB>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dq_tc_kernel<NCB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hq, B, (Sq + TC_BQ - 1) / TC_BQ);   // q-tiles slowest
+  fa_bwd_dq_tc_kernel<NCB><<<grid, TC_NT, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta,
+      (__nv_bfloat16*)dq, Sq, Sk, Hq, Hkv, hd, causal, window, scale,
+      scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int NCB>
+int launch_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk_h, void* dv_h, int B, int Sq, int Sk, int Hq,
+                  int Hkv, int hd, int causal, int window, float scale,
+                  cudaStream_t stream) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!encode_bshd(enc, &tm_q, q, B, Sq, Hq, hd, DKV_BQ) ||
+      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, TC_BK) ||
+      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, TC_BK) ||
+      !encode_bshd(enc, &tm_do, dout, B, Sq, Hq, hd, DKV_BQ))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tc_dkv_smem<NCB>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dkv_tc_kernel<NCB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hq, B, (Sk + TC_BK - 1) / TC_BK);   // kv-tiles slowest
+  fa_bwd_dkv_tc_kernel<NCB><<<grid, TC_NT, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta,
+      (__nv_bfloat16*)dk_h, (__nv_bfloat16*)dv_h, Sq, Sk, Hq, Hkv, hd, causal,
+      window, scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// f32 only (dtype 0); hd <= 32 / 64 / 128 -> padded width 32 / 64 / 128
 #define FA_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                   \
-    if (hd <= 0 || hd > 128 || (dtype != 0 && dtype != 1))               \
+    if (hd <= 0 || hd > 128 || dtype != 0)                               \
       return (int)cudaErrorInvalidValue;                                 \
-    if (dtype == 0) {                                                    \
-      if (hd <= 32) return LAUNCH<float, 32>(__VA_ARGS__);               \
-      if (hd <= 64) return LAUNCH<float, 64>(__VA_ARGS__);               \
-      return LAUNCH<float, 128>(__VA_ARGS__);                            \
-    }                                                                    \
-    if (hd <= 32) return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);         \
-    if (hd <= 64) return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);         \
-    return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                      \
+    if (hd <= 32) return LAUNCH<float, 32>(__VA_ARGS__);                 \
+    if (hd <= 64) return LAUNCH<float, 64>(__VA_ARGS__);                 \
+    return LAUNCH<float, 128>(__VA_ARGS__);                              \
+  } while (0)
+
+// bf16 only (dtype 1), on the tensor cores: what fa_fwd_tc asks, and Sq > 0
+#define FA_TC_DISPATCH(LAUNCH, ...)                                      \
+  do {                                                                   \
+    if (dtype != 1 || hd <= 0 || hd > 128 || hd % 8 != 0 || Sq <= 0 ||   \
+        Sk <= 0)                                                         \
+      return (int)cudaErrorInvalidValue;                                 \
+    if (hd <= 64) return LAUNCH<1>(__VA_ARGS__);                         \
+    return LAUNCH<2>(__VA_ARGS__);                                       \
   } while (0)
 
 }  // namespace
 
 extern "C" {
 
-// Tile sizes, for the wrapper's tile accounting: fa_fwd (f32), fa_bwd_dq
-// and fa_bwd_dkv use 64 x 64, fa_fwd_tc (bf16) 128 x 128.
+// Tile sizes, for the wrapper's tile accounting: fa_fwd, fa_bwd_dq and
+// fa_bwd_dkv (f32) use 64 x 64, fa_fwd_tc and fa_bwd_dq_tc (bf16) 128 x
+// 128, fa_bwd_dkv_tc (bf16) 64 query rows x 128 keys.
 int fa_block_q() { return BQ; }
 int fa_block_k() { return BK; }
 int fa_fwd_block_q() { return TC_BQ; }
 int fa_fwd_block_k() { return TC_BK; }
+int fa_dq_tc_block_q() { return TC_BQ; }
+int fa_dq_tc_block_k() { return TC_BK; }
+int fa_dkv_tc_block_q() { return DKV_BQ; }
+int fa_dkv_tc_block_k() { return TC_BK; }
 
 // f32 only (dtype 0): out (B,Sq,Hq,hd) f32, lse (B,Hq,Sq) f32, tiles
 // (B,Hq,ceil(Sq/64)) int32 or null (not counted).  Returns
@@ -1097,7 +1605,7 @@ int fa_fwd_tc(const void* q, const void* k, const void* v, void* out,
                           causal, window, scale, st);
 }
 
-// dq (B,Sq,Hq,hd) in the input dtype.
+// f32 only (dtype 0): dq (B,Sq,Hq,hd) f32.
 int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int dtype, int B,
               int Sq, int Sk, int Hq, int Hkv, int hd, int causal, int window,
@@ -1106,13 +1614,34 @@ int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
               hd, causal, window, scale, (cudaStream_t)stream);
 }
 
-// dk_h, dv_h (B,Sk,Hq,hd) per query head, in the input dtype.
+// f32 only (dtype 0): dk_h, dv_h (B,Sk,Hq,hd) f32, per query head.
 int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk_h, void* dv_h,
                int dtype, int B, int Sq, int Sk, int Hq, int Hkv, int hd,
                int causal, int window, float scale, void* stream) {
   FA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk_h, dv_h, B, Sq, Sk,
               Hq, Hkv, hd, causal, window, scale, (cudaStream_t)stream);
+}
+
+// bf16 only (dtype 1), on the tensor cores: hd a multiple of 8, at most
+// 128; Sq, Sk > 0; q, k, v, dout 16-byte aligned.  dq (B,Sq,Hq,hd) bf16.
+int fa_bwd_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, int dtype, int B, int Sq, int Sk, int Hq, int Hkv,
+                 int hd, int causal, int window, float scale, void* stream) {
+  FA_TC_DISPATCH(launch_dq_tc, q, k, v, dout, lse, delta, dq, B, Sq, Sk, Hq,
+                 Hkv, hd, causal, window, scale, (cudaStream_t)stream);
+}
+
+// bf16 only, as fa_bwd_dq_tc: dk_h, dv_h (B,Sk,Hq,hd) bf16, per query head.
+int fa_bwd_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk_h, void* dv_h, int dtype, int B, int Sq, int Sk,
+                  int Hq, int Hkv, int hd, int causal, int window,
+                  float scale, void* stream) {
+  FA_TC_DISPATCH(launch_dkv_tc, q, k, v, dout, lse, delta, dk_h, dv_h, B, Sq,
+                 Sk, Hq, Hkv, hd, causal, window, scale,
+                 (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,7 @@ what bounds them on an H100 and what the design does about it), built with
 ``nvcc`` at first use and called through ``ctypes``
 (:mod:`repro_torch.kernels._cuda`).
 
-Three wrappers, one per kernel, each with the JAX package's layouts
+Three wrappers, one per TPU kernel, each with the JAX package's layouts
 (``q (B,Sq,Hq,hd)``, ``k/v (B,Sk,Hkv,hd)``, ``lse``/``delta`` ``(B,Hq,Sq)``
 f32) and a plain integer ``launches`` counter:
 
@@ -21,6 +21,14 @@ f32) and a plain integer ``launches`` counter:
 * :func:`flash_attention_bwd_dkv` (B4) — per-query-head ``dk_h, dv_h``
   ``(B,Sk,Hq,hd)`` in the k / v dtype.
 
+B3 and B4 route by dtype too (:func:`bwd_route`): bf16 goes to
+``fa_bwd_dq_tc`` / ``fa_bwd_dkv_tc``, tensor-core kernels (``wgmma`` over
+TMA-fed tiles: B3 128 query rows × 128 keys, B4 128 keys × 64 query rows,
+counted also in ``launches_tc``), f32 to ``fa_bwd_dq`` / ``fa_bwd_dkv`` on
+the CUDA cores.  The tensor-core backward rounds ``P`` (for dv) and ``dS``
+(for dk, dq) to bf16 before its products, as the library's flash backward
+does; the plain versions keep them in f32.
+
 :func:`flash_attention_bwd` is the JAX function's counterpart: ``delta =
 rowsum(dO·O)`` in torch, B3, B4, then the GQA group sum in torch.  Beside
 each kernel is its plain PyTorch version on whole matrices
@@ -28,10 +36,11 @@ each kernel is its plain PyTorch version on whole matrices
 takes the plain version only for tensors that lie on the CPU; on a CUDA
 tensor it launches its kernel or raises.
 
-Tiles are 64 × 64 (``BLOCK_Q``, ``BLOCK_K``) but for the bf16 forward's
-128 × 128 (``FWD_BLOCK_Q``, ``FWD_BLOCK_K``; :func:`fwd_blocks`).  The TPU
-kernel's ``pl.when(_tile_live)`` skip becomes loop bounds in the CUDA
-kernels; :func:`_live_range` mirrors those bounds here, and the tests hold
+Tiles are 64 × 64 (``BLOCK_Q``, ``BLOCK_K``) on the CUDA cores; the bf16
+kernels' are ``FWD_BLOCK_*`` (:func:`fwd_blocks`), ``DQ_BLOCK_*`` (B3)
+and ``DKV_BLOCK_*`` (B4).  The TPU kernel's
+``pl.when(_tile_live)`` skip becomes loop bounds in the CUDA kernels;
+:func:`_live_range` mirrors those bounds here, and the tests hold
 them against :func:`_tile_live`.  The executed-tile count is one int32 per
 block, summed on demand (``count_tiles=True``); the plain version reports
 the same count from :func:`fa_tile_counts` at the tile sizes of the kernel
@@ -53,8 +62,9 @@ from repro_torch.kernels.ref import attention_mask
 __all__ = ["flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "fwd_plain", "bwd_dq_plain", "bwd_dkv_plain", "fa_tile_counts",
-           "fwd_route", "fwd_blocks", "BLOCK_Q", "BLOCK_K",
-           "FWD_BLOCK_Q", "FWD_BLOCK_K", "NEG_INF", "LSE_EMPTY"]
+           "fwd_route", "fwd_blocks", "bwd_route", "BLOCK_Q", "BLOCK_K", "FWD_BLOCK_Q", "FWD_BLOCK_K", "DQ_BLOCK_Q",
+           "DQ_BLOCK_K", "DKV_BLOCK_Q", "DKV_BLOCK_K", "NEG_INF",
+           "LSE_EMPTY"]
 
 NEG_INF = -1e30
 # LSE filler for rows that saw no valid key (and for padded Q rows in the
@@ -64,6 +74,10 @@ BLOCK_Q = 64          # must equal BQ / BK in csrc/flash_attention.cu
 BLOCK_K = 64
 FWD_BLOCK_Q = 128     # bf16 forward: must equal TC_BQ / TC_BK there
 FWD_BLOCK_K = 128
+DQ_BLOCK_Q = 128      # bf16 B3 (fa_bwd_dq_tc): query rows x keys
+DQ_BLOCK_K = 128
+DKV_BLOCK_Q = 64      # bf16 B4 (fa_bwd_dkv_tc): DKV_BQ x TC_BK there
+DKV_BLOCK_K = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -123,23 +137,34 @@ def _live_range(tile: int, n_other: int, *, kv_loop: bool, causal: bool,
     return lo, hi
 
 
+def _route(name: str, dtype: torch.dtype, hd: int) -> str:
+    if dtype == torch.bfloat16:
+        if hd % 8:
+            raise ValueError(f"{name}: bf16 head dim {hd} is not a multiple "
+                             f"of 8, so TMA cannot address its rows (their "
+                             f"stride H*hd*2 bytes must be a multiple of 16)")
+        if not 0 < hd <= 128:
+            raise ValueError(f"{name}: bf16 head dim {hd} outside (0, 128]")
+        return "wgmma"
+    return "simt"
+
+
 def fwd_route(dtype: torch.dtype, hd: int) -> str:
     """Which B2 kernel serves a CUDA call: ``"wgmma"`` (``fa_fwd_tc``, bf16
     on the tensor cores) or ``"simt"`` (``fa_fwd``, f32 on the CUDA cores).
     Raises ``ValueError`` for a bf16 head dim that TMA cannot address
     (``hd % 8``: the row stride ``H·hd·2`` bytes must be a multiple of 16) or
     that the kernel does not hold (``hd > 128``)."""
-    if dtype == torch.bfloat16:
-        if hd % 8:
-            raise ValueError(f"flash_attention_fwd: bf16 head dim {hd} is not "
-                             f"a multiple of 8, so TMA cannot address its "
-                             f"rows (their stride H*hd*2 bytes must be a "
-                             f"multiple of 16)")
-        if not 0 < hd <= 128:
-            raise ValueError(f"flash_attention_fwd: bf16 head dim {hd} "
-                             f"outside (0, 128]")
-        return "wgmma"
-    return "simt"
+    return _route("flash_attention_fwd", dtype, hd)
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """Which B3 / B4 kernels serve a CUDA call: ``"wgmma"``
+    (``fa_bwd_dq_tc`` / ``fa_bwd_dkv_tc``, bf16 on the tensor cores) or
+    ``"simt"`` (``fa_bwd_dq`` / ``fa_bwd_dkv``, f32 on the CUDA cores); it
+    refuses what :func:`fwd_route` refuses, never dropping a bf16 call to
+    the CUDA-core kernels."""
+    return _route("flash_attention_bwd", dtype, hd)
 
 
 def fwd_blocks(dtype: torch.dtype) -> Tuple[int, int]:
@@ -231,18 +256,25 @@ def _lib():
     lib.fa_fwd.argtypes = [P] * 6 + shape
     lib.fa_fwd_tc.argtypes = [P] * 6 + shape
     lib.fa_bwd_dq.argtypes = [P] * 7 + shape
+    lib.fa_bwd_dq_tc.argtypes = [P] * 7 + shape
     lib.fa_bwd_dkv.argtypes = [P] * 8 + shape
-    for fn in (lib.fa_fwd, lib.fa_fwd_tc, lib.fa_bwd_dq, lib.fa_bwd_dkv,
-               lib.fa_block_q, lib.fa_block_k, lib.fa_fwd_block_q,
-               lib.fa_fwd_block_k):
+    lib.fa_bwd_dkv_tc.argtypes = [P] * 8 + shape
+    tiles = {("fa_block_q", "fa_block_k"): (BLOCK_Q, BLOCK_K),
+             ("fa_fwd_block_q", "fa_fwd_block_k"): (FWD_BLOCK_Q, FWD_BLOCK_K),
+             ("fa_dq_tc_block_q", "fa_dq_tc_block_k"): (DQ_BLOCK_Q,
+                                                        DQ_BLOCK_K),
+             ("fa_dkv_tc_block_q", "fa_dkv_tc_block_k"): (DKV_BLOCK_Q,
+                                                          DKV_BLOCK_K)}
+    for fn in (lib.fa_fwd, lib.fa_fwd_tc, lib.fa_bwd_dq, lib.fa_bwd_dq_tc,
+               lib.fa_bwd_dkv, lib.fa_bwd_dkv_tc):
         fn.restype = I
-    if (lib.fa_block_q(), lib.fa_block_k()) != (BLOCK_Q, BLOCK_K):
-        raise RuntimeError("csrc/flash_attention.cu tile sizes differ from "
-                           "BLOCK_Q / BLOCK_K")
-    if (lib.fa_fwd_block_q(), lib.fa_fwd_block_k()) != (FWD_BLOCK_Q,
-                                                         FWD_BLOCK_K):
-        raise RuntimeError("csrc/flash_attention.cu forward tile sizes "
-                           "differ from FWD_BLOCK_Q / FWD_BLOCK_K")
+    for names, want in tiles.items():
+        for n in names:
+            getattr(lib, n).argtypes, getattr(lib, n).restype = [], I
+        got = tuple(getattr(lib, n)() for n in names)
+        if got != want:
+            raise RuntimeError(f"csrc/flash_attention.cu tile sizes {names} "
+                               f"= {got} differ from the module's {want}")
     return lib
 
 
@@ -288,6 +320,16 @@ def _shape_args(q, k, causal, window):
             torch._C._cuda_getCurrentRawStream(q.device.index))
 
 
+def _tma_check(name, q, k, *tensors):
+    """The tensor-core kernels read their operands by TMA, which needs a
+    non-empty sequence on each side and 16-byte-aligned tensors."""
+    if q.shape[1] == 0 or k.shape[1] == 0 or any(
+            t.data_ptr() % 16 for t in (q, k) + tensors):
+        raise ValueError(f"{name}: the bf16 kernel reads its operands by "
+                         f"TMA, which needs Sq, Sk > 0 and 16-byte-aligned "
+                         f"tensors")
+
+
 def _on(device):
     """The device guard of a launch: none when ``device`` is current."""
     if device.index == torch.cuda.current_device():
@@ -308,17 +350,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         _check("flash_attention_fwd", q, k, v)
         B, Sq, Hq, hd = q.shape
         tc = fwd_route(q.dtype, hd) == "wgmma"
-        if tc and (k.shape[1] == 0 or any(t.data_ptr() % 16
-                                          for t in (q, k, v))):
-            raise ValueError("flash_attention_fwd: the bf16 kernel reads "
-                             "q, k, v by TMA, which needs Sk > 0 and "
-                             "16-byte-aligned tensors")
         out = torch.empty_like(q)
         lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
         slots = torch.empty((B, Hq, -(-Sq // fwd_blocks(q.dtype)[0])),
                             dtype=torch.int32, device=q.device) \
             if count_tiles else None       # the kernel counts only if asked
         if out.numel():
+            if tc:
+                _tma_check("flash_attention_fwd", q, k, v)
             fn = _lib().fa_fwd_tc if tc else _lib().fa_fwd
             with _on(q.device):
                 _cuda.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -343,47 +382,60 @@ flash_attention_fwd.launches_tc = 0   # those of the tensor-core kernel
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                            window: int = 0):
     """B3: dq (B, Sq, Hq, hd) in q's dtype, from the forward's ``lse`` and
-    ``delta = rowsum(dO·O)`` (both (B, Hq, Sq) f32)."""
+    ``delta = rowsum(dO·O)`` (both (B, Hq, Sq) f32).  On a CUDA tensor bf16
+    launches the tensor-core kernel and f32 the CUDA-core one
+    (:func:`bwd_route`)."""
     if q.device.type == "cpu":
         return bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
                             window=window)
     _check("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    tc = bwd_route(q.dtype, q.shape[3]) == "wgmma"
     dq = torch.empty_like(q)
     if dq.numel():
+        if tc:
+            _tma_check("flash_attention_bwd_dq", q, k, v, do)
+        fn = _lib().fa_bwd_dq_tc if tc else _lib().fa_bwd_dq
         with _on(q.device):
-            _cuda.call(_lib().fa_bwd_dq, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), dq.data_ptr(),
-                       *_shape_args(q, k, causal, window))
+            _cuda.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                       dq.data_ptr(), *_shape_args(q, k, causal, window))
         flash_attention_bwd_dq.launches += 1
+        flash_attention_bwd_dq.launches_tc += tc
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches = 0      # every launch of B3
+flash_attention_bwd_dq.launches_tc = 0   # those of the tensor-core kernel
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                             window: int = 0):
     """B4: per-query-head dk_h, dv_h (B, Sk, Hq, hd) in the k / v dtype;
-    the caller sums each GQA group onto its KV head."""
+    the caller sums each GQA group onto its KV head.  Routed as B3."""
     if q.device.type == "cpu":
         return bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal,
                              window=window)
     _check("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     B, Sk, Hq, hd = k.shape[0], k.shape[1], q.shape[2], q.shape[3]
+    tc = bwd_route(q.dtype, hd) == "wgmma"
     dk_h = torch.empty((B, Sk, Hq, hd), dtype=k.dtype, device=k.device)
     dv_h = torch.empty_like(dk_h)
     if dk_h.numel():
+        if tc:
+            _tma_check("flash_attention_bwd_dkv", q, k, v, do)
+        fn = _lib().fa_bwd_dkv_tc if tc else _lib().fa_bwd_dkv
         with _on(q.device):
-            _cuda.call(_lib().fa_bwd_dkv, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
+            _cuda.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                       dk_h.data_ptr(), dv_h.data_ptr(),
                        *_shape_args(q, k, causal, window))
         flash_attention_bwd_dkv.launches += 1
+        flash_attention_bwd_dkv.launches_tc += tc
     return dk_h, dv_h
 
 
-flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches = 0      # every launch of B4
+flash_attention_bwd_dkv.launches_tc = 0   # those of the tensor-core kernel
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,

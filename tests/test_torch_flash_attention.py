@@ -15,12 +15,15 @@ packages:
 * the ``torch.autograd.Function`` binding's gradients against
   ``torch.autograd`` through ``attention_ref``;
 * ``fa_tile_counts`` against the JAX package's, and the CUDA kernels' loop
-  bounds (``_live_range``) against the tile predicate, at 64 × 64 and at
-  the bf16 forward's 128 × 128;
-* the forward's route by dtype and head dim (``fwd_route``);
-* the tensor-core kernel's register and shared-memory maps (``wgmma``
-  fragments, TMA's 128-byte swizzle, the descriptors' offsets) mirrored in
-  Python, held against plain products of one tile;
+  bounds (``_live_range``) against the tile predicate, at 64 × 64, at the
+  bf16 forward's 128 × 128 and at the bf16 backward's tiles (B3 128 × 128,
+  B4 64 query rows × 128 keys);
+* the forward's and the backward's routes by dtype and head dim
+  (``fwd_route``, ``bwd_route``);
+* the tensor-core kernels' register and shared-memory maps (``wgmma``
+  fragments, TMA's 128-byte swizzle, the descriptors' offsets, the
+  backward's per-row and per-column lse maps) mirrored in Python, held
+  against plain products of one tile;
 * the fallback on CPU tensors counted and warned once.
 
 Grid and tolerances are those of ``tests/test_kernels.py``: forward f32
@@ -247,6 +250,57 @@ def test_forward_route_refuses_what_tma_cannot_address(hd, match):
         fa.fwd_route(torch.bfloat16, hd)
 
 
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 8, "wgmma"), (torch.float32, 64, "simt"),
+    (torch.float32, 20, "simt"), (torch.float32, 128, "simt")])
+def test_backward_routes_by_dtype(dtype, hd, route):
+    assert fa.bwd_route(dtype, hd) == route
+
+
+@pytest.mark.parametrize("hd,match", [(20, "multiple of 8"),
+                                      (100, "multiple of 8"),
+                                      (136, "outside"), (256, "outside")])
+def test_backward_route_refuses_what_tma_cannot_address(hd, match):
+    """A bf16 head dim the tensor-core backward cannot take raises; it is
+    never handed to the CUDA-core kernels instead."""
+    with pytest.raises(ValueError, match=f"flash_attention_bwd.*{match}"):
+        fa.bwd_route(torch.bfloat16, hd)
+
+
+@pytest.mark.parametrize("S", [64, 96, 128, 130, 1024, 2048])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 1),
+                                           (True, 48), (True, 127),
+                                           (True, 128), (True, 300),
+                                           (False, 100)])
+def test_backward_loop_bounds_are_the_live_tiles(S, causal, window):
+    """The bf16 backward's loop bounds cover exactly the live tiles: B3's
+    kv-loop (``kv_range<128, 128>``) and B4's q-loop (``q_range<64,
+    128>``), mirrored by ``_live_range`` at ``DQ_BLOCK_*`` /
+    ``DKV_BLOCK_*``; the counts are the JAX package's at the same tiles."""
+    assert (fa.DQ_BLOCK_Q, fa.DQ_BLOCK_K) == (128, 128)
+    assert (fa.DKV_BLOCK_Q, fa.DKV_BLOCK_K) == (64, 128)
+    for bq, bk, kv_loop in ((fa.DQ_BLOCK_Q, fa.DQ_BLOCK_K, True),
+                            (fa.DKV_BLOCK_Q, fa.DKV_BLOCK_K, False)):
+        nq, nk = -(-S // bq), -(-S // bk)
+        live = {(qi, ki) for qi in range(nq) for ki in range(nk)
+                if fa._tile_live(qi, ki, causal=causal, window=window, bq=bq,
+                                 bk=bk, seq_k=S)}
+        walked = set()
+        for tile in range(nq if kv_loop else nk):
+            lo, hi = fa._live_range(tile, nk if kv_loop else nq,
+                                    kv_loop=kv_loop, causal=causal,
+                                    window=window, bq=bq, bk=bk)
+            walked |= {(tile, o) if kv_loop else (o, tile)
+                       for o in range(lo, hi + 1)}
+        assert walked == live, (bq, bk)
+        assert fa.fa_tile_counts(S, S, bq, bk, causal, window) == \
+            jax_tile_counts(S, S, bq, bk, causal, window)
+        assert len(live) == fa.fa_tile_counts(S, S, bq, bk, causal,
+                                              window)[0]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_plain_forward_rounds_probabilities_for_bf16_v_only(dtype):
     """For a bf16 ``v`` the plain forward rounds ``p`` to bf16 before
@@ -400,6 +454,127 @@ def test_tensor_core_maps_reproduce_the_tile_products(ncb):
                 Bv = _desc_read(sv, desc_start("v", t, cb=cb), 64, False)
                 O[:, 64 * cb:64 * cb + 64] += A[:, 16 * t:16 * t + 16] @ Bv.T
         np.testing.assert_array_equal(O, P @ V)
+
+
+# The tensor-core backward's maps: fa_bwd_dq_tc_kernel (B3) reads Q, dO,
+# K, V as B2 reads Q, K (K-major) and V (N-major); fa_bwd_dkv_tc_kernel
+# (B4) reads its 128-key K / V tile K-major per warpgroup and its 64-row
+# Q / dO tiles both K-major and N-major.
+def bwd_desc_start(operand: str, t: int, *, wg: int = 0, cb: int = 0) -> int:
+    """Start offset of B4's descriptor for k-step ``t``: ``"k"`` / ``"v"``
+    (warpgroup ``wg``'s 64 keys, hd columns 16t …), ``"q"`` / ``"do"``
+    (the tile's 64 query rows, hd columns 16t …) or ``"q_n"`` / ``"do_n"``
+    (query rows 16t …, columns 64cb …, N-major)."""
+    if operand in ("k", "v"):
+        return wg * 64 * 128 + (t // 4) * fa.DKV_BLOCK_K * 128 + (t % 4) * 32
+    if operand in ("q", "do"):
+        return (t // 4) * fa.DKV_BLOCK_Q * 128 + (t % 4) * 32
+    return cb * fa.DKV_BLOCK_Q * 128 + t * 16 * 128
+
+
+def dq_lse_row(tid: int, x: int) -> int:
+    """The row (of a warpgroup's 64) whose lse / delta B3 reads into
+    register ``x`` of thread ``tid``: ``r0 + 8x``."""
+    return 16 * (tid // 32) + (tid % 32) // 4 + 8 * x
+
+
+def dkv_lse_reg(i: int) -> int:
+    """The lse / delta register B4 reads for accumulator element ``i``:
+    ``2 (i / 4) + i % 2``."""
+    return 2 * (i // 4) + i % 2
+
+
+def dkv_lse_col(tid: int, j: int) -> int:
+    """The query column (of the tile's 64) that B4 loads into lse / delta
+    register ``j`` of thread ``tid``: ``8 (j / 2) + c0 + j % 2``."""
+    return 8 * (j // 2) + 2 * (tid % 32 % 4) + j % 2
+
+
+def _pack_a(acc, n_k):
+    """The (64, n_k) matrix that accumulator registers ``acc`` (thread,
+    register) give when packed into A fragments as the kernels pack P and
+    dS, read back through the A map; every slot written once."""
+    A = np.full((64, n_k), np.nan)
+    for t in range(n_k // 16):
+        for r in range(4):
+            for half in range(2):
+                a_rows, a_k = np.vectorize(wgmma_a_coord)(
+                    np.arange(128), r, half)
+                assert np.isnan(A[a_rows, 16 * t + a_k]).all()
+                A[a_rows, 16 * t + a_k] = acc[:, p_fragment_source(t, r,
+                                                                    half)]
+    assert not np.isnan(A).any()
+    return A
+
+
+@pytest.mark.parametrize("ncb", [1, 2])
+def test_backward_tensor_core_maps_reproduce_the_tile_products(ncb):
+    """One tile of each bf16 backward kernel, hd padded to 64·ncb, operands
+    placed as TMA leaves them.  B3: dS from the m64n128 accumulator packed
+    as A fragments, times K read N-major, gives dS·K; each thread's lse
+    rows are its accumulator rows.  B4: Sᵀ = K·Qᵀ through ``wgmma_ss_n64``'s
+    K-major descriptors and accumulator map; Pᵀ and dSᵀ from that map
+    packed as A fragments, times dO and Q read N-major from the same
+    tiles, give Pᵀ·dO and dSᵀ·Q; each accumulator element's lse column is
+    the column that its register was loaded from."""
+    rng = np.random.default_rng(10 + ncb)
+    hdp = 64 * ncb
+    tid, reg = np.meshgrid(np.arange(128), np.arange(64), indexing="ij")
+    rows128, cols128 = np.vectorize(wgmma_acc_coord)(tid, reg)
+    tid32, reg32 = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
+    rows64, cols64 = np.vectorize(wgmma_acc_coord)(tid32, reg32)
+    assert len(set(zip(rows64.ravel(), cols64.ravel()))) == 64 * 64
+
+    # B3: dQ += dS·K over one 128-key tile (K N-major, B2's V path)
+    K = _bf16_values(rng, (fa.DQ_BLOCK_K, hdp))
+    sk = _tma_tile(K, fa.DQ_BLOCK_K)
+    dS = _bf16_values(rng, (64, fa.DQ_BLOCK_K))
+    A = _pack_a(dS[rows128, cols128], fa.DQ_BLOCK_K)
+    np.testing.assert_array_equal(A, dS)
+    dQ = np.zeros((64, hdp))
+    for t in range(fa.DQ_BLOCK_K // 16):
+        for cb in range(ncb):
+            Bk = _desc_read(sk, desc_start("v", t, cb=cb), 64, False)
+            dQ[:, 64 * cb:64 * cb + 64] += A[:, 16 * t:16 * t + 16] @ Bk.T
+    np.testing.assert_array_equal(dQ, dS @ K)
+    # the kernel reads lse2[(j >> 1) & 1] for accumulator element j
+    np.testing.assert_array_equal(
+        np.vectorize(dq_lse_row)(tid, (reg // 2) % 2), rows128)
+
+    # B4: one 128-key K / V tile against one 64-row Q / dO tile
+    K, V = (_bf16_values(rng, (fa.DKV_BLOCK_K, hdp)) for _ in range(2))
+    Q, dO = (_bf16_values(rng, (fa.DKV_BLOCK_Q, hdp)) for _ in range(2))
+    sk, sv = _tma_tile(K, fa.DKV_BLOCK_K), _tma_tile(V, fa.DKV_BLOCK_K)
+    sq, sdo = _tma_tile(Q, fa.DKV_BLOCK_Q), _tma_tile(dO, fa.DKV_BLOCK_Q)
+    for wg in (0, 1):
+        keys = slice(64 * wg, 64 * wg + 64)
+        for a_s, b_s, a_op, b_op, want in (
+                (sk, sq, "k", "q", K[keys] @ Q.T),
+                (sv, sdo, "v", "do", V[keys] @ dO.T)):
+            ST = sum(_desc_read(a_s, bwd_desc_start(a_op, t, wg=wg), 64, True)
+                     @ _desc_read(b_s, bwd_desc_start(b_op, t), 64, True).T
+                     for t in range(4 * ncb))
+            np.testing.assert_array_equal(ST, want)
+    PT = _bf16_values(rng, (64, fa.DKV_BLOCK_Q))
+    dST = _bf16_values(rng, (64, fa.DKV_BLOCK_Q))
+    for M, tile, slots, op in ((PT, dO, sdo, "do_n"), (dST, Q, sq, "q_n")):
+        A = _pack_a(M[rows64, cols64], fa.DKV_BLOCK_Q)
+        np.testing.assert_array_equal(A, M)
+        acc = np.zeros((64, hdp))
+        for t in range(fa.DKV_BLOCK_Q // 16):
+            for cb in range(ncb):
+                Bn = _desc_read(slots, bwd_desc_start(op, t, cb=cb), 64,
+                                False)
+                acc[:, 64 * cb:64 * cb + 64] += A[:, 16 * t:16 * t + 16] \
+                    @ Bn.T
+        np.testing.assert_array_equal(acc, M @ tile)
+    lse_cols = np.vectorize(dkv_lse_col)(tid32, np.vectorize(dkv_lse_reg)(
+        reg32))
+    np.testing.assert_array_equal(lse_cols, cols64)
+    # 16 registers of each thread cover its 16 distinct columns once
+    for t_ in range(128):
+        assert sorted(dkv_lse_col(t_, j) for j in range(16)) == \
+            sorted(set(cols64[t_]))
 
 
 def test_rows_without_keys_give_zero_output_and_empty_lse():
