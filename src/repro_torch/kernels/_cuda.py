@@ -1,13 +1,14 @@
 """Build and load the package's CUDA C++ kernels.
 
 Each source under ``kernels/csrc/`` (``flash_attention.cu``,
-``ssd_scan.cu``) is compiled by its own ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes``
-(no PyTorch headers: seconds to build, not minutes).  The build happens at
-first use, into ``build/cuda/`` beside ``src/`` (git-ignored), under a name
-keyed by the hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  A missing ``nvcc`` or a
-failed build raises.
+``ssd_scan.cu``, ``optim.cu``) is compiled by its own ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface and loaded with
+``ctypes`` (no PyTorch headers: seconds to build, not minutes).  The build
+happens at first use, into ``build/cuda/`` beside ``src/`` (git-ignored),
+under a name keyed by the hash of the source, of every header in
+``csrc/`` (``hopper.cuh`` is shared) and of the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is.  A missing
+``nvcc`` or a failed build raises.
 
 ``nvcc`` is looked up on ``PATH``, then under ``$CUDA_HOME/bin`` and
 ``/usr/local/cuda/bin``.
@@ -15,6 +16,7 @@ failed build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,7 +24,9 @@ import os
 import shutil
 import subprocess
 
-__all__ = ["load", "call"]
+import torch
+
+__all__ = ["load", "call", "on"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -45,9 +49,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, path), "rb") as f:
+            digest.update(path.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -81,3 +87,11 @@ def call(fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")
+
+
+def on(device):
+    """The device guard of a launch: none when ``device`` is the current
+    device (entering ``torch.cuda.device`` costs every launch host time)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -2,8 +2,10 @@
 // hand-written CUDA C++.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/ssd_scan.py:
-//   ssd_fwd  <- _ssd_kernel      (ssd_intra_pallas, :46 / :87)
-//   ssd_bwd  <- _ssd_bwd_kernel  (ssd_intra_bwd_pallas, :111 / :189)
+//   ssd_fwd     <- _ssd_kernel      (ssd_intra_pallas, :46 / :87)
+//   ssd_bwd_tc  <- _ssd_bwd_kernel  (ssd_intra_bwd_pallas, :111 / :189),
+//                  bf16 on the tensor cores
+//   ssd_bwd     <- the same, f32 (and bf16 outside ssd_bwd_tc's shapes)
 //
 // What they compute, per (batch * chunk, head) cell, x (B,nc,Q,H,P), dt
 // (B,nc,Q,H) f32, cum = cumsum(ltT) (B,nc,H,Q) f32 (taken outside, in
@@ -56,19 +58,32 @@
 // read once and each output written once (chip_smoke.py, ssd_work).  At
 // mamba2-2.7b's training shape (B 1, nc 16, Q 128, H 80, P 64, N 128, bf16)
 // the forward is 1.43 GFLOP and 44.3 MB: 13.2 us, bytes-bound; the backward
-// 2.93 GFLOP and 67.6 MB: 20.2 us, bytes-bound.  These kernels do not
+// 2.93 GFLOP and 67.6 MB: 20.2 us, bytes-bound.  ssd_fwd and ssd_bwd do not
 // use the tensor cores (no wgmma, no TMA, no mma.sync): every product is an
 // f32 FMA on the CUDA cores (67 TFLOP/s peak), fed by one shared-memory
 // word per two FMAs, so they run far from that bound; the times are in
-// PERF.md.  What the design does about the bound: it skips the tiles above
-// the diagonal (a quarter of the work at Q = 128), never writes att or cb
-// to device memory, reads each operand tile once per tile pair, and keeps
-// every accumulator in registers.  B6's per-head dcb scratch (84 MB at the
-// shape above) is the price of a deterministic head sum.
+// PERF.md.  What their design does about the bound: it skips the tiles
+// above the diagonal (a quarter of the work at Q = 128), never writes att
+// or cb to device memory, reads each operand tile once per tile pair, and
+// keeps every accumulator in registers.  ssd_bwd's per-head dcb scratch
+// (84 MB at the shape above) is the price of a deterministic head sum, and
+// its head sum runs on 64 blocks at that shape.
+//
+// ssd_bwd_tc (B6 in bf16; its design note is above its kernels below) is
+// the redesign for that backward: one wave of blocks, each a cell and a
+// group of heads (kernels/ssd_scan.py::head_groups, a function of the shape
+// alone), cb formed once per block on the tensor cores instead of once per
+// head on the CUDA cores, the x / g tiles by TMA, datt, dx and cb by wgmma,
+// and the dcb head sum partitioned: summed within the group in registers,
+// in head order, written once per block to a (B nc, ceil(H / G), Q, Q)
+// scratch (8.4 MB at the shape above) that a second kernel of 256 blocks
+// sums in group order into dB and dC.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -543,6 +558,463 @@ int launch_bwd(const void* x, const void* dt, const void* cum, const void* B,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------ B6, bf16, tensor cores
+// Kernel 1, ssd_bwd_tc_kernel: one block per (cell, group of G heads), two
+// warpgroups of 64 rows.  It works in the transposed frame T[j][i] (rows j,
+// the key index; columns i, the query index; live where j <= i): then
+// att^T is an accumulator whose layout is the A fragment of dx = att^T g.
+//   cb^T = B C^T     wgmma m64n128k16, B and C rows K-major (loaded once by
+//                    plain 16-byte loads into the 128-byte swizzle, since a
+//                    (Q, N) row of N = 20 is no TMA box), kept in shared
+//                    memory in fragment order: each thread reads back its
+//                    own 64 values;
+//   per head, in head order, x and g tiles (Q rows x 64 bf16, rows H P
+//   apart) by TMA over 4-D maps (P, H, Q, B nc) through a 2-stage ring:
+//   datt^T = x g^T   wgmma m64n128k16, both K-major;
+//   the elementwise part on the accumulator: decay = exp(cum_i - cum_j)
+//     only where j <= i, att = cb decay dt_j, dad = datt decay, ddt_j = sum_i
+//     dad cb (a row of T: quad shuffles), dseg = dad cb dt_j, dcum = column
+//     sums of T (xor-shuffle reduce-scatter, then 8 warps in order) minus
+//     its row sums, and dltT, dcum's suffix sum, at once (the CUDA-core
+//     route leaves that sum to torch), dcb^T += dad dt_j in registers;
+//   dx = att^T g     wgmma m64n64k16, A = att^T from registers as bf16 hi +
+//                    lo (att - hi, rounded again: att to 2^-17 relative, the
+//                    f32 products' accuracy), B = the same g tile N-major
+//                    through the transpose bit;
+//   at the end the group's dcb^T, summed over its heads in order, goes to a
+//   (B nc, ceil(H / G), Q, Q) f32 scratch, once.
+// Kernel 2, ssd_bwd_tc_headsum_kernel: one block per (16 rows, dB or dC,
+// cell) sums the ceil(H / G) partials in group order into a slab of dcb
+// and forms dB = dcb^T C or dC = dcb B in f32 FMAs (67 MFLOP at mamba2's
+// shape: the CUDA cores serve).
+constexpr int TC_Q = 128;       // chunk rows a block holds: two warpgroups
+constexpr int TC_NT = 256;      // threads of kernel 1 and kernel 2
+constexpr int TC_STAGES = 2;    // x / g tile ring depth
+constexpr int TC_GMAX = 16;     // heads per block at most
+constexpr int TILE_B = TC_Q * SW_ROW;   // one 128-row, 64-column bf16 tile
+constexpr int HS_ROWS = 16;     // output rows per block of kernel 2
+
+constexpr size_t bwd_tc_smem() {   // + 1024 to align the tiles by hand
+  return 1024 + 8 * TILE_B +                       // B / C (then cb^T), ring
+         sizeof(float) * (2 * TC_GMAX * TC_Q +     // cum, dt of the group
+                          2 * 8 * TC_Q + 2 * TC_Q) +  // red, rowT (x 2)
+         8 * 2 * TC_STAGES;                        // full, empty barriers
+}
+
+// Halve `n` values among the lanes that differ in `mask`: the lane with the
+// mask bit keeps the upper half, its partner the lower, each summed with
+// the other's copy (a fixed order).
+template <int n>
+__device__ __forceinline__ void halve(float (&v)[32], int lane, int mask) {
+  const bool up = (lane & mask) != 0;
+#pragma unroll
+  for (int i = 0; i < n / 2; ++i) {
+    const float keep = up ? v[n / 2 + i] : v[i];
+    const float send = up ? v[i] : v[n / 2 + i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
+// grid (ceil(H / G), B nc).  Writes dx, ddt, dltT and the group's dcb^T.
+__global__ void __launch_bounds__(TC_NT, 1)
+ssd_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_g,
+                  const float* __restrict__ dt, const float* __restrict__ cum,
+                  const __nv_bfloat16* __restrict__ Bm,
+                  const __nv_bfloat16* __restrict__ Cm,
+                  __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
+                  float* __restrict__ dlt, float* __restrict__ part, int Q,
+                  int H, int P, int N, int G, int vec_bc) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bc_s = smem_u32(base);   // B panels 0-1, C panels 2-3
+  const uint32_t ring_s = bc_s + 4 * TILE_B;  // stage st: x, then g
+  const float* cbT = reinterpret_cast<const float*>(base);  // once formed
+  float* cum_sm = reinterpret_cast<float*>(base + 8 * TILE_B);
+  float* dt_sm = cum_sm + TC_GMAX * TC_Q;
+  float* red = dt_sm + TC_GMAX * TC_Q;          // [2][8 warps][TC_Q]
+  float* rowT = red + 2 * 8 * TC_Q;             // [2][TC_Q]
+  const uint32_t bar_s = smem_u32(rowT + 2 * TC_Q);
+  // full[st] = bar_s + 8 st, empty[st] = bar_s + 8 (TC_STAGES + st)
+
+  const int grp = blockIdx.x, h0 = grp * G, nh = min(G, H - h0);
+  const int64_t bc = blockIdx.y;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, gw = tid >> 5;
+  const int r0 = 64 * wg + 16 * warp + (lane >> 2);  // rows j: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);    // columns i: 8 c + c0 + {0, 1}
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < TC_STAGES; ++st) {
+      mbar_init(bar_s + 8 * st, 1);
+      mbar_init(bar_s + 8 * (TC_STAGES + st), TC_NT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_head = [&](int k) {   // head h0 + k into stage k % TC_STAGES
+    const int st = k % TC_STAGES;
+    const uint32_t full = bar_s + 8 * st, x_dst = ring_s + 2 * st * TILE_B;
+    mbar_expect_tx(full, 2 * TILE_B);
+    tma_load_4d(x_dst, &tm_x, full, 0, h0 + k, 0, (int)bc);
+    tma_load_4d(x_dst + TILE_B, &tm_g, full, 0, h0 + k, 0, (int)bc);
+  };
+  if (tid == 0)
+    for (int k = 0; k < TC_STAGES && k < nh; ++k) load_head(k);
+
+  // B and C rows into two 64-column panels each in the 128-byte swizzle
+  // (rows past Q and columns past N read 0, so every product below runs
+  // its full depth: no wgmma sits behind a branch); the group's cum and dt
+  for (int idx = tid; idx < 4 * TC_Q * 8; idx += TC_NT) {
+    const int which = idx / (2 * TC_Q * 8), rem = idx % (2 * TC_Q * 8);
+    const int pan = rem / (TC_Q * 8), r = (rem / 8) % TC_Q, ch = rem % 8;
+    const int n0 = 64 * pan + 8 * ch;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < Q && n0 < N) {
+      const __nv_bfloat16* src = (which ? Cm : Bm) + (bc * Q + r) * N + n0;
+      if (vec_bc) {
+        v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (n0 + e < N)
+            w[e / 2] |= (uint32_t)__bfloat16_as_ushort(src[e])
+                        << (16 * (e % 2));
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    *reinterpret_cast<uint4*>(base + (2 * which + pan) * TILE_B +
+                              r * SW_ROW + ((ch ^ (r & 7)) << 4)) = v;
+  }
+  for (int idx = tid; idx < nh * TC_Q; idx += TC_NT) {
+    const int k = idx / TC_Q, q = idx % TC_Q;
+    cum_sm[idx] = q < Q ? cum[(bc * H + h0 + k) * Q + q] : 0.f;
+  }
+  for (int idx = tid; idx < nh * TC_Q; idx += TC_NT) {
+    const int q = idx / nh, k = idx % nh;    // a row's heads side by side
+    dt_sm[k * TC_Q + q] = q < Q ? dt[(bc * Q + q) * H + h0 + k] : 0.f;
+  }
+  // the threads' stores of B / C are read by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  {   // cb^T = B C^T over N in steps of 16, then into fragment order
+    float cb[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) cb[e] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      wgmma_ss_n128(cb,
+                    sw128_desc(bc_s + (t >> 2) * TILE_B + wg * 64 * SW_ROW +
+                               (t & 3) * 32),
+                    sw128_desc(bc_s + (2 + (t >> 2)) * TILE_B + (t & 3) * 32));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(cb);
+    __syncthreads();               // both warpgroups are done with B and C
+    float4* dst = reinterpret_cast<float4*>(base);
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+      dst[c * TC_NT + tid] =
+          make_float4(cb[4 * c], cb[4 * c + 1], cb[4 * c + 2], cb[4 * c + 3]);
+  }
+
+  float dcb[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dcb[e] = 0.f;
+  for (int k = 0; k < nh; ++k) {
+    const int st = k % TC_STAGES, h = h0 + k, par = k & 1;
+    const uint32_t phase = (k / TC_STAGES) & 1;
+    const uint32_t x_t = ring_s + 2 * st * TILE_B, g_t = x_t + TILE_B;
+    mbar_wait(bar_s + 8 * st, phase);
+
+    // datt^T = x g^T over p in steps of 16
+    float d[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) d[e] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t)      // p past P reads 0 (TMA's fill)
+      wgmma_ss_n128(d, sw128_desc(x_t + wg * 64 * SW_ROW + t * 32),
+                    sw128_desc(g_t + t * 32));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(d);
+
+    // the elementwise part; d becomes att^T
+    const float* cum_h = cum_sm + k * TC_Q;
+    const float* dt_h = dt_sm + k * TC_Q;
+    float cj[2], dtj[2], rs[2] = {0.f, 0.f}, ds[2] = {0.f, 0.f}, cs[32];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      cj[x] = cum_h[r0 + 8 * x];
+      dtj[x] = dt_h[r0 + 8 * x];
+    }
+    const float4* cbq = reinterpret_cast<const float4*>(cbT);
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const float4 cb4 = cbq[c * TC_NT + tid];
+      const float cbe[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+      const float2 ci = *reinterpret_cast<const float2*>(cum_h + 8 * c + c0);
+      cs[2 * c] = cs[2 * c + 1] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = 4 * c + q, x = q >> 1, b = q & 1;
+        const int j = r0 + 8 * x, i = 8 * c + c0 + b;
+        float att = 0.f;
+        if (i >= j && i < Q) {
+          const float dec = expf((b ? ci.y : ci.x) - cj[x]);
+          att = cbe[q] * dec * dtj[x];
+          const float dad = d[e] * dec;
+          const float tq = dad * cbe[q];
+          ds[x] += tq;
+          const float dseg = tq * dtj[x];
+          rs[x] += dseg;
+          cs[2 * c + b] += dseg;
+          dcb[e] += dad * dtj[x];
+        }
+        d[e] = att;
+      }
+    }
+    // rows of T: ddt_j and sum_i dseg over the quad; columns of T: the
+    // 8 lanes of a column class, then the 8 warps (after the barrier)
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      float a = ds[x], r = rs[x];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      r += __shfl_xor_sync(0xffffffffu, r, 1);
+      r += __shfl_xor_sync(0xffffffffu, r, 2);
+      const int j = r0 + 8 * x;
+      if ((lane & 3) == 0) {
+        if (j < Q) ddt[(bc * Q + j) * H + h] = a;
+        rowT[par * TC_Q + j] = r;
+      }
+    }
+    halve<32>(cs, lane, 16);
+    halve<16>(cs, lane, 8);
+    halve<8>(cs, lane, 4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {         // value index (lane & 28) + q
+      const int vi = (lane & 28) + q;
+      red[(par * 8 + gw) * TC_Q + 8 * (vi >> 1) + c0 + (vi & 1)] = cs[q];
+    }
+
+    // dx = att^T g over i in steps of 16: att as bf16 hi + lo A fragments
+    uint32_t ah[8][4], al[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float a0 = d[8 * t + 2 * x], a1 = d[8 * t + 2 * x + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(a0, a1);
+        const float2 hf = __bfloat1622float2(hi);
+        ah[t][x] = *reinterpret_cast<const uint32_t*>(&hi);
+        al[t][x] = pack_bf16(a0 - hf.x, a1 - hf.y);
+      }
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {    // att is 0 where i < j or i >= Q
+      const uint64_t db = sw128_desc(g_t + t * 16 * SW_ROW);
+      wgmma_rs_n64(acc, ah[t], db);
+      wgmma_rs_n64(acc, al[t], db);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(acc);
+
+    // release the stage; thread 0 refills it once all 256 threads have
+    mbar_arrive(bar_s + 8 * (TC_STAGES + st));
+    if (tid == 0 && k + TC_STAGES < nh) {
+      mbar_wait(bar_s + 8 * (TC_STAGES + st), phase);
+      load_head(k + TC_STAGES);
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int j = r0 + 8 * x;
+      if (j >= Q) continue;
+      __nv_bfloat16* o = dx + ((bc * Q + j) * H + h) * (int64_t)P;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int p = 8 * c + c0;
+        if (p < P)
+          *reinterpret_cast<__nv_bfloat162*>(o + p) = __floats2bfloat162_rn(
+              acc[4 * c + 2 * x], acc[4 * c + 2 * x + 1]);
+      }
+    }
+
+    // dcum = column sums of T (8 warps in order) - its row sums, and at
+    // once dltT, its suffix sum (the transpose of cum = cumsum(ltT)): lane
+    // l of warp 0 takes positions 4l .. 4l + 3, sums them from the end,
+    // then adds the lanes above it (a shuffle scan; a fixed order)
+    __syncthreads();
+    if (tid < 32) {
+      float d[4], s = 0.f;
+#pragma unroll
+      for (int u = 3; u >= 0; --u) {
+        const int q = 4 * tid + u;
+        float c = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) c += red[(par * 8 + w) * TC_Q + q];
+        s += q < Q ? c - rowT[par * TC_Q + q] : 0.f;
+        d[u] = s;
+      }
+      float above = s;               // lanes tid .. 31
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_down_sync(0xffffffffu, above, off);
+        if (tid + off < 32) above += o;
+      }
+      above = __shfl_down_sync(0xffffffffu, above, 1);   // lanes tid + 1 ..
+      if (tid == 31) above = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (4 * tid + u < Q) dlt[(bc * H + h) * Q + 4 * tid + u] = d[u] + above;
+    }
+  }
+
+  // the group's dcb^T, summed over its heads in head order
+  float* out = part + ((int64_t)bc * gridDim.x + grp) * Q * Q;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int j = r0 + 8 * x;
+    if (j >= Q) continue;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int i = 8 * c + c0;
+      if (i < Q) out[(int64_t)j * Q + i] = dcb[4 * c + 2 * x];
+      if (i + 1 < Q) out[(int64_t)j * Q + i + 1] = dcb[4 * c + 2 * x + 1];
+    }
+  }
+}
+
+// grid (ceil(Q / 16), 2, B nc).  which 0: dC rows i in [r0, r0 + 16),
+// dC_i = sum_j dcb[i][j] B_j; which 1: dB rows j, dB_j = sum_i dcb[i][j]
+// C_i; dcb = the sum of kernel 1's n_grp partials (dcb^T), in group order.
+__global__ void __launch_bounds__(TC_NT)
+ssd_bwd_tc_headsum_kernel(const float* __restrict__ part,
+                          const __nv_bfloat16* __restrict__ Bm,
+                          const __nv_bfloat16* __restrict__ Cm,
+                          __nv_bfloat16* __restrict__ dB,
+                          __nv_bfloat16* __restrict__ dC, int Q, int N,
+                          int n_grp) {
+  extern __shared__ float hs_sm[];
+  const int QP = (Q + 3) & ~3;       // rows of 16-byte float4 reads
+  float* S = hs_sm;                  // [HS_ROWS][QP]  the rows' dcb slab
+  float* Mt = S + HS_ROWS * QP;      // [QP][N]  B (which 0) or C (which 1)
+  const int which = blockIdx.y, r0 = blockIdx.x * HS_ROWS;
+  const int64_t bc = blockIdx.z;
+  const int tid = threadIdx.x;
+  const float* Pb = part + bc * n_grp * (int64_t)Q * Q;
+  for (int idx = tid; idx < HS_ROWS * QP; idx += TC_NT) {
+    int r, c;
+    if (which) { r = idx / QP; c = idx % QP; }             // a row of dcb^T
+    else { c = idx / HS_ROWS; r = idx % HS_ROWS; }         // a column
+    const int row = r0 + r;
+    float s = 0.f;
+    if (row < Q && c < Q) {
+      const int64_t off = which ? (int64_t)row * Q + c : (int64_t)c * Q + row;
+#pragma unroll 4
+      for (int gi = 0; gi < n_grp; ++gi) s += Pb[gi * (int64_t)Q * Q + off];
+    }
+    S[r * QP + c] = s;
+  }
+  const __nv_bfloat16* Mg = (which ? Cm : Bm) + bc * Q * N;
+  for (int idx = tid; idx < QP * N; idx += TC_NT)
+    Mt[idx] = idx < Q * N ? __bfloat162float(Mg[idx]) : 0.f;
+  __syncthreads();
+
+  // out[r][n] = sum over c in order of S[r][c] Mt[c][n]: 8 rows a thread,
+  // S read 4 columns at a time
+  __nv_bfloat16* out = (which ? dB : dC) + bc * Q * N;
+  const int rg = (tid >> 7) * (HS_ROWS / 2);
+  for (int n0 = 0; n0 < N; n0 += 128) {
+    const int n = n0 + (tid & 127);
+    float o[HS_ROWS / 2];
+#pragma unroll
+    for (int a = 0; a < HS_ROWS / 2; ++a) o[a] = 0.f;
+    if (n < N)
+      for (int c = 0; c < QP; c += 4) {
+        float mv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) mv[u] = Mt[(c + u) * N + n];
+#pragma unroll
+        for (int a = 0; a < HS_ROWS / 2; ++a) {
+          const float4 sv =
+              *reinterpret_cast<const float4*>(S + (rg + a) * QP + c);
+          o[a] = fmaf(sv.x, mv[0], o[a]);
+          o[a] = fmaf(sv.y, mv[1], o[a]);
+          o[a] = fmaf(sv.z, mv[2], o[a]);
+          o[a] = fmaf(sv.w, mv[3], o[a]);
+        }
+      }
+#pragma unroll
+    for (int a = 0; a < HS_ROWS / 2; ++a) {
+      const int row = r0 + rg + a;
+      if (row < Q && n < N) out[row * N + n] = __float2bfloat16_rn(o[a]);
+    }
+  }
+}
+
+int launch_bwd_tc(const void* x, const void* dt, const void* cum,
+                  const void* B, const void* C, const void* g, void* dx,
+                  void* ddt, void* dlt, void* dB, void* dC, void* part,
+                  int BC, int Q, int H, int P, int N, int G,
+                  cudaStream_t stream) {
+  if (Q <= 0 || Q > TC_Q || P <= 0 || P > 64 || P % 8 != 0 || N <= 0 ||
+      N > 128 || H <= 0 || G <= 0 || G > TC_GMAX ||
+      ((uintptr_t)x | (uintptr_t)g) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_x, tm_g;
+  if (!encode_bshd(enc, &tm_x, x, BC, Q, H, P, TC_Q) ||
+      !encode_bshd(enc, &tm_g, g, BC, Q, H, P, TC_Q))
+    return (int)cudaErrorInvalidValue;
+  const int vec_bc =
+      N % 8 == 0 && ((uintptr_t)B | (uintptr_t)C) % 16 == 0 ? 1 : 0;
+  const int n_grp = (H + G - 1) / G;
+  const size_t smem = bwd_tc_smem();
+  const size_t QP = (Q + 3) & ~3;
+  const size_t smem2 = sizeof(float) * (HS_ROWS * QP + QP * N);
+  // the shared-memory limits, raised once per device to their largest
+  // (a per-call cudaFuncSetAttribute costs the host time this launch
+  // otherwise spends on its own)
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  static bool raised[64] = {};
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = set_smem(ssd_bwd_tc_kernel, smem);
+    if (err == 0)
+      err = set_smem(ssd_bwd_tc_headsum_kernel,
+                     sizeof(float) * ((size_t)HS_ROWS * TC_Q + TC_Q * 128));
+    if (err != 0) return err;
+    raised[dev] = true;
+  }
+  ssd_bwd_tc_kernel<<<dim3(n_grp, BC), TC_NT, smem, stream>>>(
+      tm_x, tm_g, (const float*)dt, (const float*)cum,
+      (const __nv_bfloat16*)B, (const __nv_bfloat16*)C, (__nv_bfloat16*)dx,
+      (float*)ddt, (float*)dlt, (float*)part, Q, H, P, N, G, vec_bc);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ssd_bwd_tc_headsum_kernel<<<dim3((Q + HS_ROWS - 1) / HS_ROWS, 2, BC),
+                              TC_NT, smem2, stream>>>(
+      (const float*)part, (const __nv_bfloat16*)B, (const __nv_bfloat16*)C,
+      (__nv_bfloat16*)dB, (__nv_bfloat16*)dC, Q, N, n_grp);
+  return (int)cudaGetLastError();
+}
+
 // P <= 16 / 32 / 64 / 128 -> PC 1 / 2 / 4 / 8; dtype 0 = f32, 1 = bf16
 #define SSD_DISPATCH(LAUNCH, ...)                                        \
   do {                                                                   \
@@ -585,5 +1057,24 @@ int ssd_bwd(const void* x, const void* dt, const void* cum, const void* B,
   SSD_DISPATCH(launch_bwd, x, dt, cum, B, C, g, dx, ddt, dcum, dB, dC, dcb,
                BC, Q, H, P, N, (cudaStream_t)stream);
 }
+
+// bf16 only (dtype 1), on the tensor cores: Q <= 128, P a multiple of 8 and
+// at most 64, N <= 128, 1 <= G <= 16 heads per block; x and g 16-byte
+// aligned.  Outputs as ssd_bwd's, but dltT (B,nc,H,Q) f32 — the suffix sum
+// of dcum — in place of dcum; part is a (B*nc, ceil(H / G), Q, Q) f32
+// scratch.  Returns cudaGetLastError() after the launches.
+int ssd_bwd_tc(const void* x, const void* dt, const void* cum, const void* B,
+               const void* C, const void* g, void* dx, void* ddt, void* dlt,
+               void* dB, void* dC, void* part, int dtype, int BC, int Q,
+               int H, int P, int N, int G, void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return launch_bwd_tc(x, dt, cum, B, C, g, dx, ddt, dlt, dB, dC, part, BC,
+                       Q, H, P, N, G, (cudaStream_t)stream);
+}
+
+// Heads per block at most and chunk rows at most of ssd_bwd_tc: checked by
+// the wrapper.
+int ssd_tc_max_heads() { return TC_GMAX; }
+int ssd_tc_max_q() { return TC_Q; }
 
 }  // extern "C"

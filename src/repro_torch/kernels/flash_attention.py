@@ -49,7 +49,6 @@ its dtype routes to, so the result does not depend on the device.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -330,13 +329,6 @@ def _tma_check(name, q, k, *tensors):
                          f"tensors")
 
 
-def _on(device):
-    """The device guard of a launch: none when ``device`` is current."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         return_lse: bool = False, count_tiles: bool = False):
     """B2.  q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd) → out (B, Sq, Hq, hd)
@@ -359,7 +351,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
             if tc:
                 _tma_check("flash_attention_fwd", q, k, v)
             fn = _lib().fa_fwd_tc if tc else _lib().fa_fwd
-            with _on(q.device):
+            with _cuda.on(q.device):
                 _cuda.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), lse.data_ptr(),
                            slots.data_ptr() if count_tiles else None,
@@ -395,7 +387,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
         if tc:
             _tma_check("flash_attention_bwd_dq", q, k, v, do)
         fn = _lib().fa_bwd_dq_tc if tc else _lib().fa_bwd_dq
-        with _on(q.device):
+        with _cuda.on(q.device):
             _cuda.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                        dq.data_ptr(), *_shape_args(q, k, causal, window))
@@ -424,7 +416,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
         if tc:
             _tma_check("flash_attention_bwd_dkv", q, k, v, do)
         fn = _lib().fa_bwd_dkv_tc if tc else _lib().fa_bwd_dkv
-        with _on(q.device):
+        with _cuda.on(q.device):
             _cuda.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                        dk_h.data_ptr(), dv_h.data_ptr(),

@@ -19,7 +19,13 @@ shared across heads — and a plain integer ``launches`` counter each:
 
 * :func:`ssd_intra_fwd` (B5) — ``y (B,nc,Q,H,P)`` in x's dtype;
 * :func:`ssd_intra_bwd` (B6) — ``(dxr, ddtr, dltT, dBr, dCr)`` in the
-  input layouts and dtypes.
+  input layouts and dtypes.  It routes by dtype and shape
+  (:func:`bwd_route`): bf16 with ``Q <= 128``, ``P`` a multiple of 8 up to
+  64 and ``N <= 128`` (mamba2-2.7b's Q 128, P 64, N 128) goes to
+  ``ssd_bwd_tc``, the tensor-core kernels (``wgmma``: ``cb`` once per
+  cell, a block per cell and group of :func:`head_groups` heads, a
+  partitioned head sum; counted also in ``ssd_intra_bwd.launches_tc``);
+  f32, and bf16 outside that reach, to ``ssd_bwd`` on the CUDA cores.
 
 ``cum = cumsum(ltT)`` is computed here, in torch, as the JAX functions do,
 and handed to the kernel or to its plain version, so both see the same f32
@@ -48,11 +54,41 @@ import torch
 from repro_torch.kernels import _cuda
 
 __all__ = ["ssd_intra_fwd", "ssd_intra_bwd", "fwd_plain", "bwd_plain",
-           "dlt_from_dcum"]
+           "dlt_from_dcum", "bwd_route", "head_groups"]
 
 TILE = 64             # must equal TL in csrc/ssd_scan.cu
 MAX_HEAD_DIM = 128    # P: the widest register tile the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# ssd_bwd_tc (bf16, tensor cores): what it holds, as in csrc/ssd_scan.cu
+TC_MAX_Q = 128        # chunk rows: one block's two warpgroups of 64
+TC_MAX_P = 64         # head dim: one 128-byte swizzle row of bf16
+TC_MAX_N = 128        # state: two 64-column panels
+TC_MAX_HEADS = 16     # heads per block (TC_GMAX)
+# The H100 SXM's 132 SMs, a fixed constant and never the card's own count:
+# the grouping, and with it the order of the head sum and every bit of dB
+# and dC, is a function of the shape alone.
+WAVE = 132
+
+
+def head_groups(BC: int, H: int) -> int:
+    """Heads per block of ``ssd_bwd_tc`` for ``BC = B·nc`` cells of ``H``
+    heads: the fewest that keep ``BC · ceil(H / G)`` blocks within one wave
+    of 132, at most 16.  A pure function of the shape (mamba2-2.7b at 1 ×
+    2,048 tokens: BC 16, H 80 → G 10, 128 blocks)."""
+    if BC < 1 or H < 1:
+        raise ValueError(f"head_groups: BC {BC}, H {H}")
+    per_cell = max(1, WAVE // BC)          # groups per cell in one wave
+    return min(-(-H // min(H, per_cell)), TC_MAX_HEADS)
+
+
+def bwd_route(dtype: torch.dtype, Q: int, P: int, N: int) -> str:
+    """Which B6 kernels serve a CUDA call: ``"wgmma"`` (``ssd_bwd_tc``, bf16
+    on the tensor cores) for bf16 with ``Q <= 128``, ``P % 8 == 0``, ``P <=
+    64`` and ``N <= 128``, else ``"simt"`` (``ssd_bwd``, CUDA cores)."""
+    if (dtype == torch.bfloat16 and 0 < Q <= TC_MAX_Q and P % 8 == 0
+            and 0 < P <= TC_MAX_P and 0 < N <= TC_MAX_N):
+        return "wgmma"
+    return "simt"
 
 
 # ----------------------------------------------------------- plain versions
@@ -116,10 +152,16 @@ def _lib():
     shape = [I] * 6 + [P]          # dtype, B·nc, Q, H, P, N, stream
     lib.ssd_fwd.argtypes = [P] * 6 + shape
     lib.ssd_bwd.argtypes = [P] * 12 + shape
-    for fn in (lib.ssd_fwd, lib.ssd_bwd, lib.ssd_tile):
+    lib.ssd_bwd_tc.argtypes = [P] * 12 + shape[:-1] + [I, P]   # ..., G
+    for fn in (lib.ssd_fwd, lib.ssd_bwd, lib.ssd_bwd_tc, lib.ssd_tile,
+               lib.ssd_tc_max_heads, lib.ssd_tc_max_q):
         fn.restype = I
     if lib.ssd_tile() != TILE:
         raise RuntimeError("csrc/ssd_scan.cu tile size differs from TILE")
+    if (lib.ssd_tc_max_heads(), lib.ssd_tc_max_q()) != (TC_MAX_HEADS,
+                                                        TC_MAX_Q):
+        raise RuntimeError("csrc/ssd_scan.cu ssd_bwd_tc limits differ from "
+                           "TC_MAX_HEADS / TC_MAX_Q")
     return lib
 
 
@@ -191,38 +233,66 @@ def ssd_intra_fwd(xr, dtr, ltT, Br, Cr):
 ssd_intra_fwd.launches = 0
 
 
-def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g
+def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor, torch.Tensor]:
     """B6, the counterpart of
     ``repro.kernels.ssd_scan.ssd_intra_bwd_pallas``: the backward of
     :func:`ssd_intra_fwd` for the cotangent ``g`` (shaped like ``y``).
     Returns ``(dxr, ddtr, dltT, dBr, dCr)`` in the input layouts and
-    dtypes.  One B6 launch is the pair of kernels of ``ssd_bwd`` (per-head
-    cotangents, then the fixed-order head sum into dB / dC)."""
+    dtypes.  One B6 launch is a pair of kernels: on the route
+    :func:`bwd_route` picks (or ``route``, ``"wgmma"`` / ``"simt"``, to hold
+    one against the other), ``ssd_bwd_tc`` (per group of heads, with
+    dltT, the suffix sum of dcum, formed in the kernel; then the
+    partitioned head sum into dB / dC) or ``ssd_bwd`` (per head, then the
+    head sum; dltT taken here by :func:`dlt_from_dcum`)."""
     cum = _cumsum(ltT)
     if xr.device.type == "cpu":
         dx, ddt, dcum, dB, dC = bwd_plain(xr, dtr, cum, Br, Cr, g)
-    else:
-        _check("ssd_intra_bwd", xr, dtr, cum, Br, Cr, g)
-        B, nc, Q, H, _ = xr.shape
-        dx, ddt = torch.empty_like(xr), torch.empty_like(dtr)
-        dcum = torch.empty((B, nc, H, Q), dtype=torch.float32,
-                           device=xr.device)
-        dB, dC = torch.empty_like(Br), torch.empty_like(Cr)
-        # per-head dcb, summed over heads in a fixed order by the second
-        # kernel (no float atomics: every launch is bit-reproducible)
-        dcb = torch.empty((B * nc, H, Q, Q), dtype=torch.float32,
-                          device=xr.device)
-        if dx.numel():
-            with torch.cuda.device(xr.device):
-                _cuda.call(_lib().ssd_bwd, xr.data_ptr(), dtr.data_ptr(),
-                           cum.data_ptr(), Br.data_ptr(), Cr.data_ptr(),
-                           g.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-                           dcum.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                           dcb.data_ptr(), *_shape_args(xr, Br))
-            ssd_intra_bwd.launches += 1
-    return dx, ddt, dlt_from_dcum(dcum, ltT.dtype), dB, dC
+        return dx, ddt, dlt_from_dcum(dcum, ltT.dtype), dB, dC
+    _check("ssd_intra_bwd", xr, dtr, cum, Br, Cr, g)
+    B, nc, Q, H, P = xr.shape
+    N = Br.shape[-1]
+    want = bwd_route(xr.dtype, Q, P, N)
+    route = want if route is None else route
+    if route not in ("wgmma", "simt") or (route == "wgmma"
+                                          and want != "wgmma"):
+        raise ValueError(f"ssd_intra_bwd: route {route!r} does not take "
+                         f"{xr.dtype} at Q {Q}, P {P}, N {N}")
+    tc = route == "wgmma"
+    if tc and (xr.data_ptr() % 16 or g.data_ptr() % 16):
+        raise ValueError("ssd_intra_bwd: the bf16 kernel reads x and g by "
+                         "TMA, which needs 16-byte-aligned tensors")
+    dx, ddt = torch.empty_like(xr), torch.empty_like(dtr)
+    # dcum on the CUDA cores, dltT itself on the tensor cores
+    dl = torch.empty((B, nc, H, Q), dtype=torch.float32, device=xr.device)
+    dB, dC = torch.empty_like(Br), torch.empty_like(Cr)
+    # the head sum's scratch, summed in a fixed order by the second kernel
+    # (no float atomics: every launch is bit-reproducible): per group of G
+    # heads on the tensor cores, per head on the CUDA cores
+    G = head_groups(B * nc, H) if tc else 1
+    dcb = torch.empty((B * nc, -(-H // G), Q, Q), dtype=torch.float32,
+                      device=xr.device)
+    if dx.numel():
+        args = (xr.data_ptr(), dtr.data_ptr(), cum.data_ptr(),
+                Br.data_ptr(), Cr.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), dl.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                dcb.data_ptr())
+        shape = _shape_args(xr, Br)
+        with _cuda.on(xr.device):
+            if tc:
+                _cuda.call(_lib().ssd_bwd_tc, *args, *shape[:-1], G,
+                           shape[-1])
+            else:
+                _cuda.call(_lib().ssd_bwd, *args, *shape)
+        ssd_intra_bwd.launches += 1
+        ssd_intra_bwd.launches_tc += tc
+        ssd_intra_bwd.scratch_bytes = dcb.numel() * dcb.element_size()
+    elif tc:
+        dl.zero_()
+    return dx, ddt, dl if tc else dlt_from_dcum(dl, ltT.dtype), dB, dC
 
 
-ssd_intra_bwd.launches = 0
+ssd_intra_bwd.launches = 0        # every launch of B6
+ssd_intra_bwd.launches_tc = 0     # those on the tensor cores (ssd_bwd_tc)
+ssd_intra_bwd.scratch_bytes = 0   # the last launch's head-sum scratch

@@ -9,9 +9,9 @@ order), identical for every helper here, so leaves listed by
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Iterable, Iterator, List
 
-__all__ = ["tree_map", "tree_leaves"]
+__all__ = ["tree_map", "tree_leaves", "tree_unflatten"]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -30,7 +30,36 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves of ``tree`` in :func:`tree_map`'s traversal order."""
+    """The leaves of ``tree`` in :func:`tree_map`'s traversal order,
+    collected without rebuilding the containers (the optimizer update
+    flattens three trees every step)."""
     out: List[Any] = []
-    tree_map(out.append, tree)
+    _collect(tree, out)
     return out
+
+
+def _collect(tree: Any, out: List[Any]) -> None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _collect(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _collect(v, out)
+    elif tree is not None:
+        out.append(tree)
+
+
+def tree_unflatten(like: Any, leaves: Iterable[Any]) -> Any:
+    """A tree shaped like ``like`` whose leaves, in :func:`tree_leaves`'
+    order, are ``leaves`` (the inverse of :func:`tree_leaves`)."""
+    return _fill(like, iter(leaves))
+
+
+def _fill(tree: Any, it: Iterator[Any]) -> Any:
+    if isinstance(tree, dict):
+        return {k: _fill(v, it) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_fill(v, it) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(_fill(v, it) for v in tree)
+    return None if tree is None else next(it)

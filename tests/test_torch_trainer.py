@@ -28,7 +28,7 @@ from repro_torch.core.trial import Trial
 from repro_torch.core.tuners import GridTuner
 from repro_torch.data import DataPipeline, synthetic_cifar
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.optim import stacked_leaf_update
+from repro_torch.kernels.optim import stacked_leaf_update, stacked_tree_update
 from repro_torch.models.resnet import ResNet
 from repro_torch.train.torch_trainer import TorchTrainer, chunk_lengths
 from repro_torch.utils.convert import state_from_numpy, tree_to_numpy
@@ -306,7 +306,7 @@ def test_use_kernel_defaults_off_on_cpu(fused):
 
 def test_use_kernel_on_cpu_counts_one_warned_once_fallback(stepwise):
     kops.reset_kernel_stats()
-    launches0 = stacked_leaf_update.launches
+    launches0 = (stacked_leaf_update.launches, stacked_tree_update.launches)
     trainer = make(use_kernel=True)
     trial = Trial(HpConfig({"lr": Constant(0.05), "bs": Constant(32)}), 5)
     with pytest.warns(kops.KernelFallbackWarning) as caught:
@@ -315,7 +315,8 @@ def test_use_kernel_on_cpu_counts_one_warned_once_fallback(stepwise):
                 if w.category is kops.KernelFallbackWarning]) == 1
     assert trainer.kernel_fallbacks == 5 and trainer.kernel_calls == 0
     assert kops.KERNEL_STATS.reasons == {"opt_update:device:cpu": 5}
-    assert stacked_leaf_update.launches == launches0
+    assert (stacked_leaf_update.launches,
+            stacked_tree_update.launches) == launches0
     # the plain version is what ran: same bits as use_kernel=False
     plain_state, _ = straight_through(stepwise, trial, 5)
     assert_states_identical(state, plain_state)
