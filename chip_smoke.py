@@ -95,22 +95,23 @@ Phases, each printing one JSON line:
    small decays, so that the tiles far off the diagonal carry weight (bf16
    outputs within one bf16 ulp beyond 2^-16 of the tensor's largest value,
    f32 outputs within 1e-5 of it); every output finite, each kernel run
-   twice and bit-equal; timed beside the plain versions and the bound.  B6
-   in bf16 runs on the tensor cores (``ssd_bwd_tc``, counted in
-   ``launches_tc``) and is also held against, and timed beside, the
-   CUDA-core kernels it replaces (``ssd_bwd``, which f32 keeps), within the
-   grid's 2e-2; its head-sum scratch's bytes are printed.
+   twice and bit-equal; timed beside the plain versions and the bound.  B5
+   and B6 in bf16 run on the tensor cores (``ssd_fwd_tc``, ``ssd_bwd_tc``,
+   counted in ``launches_tc``: every bf16 case) and are also held against,
+   and timed (by CUDA events and by device time) beside, the CUDA-core
+   kernels they replace (``ssd_fwd``, ``ssd_bwd``, which f32 keeps),
+   within the grid's 2e-2; B6's head-sum scratch's bytes are printed.
    ``mamba2_small``: mamba2-2.7b reduced (f32), loss and gradients through
-   the kernels against the plain SSD path (atol 1e-5 / 1e-4).
+   the kernels against the plain SSD path (atol 1e-5 / 1e-4), B5 and B6 on
+   the CUDA-core kernels only.
 10. ``mamba2_study`` — the SHA study of ``examples/torch_hpo_lm.py`` with
    mamba2-2.7b at full width and 32 layers, stage-based then trial-based
    (the first run's checkpoints are dropped before the second starts);
    every launch count is zeroed just before and read just after: B5 = 32 ×
-   (steps + evaluations), B6 = 32 × steps (every one on the tensor cores),
-   B1 = one tree-kernel launch per step, no attention launch, no fallback,
-   fewer steps stage-based, the same best
-   trial and every reported metric bit-equal across modes; the peak device
-   memory.
+   (steps + evaluations), B6 = 32 × steps (every one of both on the tensor
+   cores), B1 = one tree-kernel launch per step, no attention launch, no
+   fallback, fewer steps stage-based, the same best trial and every
+   reported metric bit-equal across modes; the peak device memory.
 11. ``mamba2_step`` / ``mamba2_profile`` — the full 64-layer model: step
    time, tokens/s, the share of B5 + B6 in a step, the AdamW update alone,
    peak memory; the device's busy and idle share over one 2-step chunk and
@@ -1307,7 +1308,8 @@ def lm_small_phase(phase, arch, tokens, seed, attention):
     """A reduced LM (f32) on the card through the kernels' autograd
     bindings against its plain path: loss and every gradient leaf, at the
     CPU tests' tolerances against the JAX package.  With ``attention``, B2,
-    B3 and B4 must have run, in f32 on the CUDA-core kernels only."""
+    B3 and B4 must have run, else B5 and B6, in f32 on the CUDA-core
+    kernels only."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssk
@@ -1323,7 +1325,8 @@ def lm_small_phase(phase, arch, tokens, seed, attention):
     wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)
     n0 = [(w.launches, w.launches_tc) for w in wrappers]
-    ssd0 = (ssk.ssd_intra_bwd.launches, ssk.ssd_intra_bwd.launches_tc)
+    ssd0 = [(w.launches, w.launches_tc)
+            for w in (ssk.ssd_intra_fwd, ssk.ssd_intra_bwd)]
     for use_kernel in (True, False):
         (loss, _), grads = value_and_grad(
             LM(cfg, use_kernel=use_kernel).loss, params, batch)
@@ -1339,13 +1342,17 @@ def lm_small_phase(phase, arch, tokens, seed, attention):
         assert w.launches_tc == tc0, w.__name__
     assert all((n > 0) == attention for n in f32_launches.values()), \
         f32_launches
-    # the f32 SSD backward stays on the CUDA-core kernels
-    ssd_bwd = ssk.ssd_intra_bwd.launches - ssd0[0]
-    assert (ssd_bwd > 0) != attention, ssd_bwd
-    assert ssk.ssd_intra_bwd.launches_tc == ssd0[1]
+    # the f32 SSD forward and backward stay on the CUDA-core kernels
+    ssd_fwd, ssd_bwd = (w.launches - all0 for w, (all0, _) in zip(
+        (ssk.ssd_intra_fwd, ssk.ssd_intra_bwd), ssd0))
+    assert (ssd_fwd > 0) != attention and (ssd_bwd > 0) != attention, (
+        ssd_fwd, ssd_bwd)
+    assert [w.launches_tc for w in (ssk.ssd_intra_fwd, ssk.ssd_intra_bwd)
+            ] == [tc0 for _, tc0 in ssd0]
     emit({"phase": phase, "model": f"{arch} reduced",
           "attention_launches": f32_launches,
           "attention_tensor_core_launches": 0,
+          "ssd_fwd_launches": ssd_fwd, "ssd_fwd_tensor_core_launches": 0,
           "ssd_bwd_launches": ssd_bwd, "ssd_bwd_tensor_core_launches": 0,
           "layers": cfg.num_layers, "dtype": cfg.dtype,
           "tokens": list(tokens), "loss": float(got[True][0]),
@@ -1362,7 +1369,7 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
     (the draw launches no kernel).  Every launch count is zeroed just
     before and read just after: each of the ``fwd`` kernels = layers ×
     (steps + evaluations), each of the ``bwd`` kernels = layers × steps
-    (the bf16 attention and SSD backward ones all on the tensor cores), B1's
+    (the bf16 attention and SSD ones all on the tensor cores), B1's
     tree kernel = steps, the per-leaf kernel and every other kernel 0; no
     fallback; fewer steps
     stage-based; the same best trial and every reported metric bit-equal.
@@ -1394,7 +1401,8 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tc_counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-                   fa.flash_attention_bwd_dkv, ssk.ssd_intra_bwd)
+                   fa.flash_attention_bwd_dkv, ssk.ssd_intra_fwd,
+                   ssk.ssd_intra_bwd)
     for c in counters:                          # counts to 0 just before
         c.launches = 0
     for c in tc_counters:
@@ -1437,7 +1445,7 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
     expected["stacked_tree_update"] = steps     # the whole tree, one launch
     assert fallbacks == 0, kops.KERNEL_STATS.reasons
     assert launches == expected, (launches, expected, steps, evals)
-    # a bf16 model's attention and SSD backward all went through the
+    # a bf16 model's attention and SSD kernels all went through the
     # tensor-core kernels
     assert launches_tc == {name: launches[name] for name in launches_tc}, (
         launches_tc, launches)
@@ -1703,19 +1711,25 @@ def ssd_phase(join_build):
         return dx, ddt, ssk.dlt_from_dcum(dcum, lt.dtype), dB, dC
 
     def run(x, dt, lt, Bm, Cm, g):
-        """B5 + B6 twice (required bit-equal; B6 in bf16 on the tensor
+        """B5 + B6 twice (required bit-equal; in bf16 both on the tensor
         cores, counted in ``launches_tc``, in f32 on the CUDA cores), and
         the plain versions on the same inputs; every output finite, shaped
-        and typed alike.  A bf16 B6 is also run on the CUDA-core kernels it
-        replaces: returns its outputs too (None in f32)."""
-        tc0 = ssk.ssd_intra_bwd.launches_tc
+        and typed alike.  In bf16, B5 and B6 are also run on the CUDA-core
+        kernels they replace: returns their outputs too (None in f32)."""
+        tc0 = (ssk.ssd_intra_fwd.launches_tc, ssk.ssd_intra_bwd.launches_tc)
         runs = [(ssk.ssd_intra_fwd(x, dt, lt, Bm, Cm),)
                 + ssk.ssd_intra_bwd(x, dt, lt, Bm, Cm, g) for _ in range(2)]
         bf16 = x.dtype == torch.bfloat16
-        assert ssk.ssd_intra_bwd.launches_tc - tc0 == 2 * bf16, (
+        # every bf16 case here (grid, ragged, main shape) is in reach
+        assert (ssk.fwd_route(x.dtype, x.shape[2], x.shape[4], Bm.shape[-1])
+                == "wgmma") == bf16
+        assert ssk.ssd_intra_fwd.launches_tc - tc0[0] == 2 * bf16, (
+            "B5 took the wrong route", x.dtype)
+        assert ssk.ssd_intra_bwd.launches_tc - tc0[1] == 2 * bf16, (
             "B6 took the wrong route", x.dtype)
         run.scratch_bytes = ssk.ssd_intra_bwd.scratch_bytes
-        old = ssk.ssd_intra_bwd(x, dt, lt, Bm, Cm, g, route="simt") \
+        old = ((ssk.ssd_intra_fwd(x, dt, lt, Bm, Cm, route="simt"),)
+               + ssk.ssd_intra_bwd(x, dt, lt, Bm, Cm, g, route="simt")) \
             if bf16 else None
         want = (plain(x, dt, lt, Bm, Cm),) + plain(x, dt, lt, Bm, Cm, g)
         torch.cuda.synchronize()
@@ -1727,27 +1741,29 @@ def ssd_phase(join_build):
         return runs[0], want, old
 
     def vs_replaced(outs, old, tol):
-        """The tensor-core B6 against the CUDA-core B6 it replaces: both
-        are held to the plain version, so they agree within the same
-        tolerance; returns the largest difference over the largest value."""
-        worst = 0.0
-        for name, a, b in zip(names[1:], outs[1:], old):
+        """The tensor-core B5 and B6 against the CUDA-core kernels they
+        replace: both are held to the plain version, so they agree within
+        the same tolerance; returns the largest difference over the largest
+        value, per kernel."""
+        worst = {"B5": 0.0, "B6": 0.0}
+        for name, a, b in zip(names, outs, old):
+            key = "B5" if name == "y" else "B6"
             e, ok = within(a, b, tol, tol)
-            assert ok, ("tensor-core B6 disagrees with the CUDA-core B6",
-                        name, e)
-            worst = max(worst, e / float(b.float().abs().max()))
+            assert ok, (f"tensor-core {key} disagrees with the CUDA-core "
+                        f"{key}", name, e)
+            worst[key] = max(worst[key], e / float(b.float().abs().max()))
         return worst
 
     err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in names}
-    cases, grid_vs_replaced = 0, 0.0
+    cases, grid_vs_replaced = 0, {"B5": 0.0, "B6": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for shape in SSD_SHAPES + [SSD_RAGGED]:
             outs, want, old = run(*inputs(*shape, dtype, shape == SSD_RAGGED,
                                           seed=cases))
             if old is not None:
-                grid_vs_replaced = max(grid_vs_replaced,
-                                       vs_replaced(outs, old, 2e-2))
+                for key, e in vs_replaced(outs, old, 2e-2).items():
+                    grid_vs_replaced[key] = max(grid_vs_replaced[key], e)
             for name, a, b in zip(names, outs, want):
                 # the JAX tests' tolerances: forward f32 2e-5, bf16 2e-2;
                 # gradients 2e-3, and 2e-2 for a gradient rounded to bf16
@@ -1838,35 +1854,51 @@ def ssd_phase(join_build):
             "max_abs_err_by_dtype": {n: err[n] for n in outs_of},
             "cases": cases,
             "main_shape_vs_plain": {n: main[n] for n in outs_of}}
-    # B6 in bf16 runs on the tensor cores (ssd_bwd_tc); the CUDA-core
-    # kernels it replaces (ssd_bwd) are timed beside it in this run
-    replaced = lambda: ssk.ssd_intra_bwd(x, dt, lt, Bm, Cm, g, route="simt")
-    b6_dev = device_ms(fns["B6"][1], expect="ssd_bwd_tc_kernel")
+    # B5 and B6 in bf16 run on the tensor cores (ssd_fwd_tc, ssd_bwd_tc);
+    # the CUDA-core kernels they replace (ssd_fwd, ssd_bwd) are timed
+    # beside them in this run
+    le = lambda t, limit: isinstance(t, float) and t <= limit
+    # (each device time is divided by the calls of a kernel that one call
+    # launches once: the profiler can drop whole calls' records)
+    for key, kernel, replaced, replaced_kernel in (
+            ("B5", "ssd_fwd",
+             lambda: ssk.ssd_intra_fwd(x, dt, lt, Bm, Cm, route="simt"),
+             "ssd_fwd_kernel"),
+            ("B6", "ssd_bwd",
+             lambda: ssk.ssd_intra_bwd(x, dt, lt, Bm, Cm, g, route="simt"),
+             "ssd_bwd_head_kernel")):
+        kern = fns[key][1]
+        rows[key].update(
+            route_bf16=f"wgmma ({kernel}_tc)", route_f32=f"simt ({kernel})",
+            device_ms=device_ms(kern, expect=f"{kernel}_tc_kernel"),
+            wrapper_host_us=launch_us(kern),
+            replaced_cuda_core_ms=time_ms(replaced, reps=10, warm=2),
+            replaced_cuda_core_device_ms=device_ms(replaced, reps=5,
+                                                   expect=replaced_kernel),
+            heads_per_block=ssk.head_groups(Bs * nc, H),
+            grid_vs_replaced_err_over_scale=grid_vs_replaced[key],
+            main_shape_vs_replaced_err_over_scale={
+                case: e[key] for case, e in main_vs_replaced.items()})
+    rows["B5"]["targets_met"] = {
+        "device_ms_le_0.05": le(rows["B5"]["device_ms"], 0.05),
+        "ms_le_0.08": rows["B5"]["ms"] <= 0.08}
     rows["B6"].update(
-        route_bf16="wgmma (ssd_bwd_tc)", route_f32="simt (ssd_bwd)",
-        device_ms=b6_dev,
-        wrapper_host_us=launch_us(fns["B6"][1]),
-        replaced_cuda_core_ms=time_ms(replaced, reps=10, warm=2),
-        replaced_cuda_core_device_ms=device_ms(replaced, reps=5),
-        heads_per_block=ssk.head_groups(Bs * nc, H),
         scratch_bytes=scratch["bf16, model decays"],
         replaced_scratch_bytes=Bs * nc * H * Q * Q * 4,
-        grid_vs_replaced_err_over_scale=grid_vs_replaced,
-        main_shape_vs_replaced_err_over_scale=main_vs_replaced,
         targets_met={"ms_le_0.15": rows["B6"]["ms"] <= 0.15,
-                             "scratch_le_10.5MB":
-                                 scratch["bf16, model decays"] <= 10.5e6})
+                     "scratch_le_10.5MB":
+                         scratch["bf16, model decays"] <= 10.5e6})
+    tc_keys = ("device_ms", "wrapper_host_us", "replaced_cuda_core_ms",
+               "replaced_cuda_core_device_ms", "heads_per_block",
+               "grid_vs_replaced_err_over_scale",
+               "main_shape_vs_replaced_err_over_scale", "targets_met")
     emit({"phase": "ssd_kernels", "build_seconds": build_s,
           "cases": cases, "bit_equal_twice": True, "all_finite": True,
           "max_abs_err": err, "shape": shape_s, "cum_min": cum_min,
           "far_corner_decay_min": far_decay, "main_shape_vs_plain": main,
-          "b6_tensor_cores": {k: rows["B6"][k] for k in (
-              "device_ms", "wrapper_host_us", "replaced_cuda_core_ms",
-              "replaced_cuda_core_device_ms", "heads_per_block",
-              "scratch_bytes", "replaced_scratch_bytes",
-              "grid_vs_replaced_err_over_scale",
-              "main_shape_vs_replaced_err_over_scale",
-              "targets_met")},
+          "b5_tensor_cores": {k: rows["B5"][k] for k in tc_keys},
+          "b6_tensor_cores": {k: rows["B6"][k] for k in tc_keys + (
+              "scratch_bytes", "replaced_scratch_bytes")},
           "timing": {key: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms",
                                              "flops", "bytes")}

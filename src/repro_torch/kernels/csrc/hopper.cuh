@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the package's tensor-core
-// kernels (flash_attention.cu: B2-B4; ssd_scan.cu: B6 in bf16): shared
-// memory addresses, mbarriers, TMA loads of 4-D tensor maps, 128-byte-swizzle
-// wgmma descriptors, the three wgmma forms the kernels use, bf16 packing,
-// and the driver's tensor-map encoder found through the runtime (no
-// -lcuda).  A source that includes this header is rebuilt when it changes:
+// kernels (flash_attention.cu: B2-B4; ssd_scan.cu: B5 and B6 in bf16):
+// shared memory addresses, mbarriers, TMA loads of 4-D tensor maps,
+// 128-byte-swizzle wgmma descriptors, the three wgmma forms the kernels
+// use, bf16 packing, and cuTensorMapEncodeTiled found through the runtime
+// (no -lcuda).  A source that includes this header is rebuilt when it changes:
 // kernels/_cuda.py hashes csrc/*.cuh into every library's name.
 //
 // The wgmma accumulator, A-fragment, swizzle and descriptor maps these

@@ -2,7 +2,9 @@
 // hand-written CUDA C++.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/ssd_scan.py:
-//   ssd_fwd     <- _ssd_kernel      (ssd_intra_pallas, :46 / :87)
+//   ssd_fwd_tc  <- _ssd_kernel      (ssd_intra_pallas, :46 / :87),
+//                  bf16 on the tensor cores
+//   ssd_fwd     <- the same, f32 (and bf16 outside ssd_fwd_tc's shapes)
 //   ssd_bwd_tc  <- _ssd_bwd_kernel  (ssd_intra_bwd_pallas, :111 / :189),
 //                  bf16 on the tensor cores
 //   ssd_bwd     <- the same, f32 (and bf16 outside ssd_bwd_tc's shapes)
@@ -58,26 +60,28 @@
 // read once and each output written once (chip_smoke.py, ssd_work).  At
 // mamba2-2.7b's training shape (B 1, nc 16, Q 128, H 80, P 64, N 128, bf16)
 // the forward is 1.43 GFLOP and 44.3 MB: 13.2 us, bytes-bound; the backward
-// 2.93 GFLOP and 67.6 MB: 20.2 us, bytes-bound.  ssd_fwd and ssd_bwd do not
-// use the tensor cores (no wgmma, no TMA, no mma.sync): every product is an
-// f32 FMA on the CUDA cores (67 TFLOP/s peak), fed by one shared-memory
-// word per two FMAs, so they run far from that bound; the times are in
-// PERF.md.  What their design does about the bound: it skips the tiles
-// above the diagonal (a quarter of the work at Q = 128), never writes att
-// or cb to device memory, reads each operand tile once per tile pair, and
-// keeps every accumulator in registers.  ssd_bwd's per-head dcb scratch
-// (84 MB at the shape above) is the price of a deterministic head sum, and
-// its head sum runs on 64 blocks at that shape.
+// 2.93 GFLOP and 67.6 MB: 20.2 us, bytes-bound.  ssd_fwd and ssd_bwd (the
+// f32 route) do not use the tensor cores (no wgmma, no TMA, no mma.sync):
+// every product is an f32 FMA on the CUDA cores (67 TFLOP/s peak), fed by
+// one shared-memory word per two FMAs, so they run far from that bound;
+// the times are in PERF.md.  What their design does about the bound: it
+// skips the tiles above the diagonal (a quarter of the work at Q = 128),
+// never writes att or cb to device memory, reads each operand tile once
+// per tile pair, and keeps every accumulator in registers.  ssd_bwd's
+// per-head dcb scratch (84 MB at the shape above) is the price of a
+// deterministic head sum, and its head sum runs on 64 blocks at that shape.
 //
-// ssd_bwd_tc (B6 in bf16; its design note is above its kernels below) is
-// the redesign for that backward: one wave of blocks, each a cell and a
-// group of heads (kernels/ssd_scan.py::head_groups, a function of the shape
-// alone), cb formed once per block on the tensor cores instead of once per
-// head on the CUDA cores, the x / g tiles by TMA, datt, dx and cb by wgmma,
-// and the dcb head sum partitioned: summed within the group in registers,
-// in head order, written once per block to a (B nc, ceil(H / G), Q, Q)
-// scratch (8.4 MB at the shape above) that a second kernel of 256 blocks
-// sums in group order into dB and dC.
+// ssd_fwd_tc and ssd_bwd_tc (B5 and B6 in bf16; their design notes are
+// above their kernels below) are the redesigns for bf16: one wave of
+// blocks, each a cell and a group of heads (kernels/ssd_scan.py::
+// head_groups, a function of the shape alone), cb formed once per block on
+// the tensor cores instead of once per head on the CUDA cores, the x (and
+// g) tiles by TMA, cb and the per-head products by wgmma.  ssd_fwd_tc
+// keeps cb in registers, forms att on cb's accumulator, and spreads the
+// causal work evenly over the warps.  ssd_bwd_tc partitions the dcb head sum: summed
+// within the group in registers, in head order, written once per block to
+// a (B nc, ceil(H / G), Q, Q) scratch (8.4 MB at the shape above) that a
+// second kernel of 256 blocks sums in group order into dB and dC.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1015,6 +1019,329 @@ int launch_bwd_tc(const void* x, const void* dt, const void* cum,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------ B5, bf16, tensor cores
+// ssd_fwd_tc_kernel replaces _ssd_kernel (ssd_intra_pallas, :46 / :87) for
+// bf16.  What bounds it: 44.3 MB of bytes at mamba2-2.7b's shape, 13.2 us
+// at 3.35 TB/s (the 1.43 GFLOP it needs take 1.4 us on the tensor cores);
+// the CUDA-core ssd_fwd ran at 36x that bound, forming cb again for every
+// head (4.0 GFLOP of f32 FMAs a layer) from operands widened element by
+// element.  What this design does about it:
+//   one block per (cell, group of G heads), G = head_groups(B nc, H): one
+//   wave of blocks (128 on 132 SMs at mamba2's shape);
+//   cb = C B^T once per block on wgmma (m64n128k16 over N), B and C rows
+//   stored by the threads in the 128-byte swizzle (16-byte loads, or
+//   element loads where N % 8 != 0 or a row is not 16-byte aligned), cb
+//   kept in registers (64 a thread) for the group's heads;
+//   per head, in head order: the x tile (Q rows x 64 bf16, rows H P apart)
+//   by TMA over the 4-D map B6 uses, through a ring of FWD_STAGES stages
+//   (the next heads' loads overlap this head's work); att = cb exp(cum_i -
+//   cum_j) dt_j formed on the accumulator, the exponent taken only where
+//   j <= i (elsewhere its argument is -inf: exp2 gives 0, never inf * 0);
+//   att packed into the A fragments of y = att x as bf16 hi + lo (att - hi,
+//   rounded again: att to 2^-17 relative, the f32 products' accuracy), x
+//   N-major through the transpose bit (wgmma m64n64k16 from registers);
+//   y to bf16, staged per warp in shared memory (swizzled, no bank
+//   conflicts) and written by 16-byte stores, with no block barrier in the
+//   head loop.
+// The causal triangle is balanced: the chunk's 16 row groups of 8 rows go
+// to the 16 (warpgroup, warp, row half) slots so that every warp holds one
+// group of the upper and one of the lower half of the chunk (warp w of
+// warpgroup 0 groups w and 15 - w, of warpgroup 1 groups 7 - w and 8 + w):
+// each warp forms the same 1,032 live elements of att a head (the 1 : 3
+// imbalance of a split into two 64-row halves is gone), and the two warps
+// on one SM sub-partition (warp w of each warpgroup) as well.  C's rows are
+// stored in that slot order, so the cb product needs no other change.
+// att goes 4 column groups of 8 at a time: a chunk entirely above a row
+// group's diagonal is skipped by a warp-uniform branch, and a chunk has no
+// branch inside (a select masks j > i), so its 8 exponentials interleave
+// (a branch per column group left each chain's latency exposed); every
+// wgmma runs its full depth.  The prologue starts every load of B, C, cum
+// and dt before its first store: the block waits on device memory once.
+// Deterministic: no atomics, every sum in a fixed order.
+constexpr int FWD_STAGES = 4;             // x tile ring depth
+constexpr int WARP_Y_B = 16 * SW_ROW;     // one warp's 16 rows of y, staged
+
+constexpr size_t fwd_tc_smem() {   // + 1024 to align the tiles by hand
+  return 1024 + (4 + FWD_STAGES) * TILE_B +        // B / C, ring
+         8 * WARP_Y_B +                            // y staging, 8 warps
+         sizeof(float) * 2 * TC_GMAX * TC_Q +      // cum, dt of the group
+         8 * 2 * FWD_STAGES;                       // full, empty barriers
+}
+
+// Row group (8 rows: 8 g .. 8 g + 7) of row half x of warp w of
+// warpgroup wg; fwd_slot is its inverse: slot 8 wg + 2 w + x, the place of
+// the group's rows in C's panels and in the accumulators (m64 rows 16 w +
+// 8 x + r of warpgroup wg).
+__host__ __device__ constexpr int fwd_row_group(int wg, int w, int x) {
+  return wg == 0 ? (x == 0 ? w : 15 - w) : (x == 0 ? 7 - w : 8 + w);
+}
+__host__ __device__ constexpr int fwd_slot(int g) {
+  return g < 4 ? 2 * g : g < 8 ? 8 + 2 * (7 - g)
+                       : g < 12 ? 9 + 2 * (g - 8) : 1 + 2 * (15 - g);
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// grid (ceil(H / G), B nc).  Writes y.
+__global__ void __launch_bounds__(TC_NT, 1)
+ssd_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_x,
+                  const float* __restrict__ dt, const float* __restrict__ cum,
+                  const __nv_bfloat16* __restrict__ Bm,
+                  const __nv_bfloat16* __restrict__ Cm,
+                  __nv_bfloat16* __restrict__ y, int Q, int H, int P, int N,
+                  int G, int vec_bc) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bc_s = smem_u32(base);   // B panels 0-1, C panels 2-3
+  const uint32_t ring_s = bc_s + 4 * TILE_B;  // stage st: x
+  uint8_t* ystage = base + (4 + FWD_STAGES) * TILE_B;
+  float* cum_sm = reinterpret_cast<float*>(ystage + 8 * WARP_Y_B);
+  float* dt_sm = cum_sm + TC_GMAX * TC_Q;
+  const uint32_t bar_s = smem_u32(dt_sm + TC_GMAX * TC_Q);
+  // full[st] = bar_s + 8 st, empty[st] = bar_s + 8 (FWD_STAGES + st)
+
+  const int grp = blockIdx.x, h0 = grp * G, nh = min(G, H - h0);
+  const int64_t bc = blockIdx.y;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, gw = tid >> 5;
+  const int c0 = 2 * (lane & 3);    // columns j (and p): 8 c + c0 + {0, 1}
+  int rg[2], row[2];                // row halves x: rows i = 8 rg[x] + lane / 4
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    rg[x] = fwd_row_group(wg, warp, x);
+    row[x] = 8 * rg[x] + (lane >> 2);
+  }
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < FWD_STAGES; ++st) {
+      mbar_init(bar_s + 8 * st, 1);
+      mbar_init(bar_s + 8 * (FWD_STAGES + st), TC_NT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_head = [&](int k) {   // head h0 + k into stage k % FWD_STAGES
+    const int st = k % FWD_STAGES;
+    const uint32_t full = bar_s + 8 * st;
+    mbar_expect_tx(full, TILE_B);
+    tma_load_4d(ring_s + st * TILE_B, &tm_x, full, 0, h0 + k, 0, (int)bc);
+  };
+  if (tid == 0)
+    for (int k = 0; k < FWD_STAGES && k < nh; ++k) load_head(k);
+
+  // B rows j and C rows i (C's in slot order) into two 64-column panels
+  // each in the 128-byte swizzle (rows past Q and columns past N read 0);
+  // the group's cum and dt.  Every load starts before the first store,
+  // so the block waits on device memory once, not once per load
+  constexpr int BC_U = 4 * TC_Q * 8 / TC_NT, ROW_U = TC_GMAX * TC_Q / TC_NT;
+  static_assert(BC_U * TC_NT == 4 * TC_Q * 8 && ROW_U * TC_NT ==
+                TC_GMAX * TC_Q, "the prologue's loads divide evenly");
+  uint4 bcv[BC_U];
+  float cumv[ROW_U], dtv[ROW_U];
+#pragma unroll
+  for (int u = 0; u < BC_U; ++u) {
+    const int idx = tid + u * TC_NT;
+    const int which = idx / (2 * TC_Q * 8), rem = idx % (2 * TC_Q * 8);
+    const int pan = rem / (TC_Q * 8), r = (rem / 8) % TC_Q, ch = rem % 8;
+    const int n0 = 64 * pan + 8 * ch;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < Q && n0 < N) {
+      const __nv_bfloat16* src = (which ? Cm : Bm) + (bc * Q + r) * N + n0;
+      if (vec_bc) {
+        v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (n0 + e < N)
+            w[e / 2] |= (uint32_t)__bfloat16_as_ushort(src[e])
+                        << (16 * (e % 2));
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    bcv[u] = v;
+  }
+#pragma unroll
+  for (int u = 0; u < ROW_U; ++u) {
+    const int idx = tid + u * TC_NT;
+    const int k = idx / TC_Q, q = idx % TC_Q;          // cum: (head, row)
+    const int qd = idx / nh, kd = idx % nh;            // dt: a row's heads
+    const bool live = idx < nh * TC_Q;
+    cumv[u] = live && q < Q ? cum[(bc * H + h0 + k) * Q + q] : 0.f;
+    dtv[u] = live && qd < Q ? dt[(bc * Q + qd) * H + h0 + kd] : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < BC_U; ++u) {
+    const int idx = tid + u * TC_NT;
+    const int which = idx / (2 * TC_Q * 8), rem = idx % (2 * TC_Q * 8);
+    const int pan = rem / (TC_Q * 8), r = (rem / 8) % TC_Q, ch = rem % 8;
+    const int sr = which ? 8 * fwd_slot(r >> 3) + (r & 7) : r;
+    *reinterpret_cast<uint4*>(base + (2 * which + pan) * TILE_B +
+                              sr * SW_ROW + ((ch ^ (sr & 7)) << 4)) = bcv[u];
+  }
+#pragma unroll
+  for (int u = 0; u < ROW_U; ++u) {
+    const int idx = tid + u * TC_NT;
+    if (idx < nh * TC_Q) {
+      cum_sm[idx] = cumv[u];
+      dt_sm[(idx % nh) * TC_Q + idx / nh] = dtv[u];
+    }
+  }
+  // the threads' stores of B / C are read by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // cb = C B^T over N in steps of 16: this warpgroup's 64 slot rows of C
+  // against all 128 rows j of B; kept in registers for every head
+  float cb[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) cb[e] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    wgmma_ss_n128(cb,
+                  sw128_desc(bc_s + (2 + (t >> 2)) * TILE_B +
+                             wg * 64 * SW_ROW + (t & 3) * 32),
+                  sw128_desc(bc_s + (t >> 2) * TILE_B + (t & 3) * 32));
+  wg_commit();
+  wg_wait_all();
+  reg_fence(cb);
+
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float NEG_INF = __int_as_float((int)0xff800000u);
+  uint8_t* ys = ystage + gw * WARP_Y_B;
+  for (int k = 0; k < nh; ++k) {
+    const int st = k % FWD_STAGES, h = h0 + k;
+    // refill the stage head k - 1 read, once all 256 threads released it
+    if (tid == 0 && k >= 1 && k - 1 + FWD_STAGES < nh) {
+      mbar_wait(bar_s + 8 * (FWD_STAGES + (k - 1) % FWD_STAGES),
+                ((k - 1) / FWD_STAGES) & 1);
+      load_head(k - 1 + FWD_STAGES);
+    }
+
+    // att on cb's accumulator, packed into bf16 hi + lo A fragments: the
+    // pair (c, x) is A register 2 (c & 1) + x of k-step c / 2.  Column
+    // groups go 4 at a time behind one warp-uniform branch (a row group g
+    // forms groups c <= g: 4 chunks at most, 5 a warp), with no branch
+    // inside a chunk, so its 8 exponentials interleave
+    const float* cum_h = cum_sm + k * TC_Q;
+    const float* dt_h = dt_sm + k * TC_Q;
+    float ci[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      ci[x] = row[x] < Q ? cum_h[row[x]] : NEG_INF;
+    uint32_t ah[8][4], al[8][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        if (4 * cc <= rg[x]) {
+#pragma unroll
+          for (int c = 4 * cc; c < 4 * cc + 4; ++c) {
+            const int j = 8 * c + c0;
+            const float2 cj = *reinterpret_cast<const float2*>(cum_h + j);
+            const float2 dj = *reinterpret_cast<const float2*>(dt_h + j);
+            const float s0 = j <= row[x] ? ci[x] - cj.x : NEG_INF;
+            const float s1 = j + 1 <= row[x] ? ci[x] - cj.y : NEG_INF;
+            const float v0 = cb[4 * c + 2 * x] * ex2(s0 * LOG2E) * dj.x;
+            const float v1 = cb[4 * c + 2 * x + 1] * ex2(s1 * LOG2E) * dj.y;
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+            const float2 hf = __bfloat1622float2(hi);
+            ah[c >> 1][2 * (c & 1) + x] =
+                *reinterpret_cast<const uint32_t*>(&hi);
+            al[c >> 1][2 * (c & 1) + x] = pack_bf16(v0 - hf.x, v1 - hf.y);
+          }
+        } else {                     // the 8 x 32 block lies above
+#pragma unroll
+          for (int c = 4 * cc; c < 4 * cc + 4; ++c)
+            ah[c >> 1][2 * (c & 1) + x] = al[c >> 1][2 * (c & 1) + x] = 0u;
+        }
+      }
+
+    // y = att x over j in steps of 16, x N-major (rows past Q: TMA's 0)
+    mbar_wait(bar_s + 8 * st, (k / FWD_STAGES) & 1);
+    const uint32_t x_t = ring_s + st * TILE_B;
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const uint64_t db = sw128_desc(x_t + t * 16 * SW_ROW);
+      wgmma_rs_n64(acc, ah[t], db);
+      wgmma_rs_n64(acc, al[t], db);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(acc);
+    mbar_arrive(bar_s + 8 * (FWD_STAGES + st));
+
+    // y: accumulator element 4 c + 2 x + b is (row half x, p = 8 c + c0 +
+    // b); staged as the warp's 16 rows (8 x + lane / 4) in the 128-byte
+    // swizzle, then read back as 16-byte chunks, 4 rows a store
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int lr = 8 * x + (lane >> 2);
+        *reinterpret_cast<uint32_t*>(ys + lr * SW_ROW +
+                                     ((c ^ (lr & 7)) << 4) +
+                                     4 * (lane & 3)) =
+            pack_bf16(acc[4 * c + 2 * x], acc[4 * c + 2 * x + 1]);
+      }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int lr = 4 * it + (lane >> 3), ch = lane & 7;
+      const int r = 8 * rg[it >> 1] + (lr & 7);
+      if (r < Q && 8 * ch < P)
+        *reinterpret_cast<uint4*>(y + ((bc * Q + r) * H + h) * (int64_t)P +
+                                  8 * ch) =
+            *reinterpret_cast<const uint4*>(ys + lr * SW_ROW +
+                                            ((ch ^ (lr & 7)) << 4));
+    }
+    __syncwarp();                    // the reads are done before the next
+  }
+}
+
+int launch_fwd_tc(const void* x, const void* dt, const void* cum,
+                  const void* B, const void* C, void* y, int BC, int Q,
+                  int H, int P, int N, int G, cudaStream_t stream) {
+  if (Q <= 0 || Q > TC_Q || P <= 0 || P > 64 || P % 8 != 0 || N <= 0 ||
+      N > 128 || H <= 0 || G <= 0 || G > TC_GMAX ||
+      ((uintptr_t)x | (uintptr_t)y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_x;
+  if (!encode_bshd(enc, &tm_x, x, BC, Q, H, P, TC_Q))
+    return (int)cudaErrorInvalidValue;
+  const int vec_bc =
+      N % 8 == 0 && ((uintptr_t)B | (uintptr_t)C) % 16 == 0 ? 1 : 0;
+  const size_t smem = fwd_tc_smem();
+  // the shared-memory limit, raised once per device (as launch_bwd_tc's)
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  static bool raised[64] = {};
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = set_smem(ssd_fwd_tc_kernel, smem);
+    if (err != 0) return err;
+    raised[dev] = true;
+  }
+  ssd_fwd_tc_kernel<<<dim3((H + G - 1) / G, BC), TC_NT, smem, stream>>>(
+      tm_x, (const float*)dt, (const float*)cum, (const __nv_bfloat16*)B,
+      (const __nv_bfloat16*)C, (__nv_bfloat16*)y, Q, H, P, N, G, vec_bc);
+  return (int)cudaGetLastError();
+}
+
 // P <= 16 / 32 / 64 / 128 -> PC 1 / 2 / 4 / 8; dtype 0 = f32, 1 = bf16
 #define SSD_DISPATCH(LAUNCH, ...)                                        \
   do {                                                                   \
@@ -1072,8 +1399,20 @@ int ssd_bwd_tc(const void* x, const void* dt, const void* cum, const void* B,
                        Q, H, P, N, G, (cudaStream_t)stream);
 }
 
-// Heads per block at most and chunk rows at most of ssd_bwd_tc: checked by
-// the wrapper.
+// bf16 only (dtype 1), on the tensor cores, y (B,nc,Q,H,P): the reach of
+// ssd_bwd_tc (Q <= 128, P a multiple of 8 and at most 64, N <= 128, 1 <= G
+// <= 16 heads per block); x and y 16-byte aligned.  Returns
+// cudaGetLastError() after the launch.
+int ssd_fwd_tc(const void* x, const void* dt, const void* cum, const void* B,
+               const void* C, void* y, int dtype, int BC, int Q, int H,
+               int P, int N, int G, void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return launch_fwd_tc(x, dt, cum, B, C, y, BC, Q, H, P, N, G,
+                       (cudaStream_t)stream);
+}
+
+// Heads per block at most and chunk rows at most of ssd_fwd_tc and
+// ssd_bwd_tc: checked by the wrapper.
 int ssd_tc_max_heads() { return TC_GMAX; }
 int ssd_tc_max_q() { return TC_Q; }
 

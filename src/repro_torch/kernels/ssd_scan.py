@@ -19,13 +19,17 @@ shared across heads — and a plain integer ``launches`` counter each:
 
 * :func:`ssd_intra_fwd` (B5) — ``y (B,nc,Q,H,P)`` in x's dtype;
 * :func:`ssd_intra_bwd` (B6) — ``(dxr, ddtr, dltT, dBr, dCr)`` in the
-  input layouts and dtypes.  It routes by dtype and shape
-  (:func:`bwd_route`): bf16 with ``Q <= 128``, ``P`` a multiple of 8 up to
-  64 and ``N <= 128`` (mamba2-2.7b's Q 128, P 64, N 128) goes to
-  ``ssd_bwd_tc``, the tensor-core kernels (``wgmma``: ``cb`` once per
-  cell, a block per cell and group of :func:`head_groups` heads, a
-  partitioned head sum; counted also in ``ssd_intra_bwd.launches_tc``);
-  f32, and bf16 outside that reach, to ``ssd_bwd`` on the CUDA cores.
+  input layouts and dtypes.
+
+Both route by dtype and shape (:func:`fwd_route`, :func:`bwd_route`, one
+rule): bf16 with ``Q <= 128``, ``P`` a multiple of 8 up to 64 and ``N <=
+128`` (mamba2-2.7b's Q 128, P 64, N 128) goes to the tensor-core kernels
+``ssd_fwd_tc`` / ``ssd_bwd_tc`` (``wgmma`` over TMA-fed x tiles, ``cb``
+once per block of a cell and a group of :func:`head_groups` heads; the
+backward's head sum partitioned; counted also in ``launches_tc``); f32,
+and bf16 outside that reach, to ``ssd_fwd`` / ``ssd_bwd`` on the CUDA
+cores.  ``route="simt"`` forces the CUDA-core kernels (to hold one route
+against the other).
 
 ``cum = cumsum(ltT)`` is computed here, in torch, as the JAX functions do,
 and handed to the kernel or to its plain version, so both see the same f32
@@ -54,12 +58,13 @@ import torch
 from repro_torch.kernels import _cuda
 
 __all__ = ["ssd_intra_fwd", "ssd_intra_bwd", "fwd_plain", "bwd_plain",
-           "dlt_from_dcum", "bwd_route", "head_groups"]
+           "dlt_from_dcum", "fwd_route", "bwd_route", "head_groups"]
 
 TILE = 64             # must equal TL in csrc/ssd_scan.cu
 MAX_HEAD_DIM = 128    # P: the widest register tile the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# ssd_bwd_tc (bf16, tensor cores): what it holds, as in csrc/ssd_scan.cu
+# ssd_fwd_tc / ssd_bwd_tc (bf16, tensor cores): what they hold, as in
+# csrc/ssd_scan.cu
 TC_MAX_Q = 128        # chunk rows: one block's two warpgroups of 64
 TC_MAX_P = 64         # head dim: one 128-byte swizzle row of bf16
 TC_MAX_N = 128        # state: two 64-column panels
@@ -71,9 +76,9 @@ WAVE = 132
 
 
 def head_groups(BC: int, H: int) -> int:
-    """Heads per block of ``ssd_bwd_tc`` for ``BC = B·nc`` cells of ``H``
-    heads: the fewest that keep ``BC · ceil(H / G)`` blocks within one wave
-    of 132, at most 16.  A pure function of the shape (mamba2-2.7b at 1 ×
+    """Heads per block of ``ssd_fwd_tc`` / ``ssd_bwd_tc`` for ``BC = B·nc``
+    cells of ``H`` heads: the fewest that keep ``BC · ceil(H / G)`` blocks
+    within one wave of 132, at most 16.  A pure function of the shape (mamba2-2.7b at 1 ×
     2,048 tokens: BC 16, H 80 → G 10, 128 blocks)."""
     if BC < 1 or H < 1:
         raise ValueError(f"head_groups: BC {BC}, H {H}")
@@ -89,6 +94,13 @@ def bwd_route(dtype: torch.dtype, Q: int, P: int, N: int) -> str:
             and 0 < P <= TC_MAX_P and 0 < N <= TC_MAX_N):
         return "wgmma"
     return "simt"
+
+
+def fwd_route(dtype: torch.dtype, Q: int, P: int, N: int) -> str:
+    """Which B5 kernel serves a CUDA call, by B6's rule: ``"wgmma"``
+    (``ssd_fwd_tc``, bf16 on the tensor cores) or ``"simt"`` (``ssd_fwd``,
+    CUDA cores)."""
+    return bwd_route(dtype, Q, P, N)
 
 
 # ----------------------------------------------------------- plain versions
@@ -151,17 +163,18 @@ def _lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     shape = [I] * 6 + [P]          # dtype, B·nc, Q, H, P, N, stream
     lib.ssd_fwd.argtypes = [P] * 6 + shape
+    lib.ssd_fwd_tc.argtypes = [P] * 6 + shape[:-1] + [I, P]    # ..., G
     lib.ssd_bwd.argtypes = [P] * 12 + shape
     lib.ssd_bwd_tc.argtypes = [P] * 12 + shape[:-1] + [I, P]   # ..., G
-    for fn in (lib.ssd_fwd, lib.ssd_bwd, lib.ssd_bwd_tc, lib.ssd_tile,
-               lib.ssd_tc_max_heads, lib.ssd_tc_max_q):
+    for fn in (lib.ssd_fwd, lib.ssd_fwd_tc, lib.ssd_bwd, lib.ssd_bwd_tc,
+               lib.ssd_tile, lib.ssd_tc_max_heads, lib.ssd_tc_max_q):
         fn.restype = I
     if lib.ssd_tile() != TILE:
         raise RuntimeError("csrc/ssd_scan.cu tile size differs from TILE")
     if (lib.ssd_tc_max_heads(), lib.ssd_tc_max_q()) != (TC_MAX_HEADS,
                                                         TC_MAX_Q):
-        raise RuntimeError("csrc/ssd_scan.cu ssd_bwd_tc limits differ from "
-                           "TC_MAX_HEADS / TC_MAX_Q")
+        raise RuntimeError("csrc/ssd_scan.cu ssd_fwd_tc / ssd_bwd_tc limits "
+                           "differ from TC_MAX_HEADS / TC_MAX_Q")
     return lib
 
 
@@ -211,26 +224,56 @@ def _cumsum(ltT: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(ltT, dim=-1).contiguous()
 
 
-def ssd_intra_fwd(xr, dtr, ltT, Br, Cr):
+def _route(name, route_of, xr, Br, route):
+    """The route a CUDA call takes: ``route_of``'s, or ``route`` where one
+    is asked for (``"simt"`` always; ``"wgmma"`` only within its reach)."""
+    B, nc, Q, H, P = xr.shape
+    N = Br.shape[-1]
+    want = route_of(xr.dtype, Q, P, N)
+    route = want if route is None else route
+    if route not in ("wgmma", "simt") or (route == "wgmma"
+                                          and want != "wgmma"):
+        raise ValueError(f"{name}: route {route!r} does not take "
+                         f"{xr.dtype} at Q {Q}, P {P}, N {N}")
+    return route
+
+
+def ssd_intra_fwd(xr, dtr, ltT, Br, Cr, route=None):
     """B5, the counterpart of ``repro.kernels.ssd_scan.ssd_intra_pallas``.
 
     xr (B,nc,Q,H,P), dtr (B,nc,Q,H) f32, ltT (B,nc,H,Q) f32 per-step
-    log-decay, Br / Cr (B,nc,Q,N) → y (B,nc,Q,H,P) in x's dtype."""
+    log-decay, Br / Cr (B,nc,Q,N) → y (B,nc,Q,H,P) in x's dtype.  On the
+    route :func:`fwd_route` picks (or ``route``, ``"wgmma"`` / ``"simt"``,
+    to hold one against the other): ``ssd_fwd_tc`` (a block per cell and
+    group of heads, on the tensor cores) or ``ssd_fwd`` (a block per row
+    tile, head and cell, on the CUDA cores)."""
     cum = _cumsum(ltT)
     if xr.device.type == "cpu":
         return fwd_plain(xr, dtr, cum, Br, Cr)
     _check("ssd_intra_fwd", xr, dtr, cum, Br, Cr)
+    tc = _route("ssd_intra_fwd", fwd_route, xr, Br, route) == "wgmma"
+    if tc and xr.data_ptr() % 16:
+        raise ValueError("ssd_intra_fwd: the bf16 kernel reads x by TMA, "
+                         "which needs a 16-byte-aligned tensor")
     y = torch.empty_like(xr)
     if y.numel():
-        with torch.cuda.device(xr.device):
-            _cuda.call(_lib().ssd_fwd, xr.data_ptr(), dtr.data_ptr(),
-                       cum.data_ptr(), Br.data_ptr(), Cr.data_ptr(),
-                       y.data_ptr(), *_shape_args(xr, Br))
+        args = (xr.data_ptr(), dtr.data_ptr(), cum.data_ptr(),
+                Br.data_ptr(), Cr.data_ptr(), y.data_ptr())
+        shape = _shape_args(xr, Br)
+        with _cuda.on(xr.device):
+            if tc:
+                G = head_groups(shape[1], xr.shape[3])
+                _cuda.call(_lib().ssd_fwd_tc, *args, *shape[:-1], G,
+                           shape[-1])
+            else:
+                _cuda.call(_lib().ssd_fwd, *args, *shape)
         ssd_intra_fwd.launches += 1
+        ssd_intra_fwd.launches_tc += tc
     return y
 
 
-ssd_intra_fwd.launches = 0
+ssd_intra_fwd.launches = 0        # every launch of B5
+ssd_intra_fwd.launches_tc = 0     # those on the tensor cores (ssd_fwd_tc)
 
 
 def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None
@@ -252,14 +295,7 @@ def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None
         return dx, ddt, dlt_from_dcum(dcum, ltT.dtype), dB, dC
     _check("ssd_intra_bwd", xr, dtr, cum, Br, Cr, g)
     B, nc, Q, H, P = xr.shape
-    N = Br.shape[-1]
-    want = bwd_route(xr.dtype, Q, P, N)
-    route = want if route is None else route
-    if route not in ("wgmma", "simt") or (route == "wgmma"
-                                          and want != "wgmma"):
-        raise ValueError(f"ssd_intra_bwd: route {route!r} does not take "
-                         f"{xr.dtype} at Q {Q}, P {P}, N {N}")
-    tc = route == "wgmma"
+    tc = _route("ssd_intra_bwd", bwd_route, xr, Br, route) == "wgmma"
     if tc and (xr.data_ptr() % 16 or g.data_ptr() % 16):
         raise ValueError("ssd_intra_bwd: the bf16 kernel reads x and g by "
                          "TMA, which needs 16-byte-aligned tensors")

@@ -271,7 +271,8 @@ def test_head_groups_is_a_pure_function_of_the_shape(BC, H):
         assert (G, blocks) == (10, 128)
 
 
-@pytest.mark.parametrize("dtype, Q, P, N, route", [
+# the reach of the tensor-core kernels, B5's and B6's alike
+ROUTE_CASES = [
     (torch.bfloat16, 128, 64, 128, "wgmma"), (torch.bfloat16, 96, 40, 20,
                                               "wgmma"),
     (torch.bfloat16, 8, 8, 8, "wgmma"), (torch.float32, 128, 64, 128,
@@ -279,7 +280,10 @@ def test_head_groups_is_a_pure_function_of_the_shape(BC, H):
     (torch.bfloat16, 256, 64, 128, "simt"), (torch.bfloat16, 128, 128, 128,
                                              "simt"),
     (torch.bfloat16, 128, 36, 128, "simt"), (torch.bfloat16, 128, 64, 160,
-                                             "simt")])
+                                             "simt")]
+
+
+@pytest.mark.parametrize("dtype, Q, P, N, route", ROUTE_CASES)
 def test_backward_routes_by_dtype_and_shape(dtype, Q, P, N, route):
     assert ss.bwd_route(dtype, Q, P, N) == route
 
@@ -483,3 +487,243 @@ def test_b6_tensor_core_maps_reproduce_the_tile_products():
                        if ln & 3 == lane & 3)
             np.testing.assert_allclose(v[lane, q], want, rtol=1e-12)
     assert sorted(written) == list(range(128))
+
+
+# ------------------------------------------ B5 on the tensor cores (bf16)
+# ``ssd_fwd_tc`` (csrc/ssd_scan.cu) runs one block per (cell, group of
+# ``head_groups`` heads): cb = C·Bᵀ once per block, kept in registers; per
+# head att on cb's accumulator (the exponent only where j <= i), packed as
+# bf16 hi + lo A fragments of y = att·x; the chunk's 16 row groups of 8
+# rows spread over the warps so that each warp forms the same causal work.
+# Its route, its decomposition and its tile maps are held here.
+
+@pytest.mark.parametrize("dtype, Q, P, N, route", ROUTE_CASES)
+def test_forward_routes_by_dtype_and_shape(dtype, Q, P, N, route):
+    assert ss.fwd_route(dtype, Q, P, N) == route
+
+
+def b5_row_group(wg: int, w: int, x: int) -> int:
+    """The kernel's ``fwd_row_group``: the 8-row group (rows 8g … 8g + 7)
+    of row half ``x`` of warp ``w`` of warpgroup ``wg``."""
+    if wg == 0:
+        return w if x == 0 else 15 - w
+    return 7 - w if x == 0 else 8 + w
+
+
+def b5_slot(g: int) -> int:
+    """The kernel's ``fwd_slot``: where row group ``g`` sits in C's panels
+    and in the accumulators, slot 8 wg + 2 w + x."""
+    if g < 4:
+        return 2 * g
+    if g < 8:
+        return 8 + 2 * (7 - g)
+    if g < 12:
+        return 9 + 2 * (g - 8)
+    return 1 + 2 * (15 - g)
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def tc_fwd_emulation(xr, dtr, cum, Br, Cr, G):
+    """What ``ssd_fwd_tc`` computes, in torch: per cell and group of ``G``
+    heads cb = C·Bᵀ once (bf16 operands, f32 sums); per head, row group g
+    (rows 8g …) and chunk cc of 4 column groups (columns 32cc …): nothing
+    where 4cc > g, else the exponent 2^((cum_i − cum_j) log2 e) where j <=
+    i (elsewhere its argument is −inf, as for rows past Q); att = cb ·
+    decay · dt_j split into bf16 hi and lo = att − hi rounded again; y =
+    hi·x + lo·x.  Returns f32 y (B,nc,Q,H,P) before its final rounding."""
+    B, nc, Q, H, P = xr.shape
+    x = xr.float().movedim(3, 2)                           # (B,nc,H,Q,P)
+    i = torch.arange(Q)[:, None]
+    j = torch.arange(Q)[None, :]
+    above = 4 * (j // 32) > i // 8                         # skipped chunks
+    live = (j <= i) & ~above
+    dtj = dtr.float().movedim(-1, -2)[..., None, :]        # (B,nc,H,1,Q)
+    ys = []
+    for h0 in range(0, H, G):
+        hs = slice(h0, min(H, h0 + G))
+        cb = torch.matmul(Cr.float(), Br.float().transpose(-1, -2))
+        seg = cum[:, :, hs, :, None] - cum[:, :, hs, None, :]
+        seg = torch.where(live, seg, -torch.inf)
+        dec = torch.exp2(seg * LOG2E)
+        att = torch.where(above, 0.0, cb[:, :, None] * dec * dtj[:, :, hs])
+        hi = att.to(torch.bfloat16).float()
+        lo = (att - hi).to(torch.bfloat16).float()
+        ys.append(torch.matmul(hi, x[:, :, hs]) + torch.matmul(lo, x[:, :, hs]))
+    return torch.cat(ys, 2).movedim(2, 3)
+
+
+@pytest.mark.parametrize("G", [1, 2, 3])
+@pytest.mark.parametrize("shape, large_decay", [
+    ((1, 2, 16, 4, 16, 16), False), ((2, 3, 32, 4, 16, 24), False),
+    ((1, 2, 96, 6, 40, 20), True), ((1, 2, 128, 4, 16, 32), True)])
+def test_tc_forward_decomposition_matches_plain_and_jax(shape, large_decay,
+                                                        G):
+    """The tensor-core forward's decomposition on bf16 inputs: every value
+    finite, the same bits for every head grouping, against the plain
+    forward on the same inputs within one bf16 ulp beyond 2^-16 of the
+    largest value (the rule chip_smoke.py holds the kernel to on the card)
+    and against the JAX kernel under ``interpret=True`` and the JAX
+    reference at the grid's tolerances."""
+    arrs = inputs(*shape, seed=sum(shape) + 3 * G, large_decay=large_decay)
+    (jx, jdt, jlt, jB, jC, _), (tx, tdt, tlt, tB, tC, _) = both(
+        arrs, "bfloat16")
+    cum = torch.cumsum(tlt, -1)
+    y32 = tc_fwd_emulation(tx, tdt, cum, tB, tC, G)
+    assert bool(y32.isfinite().all())
+    assert torch.equal(y32, tc_fwd_emulation(tx, tdt, cum, tB, tC, 1))
+    got = y32.to(torch.bfloat16)
+    plain = ss.fwd_plain(tx, tdt, cum, tB, tC)
+    assert got.shape == plain.shape and got.dtype == plain.dtype
+    diff = (got.float() - plain.float()).abs()
+    scale = float(plain.float().abs().max())
+    mag = torch.maximum(got.float().abs(), plain.float().abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+    assert float(((diff - scale * 2 ** -16).clamp(min=0) / ulp).max()) <= 1.0
+    np.testing.assert_allclose(
+        f32(got), f32(jax_fwd(jx, jdt, jlt, jB, jC, interpret=True)),
+        **fwd_tol("bfloat16"))
+    np.testing.assert_allclose(f32(got), f32(jax_ref(jx, jdt, jlt, jB, jC)),
+                               **fwd_tol("bfloat16"))
+
+
+def test_b5_row_groups_balance_the_causal_work():
+    """Every row group has one slot and the slot map is its inverse; each
+    warp forms the same live elements of att a head at Q = 128 (64 g + 36
+    for group g: 1,032 a warp) and the same number of chunks, and so do
+    the two warps (warp w of each warpgroup) that share an SM
+    sub-partition."""
+    seen = {}
+    for wg in (0, 1):
+        for w in range(4):
+            for x in (0, 1):
+                g = b5_row_group(wg, w, x)
+                assert g not in seen
+                seen[g] = (wg, w, x)
+                assert b5_slot(g) == 8 * wg + 2 * w + x
+    assert sorted(seen) == list(range(16))
+    live = lambda g: sum(i + 1 for i in range(8 * g, 8 * g + 8))
+    for wg in (0, 1):
+        for w in range(4):
+            assert sum(live(b5_row_group(wg, w, x)) for x in (0, 1)) == 1032
+    # the chunks of 4 column groups a warp forms (4cc <= g): 5 a warp
+    for wg in (0, 1):
+        for w in range(4):
+            assert sum(b5_row_group(wg, w, x) // 4 + 1 for x in (0, 1)) == 5
+
+
+def b5_bc_store_offset(which: int, r: int, n: int) -> int:
+    """Byte offset at which the forward's threads store element (row r,
+    column n) of B (``which`` 0, row r at row r) or C (1, row r at slot
+    row 8 fwd_slot(r / 8) + r % 8): panel n // 64, chunk (n % 64) // 8 XOR
+    the stored row % 8."""
+    sr = 8 * b5_slot(r // 8) + r % 8 if which else r
+    pan, ch = n // 64, (n % 64) // 8
+    return ((2 * which + pan) * B6_TILE + sr * 128 + ((ch ^ (sr & 7)) << 4)
+            + (n % 8) * 2)
+
+
+def b5_desc_start(operand: str, t: int, *, wg: int = 0) -> int:
+    """Start offset of the forward's descriptor for k-step ``t``: ``"c"``
+    (warpgroup ``wg``'s 64 slot rows of C, columns 16t …), ``"b"`` (all 128
+    rows j of B, columns 16t …) or ``"x_n"`` (the x tile N-major: rows j =
+    16t …)."""
+    if operand == "c":
+        return (2 + (t >> 2)) * B6_TILE + wg * 64 * 128 + (t & 3) * 32
+    if operand == "b":
+        return (t >> 2) * B6_TILE + (t & 3) * 32
+    return t * 16 * 128
+
+
+def b5_y_stage_offset(lane: int, c: int, x: int) -> int:
+    """Byte offset, in its warp's 2 KB, at which a thread stages the pair
+    of y accumulator elements 4c + 2x, 4c + 2x + 1: row 8x + lane / 4,
+    16-byte chunk c XOR that row % 8, word lane % 4."""
+    lr = 8 * x + lane // 4
+    return lr * 128 + ((c ^ (lr & 7)) << 4) + 4 * (lane % 4)
+
+
+def b5_y_read(wg: int, w: int, it: int, lane: int):
+    """(staged byte offset, y row, first column) of the 16-byte chunk that
+    lane ``lane`` stores in round ``it``: staged row 4 it + lane / 8, chunk
+    lane % 8; y row 8 fwd_row_group(wg, w, it / 2) + staged row % 8."""
+    lr, ch = 4 * it + lane // 8, lane % 8
+    return (lr * 128 + ((ch ^ (lr & 7)) << 4),
+            8 * b5_row_group(wg, w, it // 2) + lr % 8, 8 * ch)
+
+
+def test_b5_tensor_core_maps_reproduce_the_tile_products():
+    """One 128-row chunk of the bf16 forward: B and C stored by the
+    threads (C in slot order) as the 128-byte swizzle TMA would leave
+    them; cb read through the kernel's descriptors gives each thread's
+    rows of C·Bᵀ; att packed from that accumulator into A fragments times
+    x read N-major gives att·x; y staged per warp and read back as 16-byte
+    chunks lands every element of att·x at its row and column once (bf16
+    values: every sum exact in f64)."""
+    rng = np.random.default_rng(17)
+    N, P = 128, 64
+    Bm, Cm = _bf16_values(rng, (128, N)), _bf16_values(rng, (128, N))
+    slots = np.full(4 * B6_TILE // 2, np.nan)
+    for which, M in ((0, Bm), (1, Cm)):
+        r, n = np.meshgrid(np.arange(128), np.arange(N), indexing="ij")
+        off = np.vectorize(b5_bc_store_offset)(which, r, n)
+        assert np.isnan(slots[off // 2]).all()          # written once
+        slots[off // 2] = M
+    perm = np.array([8 * b5_row_group(s // 8, (s % 8) // 2, s % 2) + r8
+                     for s in range(16) for r8 in range(8)])
+    assert sorted(perm) == list(range(128))
+    for which, M in ((0, Bm), (1, Cm[perm])):
+        base = 2 * which * B6_TILE // 2
+        np.testing.assert_array_equal(
+            slots[base:base + 2 * B6_TILE // 2], _tma_tile(M, 128))
+    X = _bf16_values(rng, (128, P))
+    sx = _tma_tile(X, 128)
+    tid, reg = np.meshgrid(np.arange(128), np.arange(64), indexing="ij")
+    rows, cols = np.vectorize(wgmma_acc_coord)(tid, reg)
+    tid32, reg32 = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
+    rows64, cols64 = np.vectorize(wgmma_acc_coord)(tid32, reg32)
+    att = np.tril(_bf16_values(rng, (128, 128)))      # rows i, columns j
+    want_y = att @ X
+    Y = np.full((128, P), np.nan)
+    for wg in (0, 1):
+        cb = sum(_desc_read(slots, b5_desc_start("c", t, wg=wg), 64, True)
+                 @ _desc_read(slots, b5_desc_start("b", t), 128, True).T
+                 for t in range(N // 16))
+        m = slice(64 * wg, 64 * wg + 64)
+        np.testing.assert_array_equal(cb, Cm[perm[m]] @ Bm.T)
+        # accumulator row 16 w + lane / 4 + 8 x is the thread's row i =
+        # 8 fwd_row_group(wg, w, x) + lane / 4
+        for t_ in range(128):
+            w, lane = t_ // 32, t_ % 32
+            for e in (0, 2):
+                x = (e // 2) % 2
+                assert perm[64 * wg + rows[t_, e]] == \
+                    8 * b5_row_group(wg, w, x) + lane // 4
+        # att from cb's accumulator as A fragments, times x N-major
+        mine = att[perm[m]]                            # the m64 rows' att
+        acc = np.zeros((64, P))
+        for t in range(8):
+            Bx = _desc_read(sx, b5_desc_start("x_n", t), 64, False)
+            acc += _pack_a(mine[rows, cols], 128)[:, 16 * t:16 * t + 16] \
+                @ Bx.T
+        np.testing.assert_array_equal(acc, mine @ X)
+        # the y epilogue: stage per warp, read back, store
+        yacc = acc[rows64, cols64]                     # (thread, register)
+        for w in range(4):
+            stage = np.full(16 * 128 // 2, np.nan)
+            for lane in range(32):
+                t_ = 32 * w + lane
+                for c in range(8):
+                    for x in (0, 1):
+                        off = b5_y_stage_offset(lane, c, x) // 2
+                        assert np.isnan(stage[off:off + 2]).all()
+                        stage[off:off + 2] = yacc[t_, 4 * c + 2 * x:
+                                                  4 * c + 2 * x + 2]
+            assert not np.isnan(stage).any()
+            for it in range(4):
+                for lane in range(32):
+                    off, r, p = b5_y_read(wg, w, it, lane)
+                    assert np.isnan(Y[r, p:p + 8]).all()
+                    Y[r, p:p + 8] = stage[off // 2:off // 2 + 8]
+    np.testing.assert_array_equal(Y, want_y)
