@@ -118,12 +118,45 @@ Phases, each printing one JSON line:
    its top device time by kernel name.  ``mamba2_update``: B1 on the
    64-layer tree (bf16 and f32 leaves, one launch) bit-equal to the
    per-leaf kernel, timed beside it, its bound and ``torch._fused_adamw_``.
-12. last lines  — the card and its power limit, the ``kernels`` line
-   (B1's tree kernel, B2–B6) and ``{"ok": true, "device": {...}}``.
+12. ``fold`` (run after ``ssd_kernels``) — B7, the member-folding rules
+   of ``src/repro_torch/kernels/ops.py``: B2–B6 in bf16 at the main
+   paths' shapes with 2 members (qwen2-0.5b's attention B 4 → 8,
+   mamba2-2.7b's SSD B 1 → 2) through the raw launchers' vmap rules: one
+   launch per kernel per group call, bit-equal (``torch.equal``) to one
+   launch per member, and held to the plain version by each kernel's
+   main-shape rule; ``vmap(grad)`` through ``ops.flash_attention`` with
+   one KV for both members: one note, one launch each of B2–B4, each
+   member's gradients bit-equal to its solo ones.
+13. ``resnet_group_study`` — ResNet56's SHA study over
+   ``examples/torch_hpo_resnet.py::group_space`` (2 workers), stage-based,
+   without and with ``batch_siblings`` in one call: ≥ 1 batched group,
+   the same ``steps_run`` and best trial, B1 launches = steps − Σ (members
+   − 1) × group steps (the groups the dispatcher handed the trainer, held
+   to ``EngineStats.batched_groups`` / ``batched_stages``), no fallback,
+   no functorch fallback warning (a hidden per-member loop); every
+   reported metric bit-equal or within 5e-3 (the largest difference
+   printed); wall seconds and peak memory of both.
+14. ``lm_group_study`` — the same for qwen2-0.5b over
+   ``examples/torch_hpo_lm.py::group_space`` (1 worker): B2 = 24 × (launch
+   steps + evaluations), B3 = B4 = 24 × launch steps, all on the tensor
+   cores; metrics bit-equal or within 2e-2.
+15. ``group_step`` — one member-stacked chunk (the vectorised tier) against
+   solo chunks: ResNet56 and qwen2-0.5b at M = 2 and 4, mamba2-2.7b at full
+   width and 4 layers at M = 2 (B5 and B6 folded); per member-step the
+   host-clock ms, device busy ms, idle share and CUDA launches, the peak
+   memory, and a group chunk's launches held exact (each kernel once a
+   step whatever M).
+16. last lines  — the script's run time, the card and its power limit, the
+   ``kernels`` line (B1's tree kernel, B2–B6; with the grouped runs'
+   launches and the fold's checks) and ``{"ok": true, "device": {...}}``.
+
+The solo studies of phases 4, 7 and 10 pass ``batch_siblings=False``: their
+launch counts are those of PRs 11–17.
 
 Any failed check raises; nothing is caught and passed over.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -131,6 +164,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -182,6 +216,9 @@ SHAPES = [(3, 3, 64, 64), (64,), (64, 10), (3, 3, 5, 7)]   # last one ragged
 HPS = {"lr": 0.05, "wd": 0.01, "mom": 0.9, "b1": 0.9, "b2": 0.999,
        "eps": 1e-8}
 ADAM_HPS = dict(HPS, lr=1e-3)
+FOLD_M = 2                          # members of the fold phase's groups
+GROUP_MS = (2, 4)                   # group sizes of group_step
+QWEN_GROUP_MS = (2, 4)
 
 
 def emit(obj):
@@ -815,7 +852,8 @@ def resnet_study_phase():
     for share in (True, False):
         backend = example.make_backend(use_kernel=True, **RESNET_FULL)
         stats, tuner, store, wall = example.run_study(
-            backend, share, batch=RESNET_FULL["batch"], name="resnet56")
+            backend, share, batch=RESNET_FULL["batch"], name="resnet56",
+            batch_siblings=False)
         torch.cuda.synchronize()
         runs[share] = (stats, tuner, store, wall)
     launches = stacked_tree_update.launches     # ... and read just after
@@ -1412,7 +1450,8 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields):
         evals0 = backend.evaluations
         calls0 = kops.KERNEL_STATS.calls
         stats, tuner, store, wall = lm_example.run_study(
-            backend, share, batch=batch, name=cfg.name)
+            backend, share, batch=batch, name=cfg.name,
+            batch_siblings=False)
         torch.cuda.synchronize()
         assert tuner.is_done() and tuner.best is not None
         assert stats.kernel_fallbacks == 0 and stats.kernel_calls > 0
@@ -1676,39 +1715,44 @@ def ssd_work(B, nc, Q, H, P, N, e_x):
                    e_x * (3 * n_x + 4 * n_bc) + 4 * 4 * n_row)}
 
 
+def ssd_inputs(B, nc, Q, H, P, N, dtype, model_decay, seed):
+    """x, dt, ltT, B, C and a cotangent g on the card.  The JAX tests'
+    small decays (|lt| <= 0.1 |N(0,1)|), or the model's at init: dt =
+    softplus(N(0,1)), A = -exp(A_log) = -linspace(1, 16, H), so that
+    cum falls to about -1,000 within a chunk of 128 and exp(cum_i -
+    cum_j) above the diagonal overflows."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen)
+    x, g = rnd(B, nc, Q, H, P), rnd(B, nc, Q, H, P)
+    Bm, Cm = rnd(B, nc, Q, N), rnd(B, nc, Q, N)
+    dt = F.softplus(rnd(B, nc, Q, H))
+    lt = (dt * -torch.linspace(1.0, 16.0, H)).movedim(-1, -2) \
+        if model_decay else -rnd(B, nc, H, Q).abs() * 0.1
+    return (x.to(DEV, dtype), dt.to(DEV), lt.contiguous().to(DEV),
+            Bm.to(DEV, dtype), Cm.to(DEV, dtype), g.to(DEV, dtype))
+
+
+def ssd_plain(x, dt, lt, Bm, Cm, g=None):
+    """What the wrappers compute, through the plain versions: the same
+    cumsum in torch, the same suffix sum for dltT."""
+    from repro_torch.kernels import ssd_scan as ssk
+    cum = torch.cumsum(lt, -1).contiguous()
+    if g is None:
+        return ssk.fwd_plain(x, dt, cum, Bm, Cm)
+    dx, ddt, dcum, dB, dC = ssk.bwd_plain(x, dt, cum, Bm, Cm, g)
+    return dx, ddt, ssk.dlt_from_dcum(dcum, lt.dtype), dB, dC
+
+
 def ssd_phase(join_build):
     """B5 and B6 on the grid and at mamba2-2.7b's shape; returns their
     rows."""
-    import torch.nn.functional as F
     from repro_torch.kernels import ssd_scan as ssk
     build_s = join_build("ssd_scan")
     ssk._lib()                                  # load, check the tile size
     names = ("y", "dx", "ddt", "dlt", "dB", "dC")
 
-    def inputs(B, nc, Q, H, P, N, dtype, model_decay, seed):
-        """x, dt, ltT, B, C and a cotangent g on the card.  The JAX tests'
-        small decays (|lt| <= 0.1 |N(0,1)|), or the model's at init: dt =
-        softplus(N(0,1)), A = -exp(A_log) = -linspace(1, 16, H), so that
-        cum falls to about -1,000 within a chunk of 128 and exp(cum_i -
-        cum_j) above the diagonal overflows."""
-        gen = torch.Generator().manual_seed(seed)
-        rnd = lambda *shape: torch.randn(shape, generator=gen)
-        x, g = rnd(B, nc, Q, H, P), rnd(B, nc, Q, H, P)
-        Bm, Cm = rnd(B, nc, Q, N), rnd(B, nc, Q, N)
-        dt = F.softplus(rnd(B, nc, Q, H))
-        lt = (dt * -torch.linspace(1.0, 16.0, H)).movedim(-1, -2) \
-            if model_decay else -rnd(B, nc, H, Q).abs() * 0.1
-        return (x.to(DEV, dtype), dt.to(DEV), lt.contiguous().to(DEV),
-                Bm.to(DEV, dtype), Cm.to(DEV, dtype), g.to(DEV, dtype))
-
-    def plain(x, dt, lt, Bm, Cm, g=None):
-        """What the wrappers compute, through the plain versions: the same
-        cumsum in torch, the same suffix sum for dltT."""
-        cum = torch.cumsum(lt, -1).contiguous()
-        if g is None:
-            return ssk.fwd_plain(x, dt, cum, Bm, Cm)
-        dx, ddt, dcum, dB, dC = ssk.bwd_plain(x, dt, cum, Bm, Cm, g)
-        return dx, ddt, ssk.dlt_from_dcum(dcum, lt.dtype), dB, dC
+    inputs, plain = ssd_inputs, ssd_plain
 
     def run(x, dt, lt, Bm, Cm, g):
         """B5 + B6 twice (required bit-equal; in bf16 both on the tensor
@@ -1949,6 +1993,488 @@ def mamba2_step_phase(ssd_rows):
     return mamba2_update_phase(backend)
 
 
+# ------------------------------------------ 12. B7: sibling groups, folded
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """functorch's warning for an op without a batching rule (a hidden
+    per-member loop: "There is a performance drop ...") switched on inside
+    the block, and none allowed."""
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    loops = [str(w.message)[:200] for w in caught
+             if "performance drop" in str(w.message)]
+    assert not loops, ("an op ran as a per-member loop under vmap", loops)
+
+
+def launched(fn):
+    """``fn()`` and the launches of B2–B6 it made (only the non-zero)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssk
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv, ssk.ssd_intra_fwd,
+                ssk.ssd_intra_bwd)
+    n0 = [c.launches for c in counters]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches - n for c, n in zip(counters, n0)
+                 if c.launches != n}
+
+
+def fold_phase():
+    """B7 on the card: B2–B6 in bf16 at the main paths' shapes with
+    ``FOLD_M`` members, through the raw launchers' vmap rules — one folded
+    launch per kernel, bit-equal to ``FOLD_M`` separate launches and held
+    to the plain version by each kernel's rule at the main shape — and
+    ``vmap(grad)`` through ``ops.flash_attention`` with an unbatched KV,
+    bit-equal to each member's solo gradients, one note and one launch of
+    each of B2, B3, B4.  Returns the rows per kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssk
+    M, bf16 = FOLD_M, torch.bfloat16
+    gen = torch.Generator().manual_seed(31)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(DEV, bf16)
+    fold = lambda x: x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
+    rows = {}
+
+    # attention: qwen2-0.5b's shape, M members of B 4 -> one launch of B 8
+    B, S, Hq, Hkv, hd = (QWEN[x] for x in ("B", "S", "Hq", "Hkv", "hd"))
+    q, do = rnd(M, B, S, Hq, hd), rnd(M, B, S, Hq, hd)
+    k, v = rnd(M, B, S, Hkv, hd), rnd(M, B, S, Hkv, hd)
+    (out, lse), n = launched(lambda: torch.func.vmap(
+        lambda *a: ops._FaFwd.apply(*a, True, 0))(q, k, v))
+    assert n == {"flash_attention_fwd": 1}, n
+    solo = [fa.flash_attention_fwd(q[m], k[m], v[m], return_lse=True)
+            for m in range(M)]
+    assert all(torch.equal(out[m], solo[m][0])
+               and torch.equal(lse[m], solo[m][1]) for m in range(M)), \
+        "B2: the folded launch differs from the members' own"
+    del solo
+    qf, kf, vf = (fold(x).float() for x in (q, k, v))
+    out_row, ok = p_rounding_rule(fold(out), fa.fwd_plain(qf, kf, vf)[0],
+                                  fa.fwd_plain(qf, kf, vf.abs())[0])
+    assert ok, ("folded B2 disagrees with its plain version", out_row)
+    del qf, kf, vf
+    lse_row, ok = at_scale(fold(lse), fa.fwd_plain(fold(q), fold(k),
+                                                   fold(v))[1],
+                           ("atol 2e-5 + rtol 2e-5",
+                            lambda diff, b, scale: bool(
+                                (diff <= 2e-5 + 2e-5 * b.abs()).all())))
+    assert ok, ("folded B2 lse disagrees with its plain version", lse_row)
+    rows["B2"] = {"vs_plain": {"out": out_row, "lse": lse_row}}
+
+    grads, n = launched(lambda: torch.func.vmap(
+        lambda *a: ops._FaBwd.apply(*a, True, 0))(q, k, v, out, lse, do))
+    assert n == {"flash_attention_bwd_dq": 1,
+                 "flash_attention_bwd_dkv": 1}, n
+    for m in range(M):
+        for a, b in zip(grads, fa.flash_attention_bwd(q[m], k[m], v[m],
+                                                      out[m], lse[m],
+                                                      do[m])):
+            assert torch.equal(a[m], b), \
+                "B3 / B4: the folded launch differs from the members' own"
+    del grads
+    # B3 and B4 alone: the folded wrapper calls against the members' own
+    delta = (do.float() * out.float()).sum(-1).transpose(-1, -2).contiguous()
+    args = [fold(x) for x in (q, k, v, do, lse, delta)]
+    got = (fa.flash_attention_bwd_dq(*args),) \
+        + fa.flash_attention_bwd_dkv(*args)
+    for m in range(M):
+        own = (fa.flash_attention_bwd_dq(q[m], k[m], v[m], do[m], lse[m],
+                                         delta[m]),) \
+            + fa.flash_attention_bwd_dkv(q[m], k[m], v[m], do[m], lse[m],
+                                         delta[m])
+        for a, b in zip(got, own):
+            assert torch.equal(a[m * B:(m + 1) * B], b), \
+                "B3 / B4 alone: the folded launch differs"
+    vs_plain, ok = ds_rounding_rule(fa, *args, got,
+                                    dict(causal=True, window=0))
+    assert ok, ("folded B3 / B4 disagree with their plain versions",
+                vs_plain)
+    rows["B3"] = {"vs_plain": {"dq": vs_plain["dq"]}}
+    rows["B4"] = {"vs_plain": {x: vs_plain[x] for x in ("dk_h", "dv_h")}}
+    del got, args, delta, out, lse, do
+
+    # vmap(grad) through the binding with one KV for every member: one
+    # note, one launch each, each member's gradients its solo ones
+    k0, v0 = k[0].clone(), v[0].clone()
+    w = torch.randn((B, S, Hq, hd), generator=gen).to(DEV)
+    loss = lambda q_, k_, v_: (ops.flash_attention(q_, k_, v_).float()
+                               * w).sum()
+    calls0 = ops.KERNEL_STATS.calls
+    with no_vmap_fallback():
+        vg, n = launched(lambda: torch.func.vmap(
+            torch.func.grad(loss, argnums=(0, 1, 2)),
+            in_dims=(0, None, None))(q, k0, v0))
+    assert ops.KERNEL_STATS.calls - calls0 == 1
+    assert n == {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                 "flash_attention_bwd_dkv": 1}, n
+    for m in range(M):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (q[m], k0, v0)]
+        for a, b in zip(vg, torch.autograd.grad(loss(*leaves), leaves)):
+            assert torch.equal(a[m], b), \
+                "vmap(grad) differs from the member's solo gradients"
+    del vg, q, k, v, k0, v0, w
+
+    # SSD: mamba2-2.7b's shape, M members of B 1 -> one launch of B 2, the
+    # heads grouped as one member's launch groups them (G 10)
+    Bs, nc, Q, H, P, N = (MAMBA[x] for x in ("B", "nc", "Q", "H", "P", "N"))
+    per = [ssd_inputs(Bs, nc, Q, H, P, N, bf16, True, 90 + m)
+           for m in range(M)]
+    x, dt, lt, Bm, Cm, g = (torch.stack(t) for t in zip(*per))
+    y, n = launched(lambda: torch.func.vmap(ops._SSDFwd.apply)(
+        x, dt, lt, Bm, Cm))
+    assert n == {"ssd_intra_fwd": 1}, n
+    grads, n = launched(lambda: torch.func.vmap(ops._SSDBwd.apply)(
+        x, dt, lt, Bm, Cm, g))
+    assert n == {"ssd_intra_bwd": 1}, n
+    names = ("y", "dx", "ddt", "dlt", "dB", "dC")
+    for m in range(M):
+        own = (ssk.ssd_intra_fwd(*per[m][:5]),) + ssk.ssd_intra_bwd(*per[m])
+        for name, a, b in zip(names, (y,) + grads, own):
+            assert torch.equal(a[m], b), (
+                f"{name}: the folded launch differs from the members' own")
+    want = (ssd_plain(*(fold(t) for t in (x, dt, lt, Bm, Cm))),) \
+        + ssd_plain(*(fold(t) for t in (x, dt, lt, Bm, Cm, g)))
+    f32_rule = ("1e-5 x scale",
+                lambda diff, b, scale: float(diff.max()) <= 1e-5 * scale)
+    ssd_rows = {}
+    for name, a, b in zip(names, (y,) + grads, want):
+        row, ok = at_scale(fold(a), b, f32_rule)
+        assert ok, ("folded SSD disagrees with its plain version", name, row)
+        ssd_rows[name] = row
+    rows["B5"] = {"vs_plain": {"y": ssd_rows["y"]}}
+    rows["B6"] = {"vs_plain": {k_: ssd_rows[k_] for k_ in names[1:]}}
+    emit({"phase": "fold", "members": M,
+          "attention_shape": f"{M} x (B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, "
+                             f"hd {hd}), causal, bf16",
+          "ssd_shape": f"{M} x (B {Bs}, nc {nc}, Q {Q}, H {H}, P {P}, "
+                       f"N {N}), bf16, the model's decays",
+          "ssd_heads_per_block": ssk.head_groups(Bs * nc, H),
+          "launches_per_group_call": 1,
+          "folded_bit_equal_to_separate_launches": True,
+          "vmap_grad_broadcast_kv_bit_equal_to_solo": True,
+          "notes_per_group_call": 1, "kernels": rows})
+    return rows
+
+
+def group_record(backend):
+    """Record every batched call the dispatcher makes of ``backend``, as
+    (members, the steps of each stage level)."""
+    groups = []
+    stages, chains = backend.run_stages_batched, backend.run_chains_batched
+
+    def run_stages_batched(states, ctxs):
+        groups.append((len(ctxs), [ctxs[0].stop - ctxs[0].start]))
+        return stages(states, ctxs)
+
+    def run_chains_batched(states, chains_):
+        groups.append((len(chains_), [c.stop - c.start for c in chains_[0]]))
+        return chains(states, chains_)
+
+    backend.run_stages_batched = run_stages_batched
+    backend.run_chains_batched = run_chains_batched
+    return groups
+
+
+def launch_steps(stats, groups):
+    """Steps that launch kernels: a group level of M members and n steps
+    trains M·n member-steps in n launches of each kernel.  The recorded
+    groups are held to ``EngineStats`` (every batched call counted in
+    ``batched_groups``, its stages in ``batched_stages``: no group fell
+    back to its members one by one)."""
+    assert len(groups) == stats.batched_groups, (groups, stats.batched_groups)
+    assert sum(m * len(lv) for m, lv in groups) == stats.batched_stages
+    return stats.steps_run - sum((m - 1) * sum(lv) for m, lv in groups)
+
+
+def metric_diff(a, b):
+    """The largest |difference| of any reported metric of two studies'
+    histories (same (trial, step) keys, same names)."""
+    assert set(a) == set(b), "the studies reported different results"
+    worst = 0.0
+    for key, m in a.items():
+        assert set(m) == set(b[key])
+        for name, x in m.items():
+            assert x == x and b[key][name] == b[key][name], "NaN"
+            worst = max(worst, abs(x - b[key][name]))
+    return worst
+
+
+def group_vs_solo(phase, runs, metric_tol, fields):
+    """The checks both group studies share: grouped ≥ 1 batched group,
+    solo none; the same ``steps_run`` and best trial; every reported metric
+    bit-equal or within ``metric_tol``; prints the phase's row."""
+    g, s = runs[True], runs[False]
+    assert g["stats"].batched_groups >= 1 and s["stats"].batched_groups == 0
+    assert g["stats"].steps_run == s["stats"].steps_run, (
+        g["stats"].steps_run, s["stats"].steps_run)
+    assert g["best"] == s["best"], (g["best"], s["best"])
+    worst = metric_diff(g["history"], s["history"])
+    assert worst <= metric_tol, (worst, metric_tol)
+    emit({"phase": phase, **fields,
+          "modes": {("grouped" if k else "solo"): {
+              "batch_siblings": k, "steps_run": r["stats"].steps_run,
+              "launch_steps": r["launch_steps"],
+              "batched_groups": r["stats"].batched_groups,
+              "batched_stages": r["stats"].batched_stages,
+              "groups": r["groups"], "evaluations": r["evals"],
+              "chain_fused_stages": r["stats"].chain_fused_stages,
+              "launches": r["launches"], "kernel_calls": r["calls"],
+              "kernel_fallbacks": r["fallbacks"],
+              "wall_seconds": r["wall"],
+              "peak_device_memory_gib": r["peak"] / 2 ** 30}
+              for k, r in runs.items()},
+          "wall_seconds_grouped_over_solo": g["wall"] / s["wall"],
+          "same_steps_run": True, "same_best_trial": True,
+          "best_trial": g["best"],
+          "all_reported_metrics_bit_equal": g["history"] == s["history"],
+          "max_reported_metric_difference": worst,
+          "metric_tolerance": metric_tol,
+          "vmap_fallback_warnings": 0})
+    return g["launches"]
+
+
+def run_group_study(example, backend, siblings, counters, **kw):
+    """One study of ``example`` over its ``group_space`` (stage-based),
+    every counter zeroed just before and read just after, with
+    ``batch_siblings=siblings``; returns its record."""
+    from repro_torch.kernels import ops as kops
+    groups = group_record(backend)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:                          # counts to 0 just before
+        c.launches = 0
+    kops.reset_kernel_stats()
+    evals0 = backend.evaluations
+    with no_vmap_fallback():
+        stats, tuner, store, wall = example.run_study(
+            backend, True, batch_siblings=siblings,
+            space_fn=example.group_space, **kw)
+        torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}   # just after
+    calls, fallbacks = kops.KERNEL_STATS.snapshot()
+    assert tuner.is_done() and tuner.best is not None
+    assert fallbacks == 0 and stats.kernel_fallbacks == 0
+    assert store.pending_writes == 0
+    if siblings:
+        assert backend.vectorize_groups
+    rec = dict(stats=stats, history=tuner.history, best=tuner.best.trial_id,
+               wall=wall, peak=torch.cuda.max_memory_allocated(),
+               launches=launches, calls=calls, fallbacks=fallbacks,
+               groups=list(groups), evals=backend.evaluations - evals0,
+               launch_steps=launch_steps(stats, groups))
+    if hasattr(example, "drop_checkpoints"):
+        example.drop_checkpoints(store)
+    del store, tuner
+    del backend.run_stages_batched, backend.run_chains_batched
+    return rec
+
+
+def resnet_group_study_phase():
+    """ResNet56's SHA study over ``group_space`` (2 workers), stage-based,
+    with and without sibling groups in one call: one B1 launch per group
+    step, so B1 = steps − Σ (members − 1) × group steps; returns B1's
+    launches in the grouped run."""
+    import torch_hpo_resnet as example
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    runs = {}
+    for siblings in (False, True):
+        backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+        runs[siblings] = run_group_study(
+            example, backend, siblings,
+            (stacked_tree_update, stacked_leaf_update),
+            batch=RESNET_FULL["batch"], name="resnet56")
+        del backend
+    for r in runs.values():
+        assert r["launches"] == {"stacked_tree_update": r["launch_steps"],
+                                 "stacked_leaf_update": 0}, r["launches"]
+        assert r["calls"] == r["launch_steps"]
+    # f32; a grouped convolution and batched products sum in another order
+    # than the solo ones, and a reported accuracy moves in steps of 1/512
+    return group_vs_solo("resnet_group_study", runs, 5e-3, {
+        "model": "ResNet(n=9, width=16)", "batch": RESNET_FULL["batch"],
+        "space": "examples/torch_hpo_resnet.py::group_space",
+        "expected": "B1 = launch_steps = steps_run - sum over groups of "
+                    "(members - 1) x group steps"})
+
+
+def lm_group_study_phase():
+    """qwen2-0.5b's SHA study over ``group_space``, stage-based, with and
+    without sibling groups in one call, on one trainer: B2 = 24 ×
+    (launch steps + evaluations), B3 = B4 = 24 × launch steps, all on the
+    tensor cores, B1 = launch steps; returns the grouped run's launches and
+    the trainer (its parameters drawn)."""
+    import torch_hpo_lm as example
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssk
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    backend = example.make_backend(use_kernel=True, **LM_FULL)
+    backend.init_state()                       # the draw, outside the runs
+    L = backend.task.cfg.num_layers
+    counters = (stacked_tree_update, stacked_leaf_update,
+                fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv, ssk.ssd_intra_fwd,
+                ssk.ssd_intra_bwd)
+    tc = counters[2:5]
+    runs = {}
+    for siblings in (False, True):
+        tc0 = [c.launches_tc for c in tc]
+        runs[siblings] = r = run_group_study(
+            example, backend, siblings, counters, batch=LM_FULL["batch"],
+            name="qwen2-0.5b")
+        n, e = r["launch_steps"], r["evals"]
+        assert r["launches"] == {
+            "stacked_tree_update": n, "stacked_leaf_update": 0,
+            "flash_attention_fwd": L * (n + e),
+            "flash_attention_bwd_dq": L * n, "flash_attention_bwd_dkv": L * n,
+            "ssd_intra_fwd": 0, "ssd_intra_bwd": 0}, (r["launches"], n, e)
+        assert [c.launches_tc - t for c, t in zip(tc, tc0)] == [
+            L * (n + e), L * n, L * n]
+        assert r["calls"] == n + L * (n + e)
+    # bf16 weights: a batched product rounds its f32 sums to bf16 where
+    # the solo product does, from sums in another order
+    return group_vs_solo("lm_group_study", runs, 2e-2, {
+        "model": "qwen2-0.5b", "dtype": "bfloat16", "layers": L,
+        "batch": LM_FULL["batch"], "seq_len": LM_FULL["seq_len"],
+        "space": "examples/torch_hpo_lm.py::group_space",
+        "expected": "B1 = n, B2 = 24 x (n + evaluations), B3 = B4 = 24 x n,"
+                    " n = launch_steps = steps_run - sum over groups of "
+                    "(members - 1) x group steps"}), backend
+
+
+def per_member_step(fn, member_steps):
+    """Per member-step of ``fn`` (one chunk of ``member_steps``
+    member-steps): host-clock ms (synchronised at both ends, the mean of
+    three chunks after two warm-up ones), the chunk's CUDA-event span,
+    device busy ms (the profiler's kernel times over one more chunk), the
+    idle share against the host clock, and CUDA launches."""
+    fn()
+    ms = host_ms(fn, 3)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    prof = device_profile(fn, member_steps, ms)
+    busy, idle = prof["device_busy_ms"], prof["device_idle_share"]
+    if isinstance(idle, float) and idle < 0:
+        # the profiler's summed kernel times exceed the chunk's span (seen
+        # with cuDNN's grouped convolutions): their sum is then no share
+        idle = "not measured: summed kernel time exceeds the span"
+    return {"host_ms": ms / member_steps,
+            "events_ms": e0.elapsed_time(e1) / member_steps,
+            "device_busy_ms": busy / member_steps
+            if isinstance(busy, float) else busy,
+            "device_idle_share": idle,
+            "cuda_launches": prof["device_kernel_launches_per_step"],
+            "top_device_time": prof["top_device_time"][:4]}
+
+
+def group_step(label, backend, opt, lr, n, Ms, per_step):
+    """One member-stacked chunk of ``n`` steps (the vectorised tier, the
+    slab shared, divergent learning rates) against solo chunks, per
+    member-step, for each group size in ``Ms``; the peak memory of each.
+    A group chunk launches each kernel of ``per_step`` (name → launches a
+    step) that many times a step whatever the group's size, and B1 once a
+    step; returns the launches of one group chunk of the last size."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.optim import stacked_tree_update
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.torch_trainer import _stack
+    from repro_torch.utils.tree import tree_leaves
+    p0 = backend.init_state()["params"]
+    slab = backend._upload(backend.pipeline_factory().next_batches(n))
+    steps = torch.arange(n, dtype=torch.int32, device=DEV)
+    carry = [(p0, init_opt_state(opt, p0))]
+    lrs = torch.full((n,), lr, device=DEV)
+
+    def solo():
+        carry[0] = backend._run_chunk(opt, carry[0], {}, {"lr": lrs}, slab,
+                                      steps)
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {"solo": per_member_step(solo, n)}
+    out["solo"]["peak_device_memory_gib"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    del carry[0]
+    free()
+    for M in Ms:
+        torch.cuda.reset_peak_memory_stats()
+        ps = _stack([p0] * M)
+        gcarry = [ps, init_opt_state(opt, ps)]       # updated in place
+        del ps
+        hp = {"lr": (lr * (1.0 + 0.1 * torch.arange(M, device=DEV))
+                     ).expand(n, M).contiguous()}
+
+        def group():
+            backend._run_group_chunk(opt, gcarry, {}, hp, slab, steps, True)
+
+        with no_vmap_fallback():
+            b1 = stacked_tree_update.launches
+            calls0 = kops.KERNEL_STATS.calls
+            _, launches = launched(group)
+            launches["stacked_tree_update"] = \
+                stacked_tree_update.launches - b1
+            # a step: one update, one binding call per forward kernel
+            # launch, for all the members
+            assert kops.KERNEL_STATS.calls - calls0 == n * (
+                1 + per_step.get("flash_attention_fwd", 0)
+                + per_step.get("ssd_intra_fwd", 0))
+            assert launches == {"stacked_tree_update": n, **{
+                k: v * n for k, v in per_step.items()}}, launches
+            row = per_member_step(group, n * M)
+        assert all(bool(t.isfinite().all()) for t in tree_leaves(gcarry[0]))
+        row["launches_per_group_chunk"] = launches
+        row["peak_device_memory_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        row["host_ms_over_solo"] = row["host_ms"] / out["solo"]["host_ms"]
+        out[f"M={M}"] = row
+        gcarry.clear()
+        free()
+    emit({"phase": "group_step", "model": label, "chunk_steps": n,
+          "per_member_step": out, "kernel_launches_per_step": per_step,
+            "clock": "host: synchronised at both ends, mean of three chunks; "
+                   "events: one chunk's CUDA-event span; device busy and "
+                   "launches: the profiler over one chunk"})
+    return launches
+
+
+def group_step_phase(lm_backend):
+    """``group_step`` for ResNet56 and qwen2-0.5b (``lm_backend``, drawn
+    already) at M = 2 and 4, and for mamba2-2.7b at full width, 4 layers,
+    M = 2: B5 and B6 folded; returns mamba2's launches of one chunk."""
+    import torch_hpo_lm as lm_example
+    import torch_hpo_resnet as example
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    group_step("ResNet(n=9, width=16), batch 128", backend, "momentum",
+               0.05, 8, GROUP_MS, {})
+    del backend
+    free()
+    L = lm_backend.task.cfg.num_layers
+    group_step("qwen2-0.5b, 4 x 1024 tokens", lm_backend, "adamw", 3e-4, 4,
+               QWEN_GROUP_MS, {"flash_attention_fwd": L,
+                          "flash_attention_bwd_dq": L,
+                          "flash_attention_bwd_dkv": L})
+    free()
+    backend = lm_example.make_backend(arch="mamba2-2.7b", use_kernel=True,
+                                      batch=1, seq_len=2048, n_train=8,
+                                      n_eval=1, layers=4)
+    return group_step("mamba2-2.7b, 4 layers, 1 x 2048 tokens", backend,
+                      "adamw", 3e-4, 4, (2,),
+                      {"ssd_intra_fwd": 4, "ssd_intra_bwd": 4})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1958,6 +2484,7 @@ def main():
     import torch_hpo_lm     # noqa: F401
     import torch_hpo_resnet  # noqa: F401
 
+    t_start = time.perf_counter()
     smi, kind = device_phase()                                   # 1
     # the CUDA kernels build while the Triton phases run; a failed build
     # is raised where its phase joins it
@@ -1982,6 +2509,13 @@ def main():
           torch.cuda.memory_allocated()})
     ssd_rows = ssd_phase(join_build)                             # 9
     free()
+    fold_rows = fold_phase()                                     # 12
+    for key, row in fold_rows.items():
+        rows = fa_rows if key in fa_rows else ssd_rows
+        rows[key]["fold"] = {"members": FOLD_M,
+                             "bit_equal_to_separate_launches": True,
+                             "launches_per_group_call": 1, **row}
+    free()
     lm_small_phase("mamba2_small", "mamba2-2.7b", (2, 192), seed=5,
                    attention=False)
     free()
@@ -1992,8 +2526,26 @@ def main():
     free()
     b1_row["mamba2_64_layers_adamw"] = mamba2_step_phase(ssd_rows)  # 11
     free()
+    # 13-15: sibling groups, vectorised: the studies with and without
+    # groups, then one member-stacked chunk against solo chunks
+    b1_row["launches_grouped_studies"] = {
+        "resnet56": resnet_group_study_phase()["stacked_tree_update"]}
+    free()
+    g_launches, lm_backend = lm_group_study_phase()
+    b1_row["launches_grouped_studies"]["qwen2-0.5b"] = \
+        g_launches["stacked_tree_update"]
+    for key in ("B2", "B3", "B4"):
+        fa_rows[key]["launches_grouped_study"] = \
+            g_launches[fa_rows[key]["name"]]
+    free()
+    m_group = group_step_phase(lm_backend)
+    del lm_backend
+    for key in ("B5", "B6"):
+        ssd_rows[key]["launches_group_step"] = m_group[ssd_rows[key]["name"]]
+    free()
 
     # ------------------------------------------------------------ last lines
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [b1_row, fa_rows["B2"], fa_rows["B3"], fa_rows["B4"],
                       ssd_rows["B5"], ssd_rows["B6"]]})

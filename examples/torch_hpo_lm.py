@@ -22,7 +22,9 @@ tokens; mamba2-2.7b: 64 layers, d_model 2560, 80 SSD heads of 64, state
 ``--layers`` cuts its depth; the default is the ``reduced()`` variant (2
 layers, d_model 256, vocab 512, f32), batch 4 × 128.  With one worker,
 stage-based and trial-based execution report the same metrics bit for bit
-and pick the same best trial.
+and pick the same best trial.  ``--groups`` runs the study over
+:func:`group_space`, whose SHA survivors resume together and train as
+sibling groups.
 """
 
 import argparse
@@ -53,6 +55,16 @@ def space(batch=4):
         "bs": [Constant(batch)]})
 
 
+def group_space(batch=4):
+    """Four learning rates that part at step 4, SHA's first rung: the
+    survivors of each rung resume together from checkpoints and train as
+    one sibling group (``batch_siblings``)."""
+    return GridSearchSpace(fns={
+        "lr": [MultiStep(3e-4, [MIN_STEPS], values=[3e-4, v])
+               for v in (6e-4, 1e-4, 3e-5, 1e-5)],
+        "bs": [Constant(batch)]})
+
+
 def make_backend(arch="qwen2-0.5b", reduced=False, batch=4, seq_len=1024,
                  n_train=256, n_eval=8, device=None, use_kernel=None,
                  layers=None):
@@ -74,17 +86,22 @@ def make_backend(arch="qwen2-0.5b", reduced=False, batch=4, seq_len=1024,
                         use_kernel=use_kernel)
 
 
-def run_study(backend, share, batch=4, name="qwen2-0.5b"):
-    """One SHA study over :func:`space` on one worker (exact ``steps_run``
-    needs one); returns ``(stats, tuner, store, wall seconds)``."""
+def run_study(backend, share, batch=4, name="qwen2-0.5b",
+              batch_siblings=None, space_fn=space):
+    """One SHA study over ``space_fn`` (:func:`space` or
+    :func:`group_space`) on one worker (exact ``steps_run`` needs one);
+    ``batch_siblings`` as the engine takes it (None: the backend's
+    default, on for a CUDA trainer).  Returns ``(stats, tuner, store, wall
+    seconds)``."""
     db = SearchPlanDB()
     study = Study.create(db, name, "synthetic-lm", ("lr", "bs"))
-    tuner = RecordingSHATuner(space(batch).trials(MAX_STEPS),
+    tuner = RecordingSHATuner(space_fn(batch).trials(MAX_STEPS),
                               min_steps=MIN_STEPS, max_steps=MAX_STEPS,
                               eta=ETA)
     store = CheckpointStore()
     t0 = time.perf_counter()
-    stats = study.run(tuner, backend, n_workers=1, share=share, store=store)
+    stats = study.run(tuner, backend, n_workers=1, share=share, store=store,
+                      batch_siblings=batch_siblings)
     return stats, tuner, store, time.perf_counter() - t0
 
 
@@ -107,7 +124,11 @@ def main():
                     help="cut the model to this many layers")
     ap.add_argument("--device", default=None,
                     help="'cpu' to ask for the CPU (default: cuda)")
+    ap.add_argument("--groups", action="store_true",
+                    help="the study over group_space, whose SHA survivors "
+                         "train as sibling groups")
     args = ap.parse_args()
+    space_fn = group_space if args.groups else space
     batch, seq_len = FULL_SHAPE[args.arch] if args.full else (4, 128)
     cfg = dict(arch=args.arch, reduced=not args.full, batch=batch,
                seq_len=seq_len, layers=args.layers)
@@ -115,11 +136,13 @@ def main():
     results = {}
     for share, label in ((True, "stage"), (False, "trial")):
         stats, tuner, store, wall = run_study(backend, share, batch=batch,
-                                              name=args.arch)
+                                              name=args.arch,
+                                              space_fn=space_fn)
         drop_checkpoints(store)
         results[label] = (stats, tuner.best.trial_id, tuner.history)
         print(f"{label}-based: best val_acc (-loss) {tuner.best_score:.4f}  "
               f"steps trained {stats.steps_run}  wall {wall:.1f}s  "
+              f"sibling groups {stats.batched_groups}  "
               f"kernel calls {stats.kernel_calls}  "
               f"fallbacks {stats.kernel_fallbacks}")
         del store, tuner

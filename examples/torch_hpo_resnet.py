@@ -6,8 +6,11 @@ plan, stage tree, critical-path scheduler, chain-fused execution with
 write-behind checkpoints, SHA tuner — once stage-based and once trial-based,
 and compares the steps each had to train.
 
-Runs on a CUDA device (the optimizer update goes through the fused Triton
-kernel); ``--device cpu`` asks for the CPU and the plain update.
+Runs on a CUDA device (the optimizer update goes through the fused
+update kernel); ``--device cpu`` asks for the CPU and the plain update.
+``--groups`` runs the study over :func:`group_space`, whose SHA survivors
+resume together and train as sibling groups — one batched call per group,
+vectorised over the members on a CUDA device.
 
     PYTHONPATH=src python examples/torch_hpo_resnet.py            # ResNet8
     PYTHONPATH=src python examples/torch_hpo_resnet.py --full     # ResNet56
@@ -42,6 +45,16 @@ def space(batch=64):
         "bs": [Constant(batch)]})
 
 
+def group_space(batch=64):
+    """Six learning rates that part at step 25, SHA's first rung: the
+    survivors of each rung resume together from checkpoints and train as
+    one sibling group (``batch_siblings``)."""
+    return GridSearchSpace(fns={
+        "lr": [MultiStep(0.05, [25], values=[0.05, v])
+               for v in (0.1, 0.03, 0.02, 0.01, 0.005, 0.002)],
+        "bs": [Constant(batch)]})
+
+
 def make_backend(n=1, width=16, n_train=2048, n_eval=512, batch=64,
                  device=None, use_kernel=None):
     # one draw, split: a second seed would draw other class prototypes,
@@ -68,17 +81,20 @@ class RecordingSHATuner(SHATuner):
         super().on_result(trial, step, metrics)
 
 
-def run_study(backend, share, batch=64, n_workers=2, name="resnet8"):
-    """One SHA study over :func:`space`; returns ``(stats, tuner, store,
-    wall seconds)``."""
+def run_study(backend, share, batch=64, n_workers=2, name="resnet8",
+              batch_siblings=None, space_fn=space):
+    """One SHA study over ``space_fn`` (:func:`space` or
+    :func:`group_space`); ``batch_siblings`` as the engine takes it (None:
+    the backend's default, on for a CUDA trainer).  Returns ``(stats,
+    tuner, store, wall seconds)``."""
     db = SearchPlanDB()
     study = Study.create(db, name, "synthetic-cifar", ("lr", "bs"))
-    tuner = RecordingSHATuner(space(batch).trials(STEPS), min_steps=25,
+    tuner = RecordingSHATuner(space_fn(batch).trials(STEPS), min_steps=25,
                               max_steps=STEPS, eta=2)
     store = CheckpointStore()
     t0 = time.perf_counter()
     stats = study.run(tuner, backend, n_workers=n_workers, share=share,
-                      store=store)
+                      store=store, batch_siblings=batch_siblings)
     return stats, tuner, store, time.perf_counter() - t0
 
 
@@ -89,22 +105,27 @@ def main():
                          "8192 samples, batch 128")
     ap.add_argument("--device", default=None,
                     help="'cpu' to ask for the CPU (default: cuda)")
+    ap.add_argument("--groups", action="store_true",
+                    help="the study over group_space, whose SHA survivors "
+                         "train as sibling groups")
     args = ap.parse_args()
     cfg = (dict(n=9, n_train=8192, batch=128) if args.full
            else dict(n=1, n_train=2048, batch=64))
     name = "resnet56" if args.full else "resnet8"
+    space_fn = group_space if args.groups else space
 
-    trials = space(cfg["batch"]).trials(STEPS)
+    trials = space_fn(cfg["batch"]).trials(STEPS)
     print(f"{len(trials)} trials × {STEPS} steps, "
           f"p = {merge_rate(trials):.2f}")
     results = {}
     for share, label in ((True, "stage"), (False, "trial")):
         backend = make_backend(device=args.device, **cfg)
         stats, tuner, _, wall = run_study(backend, share, cfg["batch"],
-                                          name=name)
+                                          name=name, space_fn=space_fn)
         results[label] = (stats, tuner)
         print(f"{label}-based: best val_acc {tuner.best_score:.4f}  "
               f"steps trained {stats.steps_run}  wall {wall:.1f}s  "
+              f"sibling groups {stats.batched_groups}  "
               f"kernel calls {stats.kernel_calls}  "
               f"fallbacks {stats.kernel_fallbacks}")
     s, t = results["stage"], results["trial"]

@@ -32,11 +32,25 @@ has dropped (external eviction) does not raise — the dispatcher counts a
 scheduler, and re-runs the round: Algorithm 1 re-derives the request from
 whatever remains (an earlier checkpoint, an ancestor, or a fresh model).
 
+Sibling-group pass (``batch_siblings``): before the chain pass, each
+round gathers ready sibling stages that train the same ``[start, stop)``
+with the same static hps, hp names and batch-size schedule
+(:func:`~repro_torch.core.stagetree.sibling_groups`; under chain fusion
+:func:`~repro_torch.core.stagetree.sibling_chain_groups`, extended down
+parallel chains and cut by ``max_steps_per_chain``) and executes each group
+on one idle worker as batched backend calls — ``run_stages_batched`` for
+depth 1, ``run_chains_batched`` otherwise — over deduplicated,
+copy-on-fanout resume loads.  A group with fewer than two surviving
+members is refunded to the chain pass; a ``ValueError`` from the backend
+(an in-flight incompatibility) falls back to member-sequential chains,
+counted as not batched.  Each member's boundary checkpoints are written
+behind with its own ``parent_cid`` thread, and stages are credited level
+by level (``batched_groups``, ``batched_stages``).
+
 Not in this package yet (the engine facade refuses the options that would
-need them): the sibling-group pass over batched backend calls, mesh
-workers with device-to-device handoff, and the failure domains of the
-fault plane.  An exception raised by the backend or the store therefore
-propagates out of the round unchanged.
+need them): mesh workers with device-to-device handoff, and the failure
+domains of the fault plane.  Any other exception raised by the backend or
+the store therefore propagates out of the round unchanged.
 """
 
 from __future__ import annotations
@@ -47,7 +61,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.core.scheduler import SchedulingPolicy
 from repro_torch.core.searchplan import Request, SearchPlan
-from repro_torch.core.stagetree import Stage, StageTreeBuilder
+from repro_torch.core.stagetree import (Stage, StageTreeBuilder,
+                                        sibling_chain_groups, sibling_groups)
 from repro_torch.core.engine.events import EventLoop
 from repro_torch.core.trainer import (ChainNotFusable, StageContext,
                                       TrainerBackend)
@@ -72,6 +87,7 @@ class Dispatcher:
                  gpus_per_worker: int = 1,
                  max_steps_per_chain: Optional[int] = None,
                  tree_builder: Optional[StageTreeBuilder] = None,
+                 batch_siblings: bool = False,
                  chain_fusion: bool = False):
         self.plan = plan
         self.backend = backend
@@ -83,6 +99,7 @@ class Dispatcher:
         self.gpus_per_worker = gpus_per_worker
         self.max_steps_per_chain = max_steps_per_chain
         self.tree_builder = tree_builder or StageTreeBuilder(plan)
+        self.batch_siblings = batch_siblings
         self.chain_fusion = chain_fusion
         # store counters at attach time: EngineStats mirrors *deltas* over
         # this baseline, so an engine attached to a store that already
@@ -166,6 +183,9 @@ class Dispatcher:
         produced: Dict[str, Tuple[Any, float, Optional[str]]] = {}
         taken: set = set()
 
+        if self.batch_siblings:
+            idle, missed = self._group_pass(tree, idle, produced, taken)
+
         # chain pass over an explicit in-round pool: a deferred chain's
         # worker returns to the pool and is offered another path, and a
         # refill asks the scheduler for more chains when deferrals freed
@@ -204,6 +224,37 @@ class Dispatcher:
             if not pending:
                 refill()
         return missed and any(w.idle for w in self.workers)
+
+    def _group_pass(self, tree, idle: List[Worker],
+                    produced: Dict[str, Tuple[Any, float, Optional[str]]],
+                    taken: set) -> Tuple[List[Worker], bool]:
+        """Execute the round's sibling groups, each on the first idle
+        worker; returns the workers still idle and whether a resume
+        checkpoint was missed."""
+        if self.chain_fusion:
+            # groups extend down parallel chains with identical per-stage
+            # signatures; the per-dispatch work cap applies to them like
+            # any chain: members share per-level step counts, so one
+            # member's truncation depth bounds the whole group, and cut
+            # levels were never claimed (they reschedule in a later round)
+            groups = sibling_chain_groups(self.plan, tree)
+            if self.max_steps_per_chain:
+                groups = [[c[:len(self._truncate(g[0]))] for c in g]
+                          for g in groups]
+        else:
+            groups = [[[st] for st in g]
+                      for g in sibling_groups(self.plan, tree)]
+        idle = list(idle)
+        missed = False
+        for group in groups:
+            if not idle:
+                break
+            worker = idle[0]
+            ran, miss = self._execute_group(group, worker, produced, taken)
+            missed |= miss
+            if ran:
+                idle.remove(worker)
+        return idle, missed
 
     def _truncate(self, path: List[Stage]) -> List[Stage]:
         out, steps = [], 0
@@ -457,3 +508,150 @@ class Dispatcher:
                 "metrics": metrics, "worker": worker.wid,
                 "last": st is path[-1]})
         worker.busy_until = t
+
+    # ------------------------------------------------------- group execution
+    def _execute_group(self, group: List[List[Stage]], worker: Worker,
+                       produced: Dict[str, Tuple[Any, float,
+                                                 Optional[str]]],
+                       taken: set) -> Tuple[bool, bool]:
+        """Execute a sibling-chain group as batched backend calls on
+        ``worker`` (one call per stage level; depth 1 is the classic
+        sibling-stage group).
+
+        Returns ``(ran, missed)``.  Members whose resume checkpoint
+        vanished are refunded to the scheduler and left pending
+        (recompute-on-miss); if fewer than two members survive, the whole
+        group is refunded and its stages fall through to the chain pass
+        this round."""
+        t = max(self.events.time, worker.busy_until)
+        load_s, save_s = self.backend.overheads()
+        gpus = self.gpus_per_worker
+        missed = False
+        members: List[List[Stage]] = []
+        states: List[Any] = []
+        # per-member fork-point cid: the parent of each member's first
+        # boundary checkpoint (siblings share it)
+        parents: List[Optional[str]] = []
+        loaded: Dict[str, Any] = {}   # resume cid -> state (dedup loads)
+        for chain in group:
+            head = chain[0]
+            self.scheduler.on_path_assigned(self.plan, chain)
+            if head.resume is not None:
+                nid, step = head.resume
+                cid = self.plan.node(nid).ckpts.get(step)
+                if cid is not None and cid in loaded:
+                    # copy-on-fanout: one load never hands the SAME tree
+                    # object to two members
+                    state = self.backend.clone_state(loaded[cid])
+                else:
+                    got = self._load_resume(nid, step)
+                    if got is None:
+                        missed = True
+                        self.scheduler.on_stages_unassigned(self.plan, chain)
+                        continue
+                    state, cid = got
+                    loaded[cid] = state
+            else:
+                state = self.backend.init_state()
+                cid = None
+            members.append(chain)
+            states.append(state)
+            parents.append(cid)
+        if len(members) < 2:
+            # the group fell apart: refund the survivors; the chain pass
+            # picks them up (they are not marked taken)
+            for chain in members:
+                self.scheduler.on_stages_unassigned(self.plan, chain)
+            return False, missed
+
+        n_loads = len(loaded)
+        t += load_s * n_loads
+        self.stats.gpu_seconds += load_s * n_loads * gpus
+        self.stats.ckpt_loads += n_loads
+
+        depth = len(members[0])
+        ctx_chains = [[self._ctx_for(st) for st in chain]
+                      for chain in members]
+        for chain in members:
+            for st in chain:
+                taken.add(st.stage_id)
+        self.plan.mark_running([Request(st.node_id, st.stop)
+                                for chain in members for st in chain])
+        worker.idle = False
+
+        comp0 = getattr(self.backend, "compile_seconds", 0.0)
+        save0 = self.stats.ckpt_save_seconds
+        wall0 = _time.perf_counter()
+        try:
+            if depth == 1:
+                outs = [[s] for s in self.backend.run_stages_batched(
+                    states, [ctxs[0] for ctxs in ctx_chains])]
+            else:
+                outs = self.backend.run_chains_batched(states, ctx_chains)
+            batched = True
+        except ValueError:
+            # in-flight incompatibility (divergent restored batch sizes,
+            # say): member-sequential execution — same semantics, no
+            # batching credit
+            outs = [self.backend.run_chain(s, ctxs)
+                    for s, ctxs in zip(states, ctx_chains)]
+            batched = False
+        # write-behind boundary checkpoints for every (member, stage); each
+        # member threads its own parent down its chain, so every sibling
+        # deltas against the shared fork point and then its own boundary
+        cids: List[List[str]] = []
+        for chain, ctxs, out, pcid in zip(members, ctx_chains, outs,
+                                          parents):
+            member_cids = []
+            for st, ctx, s in zip(chain, ctxs, out):
+                pcid = self._put_boundary(ctx.path_key, st.stop, s,
+                                          parent_cid=pcid)
+                member_cids.append(pcid)
+            cids.append(member_cids)
+        metrics_l = [[self.backend.evaluate(s, ctx) if st.report else None
+                      for st, ctx, s in zip(chain, ctxs, out)]
+                     for chain, ctxs, out in zip(members, ctx_chains, outs)]
+        wall = self._adjusted_wall(wall0, comp0, save0)
+
+        sims = [[self.backend.stage_seconds(c) for c in ctxs]
+                for ctxs in ctx_chains]
+        total_steps = sum(st.steps for st in members[0])
+        fused_chain = depth > 1 and self.chain_fusion
+        for j in range(depth):
+            level = [chain[j] for chain in members]
+            lvl_sims = [s[j] for s in sims]
+            lvl_wall = (wall * level[0].steps / total_steps if total_steps
+                        else wall / depth)
+            dur = (lvl_wall if any(s is None for s in lvl_sims)
+                   else sum(lvl_sims))
+            for m, st in enumerate(level):
+                member_dur = (lvl_sims[m] if lvl_sims[m] is not None
+                              else lvl_wall / len(members))
+                exec_dur = member_dur
+                if st.report:
+                    dur += getattr(self.backend, "eval_seconds", 0.0)
+                    member_dur += getattr(self.backend, "eval_seconds", 0.0)
+                    self.stats.evals_run += 1
+                dur += save_s  # checkpoint per member at the boundary
+                member_dur += save_s
+                self.stats.stages_run += 1
+                self.stats.steps_run += st.steps
+                self._credit_stage(st, member_dur, gpus)
+                if fused_chain:
+                    self.stats.chain_fused_stages += 1
+                if st.steps > 0:
+                    self.plan.record_profile(st.node_id, exec_dur / st.steps)
+            t += dur
+            self.stats.gpu_seconds += dur * gpus
+            for m, st in enumerate(level):
+                produced[st.stage_id] = (outs[m][j], t, cids[m][j])
+                self.events.push(t, "stage", {
+                    "node_id": st.node_id, "stop": st.stop,
+                    "cid": cids[m][j], "metrics": metrics_l[m][j],
+                    "worker": worker.wid,
+                    "last": j == depth - 1 and m == len(members) - 1})
+        if batched:
+            self.stats.batched_groups += 1
+            self.stats.batched_stages += len(members) * depth
+        worker.busy_until = t
+        return True, missed

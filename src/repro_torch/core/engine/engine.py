@@ -223,10 +223,6 @@ class ExecutionEngine:
             raise NotImplementedError(
                 "fault_injector= needs the fault plane, which repro_torch "
                 "does not have yet (ROADMAP queue A, slice 6)")
-        if batch_siblings:
-            raise NotImplementedError(
-                "batch_siblings=True needs the batched trainer tiers, which "
-                "repro_torch does not have yet (ROADMAP queue A, slice 2)")
         self.plan = plan
         self.backend = backend
         self.workers = [Worker(i) for i in range(n_workers)]
@@ -237,7 +233,12 @@ class ExecutionEngine:
         self.store = CheckpointStore() if store is None else store
         self.share = share
         self.max_steps_per_chain = max_steps_per_chain
-        self.batch_siblings = False
+        # sibling-trial batching defaults to whatever the backend supports
+        # (one batched call per ready sibling group; see dispatch.py)
+        if batch_siblings is None:
+            batch_siblings = bool(getattr(backend, "supports_batched_stages",
+                                          False))
+        self.batch_siblings = batch_siblings
         # chain fusion (device-resident carries across stage boundaries +
         # write-behind boundary checkpoints) defaults to backend support;
         # unlike batch_siblings, forcing True cannot override a backend
@@ -253,7 +254,7 @@ class ExecutionEngine:
             self.stats, self.workers, gpus_per_worker=gpus_per_worker,
             max_steps_per_chain=max_steps_per_chain,
             tree_builder=self.tree_builder,
-            chain_fusion=self.chain_fusion)
+            batch_siblings=batch_siblings, chain_fusion=self.chain_fusion)
         self.aggregator = Aggregator(plan, self.store, self.stats, self.events)
         self._trials: Dict[str, Trial] = {}
         self._handles: List[StudyHandle] = []

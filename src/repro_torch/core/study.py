@@ -141,10 +141,9 @@ class Study:
         ``batch_siblings`` forces sibling-trial batching on/off and
         ``chain_fusion`` forces chain-fused execution (device-resident
         carries + write-behind boundary checkpoints) on/off (defaults:
-        whatever the backend supports).  ``worker_meshes``,
-        ``fault_injector`` and ``batch_siblings=True`` are refused by the
-        engine with ``NotImplementedError`` until their planes are
-        ported."""
+        whatever the backend supports).  ``worker_meshes`` and
+        ``fault_injector`` are refused by the engine with
+        ``NotImplementedError`` until their planes are ported."""
         return ExecutionEngine(
             self.db.get(self.key), backend, n_workers=n_workers,
             gpus_per_worker=gpus_per_worker,

@@ -9,7 +9,12 @@ trials share.
 from repro_torch.core.tuners.space import GridSearchSpace
 from repro_torch.core.tuners.grid import GridTuner
 from repro_torch.core.tuners.sha import SHATuner
+from repro_torch.core.tuners.asha import ASHATuner
+from repro_torch.core.tuners.hyperband import HyperbandTuner
+from repro_torch.core.tuners.median import MedianStoppingTuner
+from repro_torch.core.tuners.pbt import PBTTuner
 
 __all__ = [
-    "GridSearchSpace", "GridTuner", "SHATuner",
+    "GridSearchSpace", "GridTuner", "SHATuner", "ASHATuner",
+    "HyperbandTuner", "MedianStoppingTuner", "PBTTuner",
 ]

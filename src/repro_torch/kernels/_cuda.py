@@ -26,7 +26,7 @@ import subprocess
 
 import torch
 
-__all__ = ["load", "call", "on"]
+__all__ = ["load", "call", "on", "plain"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -95,3 +95,17 @@ def on(device):
     if device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def plain(name: str, *tensors) -> None:
+    """Raise where an operand is a functorch wrapper (a vmap
+    ``BatchedTensor``, a grad-tracking wrapper): a launch reads the memory
+    behind a data pointer, which for a wrapper is not the logical tensor.
+    Under vmap a kernel is reached through its folding rule
+    (:mod:`repro_torch.kernels.ops`), which hands the wrapper plain
+    tensors."""
+    for t in tensors:
+        if torch._C._functorch.is_functorch_wrapped_tensor(t):
+            raise RuntimeError(f"{name}: an operand is a functorch wrapper; "
+                               f"call the kernel through its vmap rule "
+                               f"(repro_torch.kernels.ops)")

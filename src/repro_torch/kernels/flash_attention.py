@@ -336,6 +336,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     ``count_tiles`` also the number of executed tiles (an int; reading it
     waits for the kernel).  On a CUDA tensor bf16 launches the tensor-core
     kernel and f32 the CUDA-core one (:func:`fwd_route`)."""
+    _cuda.plain("flash_attention_fwd", q, k, v)
     if q.device.type == "cpu":
         out, lse, tiles = fwd_plain(q, k, v, causal=causal, window=window)
     else:
@@ -377,6 +378,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     ``delta = rowsum(dO·O)`` (both (B, Hq, Sq) f32).  On a CUDA tensor bf16
     launches the tensor-core kernel and f32 the CUDA-core one
     (:func:`bwd_route`)."""
+    _cuda.plain("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
                             window=window)
@@ -404,6 +406,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                             window: int = 0):
     """B4: per-query-head dk_h, dv_h (B, Sk, Hq, hd) in the k / v dtype;
     the caller sums each GQA group onto its KV head.  Routed as B3."""
+    _cuda.plain("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal,
                              window=window)

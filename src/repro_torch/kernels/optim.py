@@ -33,7 +33,12 @@ its strides, not copied first.
 
 :func:`fused_apply_update` is a drop-in for
 :func:`repro_torch.train.optimizer.apply_update` (solo: ``M = 1``) on top
-of it.  The plain version (:func:`repro_torch.train.optimizer.leaf_update`)
+of it, and :func:`stacked_apply_update` for
+:func:`~repro_torch.train.optimizer.apply_update_stacked`: a sibling
+group's ``(M, ...)`` trees with per-member ``(M,)`` hyper-parameters, one
+launch per tree per group step.  The update stays outside the group's
+``vmap`` (the JAX package puts it inside, under a ``custom_vmap`` rule
+that folds the member axis into the same kernel): the result is the same.  The plain version (:func:`repro_torch.train.optimizer.leaf_update`)
 is taken only for tensors that lie on the CPU; for a CUDA tensor the kernel
 is launched, or the failure to build or launch it is raised.
 
@@ -48,8 +53,8 @@ Counters: ``stacked_tree_update.launches`` counts tree-kernel launches
 (one per step for every tree of the port's models);
 ``stacked_leaf_update.launches`` those of the per-leaf kernel;
 ``KERNEL_STATS.calls`` (see :mod:`repro_torch.kernels.ops`) counts
-``fused_apply_update`` **calls** that went through the kernel (one per
-step).
+``fused_apply_update`` and ``stacked_apply_update`` **calls** that went
+through the kernel (one per step, solo or group).
 
 ``triton`` is imported, and ``csrc/optim.cu`` built, inside the launching
 paths only, so this module imports on a machine without either.
@@ -67,11 +72,13 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import ops as kops
-from repro_torch.train.optimizer import apply_update, leaf_update
+from repro_torch.train.optimizer import (apply_update, apply_update_stacked,
+                                         leaf_update)
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
-__all__ = ["fused_apply_update", "stacked_tree_update", "tree_plan",
-           "stacked_leaf_update", "leafwise_apply_update"]
+__all__ = ["fused_apply_update", "stacked_apply_update",
+           "stacked_tree_update", "tree_plan", "stacked_leaf_update",
+           "leafwise_apply_update"]
 
 BLOCK = 1024      # Triton: elements per program, 8 per thread at 4 warps
 NUM_WARPS = 4
@@ -558,31 +565,38 @@ def _const_vec(value: float, device: torch.device) -> torch.Tensor:
     return torch.full((1,), value, dtype=torch.float32, device=device)
 
 
-def _vec(x: Any, device: torch.device) -> torch.Tensor:
-    """A hyper-parameter value as a ``(1,)`` f32 tensor on ``device``:
-    tensors are viewed (no host round-trip), Python numbers come from a
-    small cache of constants."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32).reshape(1)
-    return _const_vec(float(x), device)
+def _member_vec(x: Any, M: int, device: torch.device) -> torch.Tensor:
+    """A hyper-parameter as the ``(M,)`` f32 vector the kernel reads by
+    member index: tensors are viewed (no host round-trip), an ``(M,)`` one
+    as it is; a number (from a small cache of constants) or a one-element
+    tensor repeated, materialised (the kernel reads through a pointer)."""
+    t = x.to(device=device, dtype=torch.float32).reshape(-1) \
+        if isinstance(x, torch.Tensor) else _const_vec(float(x), device)
+    if t.shape[0] == M:
+        return t if t.is_contiguous() else t.contiguous()
+    if t.shape[0] != 1:
+        raise ValueError(f"a hyper-parameter of {t.shape[0]} values for "
+                         f"{M} members")
+    return t.expand(M).contiguous()
 
 
-def _solo_operands(name: str, params: Any, grads: Any,
-                   state: Dict[str, Any], hp: Dict[str, Any], step: Any):
-    """The leaf lists and ``(1,)`` scalars of a solo update: the bias
-    corrections on device vectors, outside the kernel."""
+def _operands(name: str, M: int, params: Any, grads: Any,
+              state: Dict[str, Any], hp: Dict[str, Any], step: Any):
+    """The leaf lists and ``(M,)`` scalars of an update of ``M`` members
+    (solo: 1): the bias corrections formed on device vectors, outside the
+    kernel, as the JAX package forms them in XLA."""
     device = tree_leaves(params)[0].device
-    scal = [_vec(hp["lr"], device), _vec(hp.get("wd", 0.0), device)]
+    vec = lambda x: _member_vec(x, M, device)
+    scal = [vec(hp["lr"]), vec(hp.get("wd", 0.0))]
     slots = []
     if name == "momentum":
-        scal.append(_vec(hp.get("momentum", 0.9), device))
+        scal.append(vec(hp.get("momentum", 0.9)))
         slots = [tree_leaves(state["m"])]
     elif name in ("adam", "adamw"):
-        b1 = _vec(hp.get("b1", 0.9), device)
-        b2 = _vec(hp.get("b2", 0.999), device)
-        eps = _vec(hp.get("eps", 1e-8), device)
-        t = _vec(step, device) + 1.0
-        scal += [b1, b2, eps, 1.0 - b1 ** t, 1.0 - b2 ** t]
+        b1, b2 = vec(hp.get("b1", 0.9)), vec(hp.get("b2", 0.999))
+        t = vec(step) + 1.0
+        scal += [b1, b2, vec(hp.get("eps", 1e-8)), 1.0 - b1 ** t,
+                 1.0 - b2 ** t]
         slots = [tree_leaves(state["m"]), tree_leaves(state["v"])]
     return [tree_leaves(params), tree_leaves(grads)] + slots, scal
 
@@ -614,7 +628,7 @@ def fused_apply_update(name: str, params: Any, grads: Any,
         raise ValueError(name)
     if device.type != "cuda":
         raise RuntimeError(f"optimizer kernel: unsupported device {device}")
-    arrs, scal = _solo_operands(name, params, grads, state, hp, step)
+    arrs, scal = _operands(name, 1, params, grads, state, hp, step)
     outs = _tree_update(name, 1, True, arrs, scal)
     kops.note_call("opt_update")
     return _rebuild(name, params, outs, state)
@@ -629,9 +643,38 @@ def leafwise_apply_update(name: str, params: Any, grads: Any,
     Same result, bit for bit, as :func:`fused_apply_update`."""
     if name not in _SPEC:
         raise ValueError(name)
-    arrs, scal = _solo_operands(name, params, grads, state, hp, step)
+    arrs, scal = _operands(name, 1, params, grads, state, hp, step)
     arrs[1] = [g if g.is_contiguous() else g.contiguous() for g in arrs[1]]
     outs = [stacked_leaf_update(name, *(a[None] for a in leaf), *scal)
             for leaf in zip(*arrs)]
     return _rebuild(name, params, [[o[i][0] for o in outs]
                                    for i in range(_SPEC[name][2])], state)
+
+
+def stacked_apply_update(name: str, params: Any, grads: Any,
+                         state: Dict[str, Any], hp: Dict[str, Any],
+                         step: Any) -> Tuple[Any, Dict[str, Any]]:
+    """Drop-in for
+    :func:`repro_torch.train.optimizer.apply_update_stacked`: a sibling
+    group's member-stacked trees (every leaf ``(M, ...)``, ``hp`` values
+    ``(M,)`` f32 tensors or numbers) in one launch of the tree kernel per
+    tree — :func:`stacked_tree_update` with the bias corrections formed on
+    the ``(M,)`` vectors, as :func:`fused_apply_update` forms them on
+    ``(1,)`` ones, so each member gets the bits of its solo update.
+
+    Parameters on the CPU take the plain version, counted as a fallback
+    ``opt_update:device:cpu`` and warned once; parameters on a CUDA device
+    go through the kernel or raise."""
+    device = tree_leaves(params)[0].device
+    if device.type == "cpu":
+        kops.note_fallback("opt_update", "device:cpu")
+        return apply_update_stacked(name, params, grads, state, hp, step)
+    if name not in _SPEC:
+        raise ValueError(name)
+    if device.type != "cuda":
+        raise RuntimeError(f"optimizer kernel: unsupported device {device}")
+    M = tree_leaves(params)[0].shape[0]
+    arrs, scal = _operands(name, M, params, grads, state, hp, step)
+    outs = stacked_tree_update(name, *arrs, *scal)
+    kops.note_call("opt_update")
+    return _rebuild(name, params, outs, state)

@@ -238,7 +238,19 @@ def _route(name, route_of, xr, Br, route):
     return route
 
 
-def ssd_intra_fwd(xr, dtr, ltT, Br, Cr, route=None):
+def _cells(xr, members: int) -> int:
+    """The ``B·nc`` cells of one member: the head grouping, and with it
+    the order of B6's head sum, is that of one member's launch, so a
+    launch of ``members`` siblings folded into the batch axis gives each
+    the bits of its own launch (mamba2-2.7b: G 10 at B 1, where the
+    folded B 2 alone would pick 16)."""
+    if members < 1 or xr.shape[0] % members:
+        raise ValueError(f"ssd: {members} members do not divide the batch "
+                         f"axis of {tuple(xr.shape)}")
+    return max(1, xr.shape[0] // members * xr.shape[1])
+
+
+def ssd_intra_fwd(xr, dtr, ltT, Br, Cr, route=None, members: int = 1):
     """B5, the counterpart of ``repro.kernels.ssd_scan.ssd_intra_pallas``.
 
     xr (B,nc,Q,H,P), dtr (B,nc,Q,H) f32, ltT (B,nc,H,Q) f32 per-step
@@ -246,7 +258,11 @@ def ssd_intra_fwd(xr, dtr, ltT, Br, Cr, route=None):
     route :func:`fwd_route` picks (or ``route``, ``"wgmma"`` / ``"simt"``,
     to hold one against the other): ``ssd_fwd_tc`` (a block per cell and
     group of heads, on the tensor cores) or ``ssd_fwd`` (a block per row
-    tile, head and cell, on the CUDA cores)."""
+    tile, head and cell, on the CUDA cores).  ``members``: the batch axis
+    holds that many sibling members folded together; the tensor-core
+    kernel groups heads as one member's launch would (see
+    :func:`_cells`)."""
+    _cuda.plain("ssd_intra_fwd", xr, dtr, ltT, Br, Cr)
     cum = _cumsum(ltT)
     if xr.device.type == "cpu":
         return fwd_plain(xr, dtr, cum, Br, Cr)
@@ -262,7 +278,7 @@ def ssd_intra_fwd(xr, dtr, ltT, Br, Cr, route=None):
         shape = _shape_args(xr, Br)
         with _cuda.on(xr.device):
             if tc:
-                G = head_groups(shape[1], xr.shape[3])
+                G = head_groups(_cells(xr, members), xr.shape[3])
                 _cuda.call(_lib().ssd_fwd_tc, *args, *shape[:-1], G,
                            shape[-1])
             else:
@@ -276,7 +292,7 @@ ssd_intra_fwd.launches = 0        # every launch of B5
 ssd_intra_fwd.launches_tc = 0     # those on the tensor cores (ssd_fwd_tc)
 
 
-def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None
+def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None, members: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor, torch.Tensor]:
     """B6, the counterpart of
@@ -288,7 +304,9 @@ def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None
     one against the other), ``ssd_bwd_tc`` (per group of heads, with
     dltT, the suffix sum of dcum, formed in the kernel; then the
     partitioned head sum into dB / dC) or ``ssd_bwd`` (per head, then the
-    head sum; dltT taken here by :func:`dlt_from_dcum`)."""
+    head sum; dltT taken here by :func:`dlt_from_dcum`).  ``members`` as
+    for :func:`ssd_intra_fwd`."""
+    _cuda.plain("ssd_intra_bwd", xr, dtr, ltT, Br, Cr, g)
     cum = _cumsum(ltT)
     if xr.device.type == "cpu":
         dx, ddt, dcum, dB, dC = bwd_plain(xr, dtr, cum, Br, Cr, g)
@@ -306,7 +324,7 @@ def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None
     # the head sum's scratch, summed in a fixed order by the second kernel
     # (no float atomics: every launch is bit-reproducible): per group of G
     # heads on the tensor cores, per head on the CUDA cores
-    G = head_groups(B * nc, H) if tc else 1
+    G = head_groups(_cells(xr, members), H) if tc else 1
     dcb = torch.empty((B * nc, -(-H // G), Q, Q), dtype=torch.float32,
                       device=xr.device)
     if dx.numel():

@@ -13,7 +13,9 @@ would change the state tree and is not part of the paper's search spaces.
 :func:`leaf_update` is one leaf's update in plain PyTorch — f32 math, cast
 back to the leaf dtype, results in fresh tensors.  It is the plain version
 of the fused kernel in :mod:`repro_torch.kernels.optim`, which evaluates
-the same formulas in the same order.
+the same formulas in the same order.  :func:`apply_update_stacked` is the
+update of a sibling group: member-stacked ``(M, ...)`` leaves, per-member
+``(M,)`` hyper-parameters.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 
 from repro_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["init_opt_state", "apply_update", "leaf_update", "OPTIMIZERS"]
+__all__ = ["init_opt_state", "apply_update", "apply_update_stacked",
+           "leaf_update", "OPTIMIZERS"]
 
 OPTIMIZERS = ("sgd", "momentum", "adam", "adamw")
 
@@ -106,3 +109,43 @@ def apply_update(name: str, params: Any, grads: Any, state: Dict[str, Any],
                 {"m": _pick(params, outs, 1), "v": _pick(params, outs, 2)})
 
     raise ValueError(name)
+
+
+_SLOTS = {"sgd": (), "momentum": ("m",), "adam": ("m", "v"),
+          "adamw": ("m", "v")}
+
+
+def apply_update_stacked(name: str, params: Any, grads: Any,
+                         state: Dict[str, Any], hp: Dict[str, Any],
+                         step: Any) -> Tuple[Any, Dict[str, Any]]:
+    """:func:`apply_update` over member-stacked trees: every leaf is
+    ``(M, ...)``, every hyper-parameter a number or an ``(M,)`` f32 tensor
+    of per-member values, broadcast as ``(M, 1, ...)`` against each leaf.
+    The update is elementwise, so member ``i`` gets the formulas of
+    :func:`apply_update` on its own slice."""
+    if name not in _SLOTS:
+        raise ValueError(name)
+    ps = tree_leaves(params)
+    M, device = ps[0].shape[0], ps[0].device
+
+    def vec(x):
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=device).reshape(-1).expand(M)
+
+    kw = {"lr": vec(hp["lr"]), "wd": vec(hp.get("wd", 0.0))}
+    if name == "momentum":
+        kw["mom"] = vec(hp.get("momentum", 0.9))
+    elif name in ("adam", "adamw"):
+        b1, b2 = vec(hp.get("b1", 0.9)), vec(hp.get("b2", 0.999))
+        t = vec(step) + 1.0
+        kw.update(b1=b1, b2=b2, eps=vec(hp.get("eps", 1e-8)),
+                  bc1=1 - b1 ** t, bc2=1 - b2 ** t)
+    slots = _SLOTS[name]
+    outs = []
+    for leaf in zip(ps, tree_leaves(grads),
+                    *[tree_leaves(state[s]) for s in slots]):
+        shape = (M,) + (1,) * (leaf[0].dim() - 1)
+        outs.append(leaf_update(name, *leaf, **{k: v.reshape(shape)
+                                                for k, v in kw.items()}))
+    return (_pick(params, outs, 0),
+            {s: _pick(params, outs, i + 1) for i, s in enumerate(slots)})

@@ -52,8 +52,37 @@ CUDA device sets, process-wide,
 an f32 reference computes) and ``torch.backends.cudnn.deterministic =
 True``, ``benchmark = False`` (the losslessness claim is bitwise).
 
-Not here yet: the batched sibling tiers (``run_stages_batched`` /
-``run_chains_batched`` raise ``NotImplementedError``).
+Sibling groups: :meth:`run_stages_batched` executes a group of sibling
+stages — same ``[start, stop)``, static hps, hp names and batch-size
+schedule, divergent hp *values* — as one call, and
+:meth:`run_chains_batched` a group of parallel sibling chains, one stage
+level at a time, with the group's carry and pipelines held across
+boundaries; both return ``[member][stage]`` boundary snapshots.  A
+mismatch raises ``ValueError``, which the dispatcher answers with
+member-sequential chains.  Members whose data states are equal (siblings
+forked from one checkpoint) share one pipeline and one slab.  Two tiers,
+as in the JAX package, chosen by ``vectorize_groups`` (on for a CUDA
+device, off on the CPU; an explicit value overrides):
+
+* **vectorised** — the carry is member-stacked ``(M, ...)``; each step
+  is the task's loss under ``torch.func.vmap`` over it (the shared slab
+  broadcast with ``in_dims=None``, never stacked) and one ordinary
+  ``torch.autograd.grad`` of the members' summed losses
+  (:func:`group_value_and_grad`), so the task's kernels fold the group
+  into one launch each, backward included (:mod:`repro_torch.kernels.ops`);
+  then one member-stacked optimizer update
+  (:func:`repro_torch.kernels.optim.stacked_apply_update`: one B1 launch
+  per tree) with per-member hp values as ``(M,)`` device rows of
+  step-major ``(n, M)`` tensors.  Member-stacked matrix products and
+  convolutions (``bmm``, a grouped convolution) need not give solo's bits;
+* **looped** — each member's chunk exactly as a solo run executes it,
+  bit-equal to solo by construction.
+
+A boundary snapshot of the stacked carry is a per-member **copy**, not a
+view: a view ``x[g]`` would pin the whole stack for as long as any
+member's checkpoint lives, so a group whose siblings a tuner kills would
+hold every member's memory; the copy frees a killed member's share and
+costs one device copy of the state per boundary.
 """
 
 from __future__ import annotations
@@ -68,11 +97,13 @@ from repro_torch.core.trainer import (ChainNotFusable, StageContext,
 from repro_torch.core.values import desc_static, desc_values
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.optim import fused_apply_update
-from repro_torch.train.optimizer import apply_update, init_opt_state
+from repro_torch.kernels.optim import fused_apply_update, stacked_apply_update
+from repro_torch.train.optimizer import (apply_update, apply_update_stacked,
+                                         init_opt_state)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["TorchTrainer", "chunk_lengths", "value_and_grad"]
+__all__ = ["TorchTrainer", "chunk_lengths", "value_and_grad",
+           "group_value_and_grad"]
 
 
 def chunk_lengths(n: int, max_chunk: int) -> List[int]:
@@ -89,6 +120,29 @@ def chunk_lengths(n: int, max_chunk: int) -> List[int]:
     return out
 
 
+def _stack(trees: Sequence[Any]) -> Any:
+    """Member-stack structurally identical trees leaf by leaf."""
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def group_value_and_grad(loss_fn, params: Any, batch: Any,
+                         batch_dim: Optional[int] = 0):
+    """``(losses, aux), grads`` of a sibling group: ``params`` a
+    member-stacked tree, ``batch`` stacked (``batch_dim=0``) or shared by
+    every member (``None``); ``losses`` ``(M,)``.  The loss runs under
+    ``torch.func.vmap`` and the gradient is one ``torch.autograd.grad`` of
+    the summed losses (each member's loss depends on its own slice only,
+    so its slice of the gradient is its own).  Not
+    ``vmap(grad_and_value(loss))``: ``torch.func.grad`` differentiates with
+    ``create_graph=True`` and keeps the backward's graph, ~1.7× a solo
+    step's memory a member (qwen2-0.5b, ``tools/group_probe.py memory``)."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, aux = torch.func.vmap(loss_fn, in_dims=(0, batch_dim))(leaves,
+                                                                 batch)
+    grads = iter(torch.autograd.grad(loss.sum(), tree_leaves(leaves)))
+    return (loss.detach(), aux), tree_map(lambda _: next(grads), params)
+
+
 def value_and_grad(loss_fn, params: Any, batch: Any):
     """``(loss, aux), grads`` of ``loss_fn(params, batch) -> (loss, aux)``
     with ``grads`` a tree shaped like ``params``.  The parameters are not
@@ -103,15 +157,14 @@ class TorchTrainer(TrainerBackend):
     """Stage executor over any task exposing ``init(rng)`` and
     ``loss(params, batch) -> (scalar, metrics)``."""
 
-    supports_batched_stages = False
-
     def __init__(self, task, pipeline_factory: Callable[[], DataPipeline],
                  eval_batch: Dict[str, np.ndarray],
                  default_optimizer: str = "momentum", seed: int = 0,
                  objective_from: str = "acc", fused: bool = True,
                  chunk_steps: int = 8,
                  use_kernel: Optional[bool] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 vectorize_groups: Optional[bool] = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -139,6 +192,10 @@ class TorchTrainer(TrainerBackend):
         if self.use_kernel and hasattr(task, "use_kernel"):
             task.use_kernel = True      # e.g. the LM's attention kernels
         self._update = fused_apply_update if self.use_kernel else apply_update
+        self._group_update = (stacked_apply_update if self.use_kernel
+                              else apply_update_stacked)
+        self.vectorize_groups = (self.device.type == "cuda") \
+            if vectorize_groups is None else bool(vectorize_groups)
         self._kernel_stats0 = kernel_ops.KERNEL_STATS.snapshot()
         self.compile_seconds = 0.0   # eager: nothing is compiled per chunk
         self.exec_calls = 0          # chunks (or single steps) issued
@@ -157,6 +214,10 @@ class TorchTrainer(TrainerBackend):
     def kernel_fallbacks(self) -> int:
         """Kernel→plain-version fallbacks since construction."""
         return kernel_ops.KERNEL_STATS.fallbacks - self._kernel_stats0[1]
+
+    @property
+    def supports_batched_stages(self) -> bool:  # type: ignore[override]
+        return self.fused
 
     @property
     def supports_chain_fusion(self) -> bool:  # type: ignore[override]
@@ -269,15 +330,26 @@ class TorchTrainer(TrainerBackend):
             return super().run_chain(state, ctxs)
         return self._run_fused_chain(state, list(ctxs))
 
-    def run_stages_batched(self, states, ctxs):
-        raise NotImplementedError(
-            "batched sibling stages are not in repro_torch yet "
-            "(ROADMAP queue A, slice 2)")
+    def run_stages_batched(self, states: Sequence[Dict[str, Any]],
+                           ctxs: Sequence[StageContext]
+                           ) -> List[Dict[str, Any]]:
+        """A sibling group of stages as one call (see the module
+        docstring); one boundary state per member."""
+        if not self.fused:
+            return [self.run_stage_stepwise(s, c)
+                    for s, c in zip(states, ctxs)]
+        return [b[-1] for b in self._run_group(list(states),
+                                               [[c] for c in ctxs])]
 
-    def run_chains_batched(self, states, chains):
-        raise NotImplementedError(
-            "batched sibling chains are not in repro_torch yet "
-            "(ROADMAP queue A, slice 2)")
+    def run_chains_batched(self, states: Sequence[Dict[str, Any]],
+                           chains: Sequence[Sequence[StageContext]]
+                           ) -> List[List[Dict[str, Any]]]:
+        """A group of parallel sibling chains of equal depth, one stage
+        level at a time over the group's carry, which persists across
+        boundaries; ``[member][stage]`` boundary states."""
+        if not self.fused:
+            return [self.run_chain(s, c) for s, c in zip(states, chains)]
+        return self._run_group(list(states), [list(c) for c in chains])
 
     def _run_fused_chain(self, state: Dict[str, Any],
                          chain: List[StageContext]) -> List[Dict[str, Any]]:
@@ -328,6 +400,152 @@ class TorchTrainer(TrainerBackend):
                 {"params": carry[0], "opt": carry[1], "opt_name": opt_name,
                  "data": pipe.state(), "step": ctx.stop})
         return boundaries
+
+    # --------------------------------------------------------- sibling groups
+    def _check_group(self, states, chains, plans) -> None:
+        """The conditions under which members run as one group; a
+        ``ValueError`` names the first one broken."""
+        depth = len(chains[0])
+        if any(len(ch) != depth for ch in chains):
+            raise ValueError("batched chains must share their depth")
+        for s, ch in zip(states, chains):
+            step = ch[0].start
+            assert s["step"] == step, (s["step"], step)
+            for c in ch:
+                if c.start != step:
+                    raise ValueError(
+                        f"chain stages must be contiguous: stage starts at "
+                        f"{c.start}, previous stopped at {step}")
+                step = c.stop
+        for j in range(depth):
+            ctx0 = chains[0][j]
+            vals0, static0, opt0, names0 = plans[0][j]
+            runs = self._bs_runs(vals0, ctx0.stop - ctx0.start)
+            for ch, pl in zip(chains[1:], plans[1:]):
+                c = ch[j]
+                vals, static, opt_n, names = pl[j]
+                if (c.start, c.stop) != (ctx0.start, ctx0.stop):
+                    raise ValueError("batched stages must share [start, stop)")
+                if opt_n != opt0 or static != static0:
+                    raise ValueError("batched stages must share static hps")
+                if names != names0:
+                    raise ValueError("batched stages must share hp names")
+                if self._bs_runs(vals, c.stop - c.start) != runs:
+                    raise ValueError(
+                        "batched stages must share the bs schedule")
+
+    def _run_group(self, states: List[Dict[str, Any]],
+                   chains: List[List[StageContext]]
+                   ) -> List[List[Dict[str, Any]]]:
+        """Run ``M`` parallel chains (one per member) of equal depth,
+        returning ``[member][stage]`` boundary states: the group's carry —
+        member-stacked on the vectorised tier, one per member on the looped
+        tier — and its pipelines persist across stage boundaries."""
+        group = len(states)
+        plans = [[self._stage_plan(c) for c in ch] for ch in chains]
+        self._check_group(states, chains, plans)
+        # siblings forked from one checkpoint share the data stream: one
+        # pipeline and one slab serve them all
+        shared = all(tuple(s["data"]) == tuple(states[0]["data"])
+                     for s in states[1:])
+        pipes = []
+        for s in (states[:1] if shared else states):
+            pipe = self.pipeline_factory()
+            pipe.restore(s["data"])
+            pipes.append(pipe)
+        if (plans[0][0][0].get("bs") is None
+                and len({p.batch_size for p in pipes}) > 1):
+            raise ValueError("batched stages must share the batch size")
+
+        opt_name = plans[0][0][2]
+        carries = [(s["params"], self._init_opt(s, opt_name))
+                   for s in states]
+        vec = self.vectorize_groups
+        if vec:
+            # a list, updated in place step by step (see _run_group_chunk)
+            carry = [_stack([c[i] for c in carries]) for i in (0, 1)]
+        boundaries: List[List[Dict[str, Any]]] = [[] for _ in range(group)]
+
+        for j, ctx0 in enumerate(chains[0]):
+            vals0, static_hp, stage_opt, names = plans[0][j]
+            if stage_opt != opt_name:
+                # optimizer switch at the boundary: fresh slots, exactly as
+                # run_stage would re-init on the restored state
+                opt_name = stage_opt
+                if vec:
+                    carry[1] = init_opt_state(opt_name, carry[0])
+                else:
+                    carries = [(p, init_opt_state(opt_name, p))
+                               for p, _ in carries]
+            if vec:
+                static_dev = {k: torch.full((group,), v, dtype=torch.float32,
+                                            device=self.device)
+                              for k, v in static_hp.items()}
+            else:
+                static_dev = self._scalars(static_hp)
+            for i0, i1, bs in self._bs_runs(vals0, ctx0.stop - ctx0.start):
+                if bs is not None:
+                    for pipe in pipes:
+                        pipe.set_batch_size(bs)
+                w0 = i0
+                for k_len in chunk_lengths(i1 - i0, self.chunk_steps):
+                    w1 = w0 + k_len
+                    slabs = [pipe.next_batches(k_len) for pipe in pipes]
+                    steps = torch.arange(ctx0.start + w0, ctx0.start + w1,
+                                         dtype=torch.int32,
+                                         device=self.device)
+                    if vec:
+                        # step-major (n, M): row i is one contiguous (M,)
+                        # vector, the kernel's per-member operand
+                        hp_xs = {k: torch.from_numpy(np.ascontiguousarray(
+                            np.asarray([pl[j][0][k][w0:w1] for pl in plans],
+                                       np.float32).T)).to(self.device)
+                            for k in names}
+                        slab = self._upload(slabs[0] if shared else {
+                            k: np.stack([sl[k] for sl in slabs], axis=1)
+                            for k in slabs[0]})
+                        self._run_group_chunk(opt_name, carry, static_dev,
+                                              hp_xs, slab, steps, shared)
+                    else:
+                        up = [self._upload(sl) for sl in slabs]
+                        for m, pl in enumerate(plans):
+                            hp_m = {k: torch.tensor(
+                                np.asarray(pl[j][0][k][w0:w1], np.float32),
+                                device=self.device) for k in names}
+                            carries[m] = self._run_chunk(
+                                opt_name, carries[m], static_dev, hp_m,
+                                up[0 if shared else m], steps)
+                    w0 = w1
+            if vec:
+                carries = [tuple(tree_map(lambda x, m=m: x[m].clone(), c)
+                                 for c in carry) for m in range(group)]
+            datas = [pipes[0].state()] * group if shared \
+                else [p.state() for p in pipes]
+            for m in range(group):
+                boundaries[m].append(
+                    {"params": carries[m][0], "opt": carries[m][1],
+                     "opt_name": opt_name, "data": datas[m],
+                     "step": ctx0.stop})
+        return boundaries
+
+    def _run_group_chunk(self, opt_name: str, carry: List[Any], static_hp,
+                         hp_xs, slab, steps, shared: bool) -> None:
+        """The vectorised tier's chunk: ``len(steps)`` steps of the
+        member-stacked ``carry = [params, opt]``, each one
+        :func:`group_value_and_grad` and one stacked update.  The carry is
+        updated in place, so no reference pins a step's input state once
+        its update has run (a group's state is M times a member's: 12 GB
+        for four qwen2-0.5b members)."""
+        for i in range(steps.shape[0]):
+            hp = dict(static_hp)
+            hp.update({k: v[i] for k, v in hp_xs.items()})
+            _, grads = group_value_and_grad(
+                self.task.loss, carry[0], {k: v[i] for k, v in slab.items()},
+                None if shared else 0)
+            carry[0], carry[1] = self._group_update(
+                opt_name, carry[0], grads, carry[1], hp, steps[i])
+            del grads
+        self.exec_calls += 1
 
     # ---------------------------------------------------- per-step reference
     def run_stage_stepwise(self, state: Dict[str, Any], ctx: StageContext

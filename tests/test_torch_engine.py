@@ -6,7 +6,10 @@ service — must produce ``EngineStats`` equal **field for field**, per-study
 breakdown included; only the wall-clock timers ``ckpt_save_seconds`` /
 ``ckpt_load_seconds`` are left out.  Over ``TorchTrainer(device="cpu")`` a
 small SHA study runs end to end (ports of ``tests/test_system.py``), and the
-options this package does not have yet must raise, not be ignored.
+options this package does not have yet must raise, not be ignored.  The
+sibling-group pass (``batch_siblings=True``, with chain fusion on and off)
+and the ASHA / Hyperband / median-stopping / PBT tuners are held to the
+reference field for field as well.
 """
 
 import dataclasses
@@ -182,6 +185,55 @@ def fused_over_simulator(side, share):
         store.async_puts
 
 
+def batched_siblings(side, chain_fusion, kind="sha", n_workers=2, **kw):
+    """``batch_siblings=True`` over the simulator (its batched calls run
+    members in turn, so groups change only the dispatch) on a space whose
+    siblings fork together at step 60, where SHA's first rung leaves their
+    checkpoint: stats and every plan node's metrics."""
+    sim = type("FusingSim", (_FusingSim, side.sim), {}) if chain_fusion \
+        else side.sim
+    C = side.core
+    space = side.tuners.GridSearchSpace(fns={
+        "lr": [C.MultiStep(0.1, [60], values=[0.1, v])
+               for v in (0.05, 0.02, 0.01, 0.005)],
+        "bs": [C.Constant(128), C.MultiStep(128, [120], values=[128, 256])]})
+    db = C.SearchPlanDB()
+    st = C.Study.create(db, "m", "d", ("lr", "bs"))
+    trials = space.trials(240)
+    tuner = side.tuners.GridTuner(trials) if kind == "grid" else \
+        side.tuners.SHATuner(trials, min_steps=60, max_steps=240, eta=2)
+    stats = st.run(tuner, sim(), n_workers=n_workers, batch_siblings=True,
+                   chain_fusion=chain_fusion, **kw)
+    plan = db.get(st.key)
+    assert stats.batched_groups > 0 and stats.batched_stages > 0
+    return det(stats), tuner_outcome(tuner), \
+        {nid: n.metrics for nid, n in plan.nodes.items()}
+
+
+def tuner_study(side, name):
+    """Each of the four tuners ported with this slice, over the
+    simulator."""
+    C, TN = side.core, side.tuners
+    db = C.SearchPlanDB()
+    st = C.Study.create(db, "m", "d", ("lr", "bs"))
+    trials = engine_space(side).trials(200)
+    tuner = {
+        "asha": lambda: TN.ASHATuner(trials, min_steps=25, max_steps=200,
+                                     eta=2),
+        "hyperband": lambda: TN.HyperbandTuner(trials, max_steps=200, eta=4),
+        "median": lambda: TN.MedianStoppingTuner(
+            trials, milestones=[50, 100, 200]),
+        "pbt": lambda: TN.PBTTuner(
+            [C.HpConfig({"lr": C.Constant(v), "bs": C.Constant(128)})
+             for v in (0.2, 0.1, 0.05, 0.01)], interval=20, generations=4),
+    }[name]()
+    stats = st.run(tuner, side.sim(), n_workers=4)
+    best = getattr(tuner, "best", None)
+    plan = db.get(st.key)
+    return det(stats), tuner.is_done(), getattr(best, "trial_id", None), \
+        getattr(tuner, "best_score", None), sorted(plan.nodes)
+
+
 SCENARIOS = {
     "grid-share": lambda s: single_study(s, "grid", True),
     "grid-trial": lambda s: single_study(s, "grid", False),
@@ -199,6 +251,16 @@ SCENARIOS = {
     "chain-fused-share": lambda s: fused_over_simulator(s, True),
     "chain-fused-trial": lambda s: fused_over_simulator(s, False),
 }
+SCENARIOS.update({
+    "batched-siblings": lambda s: batched_siblings(s, False),
+    "batched-siblings-chain-fused": lambda s: batched_siblings(s, True),
+    "batched-siblings-grid-chain-fused": lambda s: batched_siblings(
+        s, True, kind="grid", n_workers=1),
+    "batched-siblings-chain-fused-truncated": lambda s: batched_siblings(
+        s, True, max_steps_per_chain=30),
+})
+SCENARIOS.update({f"tuner-{t}": (lambda s, t=t: tuner_study(s, t))
+                  for t in ("asha", "hyperband", "median", "pbt")})
 SCENARIOS.update({f"service-staggered-{p}":
                   (lambda s, p=p: staggered_service(s, p))
                   for p in sorted(R.POLICIES)})
@@ -327,10 +389,8 @@ def test_sha_on_real_training_stage_vs_trial(backend):
 
 
 @pytest.mark.parametrize("kw", [{"worker_meshes": [None]},
-                                {"fault_injector": object()},
-                                {"batch_siblings": True}],
-                         ids=["worker_meshes", "fault_injector",
-                              "batch_siblings"])
+                                {"fault_injector": object()}],
+                         ids=["worker_meshes", "fault_injector"])
 def test_engine_refuses_options_of_unported_planes(kw):
     plan = T.SearchPlan("gate")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -366,12 +426,20 @@ def test_store_refuses_serialized_tiers(kw, tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_batched_tiers_and_missing_gpu(backend):
-    assert backend.supports_batched_stages is False
+    """The batched tiers exist now and refuse only groups that cannot run
+    as one (a ``ValueError``, which the dispatcher answers with
+    member-sequential chains); no GPU still refuses ``device=None``."""
+    assert backend.supports_batched_stages is True
     assert backend.supports_chain_fusion is True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backend.run_stages_batched([], [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backend.run_chains_batched([], [])
+    assert backend.vectorize_groups is False          # the CPU's tier
+    desc = {"hps": {"lr": {"kind": "const", "value": 0.05}}, "static": {}}
+    ctx = lambda s0, s1, n: T.StageContext(n, desc, 0, s0, s1, n)
+    states = [backend.init_state(), backend.init_state()]
+    with pytest.raises(ValueError, match="start, stop"):
+        backend.run_stages_batched(states, [ctx(0, 4, "a"), ctx(0, 6, "b")])
+    with pytest.raises(ValueError, match="depth"):
+        backend.run_chains_batched(states, [[ctx(0, 4, "a"), ctx(4, 8, "a")],
+                                            [ctx(0, 4, "b")]])
     if not torch.cuda.is_available():
         # device=None means "cuda": no silent CPU run
         with pytest.raises(RuntimeError, match="CUDA"):
