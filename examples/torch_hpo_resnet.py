@@ -82,16 +82,17 @@ class RecordingSHATuner(SHATuner):
 
 
 def run_study(backend, share, batch=64, n_workers=2, name="resnet8",
-              batch_siblings=None, space_fn=space):
+              batch_siblings=None, space_fn=space, store=None):
     """One SHA study over ``space_fn`` (:func:`space` or
     :func:`group_space`); ``batch_siblings`` as the engine takes it (None:
-    the backend's default, on for a CUDA trainer).  Returns ``(stats,
+    the backend's default, on for a CUDA trainer); ``store`` the
+    checkpoint store (None: a fresh memory-tier one).  Returns ``(stats,
     tuner, store, wall seconds)``."""
     db = SearchPlanDB()
     study = Study.create(db, name, "synthetic-cifar", ("lr", "bs"))
     tuner = RecordingSHATuner(space_fn(batch).trials(STEPS), min_steps=25,
                               max_steps=STEPS, eta=2)
-    store = CheckpointStore()
+    store = CheckpointStore() if store is None else store
     t0 = time.perf_counter()
     stats = study.run(tuner, backend, n_workers=n_workers, share=share,
                       store=store, batch_siblings=batch_siblings)

@@ -45,7 +45,12 @@ fallback.
 
 Device and numerics: ``device=None`` means ``"cuda"`` and raises where
 there is no CUDA device — nothing carries on on the CPU because it found
-no GPU; pass ``device="cpu"`` to ask for it.  Constructing a trainer on a
+no GPU; pass ``device="cpu"`` to ask for it.  A state restored from the
+checkpoint store's serialized tiers comes back with its tensors on the
+host: every entry that takes a state (:meth:`run_stage`, :meth:`run_chain`,
+the batched entries, :meth:`run_stage_stepwise`, :meth:`evaluate`) first
+moves its tensor leaves to the trainer's device (:meth:`on_device`), and a
+state already there passes through unchanged.  Constructing a trainer on a
 CUDA device sets, process-wide,
 ``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (the card computes what
@@ -292,6 +297,34 @@ class TorchTrainer(TrainerBackend):
         return {k: torch.tensor(v, dtype=torch.float32, device=self.device)
                 for k, v in values.items()}
 
+    def _foreign(self, x: Any) -> bool:
+        """Is ``x`` a tensor off this trainer's device?"""
+        if not isinstance(x, torch.Tensor):
+            return False
+        dev = self.device
+        return x.device.type != dev.type or (
+            dev.index is not None and x.device.index != dev.index)
+
+    def on_device(self, *states: Dict[str, Any]) -> List[Dict[str, Any]]:
+        """``states`` with every tensor leaf on this trainer's device,
+        uploaded once each (a leaf shared by several states, as a resume
+        load's fan-out shares them, once in all; from pinned memory with
+        ``non_blocking``).  A state with no leaf elsewhere is returned
+        itself: no copy."""
+        memo: Dict[int, torch.Tensor] = {}
+
+        def move(x):
+            if not self._foreign(x):
+                return x
+            y = memo.get(id(x))
+            if y is None:
+                y = memo[id(x)] = x.to(self.device,
+                                       non_blocking=x.is_pinned())
+            return y
+
+        return [tree_map(move, s) if any(map(self._foreign, tree_leaves(s)))
+                else s for s in states]
+
     def _init_opt(self, state: Dict[str, Any], opt_name: str):
         opt = state["opt"]
         if opt is None or state["opt_name"] != opt_name:
@@ -366,6 +399,7 @@ class TorchTrainer(TrainerBackend):
                     f"{c.start}, previous stopped at {step}")
             step = c.stop
         assert state["step"] == chain[0].start, (state["step"], chain[0].start)
+        state, = self.on_device(state)
 
         opt_name = plans[0][2]
         carry = (state["params"], self._init_opt(state, opt_name))
@@ -444,6 +478,7 @@ class TorchTrainer(TrainerBackend):
         group = len(states)
         plans = [[self._stage_plan(c) for c in ch] for ch in chains]
         self._check_group(states, chains, plans)
+        states = self.on_device(*states)
         # siblings forked from one checkpoint share the data stream: one
         # pipeline and one slab serve them all
         shared = all(tuple(s["data"]) == tuple(states[0]["data"])
@@ -554,6 +589,7 @@ class TorchTrainer(TrainerBackend):
         uploaded per training step, hp values uploaded per step.  Kept as
         the bit-exactness reference for the fused paths."""
         assert state["step"] == ctx.start, (state["step"], ctx.start)
+        state, = self.on_device(state)
         vals, static_hp, opt_name, names = self._stage_plan(ctx)
         carry = (state["params"], self._init_opt(state, opt_name))
         pipe = self.pipeline_factory()
@@ -578,6 +614,7 @@ class TorchTrainer(TrainerBackend):
     # ------------------------------------------------------------- evaluate
     def evaluate(self, state: Dict[str, Any], ctx: StageContext
                  ) -> Dict[str, float]:
+        state, = self.on_device(state)
         with torch.no_grad():
             loss, metrics = self.task.loss(state["params"], self.eval_batch)
         self.evaluations += 1

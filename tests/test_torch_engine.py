@@ -5,14 +5,17 @@ search plan, stage trees, scheduler, dispatcher, aggregator, tuners, study
 service — must produce ``EngineStats`` equal **field for field**, per-study
 breakdown included; only the wall-clock timers ``ckpt_save_seconds`` /
 ``ckpt_load_seconds`` are left out.  Over ``TorchTrainer(device="cpu")`` a
-small SHA study runs end to end (ports of ``tests/test_system.py``), and the
-options this package does not have yet must raise, not be ignored.  The
+small SHA study runs end to end (ports of ``tests/test_system.py``), on
+the memory tier and on the serialized tiers alike, and the options this
+package does not have yet must raise, not be ignored.  The
 sibling-group pass (``batch_siblings=True``, with chain fusion on and off)
 and the ASHA / Hyperband / median-stopping / PBT tuners are held to the
 reference field for field as well.
 """
 
 import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -24,10 +27,11 @@ import repro_torch.core as T
 import repro_torch.core.tuners as TT
 from repro.core.trainer import SimulatedTrainer as RefSimulatedTrainer
 from repro.train.checkpoint import CheckpointStore as RefCheckpointStore
+from repro.train.checkpoint import DirectoryObjectStore as RefObjectStore
 from repro_torch.core.trainer import SimulatedTrainer
 from repro_torch.data import DataPipeline, synthetic_cifar
 from repro_torch.models.resnet import ResNet
-from repro_torch.train.checkpoint import CheckpointStore
+from repro_torch.train.checkpoint import CheckpointStore, DirectoryObjectStore
 from repro_torch.train.torch_trainer import TorchTrainer
 from repro_torch.utils.tree import tree_leaves
 
@@ -39,12 +43,13 @@ WALL_CLOCK = ("ckpt_save_seconds", "ckpt_load_seconds")
 
 
 class Side:
-    def __init__(self, core, tuners, sim, store):
+    def __init__(self, core, tuners, sim, store, remote):
         self.core, self.tuners, self.sim, self.store = core, tuners, sim, store
+        self.remote = remote
 
 
-REF = Side(R, RT, RefSimulatedTrainer, RefCheckpointStore)
-PORT = Side(T, TT, SimulatedTrainer, CheckpointStore)
+REF = Side(R, RT, RefSimulatedTrainer, RefCheckpointStore, RefObjectStore)
+PORT = Side(T, TT, SimulatedTrainer, CheckpointStore, DirectoryObjectStore)
 
 
 def det(stats):
@@ -172,17 +177,59 @@ class _FusingSim:
     supports_chain_fusion = True
 
 
-def fused_over_simulator(side, share):
+def fused_over_simulator(side, share, store=None):
     sim = type("FusingSim", (_FusingSim, side.sim), {})
     C = side.core
     db = C.SearchPlanDB()
     st = C.Study.create(db, "m", "d", ("lr", "bs"))
-    store = side.store()
+    store = side.store() if store is None else store
     tuner = make_tuner(side, "sha", engine_space(side).trials(200), 200)
     stats = st.run(tuner, sim(), n_workers=4, share=share, store=store,
                    max_steps_per_chain=90)
     return det(stats), tuner_outcome(tuner), store.pending_writes, \
         store.async_puts
+
+
+BYTE_FIELDS = {"full": "ckpt_full_bytes", "delta": "ckpt_delta_bytes"}
+
+
+def on_directory(side, scenario, remote=False):
+    """``scenario(store)`` over a directory store of ``side``'s package
+    (with ``remote``: a remote tier below and room for one blob on the
+    directory).  Write-behind commits land inside ``put_async`` (a flush
+    after each), so which tier serves a read is deterministic.  The byte
+    fields of ``EngineStats`` leave out each blob's tree section, the one
+    part of a blob the packages write differently (``tree_len`` bytes, and
+    its decimal digits in the header)."""
+    with tempfile.TemporaryDirectory() as d:
+        store = side.store(
+            os.path.join(d, "disk"),
+            remote=side.remote(os.path.join(d, "remote")) if remote else None,
+            disk_capacity_bytes=1 if remote else None)
+        framing = {"full": 0, "delta": 0}
+        publish, put_async = store._publish_disk, store.put_async
+
+        def tracked_publish(cid, staged):
+            with open(staged.tmp, "rb") as f:
+                hdr, _ = store._parse_header(f.read())
+            framing[hdr["kind"]] += hdr["tree_len"] + len(str(hdr["tree_len"]))
+            publish(cid, staged)
+
+        def put_and_flush(*args, **kw):
+            cid = put_async(*args, **kw)
+            store.flush()
+            return cid
+        store._publish_disk, store.put_async = tracked_publish, put_and_flush
+        out = scenario(store)
+        stats = out[0]
+        for kind, field in BYTE_FIELDS.items():
+            stats[field] -= framing[kind]
+        for field in ("ckpt_bytes_written", "ckpt_logical_bytes"):
+            stats[field] -= sum(framing.values())
+        assert stats["ckpt_bytes_written"] > 0
+        if remote:
+            assert stats["ckpt_tier_demotions"] > 0
+        return out + (len(store), store.tier_promotions)
 
 
 def batched_siblings(side, chain_fusion, kind="sha", n_workers=2, **kw):
@@ -261,6 +308,15 @@ SCENARIOS.update({
 })
 SCENARIOS.update({f"tuner-{t}": (lambda s, t=t: tuner_study(s, t))
                   for t in ("asha", "hyperband", "median", "pbt")})
+SCENARIOS.update({
+    "directory-sha-share": lambda s: on_directory(
+        s, lambda store: single_study(s, "sha", True, store=store)),
+    "directory-remote-sha-trial": lambda s: on_directory(
+        s, lambda store: single_study(s, "sha", False, store=store),
+        remote=True),
+    "directory-chain-fused-share": lambda s: on_directory(
+        s, lambda store: fused_over_simulator(s, True, store=store)),
+})
 SCENARIOS.update({f"service-staggered-{p}":
                   (lambda s, p=p: staggered_service(s, p))
                   for p in sorted(R.POLICIES)})
@@ -385,6 +441,149 @@ def test_sha_on_real_training_stage_vs_trial(backend):
     assert out[True][1].best.trial_id == out[False][1].best.trial_id
 
 
+def recorded_puts(side, run):
+    """``(cid, parent_cid)`` of every boundary put ``run(store)`` makes on
+    a memory store of ``side``'s package, in order."""
+    puts = []
+
+    class Recording(side.store):
+        def put(self, path_key, step, tree, parent_cid=None):
+            puts.append((self.ckpt_id(path_key, step), parent_cid))
+            return super().put(path_key, step, tree, parent_cid=parent_cid)
+
+        def put_async(self, path_key, step, tree, parent_cid=None):
+            puts.append((self.ckpt_id(path_key, step), parent_cid))
+            return super().put_async(path_key, step, tree,
+                                     parent_cid=parent_cid)
+    run(Recording())
+    return puts
+
+
+PUT_RUNS = {
+    "per-stage": lambda s, store: single_study(
+        s, "sha", True, n_workers=2, store=store),
+    "chain-fused": lambda s, store: fused_over_simulator(s, True,
+                                                         store=store),
+    "groups": lambda s, store: batched_siblings(s, False, store=store),
+    "groups-chain-fused": lambda s, store: batched_siblings(
+        s, True, store=store),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PUT_RUNS))
+def test_boundary_puts_carry_the_reference_parents(name):
+    """The dispatcher threads ``parent_cid`` to every boundary put as the
+    reference does: the fork point for a chain's first boundary, then each
+    previous boundary, and each group member's own fork point."""
+    ref = recorded_puts(REF, lambda st: PUT_RUNS[name](REF, st))
+    port = recorded_puts(PORT, lambda st: PUT_RUNS[name](PORT, st))
+    assert port == ref
+    assert sum(p is not None for _, p in port) > 0
+
+
+@pytest.mark.parametrize("share", [True, False], ids=["stage", "trial"])
+def test_directory_store_study_equals_memory_tier(backend, share, tmp_path):
+    """On the CPU trainer a study whose checkpoints live on a directory
+    with a remote tier below (room for one blob) reports every metric bit
+    for bit as the memory-tier study does, trains the same steps and picks
+    the same best trial; its resumes read blobs back from the tiers."""
+    out = {}
+    for tier in ("memory", "directory"):
+        store = CheckpointStore() if tier == "memory" else CheckpointStore(
+            str(tmp_path / "disk"),
+            remote=DirectoryObjectStore(str(tmp_path / "remote")),
+            disk_capacity_bytes=1)
+        tuner = RecordingSHA(small_space().trials(24), min_steps=6,
+                             max_steps=24, eta=2)
+        st = T.Study.create(T.SearchPlanDB(), "resnet8", "synth",
+                            ("lr", "bs"))
+        stats = st.run(tuner, backend, n_workers=1, share=share, store=store)
+        out[tier] = (stats, tuner, store)
+    (m_stats, m_tuner, _), (d_stats, d_tuner, d_store) = out.values()
+    assert d_tuner.history == m_tuner.history
+    assert d_stats.steps_run == m_stats.steps_run
+    assert d_tuner.best.trial_id == m_tuner.best.trial_id
+    assert d_stats.ckpt_bytes_written > 0 and d_store.tier_demotions > 0
+    assert d_stats.ckpt_disk_hits + d_stats.ckpt_remote_hits > 0
+    assert d_stats.ckpt_loads == m_stats.ckpt_loads > 0
+
+
+def test_restored_tree_unchanged_by_resumed_stage(backend, tmp_path):
+    """A tree restored from the directory (shared with the read cache) is
+    not written by a stage resumed from it, on any entry: its bytes equal
+    a fresh read of the blob afterwards, and the resumed stage equals the
+    same stage run from the state that was saved."""
+    store = CheckpointStore(str(tmp_path))
+    desc = {"hps": {"lr": {"kind": "const", "value": 0.05}}, "static": {}}
+    ctx = lambda s0, s1: T.StageContext("n", desc, 0, s0, s1, "n")
+    saved = backend.run_stage(backend.init_state(), ctx(0, 4))
+    cid = store.put("pk", 4, saved)
+    store._read_cache.clear()
+    restored = store.get(cid)
+    assert all(not x.is_pinned() and x.device.type == "cpu"
+               for x in tree_leaves(restored["params"]))
+    outs = [backend.run_stage(restored, ctx(4, 8)),
+            backend.run_chain(restored, [ctx(4, 6), ctx(6, 8)])[-1],
+            backend.run_stage_stepwise(restored, ctx(4, 8)),
+            backend.run_stages_batched([restored, restored],
+                                       [ctx(4, 8), ctx(4, 8)])[0]]
+    backend.evaluate(restored, ctx(4, 8))
+    fresh = store._read_disk(cid)
+    for a, b in zip(tree_leaves(restored), tree_leaves(fresh), strict=True):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b)
+    expect = backend.run_stage(saved, ctx(4, 8))
+    for out in outs:
+        for a, b in zip(tree_leaves(out["params"]),
+                        tree_leaves(expect["params"])):
+            assert torch.equal(a, b)
+    assert store.get(cid) is restored
+
+
+def test_on_device_moves_restored_leaves_once(backend, monkeypatch):
+    """``on_device`` moves every tensor leaf of a state to the trainer's
+    device (``meta`` here: a device that is not the CPU), a leaf shared by
+    two states once; Python leaves stay as they are; a state already there
+    passes through as itself.  Every entry that takes a state calls it
+    before training or evaluating."""
+    meta = TorchTrainer(backend.task, backend.pipeline_factory,
+                        synthetic_cifar(4, seed=1), device="meta")
+    state = backend.init_state()
+    clone = backend.clone_state(state)
+    a, b = meta.on_device(state, clone)
+    assert all(x.device.type == "meta" for x in tree_leaves(a["params"]))
+    assert all(x is y for x, y in zip(tree_leaves(a["params"]),
+                                      tree_leaves(b["params"])))
+    assert a["data"] == state["data"] and a["step"] == 0
+    assert meta.on_device(a)[0] is a
+    assert backend.on_device(state)[0] is state      # the CPU's own state
+
+    calls = []
+    real = TorchTrainer.on_device
+
+    def spy(self, *states):
+        calls.append(len(states))
+        return real(self, *states)
+    monkeypatch.setattr(TorchTrainer, "on_device", spy)
+    desc = {"hps": {"lr": {"kind": "const", "value": 0.05}}, "static": {}}
+    ctx = lambda s0, s1: T.StageContext("n", desc, 0, s0, s1, "n")
+    s0 = backend.init_state()
+    entries = {
+        "run_stage": lambda: backend.run_stage(s0, ctx(0, 2)),
+        "run_chain": lambda: backend.run_chain(s0, [ctx(0, 1), ctx(1, 2)]),
+        "run_stages_batched": lambda: backend.run_stages_batched(
+            [s0, s0], [ctx(0, 2), ctx(0, 2)]),
+        "run_chains_batched": lambda: backend.run_chains_batched(
+            [s0, s0], [[ctx(0, 1), ctx(1, 2)]] * 2),
+        "run_stage_stepwise": lambda: backend.run_stage_stepwise(
+            s0, ctx(0, 2)),
+        "evaluate": lambda: backend.evaluate(s0, ctx(0, 2))}
+    for name, call in entries.items():
+        calls.clear()
+        call()
+        assert calls and calls[0] == (2 if "batched" in name else 1), name
+
+
 # ------------------------------------------------------- NotImplemented gates
 
 
@@ -414,15 +613,6 @@ def test_service_refuses_snapshots(call):
     svc = T.StudyService(T.SearchPlanDB(), SimulatedTrainer())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(svc)
-
-
-@pytest.mark.parametrize("kw", [{"directory": "ckpts"}, {"remote": object()}],
-                         ids=["directory", "remote"])
-def test_store_refuses_serialized_tiers(kw, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CheckpointStore(**kw)
-    assert list(tmp_path.iterdir()) == []
 
 
 def test_trainer_refuses_batched_tiers_and_missing_gpu(backend):

@@ -1,11 +1,14 @@
 """Sibling groups on the card: what a group of M members costs.
 
     python3 tools/group_probe.py memory   # qwen2-0.5b: peak memory by M
+    python3 tools/group_probe.py memory mamba2-2.7b 32   # mamba2, 32 layers
     python3 tools/group_probe.py conv     # ResNet56's convolutions, vmapped
 
 ``memory``: one training step of qwen2-0.5b at full width (24 layers, bf16,
-4 × 1024 tokens, AdamW, kernels on) solo (``value_and_grad`` and the fused
-update) and as one vectorised group step of M = 1, 2, 3, 4 members
+4 × 1024 tokens, AdamW, kernels on) — or of mamba2-2.7b at full width and
+the given depth (bf16, 1 × 2048 tokens, AdamW, M = 1, 2 only) — solo
+(``value_and_grad`` and the fused update) and as one vectorised group step
+of M = 1, 2, 3, 4 members
 (``TorchTrainer._run_group_chunk``: the loss under ``vmap`` over the
 member-stacked carry, the slab shared, and one ``autograd.grad``), and,
 for M = 1, 2, the same step with ``torch.func.vmap(torch.func.grad_and_value
@@ -39,17 +42,27 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def memory():
+def gib(b):
+    return b / 2 ** 30
+
+
+def memory(arch="qwen2-0.5b", layers=None):
     import torch_hpo_lm as example
     from repro_torch.kernels.optim import (fused_apply_update,
                                            stacked_apply_update)
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.torch_trainer import _stack, value_and_grad
-    backend = example.make_backend(use_kernel=True, **cs.LM_FULL)
+    from repro_torch.utils.tree import tree_leaves
+    qwen = arch == "qwen2-0.5b"
+    shape = cs.LM_FULL if qwen else dict(cs.MAMBA_STUDY, layers=int(layers))
+    backend = example.make_backend(arch=arch, use_kernel=True, **shape)
     p0 = backend.init_state()["params"]
+    emit({"mode": "model", "arch": arch,
+          "layers": backend.task.cfg.num_layers,
+          "state_gib": gib(3 * sum(p.numel() * p.element_size()
+                                   for p in tree_leaves(p0)))})
     slab = backend._upload(backend.pipeline_factory().next_batches(1))
     step = torch.zeros((1,), dtype=torch.int32, device=cs.DEV)
-    gib = lambda b: b / 2 ** 30
 
     def backend_step(carry, hp):
         carry = list(carry)
@@ -78,6 +91,8 @@ def memory():
 
     runs = [("group", M, backend_step) for M in (1, 2, 3, 4)] + [
         ("group, vmap(grad_and_value)", M, func_grad_step) for M in (1, 2)]
+    if not qwen:
+        runs = runs[:2]
     for mode, M, run in runs:
         torch.cuda.reset_peak_memory_stats()
         row = {"mode": mode, "members": M}
@@ -154,7 +169,7 @@ def main():
     join = cs.start_builds()
     for name in cs.CUDA_SOURCES:
         join(name)
-    {"memory": memory, "conv": conv}[mode]()
+    {"memory": memory, "conv": conv}[mode](*sys.argv[2:])
     emit({"mode": mode, "seconds": time.perf_counter() - t0})
 
 
