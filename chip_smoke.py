@@ -9,8 +9,8 @@ width: the paper's ResNet56 (``ResNet(n=9, width=16)``, batch 128,
 momentum), qwen2-0.5b (24 layers, d_model 896, 14 / 2 heads, vocab
 151,936, bf16, batch 4 × 1024 tokens, AdamW) and mamba2-2.7b (d_model
 2560, 80 SSD heads of 64, state 128, chunk 128, vocab 50,280, bf16, batch
-1 × 2048 tokens, AdamW; the study at all 64 layers with its checkpoints
-on the disk tier), random weights from a seed, and holds every kernel of
+1 × 2048 tokens, AdamW; the study at 16 of its 64 layers with its
+checkpoints on the disk tier), random weights from a seed, and holds every kernel of
 those paths against its plain PyTorch version on the card.  Needs one CUDA device and
 no network; fails (non-zero exit, no result line) without a GPU or outside
 a checkout of the repository.
@@ -19,8 +19,8 @@ function, so the device tensors it made are freed when it returns.
 The checkpoint store's serialized tiers live in a directory outside the
 checkout (``store_dir``: the first of ``$TMPDIR``, ``$TEMP``, ``$TMP``,
 ``/tmp``, ``/var/tmp``, ``/usr/tmp``, ``/dev/shm`` with room for the
-mamba2 study's blobs — on a memory-backed file system only half the
-host's available memory counts; its path, file system, free bytes and the
+mamba2 studies' blobs, a memory-backed one with host memory for the blobs
+held at once before any disk; its path, file system, free bytes and the
 host's memory are printed; none with room is a failure, never the memory
 tier), removed when the script ends.
 Phases, each printing one JSON line:
@@ -112,11 +112,12 @@ Phases, each printing one JSON line:
    the kernels against the plain SSD path (atol 1e-5 / 1e-4), B5 and B6 on
    the CUDA-core kernels only.
 10. ``mamba2_study`` — the SHA study of ``examples/torch_hpo_lm.py`` with
-   mamba2-2.7b at full width and all 64 layers, stage-based then
-   trial-based, each on a directory store (16.2 GB a checkpoint: the
+   mamba2-2.7b at full width and ``MAMBA_STUDY["layers"]`` (16) of its 64
+   layers, stage-based then trial-based, each on a directory store
+   (4.6 GB a checkpoint: the
    card holds the running state only; the first run's checkpoints are
    dropped before the second starts); every launch count is zeroed just
-   before and read just after: B5 = 64 × (steps + evaluations), B6 = 64 ×
+   before and read just after: B5 = L × (steps + evaluations), B6 = L ×
    steps (every one of both on the tensor cores), B1 = one tree-kernel
    launch per step, no attention launch, no fallback, fewer steps
    stage-based, the same best trial and every reported metric bit-equal
@@ -125,12 +126,12 @@ Phases, each printing one JSON line:
    most bytes on disk, the peak device memory (below the card's) and the
    wall seconds; the newest held checkpoint read back, uploaded, finite,
    its digests the header's.
-11. ``mamba2_step`` / ``mamba2_profile`` — the full 64-layer model (the
-   study's trainer, its parameters drawn once): step
+11. ``mamba2_step`` / ``mamba2_profile`` — the study's model (its
+   trainer, its parameters drawn once): step
    time, tokens/s, the share of B5 + B6 in a step, the AdamW update alone,
    peak memory; the device's busy and idle share over one 2-step chunk and
-   its top device time by kernel name.  ``mamba2_update``: B1 on the
-   64-layer tree (bf16 and f32 leaves, one launch) bit-equal to the
+   its top device time by kernel name.  ``mamba2_update``: B1 on its
+   tree (bf16 and f32 leaves, one launch) bit-equal to the
    per-leaf kernel, timed beside it, its bound and ``torch._fused_adamw_``.
 12. ``fold`` (run after ``ssd_kernels``) — B7, the member-folding rules
    of ``src/repro_torch/kernels/ops.py``: B2–B6 in bf16 at the main
@@ -180,13 +181,43 @@ Phases, each printing one JSON line:
    directory store: solo's ``steps_run`` and best trial, metrics within
    2e-2, B5 = L × (launch steps + evaluations), B6 = L × launch steps (one
    launch per group call), all on the tensor cores; each store's numbers.
-19. last lines  — the script's run time and each phase's seconds, the card
+19. ``fault_plane`` (run after ``resnet_tiered_study``) — phase 4's
+   study on one worker, fault-free and under a seeded ``FaultInjector``
+   (stage faults, worker crashes, store outages; ``FAULT_SEED``,
+   ``FAULT_RATES``): faults fired and retried, every checkpoint the store
+   holds at the end bit-equal to the fault-free run's (byte views), every
+   reported metric bit-equal, the same best trial; B1 = the training
+   steps the device computed (a failed attempt's too), no per-leaf launch,
+   no fallback; the faults by kind, quarantines, verified re-puts, useful
+   and wasted GPU seconds.
+20. ``session`` — the same study on one worker on a directory store and
+   on the memory tier: stepped until SHA's first rung is decided,
+   ``svc.snapshot(path)`` (the directory copied right after), closed (the
+   uninterrupted run), then ``StudyService.restore`` against a new trainer
+   and store in a fresh process (``chip_smoke.py --session-child``): the
+   count fields, every held checkpoint (the memory tier: blake2b of byte
+   views; the directory: the same cids and chunk digests), every metric
+   and the best trial equal to the uninterrupted run's; B1 before the
+   snapshot + after the restore = the uninterrupted run's.  The
+   memory-tier snapshot decodes in a process with ``CUDA_VISIBLE_DEVICES``
+   empty; the directory run's ``enable_auto_snapshot(keep=2)`` rotates
+   and ``restore_latest`` reads the newest slot.
+21. ``lm_group_degraded`` (run after ``lm_group_study``) — qwen2-0.5b's
+   group study with its first group attempt failed (a transient fault),
+   so the group runs as solo members: on the vectorised tier against
+   ``lm_group_study``'s grouped run (one degraded group, the same
+   ``steps_run``, the largest |Δ| of held checkpoints and metrics printed,
+   metrics within 2e-2 by ``group_vs_solo(best_margin=True)``), and on
+   the looped tier against its own fault-free run, checkpoints and
+   metrics bit-equal; B1–B4 launches exact, B2–B4 on the tensor cores.
+22. last lines  — the script's run time and each phase's seconds, the card
    and its power limit, the
-   ``kernels`` line (B1's tree kernel, B2–B6; with the grouped runs'
-   launches and the fold's checks) and ``{"ok": true, "device": {...}}``.
+   ``kernels`` line (B1's tree kernel, B2–B6; with the grouped runs',
+   the fault plane's, the sessions' and the degraded runs' launches and
+   the fold's checks) and ``{"ok": true, "device": {...}}``.
 
-The solo studies of phases 4, 7, 10 and 17 pass ``batch_siblings=False``:
-their launch counts are those of PRs 11–17.
+The solo studies of phases 4, 7, 10, 17, 19 and 20 pass
+``batch_siblings=False``: their launch counts are those of PRs 11–17.
 
 Any failed check raises; nothing is caught and passed over.  The script
 sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless the caller
@@ -248,17 +279,23 @@ SSD_SHAPES = [(1, 2, 16, 2, 16, 16), (2, 3, 32, 4, 16, 24),
               (1, 1, 64, 1, 32, 32), (1, 4, 8, 8, 8, 8)]
 SSD_RAGGED = (1, 2, 96, 2, 40, 20)     # ragged tiles, the model's decays
 MAMBA = dict(B=1, nc=16, Q=128, H=80, P=64, N=128)   # mamba2-2.7b's SSD
-MAMBA_STUDY = dict(batch=1, seq_len=2048, n_train=64, n_eval=2, layers=64)
+# the study's depth: all 64 layers fit (63.8 GiB) but their 16.2 GB
+# checkpoints make the study writer-bound (391 s of a 939 s run), so it is
+# cut for the run's time; tools/step_compare.py times the 64-layer step
+MAMBA_STUDY = dict(batch=1, seq_len=2048, n_train=64, n_eval=2, layers=16)
 # the SHA study of examples/torch_hpo_lm.py on the reduced model on the
 # CPU: 3 + 7 commits (stage- and trial-based), and at most 4 blobs on the
 # directory at once (the four trials' first rung), the one being written
 # included
 STUDY_COMMITS = 10
 STUDY_BLOBS_HELD = 4
+# mamba2_group_study's commits, solo and grouped (4 + 4, PR 19's runs)
+GROUP_STUDY_COMMITS = 8
 # the group study's depth: 32 layers fit (a 2-member step 43.1 GiB,
 # tools/group_probe.py memory mamba2-2.7b 32; the grouped study 51.0 GiB)
-# but took 145 s of a 1,004 s run, so it is cut for the run's time
-MAMBA_GROUP_LAYERS = 16
+# but took 145 s of a 1,004 s run (16 layers 83 s of 939 s), so it is
+# cut for the run's time
+MAMBA_GROUP_LAYERS = 8
 RESNET_FULL = dict(n=9, width=16, n_train=8192, n_eval=512, batch=128)
 RESNET_LEAVES = 114
 
@@ -473,11 +510,12 @@ def device_profile(fn, n_steps, chunk_ms, match=None, top=8):
     ``n_steps``-step chunk: device time of the CUDA kernels in the
     profiler's trace (the profiler slows the host, not the kernels) against
     ``chunk_ms``, the chunk's wall time measured without it.  ``match``
-    picks the package's own kernels out by name."""
+    picks the package's own kernels out by name.  The device's activity
+    only: nothing here reads host events, and recording them slows
+    ``key_averages`` several-fold."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     dev_time = lambda e: getattr(e, "self_device_time_total",
@@ -569,13 +607,16 @@ def digests_equal_header(store, cid, tree):
 def store_root(written, held):
     """Where the serialized tiers of the studies live: the first of the
     temporary-directory candidates (``$TMPDIR``, ``$TEMP``, ``$TMP``,
-    ``/tmp``, ``/var/tmp``, ``/usr/tmp``) outside the checkout, then
-    ``/dev/shm``, with room for ``written`` bytes — every byte the
-    studies write, since a thinly provisioned disk does not get a deleted
-    blob's blocks back — and, on a memory-backed file system, host memory
-    available for ``held`` bytes (the blobs held at once and a host copy).
-    Prints the choice; raises where no candidate has room (never the
-    memory tier)."""
+    ``/tmp``, ``/var/tmp``, ``/usr/tmp``, ``/dev/shm``) outside the
+    checkout that is a memory-backed file system with host memory
+    available for ``held`` bytes (the blobs held at once and a host copy)
+    and room for ``written`` bytes, else the first on a disk with room for
+    ``written`` — every byte the studies write, since a thinly provisioned
+    disk does not get a deleted blob's blocks back.  A disk comes second:
+    the GPU machine's ``/tmp`` writes at ~0.8 GB/s against tmpfs's ~1.3 and
+    counts every byte against a per-command limit that its free bytes do
+    not show.  Prints the choice; raises where no candidate has room
+    (never the memory tier)."""
     mounts = []
     with open("/proc/mounts") as f:
         for line in f:
@@ -593,19 +634,21 @@ def store_root(written, held):
         seen.add(real)
         fs = max((m for m in mounts if (real + "/").startswith(
             m[0].rstrip("/") + "/")), key=lambda m: len(m[0]))[1]
-        free = shutil.disk_usage(real).free
-        rows.append({"path": real, "filesystem": fs, "free_bytes": free})
-        if free >= written and (fs != "tmpfs"
-                                or meminfo["MemAvailable"] >= held):
-            emit({"phase": "store_dir", "path": real, "filesystem": fs,
-                  "free_bytes": free, "written_bytes": written,
-                  "held_bytes": held,
-                  "host_memory_bytes": meminfo["MemTotal"],
-                  "host_memory_available_bytes": meminfo["MemAvailable"],
-                  "candidates": rows})
-            return real
-    raise RuntimeError(f"no directory takes {written} bytes written and "
-                       f"{held} held: {rows}, host memory {meminfo}")
+        rows.append({"path": real, "filesystem": fs,
+                     "free_bytes": shutil.disk_usage(real).free})
+    fits = [r for r in rows if r["free_bytes"] >= written and (
+        r["filesystem"] != "tmpfs" or meminfo["MemAvailable"] >= held)]
+    fits.sort(key=lambda r: r["filesystem"] != "tmpfs")   # stable
+    if not fits:
+        raise RuntimeError(f"no directory takes {written} bytes written "
+                           f"and {held} held: {rows}, host memory {meminfo}")
+    emit({"phase": "store_dir", "path": fits[0]["path"],
+          "filesystem": fits[0]["filesystem"],
+          "free_bytes": fits[0]["free_bytes"], "written_bytes": written,
+          "held_bytes": held, "host_memory_bytes": meminfo["MemTotal"],
+          "host_memory_available_bytes": meminfo["MemAvailable"],
+          "candidates": rows})
+    return fits[0]["path"]
 
 
 def host_memory():
@@ -783,7 +826,7 @@ def b1_tree_row(name, params, grads, state, hp, step, n_bytes, library,
                 plain=True, reps=30, warm=5, keep=False):
     """The whole tree's update by ``fused_apply_update`` (one launch of the
     tree kernel) twice and by ``leafwise_apply_update`` (the per-leaf
-    Triton kernel) twice, all four bit-equal (compared two at a time: the
+    Triton kernel) twice, all four bit-equal (compared two at a time: a
     64-layer mamba2 tree's outputs are 16 GB); timed by CUDA events and by
     the profiler beside the per-leaf kernel, the plain version (``plain``),
     ``library`` (a yardstick the package never calls) and the bound
@@ -1839,7 +1882,7 @@ def lm_update_phase(backend, b1_resnet):
 
 
 def mamba2_update_phase(backend):
-    """B1 on the full 64-layer mamba2-2.7b AdamW tree (bf16 leaves beside
+    """B1 on the study's mamba2-2.7b AdamW tree (bf16 leaves beside
     f32 ``A_log`` / ``dt_bias``, one launch): bit-equal to the per-leaf
     kernel, timed beside it, its bound and ``torch._fused_adamw_`` (one
     call per dtype: a yardstick the package never calls).  The gradients
@@ -1882,7 +1925,8 @@ def mamba2_update_phase(backend):
     row, _ = b1_tree_row("adamw", params0, grads, opt, hp, step,
                          7 * param_bytes, fused_adamw, plain=False, reps=5,
                          warm=1)
-    row.update(shape=f"mamba2-2.7b, 64 layers, adamw: {len(ps)} leaves, "
+    row.update(shape=f"mamba2-2.7b, {backend.task.cfg.num_layers} layers, "
+                     f"adamw: {len(ps)} leaves, "
                      f"{n_params} parameters, dtypes {dtypes}, one launch",
                library="torch._fused_adamw_, one call per dtype",
                targets_met={
@@ -2180,6 +2224,14 @@ def ssd_phase(join_build):
 
 
 # -------------------------------------------- 10-11. mamba2-2.7b: the SSD path
+def mamba2_cut(layers):
+    """mamba2-2.7b's published config cut to ``layers`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2-2.7b"), num_layers=layers)
+
+
 def mamba2_state_bytes(cfg):
     """Bytes of a mamba2 AdamW training state: params, m and v (bf16 but
     for the f32 ``A_log`` / ``dt_bias``)."""
@@ -2188,10 +2240,10 @@ def mamba2_state_bytes(cfg):
 
 
 def mamba2_study_phase(root):
-    """The mamba2-2.7b study at full width and all 64 layers, its
-    checkpoints on a directory store under ``root`` (16.2 GB each: the card
-    holds the running state only); returns its launch counts and the
-    trainer (its parameters drawn)."""
+    """The mamba2-2.7b study at full width and ``MAMBA_STUDY["layers"]``
+    layers, its checkpoints on a directory store under ``root`` (4.6 GB
+    each at 16 layers: the card holds the running state only); returns its
+    launch counts and the trainer (its parameters drawn)."""
     import torch_hpo_lm as lm_example
     from repro_torch.configs import get_config
     from repro_torch.train.checkpoint import CheckpointStore
@@ -2210,7 +2262,8 @@ def mamba2_study_phase(root):
                       "d_model": cfg.d_model, "ssd_heads": cfg.ssm_heads,
                       "state": cfg.ssm_state, "chunk": cfg.ssm_chunk,
                       "vocab": cfg.vocab_size,
-                      "state_bytes": mamba2_state_bytes(cfg),
+                      "state_bytes": mamba2_state_bytes(
+                          mamba2_cut(MAMBA_STUDY["layers"])),
                       "store": "CheckpointStore(directory, "
                                "read_cache_entries=0, serializer_procs="
                                f"{os.cpu_count()})"},
@@ -2218,16 +2271,16 @@ def mamba2_study_phase(root):
             os.path.join(root, "mamba2_" + mode), read_cache_entries=0,
             serializer_procs=os.cpu_count()),
         verify=1)
-    assert backend.task.cfg.num_layers == MAMBA_STUDY["layers"] == 64
+    assert backend.task.cfg.num_layers == MAMBA_STUDY["layers"]
     return launches, backend
 
 
 def mamba2_step_phase(ssd_rows, backend):
-    """The full 64-layer mamba2-2.7b on the study's trainer (its parameters
-    drawn already): step, update and profile, then B1 on its tree; returns
-    B1's row there."""
+    """mamba2-2.7b on the study's trainer (its parameters drawn already):
+    step, update and profile, then B1 on its tree; returns B1's row
+    there."""
     cfg = backend.task.cfg
-    assert cfg.num_layers == 64 and cfg.param_count() == 2_702_235_136
+    assert cfg.param_count() == mamba2_cut(cfg.num_layers).param_count()
     ssd_ms = cfg.num_layers * (ssd_rows["B5"]["ms"] + ssd_rows["B6"]["ms"])
     step_profile("mamba2_", cfg.name, backend, "adamw", 3e-4, n_chunk=4,
                  profile_steps=2, tokens=2048,
@@ -2496,10 +2549,13 @@ def group_vs_solo(phase, runs, metric_tol, fields, best_margin=False):
     return g["launches"]
 
 
-def run_group_study(example, backend, siblings, counters, **kw):
+def run_group_study(example, backend, siblings, counters, keep=False,
+                    looped=False, **kw):
     """One study of ``example`` over its ``group_space`` (stage-based),
     every counter zeroed just before and read just after, with
-    ``batch_siblings=siblings``; returns its record."""
+    ``batch_siblings=siblings`` on the vectorised tier (``looped``: the
+    looped one); returns its record (with ``keep``, the trees its store
+    holds at the end under ``held``)."""
     from repro_torch.kernels import ops as kops
     groups = group_record(backend)
     free()
@@ -2519,13 +2575,15 @@ def run_group_study(example, backend, siblings, counters, **kw):
     assert fallbacks == 0 and stats.kernel_fallbacks == 0
     assert store.pending_writes == 0
     if siblings:
-        assert backend.vectorize_groups
+        assert backend.vectorize_groups != looped
     rec = dict(stats=stats, history=tuner.history, best=tuner.best.trial_id,
                best_score=tuner.best_score,
                wall=wall, peak=torch.cuda.max_memory_allocated(),
                launches=launches, calls=calls, fallbacks=fallbacks,
                groups=list(groups), evals=backend.evaluations - evals0,
                launch_steps=launch_steps(stats, groups))
+    if keep:
+        rec["held"] = held_trees(store)
     if hasattr(example, "drop_checkpoints"):
         example.drop_checkpoints(store)
     del store, tuner
@@ -2566,36 +2624,19 @@ def lm_group_study_phase():
     """qwen2-0.5b's SHA study over ``group_space``, stage-based, with and
     without sibling groups in one call, on one trainer: B2 = 24 ×
     (launch steps + evaluations), B3 = B4 = 24 × launch steps, all on the
-    tensor cores, B1 = launch steps; returns the grouped run's launches and
-    the trainer (its parameters drawn)."""
+    tensor cores, B1 = launch steps; returns the grouped run's launches,
+    the trainer (its parameters drawn) and the grouped run's record, with
+    the trees its store held at the end (for ``lm_group_degraded``)."""
     import torch_hpo_lm as example
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ssk
-    from repro_torch.kernels.optim import (stacked_leaf_update,
-                                           stacked_tree_update)
     backend = example.make_backend(use_kernel=True, **LM_FULL)
     backend.init_state()                       # the draw, outside the runs
     L = backend.task.cfg.num_layers
-    counters = (stacked_tree_update, stacked_leaf_update,
-                fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv, ssk.ssd_intra_fwd,
-                ssk.ssd_intra_bwd)
-    tc = counters[2:5]
+    counters = lm_counters()
     runs = {}
     for siblings in (False, True):
-        tc0 = [c.launches_tc for c in tc]
-        runs[siblings] = r = run_group_study(
-            example, backend, siblings, counters, batch=LM_FULL["batch"],
-            name="qwen2-0.5b")
-        n, e = r["launch_steps"], r["evals"]
-        assert r["launches"] == {
-            "stacked_tree_update": n, "stacked_leaf_update": 0,
-            "flash_attention_fwd": L * (n + e),
-            "flash_attention_bwd_dq": L * n, "flash_attention_bwd_dkv": L * n,
-            "ssd_intra_fwd": 0, "ssd_intra_bwd": 0}, (r["launches"], n, e)
-        assert [c.launches_tc - t for c, t in zip(tc, tc0)] == [
-            L * (n + e), L * n, L * n]
-        assert r["calls"] == n + L * (n + e)
+        # the grouped run's held trees stay for lm_group_degraded
+        runs[siblings] = lm_group_run(example, backend, siblings, counters,
+                                      keep=siblings)
     # bf16 weights: a batched product rounds its f32 sums to bf16 where
     # the solo product does, from sums in another order
     return group_vs_solo("lm_group_study", runs, 2e-2, {
@@ -2604,7 +2645,479 @@ def lm_group_study_phase():
         "space": "examples/torch_hpo_lm.py::group_space",
         "expected": "B1 = n, B2 = 24 x (n + evaluations), B3 = B4 = 24 x n,"
                     " n = launch_steps = steps_run - sum over groups of "
-                    "(members - 1) x group steps"}), backend
+                    "(members - 1) x group steps"}), backend, runs[True]
+
+
+def lm_counters():
+    """The launch counters of every port kernel an LM study can reach."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssk
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    return (stacked_tree_update, stacked_leaf_update,
+            fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv, ssk.ssd_intra_fwd,
+            ssk.ssd_intra_bwd)
+
+
+def lm_group_run(example, backend, siblings, counters, **kw):
+    """One qwen2-0.5b group study by :func:`run_group_study`, its launches
+    held exact: B1 = n, B2 = L × (n + evaluations), B3 = B4 = L × n, all
+    on the tensor cores, n the steps that launch (the vectorised tier
+    launches once per group step, the looped tier once per member-step)."""
+    L = backend.task.cfg.num_layers
+    tc = counters[2:5]
+    tc0 = [c.launches_tc for c in tc]
+    r = run_group_study(example, backend, siblings, counters,
+                        batch=LM_FULL["batch"], name="qwen2-0.5b", **kw)
+    n = (r["launch_steps"] if backend.vectorize_groups
+         else r["stats"].steps_run)
+    e = r["evals"]
+    assert r["launches"] == {
+        "stacked_tree_update": n, "stacked_leaf_update": 0,
+        "flash_attention_fwd": L * (n + e),
+        "flash_attention_bwd_dq": L * n, "flash_attention_bwd_dkv": L * n,
+        "ssd_intra_fwd": 0, "ssd_intra_bwd": 0}, (r["launches"], n, e)
+    assert [c.launches_tc - t for c, t in zip(tc, tc0)] == [
+        L * (n + e), L * n, L * n]
+    assert r["calls"] == n + L * (n + e)
+    return r
+
+
+# ------------------------------- 19-21. the fault plane and session snapshots
+# EngineStats fields that count (the wall-derived ones — gpu_seconds, the
+# clock, the timers — differ run to run on a wall-clock trainer)
+COUNT_FIELDS = ("steps_run", "stages_run", "evals_run", "ckpt_saves",
+                "ckpt_loads", "ckpt_misses", "ckpt_evictions",
+                "stage_failures", "stage_retries", "workers_quarantined",
+                "groups_degraded", "faults_injected", "kernel_calls",
+                "kernel_fallbacks", "chain_fused_stages", "batched_groups")
+# the ResNet56 study's fault schedule: every kind at rates that fire
+# several times in its few units of work; max_faults ≤ max_stage_retries
+# with one-op outages, so no unit can exhaust its retries whatever order
+# the wall-clock scheduler runs the units in
+FAULT_SEED = 13
+FAULT_RATES = dict(stage_fault_rate=0.25, crash_rate=0.25, outage_rate=0.1,
+                   outage_ops=1, max_faults=8)
+AUTO_SNAPSHOT_EVERY = 0.5          # virtual seconds (the clock is walls)
+
+
+def counts(stats):
+    return {k: getattr(stats, k) for k in COUNT_FIELDS}
+
+
+def device_steps(backend):
+    """Count the training steps ``backend`` computes (a failed attempt's
+    too: an outage on a boundary's put comes after its chain ran); returns
+    the live count ``{"steps": n}``."""
+    seen = {"steps": 0}
+    chain, stage = backend.run_chain, backend.run_stage
+
+    def run_chain(state, ctxs):
+        seen["steps"] += sum(c.stop - c.start for c in ctxs)
+        return chain(state, ctxs)
+
+    def run_stage(state, ctx):
+        seen["steps"] += ctx.stop - ctx.start
+        return stage(state, ctx)
+
+    backend.run_chain, backend.run_stage = run_chain, run_stage
+    return seen
+
+
+def held_trees(store):
+    """``{cid: tree}`` of every checkpoint ``store`` holds."""
+    return {cid: store.get(cid) for cid in store.committed_ids()}
+
+
+def trees_bit_equal(a, b):
+    """The dispatcher's own bit-pattern comparison of two trees."""
+    from repro_torch.core.engine.dispatch import _no_leaf, _same_bits
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    return (tree_map(_no_leaf, a) == tree_map(_no_leaf, b)
+            and all(_same_bits(x, y)
+                    for x, y in zip(tree_leaves(a), tree_leaves(b))))
+
+
+def held_equal(a, b):
+    """Two studies' held checkpoints: the same cids, each bit-equal."""
+    assert set(a) == set(b), (sorted(set(a) ^ set(b)))
+    assert a, "no checkpoint held"
+    return all(trees_bit_equal(a[c], b[c]) for c in a)
+
+
+def held_max_diff(a, b):
+    """The largest |difference| of any tensor leaf of two studies' held
+    checkpoints (the same cids)."""
+    from repro_torch.utils.tree import tree_leaves
+    assert set(a) == set(b) and a
+    worst = 0.0
+    for cid in a:
+        for x, y in zip(tree_leaves(a[cid]), tree_leaves(b[cid])):
+            if isinstance(x, torch.Tensor):
+                d = (x.to(DEV).float() - y.to(DEV).float()).abs().max()
+                worst = max(worst, float(d))
+    return worst
+
+
+def fault_plane_phase():
+    """ResNet56's SHA study (one worker, the memory tier, the chain-fused
+    tier, no groups) fault-free and under the seeded schedule: faults
+    fired and retried, every held checkpoint and every reported metric
+    bit-equal, the same best trial, B1 = the steps the device computed;
+    returns B1's launches in both runs."""
+    import torch_hpo_resnet as example
+    from repro_torch.core.faults import FaultInjector
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    runs = {}
+    for faulty in (False, True):
+        backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+        computed = device_steps(backend)
+        inj = FaultInjector(FAULT_SEED, **FAULT_RATES) if faulty else None
+        kops.reset_kernel_stats()
+        stacked_tree_update.launches = 0        # counts to 0 just before
+        stacked_leaf_update.launches = 0
+        stats, tuner, store, wall = example.run_study(
+            backend, True, batch=RESNET_FULL["batch"], n_workers=1,
+            name="resnet56", batch_siblings=False, fault_injector=inj)
+        torch.cuda.synchronize()
+        launches = stacked_tree_update.launches  # ... and read just after
+        leaf_launches = stacked_leaf_update.launches
+        calls, fallbacks = kops.KERNEL_STATS.snapshot()
+        assert tuner.is_done() and tuner.best is not None
+        assert fallbacks == 0 and stats.kernel_fallbacks == 0
+        assert leaf_launches == 0, leaf_launches
+        assert launches == calls == stats.kernel_calls == computed["steps"], (
+            launches, calls, stats.kernel_calls, computed["steps"])
+        assert stats.chain_fused_stages > 0 and store.pending_writes == 0
+        runs[faulty] = dict(stats=stats, tuner=tuner, wall=wall, inj=inj,
+                            held=held_trees(store), launches=launches)
+    ref, got = runs[False], runs[True]
+    inj, st = got["inj"], got["stats"]
+    assert inj.injected > 0 and st.faults_injected == inj.injected
+    assert st.stage_retries > 0 and st.stage_failures >= st.stage_retries
+    assert st.steps_run >= ref["stats"].steps_run
+    assert held_equal(ref["held"], got["held"]), \
+        "a checkpoint differs from the fault-free run's"
+    assert got["tuner"].history == ref["tuner"].history, \
+        "a reported metric differs from the fault-free run's"
+    assert got["tuner"].best.trial_id == ref["tuner"].best.trial_id
+    emit({"phase": "fault_plane", "model": "ResNet(n=9, width=16)",
+          "batch": RESNET_FULL["batch"], "workers": 1,
+          "seed": FAULT_SEED, "rates": FAULT_RATES,
+          "faults_by_kind": dict(inj.by_kind),
+          "every_kind_fired": {"stage", "crash", "outage"} <= set(
+              inj.by_kind),
+          "faults_injected": st.faults_injected,
+          "stage_failures": st.stage_failures,
+          "stage_retries": st.stage_retries,
+          "workers_quarantined": st.workers_quarantined,
+          "retries_verified": inj.retries_verified,
+          "counts": {"fault_free": counts(ref["stats"]),
+                     "faulty": counts(st)},
+          "b1_launches": {"fault_free": ref["launches"],
+                          "faulty": got["launches"]},
+          "b1_launches_equal_device_steps": True,
+          "useful_gpu_seconds": {"fault_free": ref["stats"].gpu_seconds,
+                                 "faulty": st.gpu_seconds},
+          "wasted_gpu_seconds": st.wasted_gpu_seconds,
+          "wall_seconds": {"fault_free": ref["wall"], "faulty": got["wall"]},
+          "checkpoints_held": len(got["held"]),
+          "held_checkpoints_bit_equal": True,
+          "all_reported_metrics_bit_equal": True,
+          "best_trial": got["tuner"].best.trial_id, "same_best_trial": True})
+    return {"fault_free": ref["launches"], "faulty": got["launches"]}
+
+
+def session_tuner():
+    """The ResNet56 study's SHA tuner, of the package's own class: a
+    snapshot's reader admits no class from outside ``repro_torch``."""
+    import torch_hpo_resnet as example
+    from repro_torch.core.tuners import SHATuner
+    return SHATuner(example.space(RESNET_FULL["batch"]).trials(
+        example.STEPS), min_steps=25, max_steps=example.STEPS, eta=2)
+
+
+def session_record(svc, store):
+    """What a finished ResNet56 session left: its count fields, every held
+    checkpoint's digest (the memory tier: blake2b of its leaves' bytes;
+    the directory: the blob header's chunk digests), every metric the plan
+    recorded by trial and step, the best trial — as JSON."""
+    import hashlib
+    from repro_torch.utils.tree import tree_leaves
+    plan = svc.engine.plan
+    digests = {}
+    for cid in sorted(store.committed_ids()):
+        if store.directory:
+            hdr = blob_header(store, cid)
+            digests[cid] = [[c[:2] for c in m["c"]] for m in hdr["leaves"]]
+            continue
+        h = hashlib.blake2b(digest_size=16)
+        for x in tree_leaves(store.get(cid)):
+            if isinstance(x, torch.Tensor):
+                h.update(str(x.dtype).encode())
+                h.update(x.detach().cpu().contiguous().reshape(-1)
+                         .view(torch.uint8).numpy().tobytes())
+            else:
+                h.update(repr(x).encode())
+        digests[cid] = h.hexdigest()
+    metrics = {f"{tid}@{step}": m
+               for tid, path in plan.trial_paths.items() for nid in path
+               for step, m in plan.nodes[nid].metrics.items()}
+    assert all(v == v for m in metrics.values() for v in m.values())
+    tuner = svc.futures[0].tuner
+    assert tuner.is_done() and svc.futures[0].done()
+    return {"counts": counts(svc.stats), "digests": digests,
+            "metrics": metrics, "best": tuner.best.trial_id}
+
+
+def session_child(spec):
+    """A fresh process: restore the snapshot ``spec["path"]`` against a new
+    trainer and store (the copied directory, or a fresh memory tier),
+    close it, and write its record and B1's launches to ``spec["out"]``.
+    Prints no result line."""
+    import torch_hpo_resnet as example
+    from repro_torch.core import SearchPlanDB, StudyService
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    from repro_torch.train.checkpoint import CheckpointStore
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    store = (CheckpointStore(spec["store"]) if spec["store"]
+             else CheckpointStore())
+    kops.reset_kernel_stats()
+    stacked_tree_update.launches = stacked_leaf_update.launches = 0
+    t0 = time.perf_counter()
+    svc = StudyService.restore(SearchPlanDB(), spec["path"], backend,
+                               store=store)
+    restore_s = time.perf_counter() - t0
+    svc.close()
+    torch.cuda.synchronize()
+    rec = session_record(svc, store)
+    rec.update(launches=stacked_tree_update.launches,
+               leaf_launches=stacked_leaf_update.launches,
+               fallbacks=kops.KERNEL_STATS.fallbacks,
+               restore_seconds=restore_s,
+               seconds=time.perf_counter() - t0)
+    with open(spec["out"], "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def session_run(tier, root):
+    """One ResNet56 session on ``tier``: stepped until SHA's first rung is
+    decided (some trials done, some mid-path), snapshotted (the directory
+    copied right after), closed — the uninterrupted run — and restored in
+    a fresh process; returns the phase's row and B1's launches."""
+    from repro_torch.core import SearchPlanDB, StudyService, StudySpec
+    from repro_torch.core.engine import load_latest_session, session_rotation
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    from repro_torch.train.checkpoint import CheckpointStore
+    import torch_hpo_resnet as example
+    d = os.path.join(root, "session_" + tier)
+    os.makedirs(d)
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    store = (CheckpointStore(os.path.join(d, "ckpt"))
+             if tier == "directory" else CheckpointStore())
+    kops.reset_kernel_stats()
+    stacked_tree_update.launches = stacked_leaf_update.launches = 0
+    svc = StudyService(SearchPlanDB(), backend, n_workers=1, store=store,
+                       batch_siblings=False)
+    base = os.path.join(d, "auto.snap")
+    if tier == "directory":
+        svc.enable_auto_snapshot(base, every=AUTO_SNAPSHOT_EVERY, keep=2)
+    tuner = session_tuner()
+    svc.submit(StudySpec("resnet56", "synthetic-cifar", ("lr", "bs")), tuner)
+    t0 = time.perf_counter()
+    events = 0
+    while tuner._rung == 0:          # losers done, survivors mid-path
+        assert svc.step()
+        events += 1
+    path = os.path.join(d, "session.snap")
+    t1 = time.perf_counter()
+    svc.snapshot(path)
+    snapshot_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    before = {"launches": stacked_tree_update.launches,
+              "counts": counts(svc.stats)}
+    copy = None
+    if tier == "directory":
+        copy = os.path.join(d, "ckpt_copy")
+        shutil.copytree(store.directory, copy)
+    svc.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = stacked_tree_update.launches
+    assert stacked_leaf_update.launches == 0
+    assert kops.KERNEL_STATS.fallbacks == 0
+    ref = session_record(svc, store)
+    assert ref["counts"]["kernel_calls"] == total == ref["counts"][
+        "steps_run"], (ref["counts"], total)
+
+    out = os.path.join(d, "child.json")
+    spec = {"path": path, "store": copy, "out": out}
+    t2 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--session-child", json.dumps(spec)], check=True,
+                   timeout=600)
+    child_s = time.perf_counter() - t2
+    with open(out) as f:
+        got = json.load(f)
+    assert got["fallbacks"] == 0 and got["leaf_launches"] == 0
+    assert got["counts"] == ref["counts"], (got["counts"], ref["counts"])
+    assert got["digests"] == ref["digests"], \
+        "a held checkpoint differs from the uninterrupted run's"
+    assert got["metrics"] == ref["metrics"], \
+        "a reported metric differs from the uninterrupted run's"
+    assert got["best"] == ref["best"]
+    assert before["launches"] + got["launches"] == total, (
+        before["launches"], got["launches"], total)
+    row = {"tier": tier, "events_before_snapshot": events,
+           "counts_at_snapshot": before["counts"],
+           "counts": ref["counts"],
+           "snapshot_bytes": os.path.getsize(path),
+           "snapshot_seconds": snapshot_s,
+           "b1_launches": {"before_snapshot": before["launches"],
+                           "after_restore": got["launches"],
+                           "uninterrupted": total},
+           "checkpoints_held": len(ref["digests"]),
+           "uninterrupted_wall_seconds": wall,
+           "child_seconds": child_s,
+           "child_restore_seconds": got["restore_seconds"],
+           "child_study_seconds": got["seconds"],
+           "held_checkpoints_bit_equal": True,
+           "all_reported_metrics_bit_equal": True,
+           "best_trial": ref["best"], "same_best_trial": True}
+    if tier == "directory":
+        slots = session_rotation(base)
+        assert len(slots) == 2 and slots[0][0] > 2, slots
+        _, newest = load_latest_session(base)
+        assert newest == slots[0][1]
+        latest = StudyService.restore_latest(
+            SearchPlanDB(), base, backend, store=CheckpointStore(copy))
+        assert latest._auto_snapshot == (base, AUTO_SNAPSHOT_EVERY, 2)
+        del latest
+        row["auto_snapshot"] = {"every": AUTO_SNAPSHOT_EVERY, "keep": 2,
+                                "slots": [s for s, _ in slots],
+                                "restore_latest_read_newest": True}
+    else:
+        # a snapshot written on the card decodes where there is no card
+        probe = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, torch\n"
+             "from repro_torch.core.engine import load_session\n"
+             "s = load_session(sys.argv[1])\n"
+             "print(torch.cuda.is_available(), len(s.store_mem))", path],
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                 "PYTHONPATH": os.path.join(ROOT, "src")})
+        assert probe.returncode == 0, probe.stderr[-2000:]
+        avail, n = probe.stdout.split()
+        assert avail == "False" and int(n) > 0, probe.stdout
+        row["decoded_without_cuda"] = {"store_mem_trees": int(n)}
+    shutil.rmtree(d)
+    return row, total
+
+
+def session_phase(root):
+    """The same ResNet56 session on a directory store and on the memory
+    tier, each snapshotted mid-study and restored in a fresh process:
+    count fields, held checkpoints, metrics and the best trial equal to
+    the uninterrupted run's, B1 before + after == uninterrupted; returns
+    B1's launches by tier."""
+    rows, launches = {}, {}
+    for tier in ("directory", "memory"):
+        rows[tier], launches[tier] = session_run(tier, root)
+    emit({"phase": "session", "model": "ResNet(n=9, width=16)",
+          "batch": RESNET_FULL["batch"], "workers": 1, "tiers": rows})
+    return launches
+
+
+def group_fault():
+    """A fault injector that fails the first batched-group attempt with a
+    transient fault (the JAX package's ``GroupFault`` of
+    ``tests/test_faults.py``) and nothing else."""
+    from repro_torch.core.faults import FaultInjector, TransientStageError
+
+    class GroupFault(FaultInjector):
+        def __init__(self):
+            super().__init__(0)
+            self._armed = True
+
+        def before_execute(self, site):
+            if self._armed and site.startswith(("group:", "group-chain:")):
+                self._armed = False
+                self._record("stage", site)
+                raise TransientStageError(f"injected group fault at {site}")
+
+    return GroupFault()
+
+
+def lm_group_degraded_phase(backend, grouped):
+    """qwen2-0.5b's group study with its first group attempt failed, so
+    the group runs as solo members: on the vectorised tier (CUDA's)
+    against ``lm_group_study``'s grouped run ``grouped`` — one degraded
+    group, the same ``steps_run``, the largest |Δ| of held checkpoints
+    and metrics printed, metrics within ``group_vs_solo``'s tolerance —
+    and on the looped tier against its own fault-free run, bit for bit.
+    Returns the launches of the degraded runs."""
+    import torch_hpo_lm as example
+    counters = lm_counters()
+    vec = lm_group_run(example, backend, True, counters, keep=True,
+                       fault_injector=group_fault())
+    st = vec["stats"]
+    assert st.groups_degraded == 1 and st.stage_failures == 1
+    assert st.batched_groups == 0
+    leaf_diff = held_max_diff(grouped["held"], vec["held"])
+    launches = group_vs_solo("lm_group_degraded_vectorised",
+                             {True: grouped, False: vec}, 2e-2, {
+        "model": "qwen2-0.5b", "dtype": "bfloat16",
+        "layers": backend.task.cfg.num_layers,
+        "against": "lm_group_study's grouped run (vectorised, fault-free)",
+        "groups_degraded": st.groups_degraded,
+        "stage_failures": st.stage_failures,
+        "max_held_checkpoint_difference": leaf_diff}, best_margin=True)
+    del grouped["held"], vec["held"]
+    free()
+    out = {"vectorised": vec["launches"]}
+
+    backend.vectorize_groups = False           # the looped tier
+    try:
+        runs = {faulty: lm_group_run(
+            example, backend, True, counters, keep=True, looped=True,
+            fault_injector=group_fault() if faulty else None)
+            for faulty in (False, True)}
+    finally:
+        backend.vectorize_groups = True
+    ref, got = runs[False], runs[True]
+    st = got["stats"]
+    assert ref["stats"].batched_groups >= 1
+    assert st.groups_degraded == 1 and st.stage_failures == 1
+    assert st.steps_run == ref["stats"].steps_run
+    assert held_equal(ref["held"], got["held"]), \
+        "a degraded member's checkpoint differs from the looped group's"
+    assert got["history"] == ref["history"]
+    assert got["best"] == ref["best"]
+    emit({"phase": "lm_group_degraded_looped", "model": "qwen2-0.5b",
+          "dtype": "bfloat16", "tier": "looped (vectorize_groups=False)",
+          "steps_run": st.steps_run, "groups_degraded": st.groups_degraded,
+          "stage_failures": st.stage_failures,
+          "batched_groups": {"fault_free": ref["stats"].batched_groups,
+                             "faulty": st.batched_groups},
+          "launches": {"fault_free": ref["launches"],
+                       "faulty": got["launches"]},
+          "checkpoints_held": len(got["held"]),
+          "held_checkpoints_bit_equal": True,
+          "all_reported_metrics_bit_equal": True,
+          "best_trial": got["best"], "same_best_trial": True,
+          "wall_seconds": {"fault_free": ref["wall"], "faulty": got["wall"]}})
+    del ref["held"], got["held"]
+    out["looped"] = got["launches"]
+    return out
 
 
 def per_member_step(fn, member_steps):
@@ -3002,6 +3515,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--session-child"]:     # the session phase's child
+        sys.path[:0] = [os.path.join(ROOT, "src"),
+                        os.path.join(ROOT, "examples")]
+        return session_child(json.loads(sys.argv[2]))
     # before the first allocation: without expandable segments, the qwen2
     # M 4 chunk of group_step (62.3 GiB) can fail to find a 9.27 GiB block
     # beside 16 GiB of free fragments that earlier phases left
@@ -3012,8 +3529,6 @@ def main():
     import torch_hpo_lm     # noqa: F401
     import torch_hpo_resnet  # noqa: F401
 
-    from repro_torch.configs import get_config
-
     t_start = time.perf_counter()
     smi, kind = device_phase()                                   # 1
     # the CUDA kernels build while the Triton phases run; a failed build
@@ -3021,9 +3536,11 @@ def main():
     join_build = start_builds()
     # the serialized tiers' directory, outside the checkout, removed at
     # the end whatever happens
-    state = mamba2_state_bytes(get_config("mamba2-2.7b"))
+    state = mamba2_state_bytes(mamba2_cut(MAMBA_STUDY["layers"]))
+    written = STUDY_COMMITS * state + GROUP_STUDY_COMMITS * \
+        mamba2_state_bytes(mamba2_cut(MAMBA_GROUP_LAYERS))
     store_dir = tempfile.mkdtemp(prefix="hippo-ckpt-", dir=store_root(
-        STUDY_COMMITS * state, (STUDY_BLOBS_HELD + 1) * state))
+        written, (STUDY_BLOBS_HELD + 1) * state))
     try:
         return run_phases(t_start, smi, kind, join_build, store_dir)
     finally:
@@ -3049,6 +3566,8 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     timed("resnet_tiered_study", resnet_tiered_study_phase,
           store_dir, memory_runs)                                # 17
     del memory_runs
+    fault_launches = timed("fault_plane", fault_plane_phase)     # 19
+    session_launches = timed("session", session_phase, store_dir)  # 20
     fa_rows = timed("attention_kernels", attention_phase, join_build)  # 6
     timed("lm_small", lm_small_phase, "lm_small", "qwen2-0.5b", (2, 200),
           4, True)
@@ -3072,7 +3591,7 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     for key in ("B5", "B6"):
         ssd_rows[key]["launches"] = m_launches[ssd_rows[key]["name"]]
     b1_row["launches_mamba2_study"] = m_launches["stacked_tree_update"]
-    b1_row["mamba2_64_layers_adamw"] = timed(
+    b1_row["mamba2_adamw"] = timed(
         "mamba2_step", mamba2_step_phase, ssd_rows, backend)     # 11
     del backend
     free()
@@ -3081,12 +3600,23 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     b1_row["launches_grouped_studies"] = {
         "resnet56": timed("resnet_group_study", resnet_group_study_phase)[
             "stacked_tree_update"]}
-    g_launches, lm_backend = timed("lm_group_study", lm_group_study_phase)
+    g_launches, lm_backend, lm_grouped = timed("lm_group_study",
+                                               lm_group_study_phase)
     b1_row["launches_grouped_studies"]["qwen2-0.5b"] = \
         g_launches["stacked_tree_update"]
     for key in ("B2", "B3", "B4"):
         fa_rows[key]["launches_grouped_study"] = \
             g_launches[fa_rows[key]["name"]]
+    d_launches = timed("lm_group_degraded", lm_group_degraded_phase,
+                       lm_backend, lm_grouped)                   # 21
+    del lm_grouped
+    b1_row["launches_fault_plane"] = fault_launches
+    b1_row["launches_session"] = session_launches
+    b1_row["launches_lm_group_degraded"] = {
+        tier: r["stacked_tree_update"] for tier, r in d_launches.items()}
+    for key in ("B2", "B3", "B4"):
+        fa_rows[key]["launches_lm_group_degraded"] = {
+            tier: r[fa_rows[key]["name"]] for tier, r in d_launches.items()}
     m_group = timed("group_step", group_step_phase, lm_backend)
     del lm_backend
     free()

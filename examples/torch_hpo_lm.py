@@ -87,13 +87,15 @@ def make_backend(arch="qwen2-0.5b", reduced=False, batch=4, seq_len=1024,
 
 
 def run_study(backend, share, batch=4, name="qwen2-0.5b",
-              batch_siblings=None, space_fn=space, store=None):
+              batch_siblings=None, space_fn=space, store=None,
+              fault_injector=None):
     """One SHA study over ``space_fn`` (:func:`space` or
     :func:`group_space`) on one worker (exact ``steps_run`` needs one);
     ``batch_siblings`` as the engine takes it (None: the backend's
     default, on for a CUDA trainer); ``store`` the checkpoint store (None:
-    a fresh memory-tier one).  Returns ``(stats, tuner, store, wall
-    seconds)``."""
+    a fresh memory-tier one); ``fault_injector`` a
+    :class:`repro_torch.core.faults.FaultInjector` to run it under.
+    Returns ``(stats, tuner, store, wall seconds)``."""
     db = SearchPlanDB()
     study = Study.create(db, name, "synthetic-lm", ("lr", "bs"))
     tuner = RecordingSHATuner(space_fn(batch).trials(MAX_STEPS),
@@ -102,7 +104,8 @@ def run_study(backend, share, batch=4, name="qwen2-0.5b",
     store = CheckpointStore() if store is None else store
     t0 = time.perf_counter()
     stats = study.run(tuner, backend, n_workers=1, share=share, store=store,
-                      batch_siblings=batch_siblings)
+                      batch_siblings=batch_siblings,
+                      fault_injector=fault_injector)
     return stats, tuner, store, time.perf_counter() - t0
 
 

@@ -82,12 +82,14 @@ class RecordingSHATuner(SHATuner):
 
 
 def run_study(backend, share, batch=64, n_workers=2, name="resnet8",
-              batch_siblings=None, space_fn=space, store=None):
+              batch_siblings=None, space_fn=space, store=None,
+              fault_injector=None):
     """One SHA study over ``space_fn`` (:func:`space` or
     :func:`group_space`); ``batch_siblings`` as the engine takes it (None:
     the backend's default, on for a CUDA trainer); ``store`` the
-    checkpoint store (None: a fresh memory-tier one).  Returns ``(stats,
-    tuner, store, wall seconds)``."""
+    checkpoint store (None: a fresh memory-tier one); ``fault_injector``
+    a :class:`repro_torch.core.faults.FaultInjector` to run it under.
+    Returns ``(stats, tuner, store, wall seconds)``."""
     db = SearchPlanDB()
     study = Study.create(db, name, "synthetic-cifar", ("lr", "bs"))
     tuner = RecordingSHATuner(space_fn(batch).trials(STEPS), min_steps=25,
@@ -95,7 +97,8 @@ def run_study(backend, share, batch=64, n_workers=2, name="resnet8",
     store = CheckpointStore() if store is None else store
     t0 = time.perf_counter()
     stats = study.run(tuner, backend, n_workers=n_workers, share=share,
-                      store=store, batch_siblings=batch_siblings)
+                      store=store, batch_siblings=batch_siblings,
+                      fault_injector=fault_injector)
     return stats, tuner, store, time.perf_counter() - t0
 
 

@@ -14,6 +14,10 @@ from repro_torch.core.scheduler import (POLICIES, CriticalPathScheduler,
                                   SchedulingPolicy, WeightedFanoutScheduler,
                                   make_policy)
 from repro_torch.core.engine import EngineStats, ExecutionEngine, StudyStats, Tuner
+from repro_torch.core.faults import (FatalStageError, FaultError,
+                                     FaultInjector, FaultyBackend,
+                                     FaultyStore, StoreOutageError,
+                                     TransientStageError, WorkerCrashed)
 from repro_torch.core.trainer import (ChainNotFusable, SimulatedTrainer,
                                       StageContext, TrainerBackend)
 from repro_torch.core.db import SearchPlanDB, study_key

@@ -8,7 +8,10 @@
 * :mod:`~repro_torch.core.engine.engine`     — the public
   :class:`ExecutionEngine` facade (``run()``, ``handle()``) plus the
   re-entrant session loop (``step`` / ``drain`` / ``admit`` /
-  ``cancel_study`` / ``finish``) the service plane drives.
+  ``cancel_study`` / ``finish``) the service plane drives,
+* :mod:`~repro_torch.core.engine.session`    — durable session snapshots
+  (:class:`SessionState`, capture/restore) behind
+  ``StudyService.snapshot`` / ``StudyService.restore``.
 """
 
 from repro_torch.core.engine.engine import (EngineStats, ExecutionEngine,
@@ -16,7 +19,17 @@ from repro_torch.core.engine.engine import (EngineStats, ExecutionEngine,
 from repro_torch.core.engine.events import Event, EventLoop
 from repro_torch.core.engine.dispatch import Dispatcher, Worker
 from repro_torch.core.engine.aggregator import Aggregator
+from repro_torch.core.engine.session import (SessionState, capture_session,
+                                             load_latest_session,
+                                             load_session, migrate_session,
+                                             restore_engine, save_session,
+                                             save_session_rotated,
+                                             session_rotation,
+                                             sweep_session_tmps)
 
 __all__ = ["ExecutionEngine", "Tuner", "StudyHandle", "EngineStats",
            "StudyStats", "Event", "EventLoop", "Dispatcher", "Worker",
-           "Aggregator"]
+           "Aggregator", "SessionState", "capture_session", "restore_engine",
+           "migrate_session", "save_session", "load_session",
+           "save_session_rotated", "load_latest_session", "session_rotation",
+           "sweep_session_tmps"]

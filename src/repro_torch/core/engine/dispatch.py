@@ -47,10 +47,24 @@ counted as not batched.  Each member's boundary checkpoints are written
 behind with its own ``parent_cid`` thread, and stages are credited level
 by level (``batched_groups``, ``batched_stages``).
 
-Not in this package yet (the engine facade refuses the options that would
-need them): mesh workers with device-to-device handoff, and the failure
-domains of the fault plane.  Any other exception raised by the backend or
-the store therefore propagates out of the round unchanged.
+Failure domains (the fault plane, :mod:`repro_torch.core.faults`): every
+work unit — a chain, a batched group, one member of a degraded group —
+runs inside a ``try``.  A failed unit is absorbed by :meth:`_fail_unit`:
+its cost goes to ``wasted_gpu_seconds`` only, the scheduler is refunded,
+its requests stay marked running (Algorithm 1 defers them) until a
+``retry`` event at ``t_fail + backoff`` on the virtual clock clears them,
+and the next round re-executes them from the last committed boundary.  A
+:class:`~repro_torch.core.faults.WorkerCrashed` feeds the worker's crash
+record (quarantine after ``quarantine_after`` crashes, probation doubling
+up to 8×); a transient failure of a batched group degrades the group to
+solo runs of its members (``run_chain`` each); fatal or retry-exhausted
+faults propagate after the books are balanced.  With an injector
+attached, every re-put of a committed boundary is held bit for bit
+against the committed tree (:meth:`_assert_retry_identical`, read through
+the raw store, so it draws nothing from the fault schedule).
+
+Not in this package yet (the engine facade refuses the option): mesh
+workers with device-to-device handoff (ROADMAP queue A, slice 8).
 """
 
 from __future__ import annotations
@@ -59,14 +73,20 @@ import time as _time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+import torch
+
 from repro_torch.core.scheduler import SchedulingPolicy
 from repro_torch.core.searchplan import Request, SearchPlan
 from repro_torch.core.stagetree import (Stage, StageTreeBuilder,
                                         sibling_chain_groups, sibling_groups)
 from repro_torch.core.engine.events import EventLoop
+from repro_torch.core.faults import (TransientStageError, WorkerCrashed,
+                                     is_transient, raw_store)
 from repro_torch.core.trainer import (ChainNotFusable, StageContext,
                                       TrainerBackend)
 from repro_torch.train.checkpoint import CheckpointStore
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["Worker", "Dispatcher"]
 
@@ -78,6 +98,13 @@ class Worker:
     wid: int
     busy_until: float = 0.0
     idle: bool = True
+    # ---- fault plane: crash record feeding quarantine (see
+    # Dispatcher._crash_worker).  A quarantined worker simply stays
+    # non-idle until its probation "idle" event fires — no placement-path
+    # filtering needed, and quarantine always expires. ----
+    failures: int = 0               # crashes since the last success
+    times_quarantined: int = 0      # consecutive quarantines (backoff exp)
+    quarantined_until: float = 0.0  # virtual time probation starts
 
 
 class Dispatcher:
@@ -101,10 +128,26 @@ class Dispatcher:
         self.tree_builder = tree_builder or StageTreeBuilder(plan)
         self.batch_siblings = batch_siblings
         self.chain_fusion = chain_fusion
-        # store counters at attach time: EngineStats mirrors *deltas* over
-        # this baseline, so an engine attached to a store that already
-        # served another session accumulates only its own growth
+        # store and kernel counters at attach time: EngineStats mirrors
+        # *deltas* over these baselines, so an engine attached to a store
+        # (or a backend) that already served another session accumulates
+        # only its own growth, and a restored session accumulates onto its
+        # snapshot totals instead of clobbering them
         self._store_base = self._seed_store_base()
+        self._kernel_base = self._kernel_counters()
+        # ---- fault plane (failure domains; see core/faults.py) ----
+        # Retry backoff runs on the VIRTUAL clock: a failed work unit keeps
+        # its requests marked running (Algorithm 1 defers them), and a
+        # "retry" event at t_fail + backoff clears the marks so the next
+        # round re-derives the work from the boundary checkpoint.
+        self.retry_backoff_base = 2.0
+        self.retry_backoff_cap = 60.0
+        self.max_stage_retries = 8       # per work unit; beyond -> fatal
+        self.quarantine_after = 2        # crashes before quarantine
+        self.quarantine_seconds = 120.0  # base probation (doubles, capped 8x)
+        self._retry_attempts: Dict[str, int] = {}
+        self._injector = getattr(backend, "fault_injector", None)
+        self._fault_base = self._injector.injected if self._injector else 0
 
     # ------------------------------------------------------------ scheduling
     def assign(self) -> None:
@@ -116,14 +159,25 @@ class Dispatcher:
             pass
         self._sync_kernel_stats()
         self._sync_store_stats()
+        self._sync_fault_stats()
+
+    def _kernel_counters(self) -> Optional[Tuple[int, int]]:
+        calls = getattr(self.backend, "kernel_calls", None)
+        if calls is None:
+            return None
+        return calls, self.backend.kernel_fallbacks
 
     def _sync_kernel_stats(self) -> None:
         """Mirror the backend's kernel-plane counters (call / fallback
-        counts, cumulative per backend) into ``EngineStats``."""
-        calls = getattr(self.backend, "kernel_calls", None)
-        if calls is not None:
-            self.stats.kernel_calls = calls
-            self.stats.kernel_fallbacks = self.backend.kernel_fallbacks
+        counts) into ``EngineStats`` as growth since this dispatcher
+        attached: a restored session runs a fresh backend, and its totals
+        continue the snapshot's."""
+        now = self._kernel_counters()
+        if now is None:
+            return
+        self.stats.kernel_calls += now[0] - self._kernel_base[0]
+        self.stats.kernel_fallbacks += now[1] - self._kernel_base[1]
+        self._kernel_base = now
 
     # EngineStats field <- CheckpointStore counter (mirrored as deltas)
     _STORE_MIRROR = {
@@ -166,6 +220,17 @@ class Dispatcher:
                 setattr(self.stats, field,
                         getattr(self.stats, field) + grown)
         self._store_base = now
+
+    def _sync_fault_stats(self) -> None:
+        """Mirror the injector's fired-fault count into ``EngineStats`` as
+        growth deltas (like the store counters: a restored session keeps
+        its snapshot total and accumulates from there)."""
+        if self._injector is None:
+            return
+        grown = self._injector.injected - self._fault_base
+        if grown:
+            self.stats.faults_injected += grown
+            self._fault_base = self._injector.injected
 
     def _assign_round(self) -> bool:
         """One scheduling round; True when a checkpoint miss warrants a
@@ -219,7 +284,10 @@ class Dispatcher:
             status = self._execute_chain(path, worker, produced)
             if status == "miss":
                 missed = True
-            elif status == "deferred":
+            elif status in ("deferred", "failed"):
+                # "failed": the unit failed before claiming the worker
+                # (resume-load outage) — the retry is scheduled and the
+                # worker can still host other work this round
                 pool.append(worker)
             if not pending:
                 refill()
@@ -295,6 +363,8 @@ class Dispatcher:
         fusion (enqueue only; the commit overlaps the next stage's
         compute), synchronous otherwise.  The synchronous slice is timed
         into ``ckpt_save_seconds`` either way."""
+        if self._injector is not None:
+            self._assert_retry_identical(path_key, stop, state)
         t0 = _time.perf_counter()
         if self.chain_fusion:
             cid = self.store.put_async(path_key, stop, state,
@@ -306,6 +376,128 @@ class Dispatcher:
         self.stats.ckpt_save_seconds += _time.perf_counter() - t0
         self.stats.ckpt_saves += 1
         return cid
+
+    def _assert_retry_identical(self, path_key: str, stop: int,
+                                state: Any) -> None:
+        """Retry determinism assertion (fault schedules only): a re-put of
+        an already-committed boundary cid means the stage was recomputed —
+        after a retry or a recompute-on-miss — and content addressing
+        demands the recomputed state be bit-identical to the committed
+        one.  Bit patterns, not values (``-0.0`` and ``0.0`` differ, a NaN
+        equals its own bits), with no tolerance.  Verified against the raw
+        store (no outage draws) so the check never perturbs the fault
+        schedule."""
+        store = raw_store(self.store)
+        cid = store.ckpt_id(path_key, stop)
+        try:
+            prior = store.get(cid)
+        except KeyError:
+            return
+        same = (tree_map(_no_leaf, prior) == tree_map(_no_leaf, state)
+                and all(_same_bits(a, b) for a, b in
+                        zip(tree_leaves(prior), tree_leaves(state))))
+        if not same:
+            raise RuntimeError(
+                f"retry produced a different state for committed boundary "
+                f"{cid} ({path_key}@{stop}) — stage execution is not "
+                "deterministic, content addressing is violated")
+        self._injector.retries_verified += 1
+
+    # --------------------------------------------------------- failure domain
+    def _unit_key(self, stages: List[Stage]) -> str:
+        return f"{stages[0].node_id}:{stages[0].stop}"
+
+    def _fail_unit(self, worker: Worker, stages: List[Stage],
+                   exc: BaseException, t_fail: float, waste: float,
+                   release_worker: bool) -> float:
+        """Absorb one failed work unit (a chain, a batched group, or one
+        member of a degraded group).
+
+        The attempt's cost goes to ``wasted_gpu_seconds`` only — never
+        ``gpu_seconds`` and never the sharing studies' fair-share split.
+        The scheduler is refunded, the failed stages' requests stay marked
+        running (Algorithm 1 defers them — the backoff), and a ``retry``
+        event at ``t_fail + backoff`` clears the marks so the next round
+        re-executes from the boundary checkpoint.  A crash additionally
+        feeds the worker's quarantine record.  ``release_worker`` pushes
+        the idle event for callers that consumed the worker (a quarantined
+        worker returns when probation starts).  Fatal or retry-exhausted
+        faults re-raise after the books are balanced.  Returns the
+        worker's rejoin time (``t_fail``, or probation start after a
+        quarantining crash)."""
+        self.stats.stage_failures += 1
+        if waste > 0:
+            self.stats.wasted_gpu_seconds += waste
+        self.scheduler.on_stages_unassigned(self.plan, stages)
+        reqs = [Request(st.node_id, st.stop) for st in stages]
+        back_at = t_fail
+        if isinstance(exc, WorkerCrashed):
+            back_at = self._crash_worker(worker, t_fail)
+        if release_worker:
+            worker.busy_until = back_at
+            self.events.push(back_at, "idle", worker.wid)
+        key = self._unit_key(stages)
+        attempts = self._retry_attempts.get(key, 0) + 1
+        self._retry_attempts[key] = attempts
+        if not is_transient(exc) or attempts > self.max_stage_retries:
+            # release the running marks so a supervisor restart (session
+            # restore) can re-derive the work, then propagate
+            self.plan.clear_running(reqs)
+            raise exc
+        self.stats.stage_retries += 1
+        backoff = min(self.retry_backoff_cap,
+                      self.retry_backoff_base * 2 ** (attempts - 1))
+        self.plan.mark_running(reqs)
+        self.events.push(t_fail + backoff, "retry",
+                         [(st.node_id, st.stop) for st in stages])
+        return back_at
+
+    def _crash_worker(self, worker: Worker, t_fail: float) -> float:
+        """Record one crash; returns the virtual time the worker rejoins
+        the pool.  Repeat crashers are quarantined with exponentially
+        growing (capped) probation.  Quarantine is just a delayed idle
+        event, so it always expires — probation re-admission is the
+        default, and a worker that then succeeds clears its record."""
+        worker.failures += 1
+        if worker.failures < self.quarantine_after:
+            return t_fail
+        worker.times_quarantined += 1
+        dur = self.quarantine_seconds * min(
+            8.0, 2.0 ** (worker.times_quarantined - 1))
+        worker.quarantined_until = t_fail + dur
+        self.stats.workers_quarantined += 1
+        return worker.quarantined_until
+
+    def _worker_recovered(self, worker: Worker) -> None:
+        """A unit completed on ``worker``: probation over, record cleared."""
+        worker.failures = 0
+        worker.times_quarantined = 0
+
+    def _unit_succeeded(self, stages: List[Stage]) -> None:
+        """A unit completed: reset its retry budget.  ``max_stage_retries``
+        bounds *consecutive* failures of one unit — without the reset, a
+        unit that fails, recovers, and fails again across a long session
+        accrues attempts across unrelated incidents until a perfectly
+        recoverable fault is misclassified as exhausted."""
+        self._retry_attempts.pop(self._unit_key(stages), None)
+
+    def on_retry(self, reqs: List[Tuple[str, int]]) -> None:
+        """A retry backoff expired (engine ``retry`` event): clear the
+        running marks so the dispatcher round that follows re-derives the
+        requests — Algorithm 1 resumes them from the last boundary
+        checkpoint that actually committed."""
+        self.plan.clear_running([Request(nid, stop) for nid, stop in reqs])
+
+    def _waste_of(self, stages: List[Stage], wall: float,
+                  gpus: int) -> float:
+        """GPU-seconds burned by a failed attempt over ``stages``:
+        simulated durations when the backend provides them (virtual-clock
+        backends), else the measured wall."""
+        total = 0.0
+        for st in stages:
+            sim = self.backend.stage_seconds(self._ctx_for(st))
+            total += sim if sim is not None else wall / max(1, len(stages))
+        return total * gpus
 
     # ------------------------------------------------------ study accounting
     def _credit_stage(self, st: Stage, dur: float, gpus: int) -> None:
@@ -356,9 +548,13 @@ class Dispatcher:
                        produced: Dict[str, Tuple[Any, float,
                                                  Optional[str]]]) -> str:
         """Execute one chain on ``worker``.  Returns ``"ran"``, ``"miss"``
-        (checkpoint vanished — the caller retries the round) or
+        (checkpoint vanished — the caller retries the round),
         ``"deferred"`` (in-round input truncated away — the caller returns
-        the worker to the round's pool)."""
+        the worker to the round's pool) or ``"failed"`` (the resume load
+        failed before the worker was claimed — the retry is scheduled and
+        the worker returns to the pool).  A failure mid-execution returns
+        ``"ran"``: the worker burned time on the attempt and its idle
+        event is scheduled by the failure domain."""
         head = path[0]
         t = max(self.events.time, worker.busy_until)
         load_s, save_s = self.backend.overheads()
@@ -368,7 +564,15 @@ class Dispatcher:
         # the chain's first boundary)
         if head.resume is not None:
             nid, step = head.resume
-            loaded = self._load_resume(nid, step)
+            try:
+                loaded = self._load_resume(nid, step)
+            except Exception as exc:
+                # store outage (or kin) on the resume load: the worker was
+                # never claimed — refund, schedule the retry, keep the
+                # worker in the round's pool
+                self._fail_unit(worker, path, exc, t, 0.0,
+                                release_worker=False)
+                return "failed"
             if loaded is None:
                 # resume checkpoint externally dropped — leave the requests
                 # pending; the retried round re-derives them from the plan
@@ -401,20 +605,31 @@ class Dispatcher:
                                   parent_cid)
             return "ran"
 
-        for st in path:
+        for i, st in enumerate(path):
             ctx = self._ctx_for(st)
             self.plan.mark_running([Request(st.node_id, st.stop)])
 
             comp0 = getattr(self.backend, "compile_seconds", 0.0)
             wall0 = _time.perf_counter()
-            if st.steps > 0:
-                state = self.backend.run_stage(state, ctx)
-            metrics = (self.backend.evaluate(state, ctx) if st.report
-                       else None)
-            wall = self._compile_adjusted_wall(wall0, comp0)
-            sim = self.backend.stage_seconds(ctx)
-            cid = self._put_boundary(ctx.path_key, st.stop, state,
-                                     parent_cid=parent_cid)
+            try:
+                if st.steps > 0:
+                    state = self.backend.run_stage(state, ctx)
+                metrics = (self.backend.evaluate(state, ctx) if st.report
+                           else None)
+                wall = self._compile_adjusted_wall(wall0, comp0)
+                sim = self.backend.stage_seconds(ctx)
+                # commit the boundary BEFORE any accounting: a failed put
+                # leaves this stage entirely un-happened (no stats, no
+                # event) and the whole suffix retries from the last
+                # committed boundary
+                cid = self._put_boundary(ctx.path_key, st.stop, state,
+                                         parent_cid=parent_cid)
+            except Exception as exc:
+                waste = self._waste_of([st],
+                                       _time.perf_counter() - wall0, gpus)
+                self._fail_unit(worker, path[i:], exc, t, waste,
+                                release_worker=True)
+                return "ran"   # worker consumed; idle event is scheduled
 
             dur = sim if sim is not None else wall
             if st.report:
@@ -437,9 +652,26 @@ class Dispatcher:
                 "metrics": metrics, "worker": worker.wid,
                 "last": st is path[-1]})
         worker.busy_until = t
+        self._worker_recovered(worker)
+        self._unit_succeeded(path)
         return "ran"
 
     # ------------------------------------------------- fused chain execution
+    def _stages_of(self, path: List[Stage], ctxs: List[StageContext],
+                   state: Any) -> Tuple[List[Any], bool]:
+        """Boundary states of ``path`` run as one fused chain, or — when
+        the backend refuses the chain as a whole (its stages do not fuse)
+        — by the per-stage loop (same semantics, no fusion credit)."""
+        try:
+            return self.backend.run_chain(state, ctxs), True
+        except ChainNotFusable:
+            out = []
+            for st, ctx in zip(path, ctxs):
+                if st.steps > 0:
+                    state = self.backend.run_stage(state, ctx)
+                out.append(state)
+            return out, False
+
     def _run_chain_fused(self, path: List[Stage], worker: Worker,
                          state: Any, t: float,
                          produced: Dict[str, Tuple[Any, float,
@@ -458,27 +690,26 @@ class Dispatcher:
         save0 = self.stats.ckpt_save_seconds
         wall0 = _time.perf_counter()
         try:
-            bstates = self.backend.run_chain(state, ctxs)
-            fused = True
-        except ChainNotFusable:
-            # the backend refused the chain as a whole (its stages do not
-            # fuse): per-stage loop, same semantics, no fusion credit
-            fused = False
-            bstates = []
-            for st, ctx in zip(path, ctxs):
-                if st.steps > 0:
-                    state = self.backend.run_stage(state, ctx)
-                bstates.append(state)
-        # boundary checkpoints enter the pending cache here (write-behind);
-        # the enqueue slice is measured and subtracted from the wall below
-        cids = []
-        for st, ctx, s in zip(path, ctxs, bstates):
-            cid = self._put_boundary(ctx.path_key, st.stop, s,
-                                     parent_cid=parent_cid)
-            cids.append(cid)
-            parent_cid = cid
-        metrics_l = [self.backend.evaluate(s, ctx) if st.report else None
-                     for st, ctx, s in zip(path, ctxs, bstates)]
+            bstates, fused = self._stages_of(path, ctxs, state)
+            # boundary checkpoints enter the pending cache here
+            # (write-behind); the enqueue slice is measured and subtracted
+            # from the wall below
+            cids = []
+            for st, ctx, s in zip(path, ctxs, bstates):
+                cid = self._put_boundary(ctx.path_key, st.stop, s,
+                                         parent_cid=parent_cid)
+                cids.append(cid)
+                parent_cid = cid
+            metrics_l = [self.backend.evaluate(s, ctx) if st.report else None
+                         for st, ctx, s in zip(path, ctxs, bstates)]
+        except Exception as exc:
+            # whole-chain failure domain: the attempt (and any boundary
+            # that did commit — content addressing makes the re-put a
+            # verified no-op) retries from the chain's fork point
+            waste = self._waste_of(path, _time.perf_counter() - wall0, gpus)
+            self._fail_unit(worker, path, exc, t, waste,
+                            release_worker=True)
+            return
         wall = self._adjusted_wall(wall0, comp0, save0)
 
         sims = [self.backend.stage_seconds(c) for c in ctxs]
@@ -508,6 +739,8 @@ class Dispatcher:
                 "metrics": metrics, "worker": worker.wid,
                 "last": st is path[-1]})
         worker.busy_until = t
+        self._worker_recovered(worker)
+        self._unit_succeeded(path)
 
     # ------------------------------------------------------- group execution
     def _execute_group(self, group: List[List[Stage]], worker: Worker,
@@ -520,9 +753,12 @@ class Dispatcher:
 
         Returns ``(ran, missed)``.  Members whose resume checkpoint
         vanished are refunded to the scheduler and left pending
-        (recompute-on-miss); if fewer than two members survive, the whole
-        group is refunded and its stages fall through to the chain pass
-        this round."""
+        (recompute-on-miss), and a member whose resume load fails (a store
+        outage) is failed alone; if fewer than two members survive, the
+        whole group is refunded and its stages fall through to the chain
+        pass this round.  A transient failure of the batched call degrades
+        the group to solo runs of its members (:meth:`_run_group_degraded`);
+        a crash or a fatal fault fails it whole."""
         t = max(self.events.time, worker.busy_until)
         load_s, save_s = self.backend.overheads()
         gpus = self.gpus_per_worker
@@ -544,7 +780,15 @@ class Dispatcher:
                     # object to two members
                     state = self.backend.clone_state(loaded[cid])
                 else:
-                    got = self._load_resume(nid, step)
+                    try:
+                        got = self._load_resume(nid, step)
+                    except Exception as exc:
+                        # store outage on one member's resume load: fail
+                        # that member alone (refund + retry); the group
+                        # continues with the survivors
+                        self._fail_unit(worker, chain, exc, t, 0.0,
+                                        release_worker=False)
+                        continue
                     if got is None:
                         missed = True
                         self.scheduler.on_stages_unassigned(self.plan, chain)
@@ -582,35 +826,88 @@ class Dispatcher:
         comp0 = getattr(self.backend, "compile_seconds", 0.0)
         save0 = self.stats.ckpt_save_seconds
         wall0 = _time.perf_counter()
+        crash_rejoin: Optional[float] = None
         try:
-            if depth == 1:
-                outs = [[s] for s in self.backend.run_stages_batched(
-                    states, [ctxs[0] for ctxs in ctx_chains])]
-            else:
-                outs = self.backend.run_chains_batched(states, ctx_chains)
-            batched = True
-        except ValueError:
-            # in-flight incompatibility (divergent restored batch sizes,
-            # say): member-sequential execution — same semantics, no
-            # batching credit
-            outs = [self.backend.run_chain(s, ctxs)
-                    for s, ctxs in zip(states, ctx_chains)]
+            try:
+                if depth == 1:
+                    outs = [[s] for s in self.backend.run_stages_batched(
+                        states, [ctxs[0] for ctxs in ctx_chains])]
+                else:
+                    outs = self.backend.run_chains_batched(states,
+                                                           ctx_chains)
+                batched = True
+            except ValueError:
+                # in-flight incompatibility (divergent restored batch
+                # sizes, say): member-sequential execution — same
+                # semantics, no batching credit
+                outs = [self.backend.run_chain(s, ctxs)
+                        for s, ctxs in zip(states, ctx_chains)]
+                batched = False
+        except Exception as exc:
+            flat = [st for chain in members for st in chain]
+            waste = self._waste_of(flat, _time.perf_counter() - wall0, gpus)
+            t_fail = t + waste / gpus   # the attempt burns virtual time
+            if isinstance(exc, WorkerCrashed) or not is_transient(exc):
+                # the worker died under the whole group (or the fault is
+                # fatal): fail the group wholesale as one retry unit
+                self._fail_unit(worker, flat, exc, t_fail, waste,
+                                release_worker=True)
+                return True, missed
+            # transient batched-call failure: degrade gracefully — the
+            # batched attempt is waste; members re-run solo and fail (or
+            # succeed) independently
+            self.stats.groups_degraded += 1
+            self.stats.stage_failures += 1
+            self.stats.wasted_gpu_seconds += waste
+            t = t_fail
+            (members, states, parents, ctx_chains, outs,
+             crash_rejoin) = self._run_group_degraded(
+                members, states, parents, ctx_chains, worker, t)
             batched = False
+            if not members:
+                # no member survived solo either; every retry is scheduled
+                # — release the worker (a crash delays it to probation)
+                back_at = crash_rejoin if crash_rejoin is not None else t
+                worker.busy_until = back_at
+                self.events.push(back_at, "idle", worker.wid)
+                return True, missed
+            depth = len(members[0])
         # write-behind boundary checkpoints for every (member, stage); each
         # member threads its own parent down its chain, so every sibling
-        # deltas against the shared fork point and then its own boundary
+        # deltas against the shared fork point and then its own boundary.
+        # A member whose put fails (store outage) is failed alone — its
+        # computed state is waste, the survivors keep their results.
+        ok: List[int] = []
         cids: List[List[str]] = []
-        for chain, ctxs, out, pcid in zip(members, ctx_chains, outs,
-                                          parents):
-            member_cids = []
-            for st, ctx, s in zip(chain, ctxs, out):
-                pcid = self._put_boundary(ctx.path_key, st.stop, s,
-                                          parent_cid=pcid)
-                member_cids.append(pcid)
+        metrics_l: List[List[Any]] = []
+        for i, (chain, ctxs, out, pcid) in enumerate(
+                zip(members, ctx_chains, outs, parents)):
+            try:
+                member_cids = []
+                for st, ctx, s in zip(chain, ctxs, out):
+                    pcid = self._put_boundary(ctx.path_key, st.stop, s,
+                                              parent_cid=pcid)
+                    member_cids.append(pcid)
+                member_metrics = [
+                    self.backend.evaluate(s, ctx) if st.report else None
+                    for st, ctx, s in zip(chain, ctxs, out)]
+            except Exception as exc:
+                self._fail_unit(worker, chain, exc, t,
+                                self._waste_of(chain, 0.0, gpus),
+                                release_worker=False)
+                continue
+            ok.append(i)
             cids.append(member_cids)
-        metrics_l = [[self.backend.evaluate(s, ctx) if st.report else None
-                      for st, ctx, s in zip(chain, ctxs, out)]
-                     for chain, ctxs, out in zip(members, ctx_chains, outs)]
+            metrics_l.append(member_metrics)
+        if len(ok) < len(members):
+            members = [members[i] for i in ok]
+            ctx_chains = [ctx_chains[i] for i in ok]
+            outs = [outs[i] for i in ok]
+            if not members:
+                back_at = crash_rejoin if crash_rejoin is not None else t
+                worker.busy_until = back_at
+                self.events.push(back_at, "idle", worker.wid)
+                return True, missed
         wall = self._adjusted_wall(wall0, comp0, save0)
 
         sims = [[self.backend.stage_seconds(c) for c in ctxs]
@@ -649,9 +946,94 @@ class Dispatcher:
                     "node_id": st.node_id, "stop": st.stop,
                     "cid": cids[m][j], "metrics": metrics_l[m][j],
                     "worker": worker.wid,
-                    "last": j == depth - 1 and m == len(members) - 1})
+                    # a crash during degradation delays the idle event to
+                    # probation (pushed below) instead of the last stage
+                    "last": crash_rejoin is None and j == depth - 1
+                            and m == len(members) - 1})
         if batched:
             self.stats.batched_groups += 1
             self.stats.batched_stages += len(members) * depth
-        worker.busy_until = t
+        for chain in members:          # surviving members completed
+            self._unit_succeeded(chain)
+        if crash_rejoin is not None:
+            worker.busy_until = max(t, crash_rejoin)
+            self.events.push(worker.busy_until, "idle", worker.wid)
+        else:
+            worker.busy_until = t
+            self._worker_recovered(worker)
         return True, missed
+
+    def _run_group_degraded(self, members, states, parents, ctx_chains,
+                            worker: Worker, t: float):
+        """Graceful degradation of a failed batched group: re-run each
+        member solo (``backend.run_chain`` over a cloned carry — the
+        batched attempt may have aliased the originals).  Members that
+        fail solo are failed independently (refund + retry); a member that
+        crashes the worker fails, the not-yet-run members are failed as
+        transient no-shows (no extra crash accrual — one incident, one
+        crash), and the survivors computed before the crash keep their
+        results.  Returns the surviving ``(members, states, parents,
+        ctx_chains, outs, crash_rejoin)``; ``crash_rejoin`` is the
+        worker's probation rejoin time when it crashed mid-degradation
+        (None otherwise).
+
+        A solo run is the looped tier's computation: bit-equal to the
+        group on the looped tier, not in general on the vectorised one
+        (a member-stacked product sums in another order)."""
+        gpus = self.gpus_per_worker
+        ok_m, ok_s, ok_p, ok_c, ok_o = [], [], [], [], []
+        crash_rejoin: Optional[float] = None
+        for chain, s, pcid, ctxs in zip(members, states, parents,
+                                        ctx_chains):
+            if crash_rejoin is not None:
+                self._fail_unit(
+                    worker, chain,
+                    TransientStageError("worker crashed earlier in the "
+                                        "degraded group"),
+                    t, 0.0, release_worker=False)
+                continue
+            wall0 = _time.perf_counter()
+            try:
+                out, _ = self._stages_of(chain, ctxs,
+                                         self.backend.clone_state(s))
+            except Exception as exc:
+                back = self._fail_unit(
+                    worker, chain, exc, t,
+                    self._waste_of(chain, _time.perf_counter() - wall0,
+                                   gpus),
+                    release_worker=False)
+                if isinstance(exc, WorkerCrashed):
+                    crash_rejoin = back
+                continue
+            ok_m.append(chain)
+            ok_s.append(s)
+            ok_p.append(pcid)
+            ok_c.append(ctxs)
+            ok_o.append(out)
+        return ok_m, ok_s, ok_p, ok_c, ok_o, crash_rejoin
+
+
+def _no_leaf(x: Any) -> None:
+    """The structure of a tree: every leaf mapped to ``None``."""
+    return None
+
+
+def _same_bits(a: Any, b: Any) -> bool:
+    """Do two checkpoint leaves hold the same bits?  Tensors compare dtype,
+    shape and a byte view on one device (``torch.equal`` on floats would
+    take ``-0.0`` for ``0.0`` and a NaN for unequal to itself); other
+    leaves compare their numpy dtype, shape and bytes, as the JAX package
+    compares every leaf."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
+            return False
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        a = a.detach().contiguous().reshape(-1)
+        b = b.detach().to(a.device).contiguous().reshape(-1)
+        if a.dtype == torch.bool:
+            return torch.equal(a, b)
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())

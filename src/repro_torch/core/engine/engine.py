@@ -19,7 +19,12 @@ the paper; one GPU here).  The facade wires the real components:
   boundary checkpoints (``CheckpointStore.put_async``; ``run()`` flushes
   the store before returning) — per-stage events, metrics and the virtual
   clock are unchanged,
-* **tuners** observe metrics and submit/kill trials, closing the HPO loop.
+* **tuners** observe metrics and submit/kill trials, closing the HPO loop,
+* the **fault plane** (``fault_injector=``, :mod:`repro_torch.core.faults`)
+  wraps the backend and the store in a seeded fault schedule that the
+  dispatcher's failure domains absorb: retries from the boundary
+  checkpoint on the virtual clock, quarantine of repeat crashers, solo
+  runs of a failed group's members.
 
 Session model (service plane): the engine is a **long-lived session**, not
 a batch call.  :meth:`step` processes exactly one event and re-runs the
@@ -52,6 +57,11 @@ nodes never merge with other trials' — identical scheduling machinery,
 zero cross-trial reuse.  A trial still reuses *its own* checkpoints when a
 tuner promotes it to a longer step budget, exactly like a paused/resumed
 Ray Tune trial.
+
+Session snapshots (:mod:`repro_torch.core.engine.session`) capture a live
+engine between two :meth:`step` calls and rebuild it against a fresh
+backend and store.  Mesh workers (``worker_meshes=``) are not in this
+package yet and raise ``NotImplementedError`` (ROADMAP queue A, slice 8).
 """
 
 from __future__ import annotations
@@ -66,6 +76,7 @@ from repro_torch.core.stagetree import StageTreeBuilder
 from repro_torch.core.engine.aggregator import Aggregator
 from repro_torch.core.engine.dispatch import Dispatcher, Worker
 from repro_torch.core.engine.events import EventLoop
+from repro_torch.core.faults import FaultyBackend, FaultyStore
 from repro_torch.core.trainer import TrainerBackend
 from repro_torch.core.trial import Trial
 from repro_torch.train.checkpoint import CheckpointStore
@@ -108,6 +119,13 @@ class StudyHandle:
 
     def kill(self, trial: Trial) -> None:
         self.engine._kill(self, trial)
+
+    def __getstate__(self):
+        # session snapshots never capture the engine (it holds the backend
+        # and the store's writer thread); StudyService.restore re-wires it
+        d = self.__dict__.copy()
+        d["engine"] = None
+        return d
 
 
 @dataclass
@@ -213,16 +231,19 @@ class ExecutionEngine:
                  chain_fusion: Optional[bool] = None,
                  worker_meshes: Optional[Sequence] = None,
                  fault_injector=None):
-        # options whose machinery this package does not have yet are
+        # an option whose machinery this package does not have yet is
         # refused, never accepted and ignored
         if worker_meshes is not None:
             raise NotImplementedError(
                 "worker_meshes= needs the mesh plane, which repro_torch does "
                 "not have yet (ROADMAP queue A, slice 8)")
+        # fault plane: wrap backend and store in the injector's fault
+        # surface BEFORE anything reads capability flags or touches the
+        # store — the whole engine then sees the faulty views, and the
+        # dispatcher discovers the injector via backend.fault_injector
         if fault_injector is not None:
-            raise NotImplementedError(
-                "fault_injector= needs the fault plane, which repro_torch "
-                "does not have yet (ROADMAP queue A, slice 6)")
+            backend = FaultyBackend(backend, fault_injector)
+        self.fault_injector = fault_injector
         self.plan = plan
         self.backend = backend
         self.workers = [Worker(i) for i in range(n_workers)]
@@ -231,6 +252,9 @@ class ExecutionEngine:
         # NOT `store or ...`: an empty CheckpointStore is falsy (__len__ == 0)
         # and would be silently replaced, orphaning the caller's store
         self.store = CheckpointStore() if store is None else store
+        if fault_injector is not None and not isinstance(self.store,
+                                                         FaultyStore):
+            self.store = FaultyStore(self.store, fault_injector)
         self.share = share
         self.max_steps_per_chain = max_steps_per_chain
         # sibling-trial batching defaults to whatever the backend supports
@@ -383,6 +407,11 @@ class ExecutionEngine:
                 handle.tuner.on_result(trial, step, metrics)
         elif ev.kind == "idle":
             self.workers[ev.payload].idle = True
+        elif ev.kind == "retry":
+            # backoff expired: release the failed stages' running marks so
+            # Algorithm 1 re-derives them from the last boundary checkpoint
+            # in the dispatcher round below
+            self.dispatcher.on_retry(ev.payload)
         elif ev.kind == "admit":
             # start every admission landing at this instant before the next
             # scheduling round: same-time arrivals merge as one batch,
@@ -409,6 +438,7 @@ class ExecutionEngine:
         self.store.flush()
         # pick up counter growth from the flushed write-behind commits
         self.dispatcher._sync_store_stats()
+        self.dispatcher._sync_fault_stats()
         self.stats.end_to_end = self.events.time
         return self.stats
 

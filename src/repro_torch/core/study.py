@@ -16,15 +16,21 @@ Typical service use::
     fut1 = svc.submit(spec, SHATuner(space.trials(120), 15, 120, eta=4))
     fut2 = svc.submit(spec, GridTuner(more_trials), at=3600.0)  # arrives later
     fut1.result()                 # drive until study 1 finishes
+    svc.snapshot("session.snap")  # durable point-in-time session state
     stats = svc.close()           # drain everything, flush, stamp end-to-end
     print(stats.by_study)
 
 A study submitted while others are in flight is admitted as an event on
 the virtual clock: the dispatcher wakes, its requests merge into the live
 stage forest, and anything the plan already holds answers instantly
-(``StudyStats.instant_results``).  Session snapshots (``snapshot`` /
-``restore`` / ``enable_auto_snapshot``) are not in this package yet and
-raise ``NotImplementedError``.
+(``StudyStats.instant_results``).  ``snapshot()`` /
+:meth:`StudyService.restore` persist and revive the whole session — plan
+revisions, event heap, waiter table, per-study accounting, committed
+checkpoint index — so a killed service resumes without recomputation
+beyond write-behind puts that had not committed by the snapshot (see
+:mod:`repro_torch.core.engine.session` for the format).
+``fault_injector=`` runs the session under a seeded fault schedule
+(:mod:`repro_torch.core.faults`).
 
 Legacy one-shot use (mirrors the paper's Figure 11)::
 
@@ -40,9 +46,14 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.db import SearchPlanDB, study_key
 from repro_torch.core.engine import (EngineStats, ExecutionEngine, StudyStats,
-                               Tuner)
-from repro_torch.core.scheduler import (CriticalPathScheduler, SchedulingPolicy,
-                                  make_policy)
+                                     Tuner)
+from repro_torch.core.engine.session import (SessionState, capture_session,
+                                             load_latest_session,
+                                             load_session, restore_engine,
+                                             save_session,
+                                             save_session_rotated)
+from repro_torch.core.scheduler import (CriticalPathScheduler,
+                                        SchedulingPolicy, make_policy)
 from repro_torch.core.trainer import TrainerBackend
 from repro_torch.train.checkpoint import CheckpointStore
 
@@ -141,9 +152,11 @@ class Study:
         ``batch_siblings`` forces sibling-trial batching on/off and
         ``chain_fusion`` forces chain-fused execution (device-resident
         carries + write-behind boundary checkpoints) on/off (defaults:
-        whatever the backend supports).  ``worker_meshes`` and
-        ``fault_injector`` are refused by the engine with
-        ``NotImplementedError`` until their planes are ported."""
+        whatever the backend supports).  ``fault_injector`` (a
+        :class:`repro_torch.core.faults.FaultInjector`) wraps the backend
+        and store in the deterministic fault plane.  ``worker_meshes`` is
+        refused by the engine with ``NotImplementedError`` until the mesh
+        plane is ported (slice 8)."""
         return ExecutionEngine(
             self.db.get(self.key), backend, n_workers=n_workers,
             gpus_per_worker=gpus_per_worker,
@@ -219,6 +232,12 @@ class StudyFuture:
         self.service._engine.cancel_study(self.study_id)
         return True
 
+    def __getstate__(self):
+        # snapshots re-wire the owning service on restore
+        d = self.__dict__.copy()
+        d["service"] = None
+        return d
+
 
 class StudyService:
     """A long-lived engine session serving studies as they arrive.
@@ -231,6 +250,9 @@ class StudyService:
     ``future.result()`` / :meth:`join`, and late submissions are admission
     *events* on the virtual clock, so arrival order is replayable.
 
+    ``snapshot()`` persists the complete session; :meth:`restore` revives
+    it against a fresh backend/store and continues the identical event
+    stream.
     """
 
     def __init__(self, db: SearchPlanDB, backend: TrainerBackend,
@@ -259,6 +281,9 @@ class StudyService:
         self._key: Optional[str] = None
         self._futures: List[StudyFuture] = []
         self._closed = False
+        # continuous durability (enable_auto_snapshot): (base, every, keep)
+        self._auto_snapshot: Optional[Tuple[str, float, int]] = None
+        self._next_snapshot_due: Optional[float] = None
 
     # ------------------------------------------------------------ properties
     @property
@@ -352,6 +377,7 @@ class StudyService:
         if self._engine is None or not self._engine.step():
             return False
         self._refresh_futures()
+        self._maybe_auto_snapshot()
         return True
 
     def run_until(self, t: float) -> None:
@@ -409,31 +435,109 @@ class StudyService:
                 fut.status = "done"
 
     # ----------------------------------------------------------- persistence
-    _NO_SNAPSHOTS = ("session snapshots are not in repro_torch yet "
-                     "(ROADMAP queue A, slice 6)")
-
     def enable_auto_snapshot(self, base: str, every: float,
                              keep: int = 3) -> None:
-        raise NotImplementedError(self._NO_SNAPSHOTS)
+        """Continuous durability: after the first event past each
+        ``every`` virtual seconds, write an atomic rotated snapshot
+        ``base.<seq>`` keeping the newest ``keep`` (see
+        :func:`~repro_torch.core.engine.session.save_session_rotated`).
+        With :meth:`restore_latest` on startup, a SIGKILL at any instant
+        loses at most one interval of progress."""
+        if every <= 0:
+            raise ValueError(f"snapshot interval must be > 0, got {every}")
+        self._auto_snapshot = (base, float(every), int(keep))
+        self._next_snapshot_due = None   # first step() aligns to the clock
+
+    def _maybe_auto_snapshot(self) -> None:
+        if self._auto_snapshot is None or self._engine is None:
+            return
+        base, every, keep = self._auto_snapshot
+        if self._next_snapshot_due is None:
+            # align the schedule to interval boundaries so a restored
+            # session continues the same cadence its snapshot recorded
+            self._next_snapshot_due = (self.time // every + 1) * every
+        if self.time < self._next_snapshot_due:
+            return
+        self.snapshot_rotated()
+        while self._next_snapshot_due <= self.time:
+            self._next_snapshot_due += every
 
     def snapshot_rotated(self) -> str:
-        raise NotImplementedError(self._NO_SNAPSHOTS)
+        """One rotated snapshot now (the timer path calls this; callers
+        may too, e.g. a graceful-shutdown handler).  Requires
+        :meth:`enable_auto_snapshot`."""
+        if self._auto_snapshot is None:
+            raise RuntimeError("call enable_auto_snapshot(base, every) first")
+        if self._engine is None:
+            raise RuntimeError("nothing submitted yet — snapshot is empty")
+        base, every, keep = self._auto_snapshot
+        state = capture_session(
+            self._engine, service={"futures": self._futures,
+                                   "auto_snapshot": self._auto_snapshot})
+        return save_session_rotated(state, base, keep=keep)
 
     def snapshot(self, path: str) -> str:
-        raise NotImplementedError(self._NO_SNAPSHOTS)
+        """Persist the complete session (durable point-in-time state; see
+        :mod:`repro_torch.core.engine.session` for the format).  Flushes
+        the write-behind store first, so everything the plan records is
+        committed on disk/in the snapshot at the moment of capture."""
+        if self._engine is None:
+            raise RuntimeError("nothing submitted yet — snapshot is empty")
+        state = capture_session(self._engine,
+                                service={"futures": self._futures})
+        return save_session(state, path)
 
     @classmethod
     def restore(cls, db: SearchPlanDB, path: str, backend: TrainerBackend,
                 store: Optional[CheckpointStore] = None,
                 fault_injector=None) -> "StudyService":
-        raise NotImplementedError(cls._NO_SNAPSHOTS)
+        """Revive a snapshotted session against a fresh backend/store.
+
+        The restored session continues the exact event stream captured by
+        :meth:`snapshot` — final stats (including the per-study breakdown)
+        match an uninterrupted run.  Plan checkpoints the supplied store
+        cannot serve (writes after the snapshot's flush barrier, external
+        evictions) are forgotten eagerly and recomputed on demand.  Older
+        snapshot formats are migrated forward on the fly."""
+        return cls._restore_state(db, load_session(path), backend, store,
+                                  fault_injector)
 
     @classmethod
     def restore_latest(cls, db: SearchPlanDB, base: str,
                        backend: TrainerBackend,
                        store: Optional[CheckpointStore] = None,
                        fault_injector=None) -> "StudyService":
-        raise NotImplementedError(cls._NO_SNAPSHOTS)
+        """:meth:`restore` from the newest *readable* rotation slot of
+        ``base`` (``enable_auto_snapshot``'s output), falling back through
+        corrupt/truncated slots; re-enables the captured auto-snapshot
+        cadence.  Raises ``FileNotFoundError`` when no slot is readable."""
+        state, _ = load_latest_session(base)
+        return cls._restore_state(db, state, backend, store, fault_injector)
+
+    @classmethod
+    def _restore_state(cls, db: SearchPlanDB, state: SessionState,
+                       backend: TrainerBackend,
+                       store: Optional[CheckpointStore],
+                       fault_injector) -> "StudyService":
+        eng = restore_engine(state, backend, store,
+                             fault_injector=fault_injector)
+        db.put(state.plan_key, state.plan)
+        svc = cls(db, backend, n_workers=state.n_workers,
+                  gpus_per_worker=state.gpus_per_worker, share=state.share,
+                  policy=state.scheduler, store=eng.store,
+                  max_steps_per_chain=state.max_steps_per_chain,
+                  batch_siblings=state.batch_siblings,
+                  chain_fusion=state.chain_fusion,
+                  fault_injector=fault_injector)
+        svc._engine = eng
+        svc._key = state.plan_key
+        svc._futures = list(state.service.get("futures", []))
+        for fut in svc._futures:
+            fut.service = svc
+        auto = state.service.get("auto_snapshot")
+        if auto:
+            svc.enable_auto_snapshot(*auto)
+        return svc
 
 
 def run_studies(studies: List[Tuple[Study, Tuner]], backend: TrainerBackend,

@@ -452,6 +452,12 @@ def _copy_to_host(tree: Any, streams: Dict[torch.device, Any]) -> Any:
                      total)
 
 
+def _on_host(x: Any) -> Any:
+    """A CUDA tensor's host copy; any other leaf itself."""
+    return x.detach().cpu() if isinstance(x, torch.Tensor) and x.is_cuda \
+        else x
+
+
 def _cuda_bytes(tree: Any) -> int:
     """Bytes of ``tree``'s CUDA leaves: what its host copy pins."""
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
@@ -836,13 +842,19 @@ class CheckpointStore:
         return ids
 
     def snapshot_trees(self) -> Optional[Dict[str, Any]]:
-        """Memory tier only: the committed cid→tree map, for embedding
-        into a session snapshot (a directory store returns None — its
-        blobs are already durable on disk)."""
-        return None if self.directory else dict(self._mem)
+        """Memory tier only: the committed cid→tree map with every tensor
+        leaf a host copy, for embedding into a session snapshot — a
+        pickled CUDA tensor would tie the snapshot to a CUDA process (a
+        directory store returns None: its blobs are already durable on
+        disk)."""
+        if self.directory:
+            return None
+        return {cid: tree_map(_on_host, tree)
+                for cid, tree in self._mem.items()}
 
     def load_trees(self, trees: Dict[str, Any]) -> None:
-        """Seed the memory tier from a session snapshot."""
+        """Seed the memory tier from a session snapshot.  The trees stay on
+        the host; a trainer moves a restored tree to its device."""
         self._mem.update(trees)
 
     def _cache_read(self, cid: str, tree: Any) -> None:

@@ -6,8 +6,8 @@ service — must produce ``EngineStats`` equal **field for field**, per-study
 breakdown included; only the wall-clock timers ``ckpt_save_seconds`` /
 ``ckpt_load_seconds`` are left out.  Over ``TorchTrainer(device="cpu")`` a
 small SHA study runs end to end (ports of ``tests/test_system.py``), on
-the memory tier and on the serialized tiers alike, and the options this
-package does not have yet must raise, not be ignored.  The
+the memory tier and on the serialized tiers alike, and the option this
+package does not have yet (``worker_meshes``) must raise, not be ignored.  The
 sibling-group pass (``batch_siblings=True``, with chain fusion on and off)
 and the ASHA / Hyperband / median-stopping / PBT tuners are held to the
 reference field for field as well.
@@ -587,9 +587,8 @@ def test_on_device_moves_restored_leaves_once(backend, monkeypatch):
 # ------------------------------------------------------- NotImplemented gates
 
 
-@pytest.mark.parametrize("kw", [{"worker_meshes": [None]},
-                                {"fault_injector": object()}],
-                         ids=["worker_meshes", "fault_injector"])
+@pytest.mark.parametrize("kw", [{"worker_meshes": [None]}],
+                         ids=["worker_meshes"])
 def test_engine_refuses_options_of_unported_planes(kw):
     plan = T.SearchPlan("gate")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -597,22 +596,6 @@ def test_engine_refuses_options_of_unported_planes(kw):
     st = T.Study.create(T.SearchPlanDB(), "m", "d", ("lr",))
     with pytest.raises(NotImplementedError):
         st.run(TT.GridTuner([]), SimulatedTrainer(), **kw)
-
-
-@pytest.mark.parametrize("call", [
-    lambda svc: svc.snapshot("x.pkl"),
-    lambda svc: svc.snapshot_rotated(),
-    lambda svc: svc.enable_auto_snapshot("x", 10.0),
-    lambda svc: T.StudyService.restore(T.SearchPlanDB(), "x.pkl",
-                                       SimulatedTrainer()),
-    lambda svc: T.StudyService.restore_latest(T.SearchPlanDB(), "x",
-                                              SimulatedTrainer())],
-    ids=["snapshot", "snapshot_rotated", "enable_auto_snapshot", "restore",
-         "restore_latest"])
-def test_service_refuses_snapshots(call):
-    svc = T.StudyService(T.SearchPlanDB(), SimulatedTrainer())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(svc)
 
 
 def test_trainer_refuses_batched_tiers_and_missing_gpu(backend):

@@ -74,6 +74,18 @@ def test_ssd_modules_import_alone_without_jax_or_the_jax_package(module):
     assert lines["TRITON"] == "False"
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.faults",
+                                    "repro_torch.core.engine.session",
+                                    "repro_torch.frontdoor.snapshot_v5"])
+def test_fault_and_session_modules_import_alone_without_jax(module):
+    """The fault plane's and the session snapshots' modules, each imported
+    on its own in a fresh interpreter, before anything else of the
+    package."""
+    lines = run_walk(module, script=ALONE)
+    assert lines["BAD"] == "[]"
+    assert lines["TRITON"] == "False"
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
     """Belt and braces for lazily imported code paths the walk cannot see."""
     import re
