@@ -210,13 +210,30 @@ Phases, each printing one JSON line:
    metrics within 2e-2 by ``group_vs_solo(best_margin=True)``), and on
    the looped tier against its own fault-free run, checkpoints and
    metrics bit-equal; B1–B4 launches exact, B2–B4 on the tensor cores.
-22. last lines  — the script's run time and each phase's seconds, the card
+22. ``gateway`` (run after ``session``) — the front door: two tenants'
+   ResNet56 studies on one plan key through ``StudyGateway`` (one slot,
+   quotas alice 2.0 / bob 1.0, a memory-tier store per key): alice's
+   six-schedule SHA study and bob's SHA study over the first three of
+   those schedules, merged in one forest.  Against the same two
+   submissions through ``StudyService(n_workers=1)`` directly: the count
+   fields, every held checkpoint (blake2b of byte views), every metric and
+   each study's best trial equal; the tenant ledger equal to each
+   tenant's ``by_study`` shares, the tenants' total the session's; B1 =
+   the device's steps, no per-leaf launch, no fallback.  A gateway
+   envelope snapshotted when alice's first rung is decided is restored in
+   a fresh process (``chip_smoke.py --gateway-child``) with
+   ``StudyGateway.restore`` on a new trainer and store: its record equal
+   to the uninterrupted gateway run's, B1 before + after = uninterrupted;
+   ``StudyService.restore`` refuses the envelope.  Each study alone too:
+   the merged run's steps beside the sum of the two.
+23. last lines  — the script's run time and each phase's seconds, the card
    and its power limit, the
    ``kernels`` line (B1's tree kernel, B2–B6; with the grouped runs',
-   the fault plane's, the sessions' and the degraded runs' launches and
-   the fold's checks) and ``{"ok": true, "device": {...}}``.
+   the fault plane's, the sessions', the gateway's and the degraded
+   runs' launches and the fold's checks) and ``{"ok": true, "device":
+   {...}}``.
 
-The solo studies of phases 4, 7, 10, 17, 19 and 20 pass
+The solo studies of phases 4, 7, 10, 17, 19, 20 and 22 pass
 ``batch_siblings=False``: their launch counts are those of PRs 11–17.
 
 Any failed check raises; nothing is caught and passed over.  The script
@@ -2831,6 +2848,26 @@ def fault_plane_phase():
     return {"fault_free": ref["launches"], "faulty": got["launches"]}
 
 
+def b1_reset():
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    kops.reset_kernel_stats()
+    stacked_tree_update.launches = stacked_leaf_update.launches = 0
+
+
+def b1_read():
+    """B1's tree-kernel launches since :func:`b1_reset`, after checking
+    that no per-leaf launch and no fallback came with them."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    torch.cuda.synchronize()
+    assert stacked_leaf_update.launches == 0, stacked_leaf_update.launches
+    assert kops.KERNEL_STATS.fallbacks == 0, kops.KERNEL_STATS.snapshot()
+    return stacked_tree_update.launches
+
+
 def session_tuner():
     """The ResNet56 study's SHA tuner, of the package's own class: a
     snapshot's reader admits no class from outside ``repro_torch``."""
@@ -2840,14 +2877,13 @@ def session_tuner():
         example.STEPS), min_steps=25, max_steps=example.STEPS, eta=2)
 
 
-def session_record(svc, store):
-    """What a finished ResNet56 session left: its count fields, every held
+def plan_record(plan, store, stats, futures):
+    """What finished studies left: the count fields, every held
     checkpoint's digest (the memory tier: blake2b of its leaves' bytes;
     the directory: the blob header's chunk digests), every metric the plan
-    recorded by trial and step, the best trial — as JSON."""
+    recorded by trial and step, each study's best trial — as JSON."""
     import hashlib
     from repro_torch.utils.tree import tree_leaves
-    plan = svc.engine.plan
     digests = {}
     for cid in sorted(store.committed_ids()):
         if store.directory:
@@ -2867,10 +2903,18 @@ def session_record(svc, store):
                for tid, path in plan.trial_paths.items() for nid in path
                for step, m in plan.nodes[nid].metrics.items()}
     assert all(v == v for m in metrics.values() for v in m.values())
-    tuner = svc.futures[0].tuner
-    assert tuner.is_done() and svc.futures[0].done()
-    return {"counts": counts(svc.stats), "digests": digests,
-            "metrics": metrics, "best": tuner.best.trial_id}
+    for fut in futures:
+        assert fut.tuner.is_done() and fut.done(), fut.study_id
+    return {"counts": counts(stats), "digests": digests, "metrics": metrics,
+            "best": {f.study_id: f.tuner.best.trial_id for f in futures}}
+
+
+def session_record(svc, store):
+    """:func:`plan_record` of a finished one-study ResNet56 session, its
+    best trial's id under ``"best"``."""
+    rec = plan_record(svc.engine.plan, store, svc.stats, svc.futures)
+    rec["best"] = rec["best"][svc.futures[0].study_id]
+    return rec
 
 
 def session_child(spec):
@@ -2880,26 +2924,18 @@ def session_child(spec):
     Prints no result line."""
     import torch_hpo_resnet as example
     from repro_torch.core import SearchPlanDB, StudyService
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.optim import (stacked_leaf_update,
-                                           stacked_tree_update)
     from repro_torch.train.checkpoint import CheckpointStore
     backend = example.make_backend(use_kernel=True, **RESNET_FULL)
     store = (CheckpointStore(spec["store"]) if spec["store"]
              else CheckpointStore())
-    kops.reset_kernel_stats()
-    stacked_tree_update.launches = stacked_leaf_update.launches = 0
+    b1_reset()
     t0 = time.perf_counter()
     svc = StudyService.restore(SearchPlanDB(), spec["path"], backend,
                                store=store)
     restore_s = time.perf_counter() - t0
     svc.close()
-    torch.cuda.synchronize()
     rec = session_record(svc, store)
-    rec.update(launches=stacked_tree_update.launches,
-               leaf_launches=stacked_leaf_update.launches,
-               fallbacks=kops.KERNEL_STATS.fallbacks,
-               restore_seconds=restore_s,
+    rec.update(launches=b1_read(), restore_seconds=restore_s,
                seconds=time.perf_counter() - t0)
     with open(spec["out"], "w") as f:
         json.dump(rec, f)
@@ -2913,9 +2949,6 @@ def session_run(tier, root):
     a fresh process; returns the phase's row and B1's launches."""
     from repro_torch.core import SearchPlanDB, StudyService, StudySpec
     from repro_torch.core.engine import load_latest_session, session_rotation
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.optim import (stacked_leaf_update,
-                                           stacked_tree_update)
     from repro_torch.train.checkpoint import CheckpointStore
     import torch_hpo_resnet as example
     d = os.path.join(root, "session_" + tier)
@@ -2923,8 +2956,7 @@ def session_run(tier, root):
     backend = example.make_backend(use_kernel=True, **RESNET_FULL)
     store = (CheckpointStore(os.path.join(d, "ckpt"))
              if tier == "directory" else CheckpointStore())
-    kops.reset_kernel_stats()
-    stacked_tree_update.launches = stacked_leaf_update.launches = 0
+    b1_reset()
     svc = StudyService(SearchPlanDB(), backend, n_workers=1, store=store,
                        batch_siblings=False)
     base = os.path.join(d, "auto.snap")
@@ -2941,19 +2973,14 @@ def session_run(tier, root):
     t1 = time.perf_counter()
     svc.snapshot(path)
     snapshot_s = time.perf_counter() - t1
-    torch.cuda.synchronize()
-    before = {"launches": stacked_tree_update.launches,
-              "counts": counts(svc.stats)}
+    before = {"launches": b1_read(), "counts": counts(svc.stats)}
     copy = None
     if tier == "directory":
         copy = os.path.join(d, "ckpt_copy")
         shutil.copytree(store.directory, copy)
     svc.close()
-    torch.cuda.synchronize()
+    total = b1_read()
     wall = time.perf_counter() - t0
-    total = stacked_tree_update.launches
-    assert stacked_leaf_update.launches == 0
-    assert kops.KERNEL_STATS.fallbacks == 0
     ref = session_record(svc, store)
     assert ref["counts"]["kernel_calls"] == total == ref["counts"][
         "steps_run"], (ref["counts"], total)
@@ -2967,7 +2994,6 @@ def session_run(tier, root):
     child_s = time.perf_counter() - t2
     with open(out) as f:
         got = json.load(f)
-    assert got["fallbacks"] == 0 and got["leaf_launches"] == 0
     assert got["counts"] == ref["counts"], (got["counts"], ref["counts"])
     assert got["digests"] == ref["digests"], \
         "a held checkpoint differs from the uninterrupted run's"
@@ -3035,6 +3061,231 @@ def session_phase(root):
     emit({"phase": "session", "model": "ResNet(n=9, width=16)",
           "batch": RESNET_FULL["batch"], "workers": 1, "tiers": rows})
     return launches
+
+
+TENANTS = {"alice": 2.0, "bob": 1.0}     # the gateway phase's quota weights
+BOB_TRIALS = 3                # bob's SHA study: the first schedules of six
+
+
+def gateway_studies():
+    """The gateway phase's two submissions on one plan key, as ``(tenant,
+    tuner)``: alice's six-schedule SHA study (:func:`session_tuner`) and
+    bob's SHA study of the same tuner class over the first
+    ``BOB_TRIALS`` of those schedules, so the two share prefixes.  Bob's
+    trials carry ids of their own: a trial's default id is a hash of its
+    schedule, and a study that stops a trial stops it under that id for
+    every study (ROADMAP queue C)."""
+    import torch_hpo_resnet as example
+    from repro_torch.core.trial import Trial
+    from repro_torch.core.tuners import SHATuner
+    trials = [Trial(t.hp_config, t.total_steps, trial_id="bob-" + t.trial_id)
+              for t in example.space(RESNET_FULL["batch"]).trials(
+                  example.STEPS)[:BOB_TRIALS]]
+    bob = SHATuner(trials, min_steps=25, max_steps=example.STEPS, eta=2)
+    return [("alice", session_tuner()), ("bob", bob)]
+
+
+GATEWAY_SPEC = ("resnet56", "synthetic-cifar", ("lr", "bs"))
+
+
+def gateway_child(spec):
+    """A fresh process: ``StudyGateway.restore`` of the envelope
+    ``spec["path"]`` against a new trainer and a new memory-tier store,
+    closed; writes the record of the restored plan key and B1's launches
+    to ``spec["out"]``.  Prints no result line."""
+    import torch_hpo_resnet as example
+    from repro_torch.core import SearchPlanDB
+    from repro_torch.frontdoor import StudyGateway
+    from repro_torch.train.checkpoint import CheckpointStore
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    stores = {}
+
+    def store_factory(key):
+        return stores.setdefault(key, CheckpointStore())
+
+    b1_reset()
+    t0 = time.perf_counter()
+    db = SearchPlanDB()
+    gw = StudyGateway.restore(db, spec["path"], backend,
+                              store_factory=store_factory,
+                              batch_siblings=False)
+    restore_s = time.perf_counter() - t0
+    [(key, stats)] = gw.close()
+    rec = plan_record(db.get(key), stores[key], stats,
+                      [f.inner for f in gw.futures])
+    rec.update(launches=b1_read(), ledger=gw.tenant_ledger(),
+               restore_seconds=restore_s, seconds=time.perf_counter() - t0)
+    with open(spec["out"], "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def gateway_phase(root):
+    """Two tenants' ResNet56 studies on one plan key through
+    ``StudyGateway`` (one slot, weighted quotas, a memory-tier store per
+    key), against the same two submissions through ``StudyService``
+    directly and each study alone: the gateway's count fields, held
+    checkpoints, metrics and best trials bit-equal to the direct run's;
+    the tenant ledger equal to the studies' ``by_study`` shares; B1 = the
+    device's steps; a gateway envelope snapshotted when alice's first
+    rung is decided and restored in a fresh process bit-equal, B1 before
+    + after = uninterrupted; ``StudyService.restore`` refuses the
+    envelope.  Returns B1's launches."""
+    import torch_hpo_resnet as example
+    from repro_torch.core import SearchPlanDB, StudyService, StudySpec
+    from repro_torch.frontdoor import StudyGateway, TenantQuota
+    from repro_torch.train.checkpoint import CheckpointStore
+    d = os.path.join(root, "gateway")
+    os.makedirs(d)
+    spec = StudySpec(*GATEWAY_SPEC)
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    computed = device_steps(backend)
+    runs = {}
+
+    def direct(studies, label):
+        """The submissions through one ``StudyService`` (one worker), with
+        the gateway's study ids."""
+        store = CheckpointStore()
+        svc = StudyService(SearchPlanDB(), backend, n_workers=1, store=store,
+                           batch_siblings=False)
+        b1_reset()
+        steps0 = computed["steps"]
+        t0 = time.perf_counter()
+        for i, (_, tuner) in enumerate(studies):
+            svc.submit(spec, tuner, study_id=f"study-{i}")
+        svc.close()
+        wall = time.perf_counter() - t0
+        launches = b1_read()
+        assert launches == svc.stats.kernel_calls == \
+            computed["steps"] - steps0 == svc.stats.steps_run, (
+                launches, svc.stats.kernel_calls, svc.stats.steps_run)
+        runs[label] = dict(record=plan_record(svc.engine.plan, store,
+                                              svc.stats, svc.futures),
+                           wall=wall, launches=launches)
+
+    for tenant, tuner in gateway_studies():
+        direct([(tenant, tuner)], tenant)             # each study alone
+    direct(gateway_studies(), "direct")
+
+    # the gateway, snapshotted once alice's first rung is decided
+    stores = {}
+
+    def store_factory(key):
+        return stores.setdefault(key, CheckpointStore())
+
+    db = SearchPlanDB()
+    gw = StudyGateway(db, backend, n_slots=1,
+                      quotas={t: TenantQuota(w) for t, w in TENANTS.items()},
+                      store_factory=store_factory, batch_siblings=False)
+    studies = gateway_studies()
+    b1_reset()
+    steps0 = computed["steps"]
+    t0 = time.perf_counter()
+    futs = [gw.submit(spec, tuner, tenant=tenant)
+            for tenant, tuner in studies]
+    assert [f.study_id for f in futs] == ["study-0", "study-1"]
+    assert len(gw.sessions) == 1 and len(gw.leases.held(spec.key)) == 1
+    events = 0
+    while studies[0][1]._rung == 0:
+        assert gw.step()
+        events += 1
+    path = os.path.join(d, "gateway.snap")
+    t1 = time.perf_counter()
+    gw.snapshot(path)
+    snapshot_s = time.perf_counter() - t1
+    before = b1_read()
+    gw.join()
+    ledger = gw.tenant_ledger()
+    [(key, stats)] = gw.close()
+    wall = time.perf_counter() - t0
+    launches = b1_read()
+    assert key == spec.key and not gw.sessions
+    assert launches == stats.kernel_calls == computed["steps"] - steps0 \
+        == stats.steps_run, (launches, stats.kernel_calls, stats.steps_run)
+    ref = plan_record(db.get(key), stores[key], stats,
+                      [f.inner for f in gw.futures])
+
+    # 1. bit-equal to the same submissions through StudyService directly
+    got = runs["direct"]["record"]
+    assert ref["counts"] == got["counts"], (ref["counts"], got["counts"])
+    assert ref["digests"] == got["digests"], \
+        "a held checkpoint differs from the direct run's"
+    assert ref["metrics"] == got["metrics"], \
+        "a reported metric differs from the direct run's"
+    assert ref["best"] == got["best"], (ref["best"], got["best"])
+    # 2. each tenant is billed its studies' split-charged shares
+    tenant_of = {f.study_id: f.tenant for f in gw.futures}
+    for tenant in TENANTS:
+        share = sum(ss.gpu_seconds for sid, ss in stats.by_study.items()
+                    if tenant_of[sid] == tenant)
+        assert ledger[tenant]["gpu_seconds"] == share, (tenant, ledger)
+        assert ledger[tenant]["studies"] == 1
+    billed = sum(e["gpu_seconds"] for e in ledger.values())
+    assert abs(billed - stats.gpu_seconds) <= 1e-9 * stats.gpu_seconds, (
+        billed, stats.gpu_seconds)
+    assert set(ledger) == set(TENANTS)
+
+    # 4. the envelope restored in a fresh process; refused by the service
+    try:
+        StudyService.restore(SearchPlanDB(), path, backend)
+    except ValueError as exc:
+        assert "gateway envelope" in str(exc), exc
+    else:
+        raise AssertionError("StudyService.restore took a gateway envelope")
+    out = os.path.join(d, "child.json")
+    t2 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--gateway-child", json.dumps({"path": path,
+                                                   "out": out})],
+                   check=True, timeout=600)
+    child_s = time.perf_counter() - t2
+    with open(out) as f:
+        child = json.load(f)
+    assert child["counts"] == ref["counts"], (child["counts"], ref["counts"])
+    assert child["digests"] == ref["digests"], \
+        "a held checkpoint differs from the uninterrupted gateway run's"
+    assert child["metrics"] == ref["metrics"], \
+        "a reported metric differs from the uninterrupted gateway run's"
+    assert child["best"] == ref["best"]
+    assert before + child["launches"] == launches, (
+        before, child["launches"], launches)
+    alone = {t: runs[t]["record"]["counts"]["steps_run"] for t in TENANTS}
+    emit({"phase": "gateway", "model": "ResNet(n=9, width=16)",
+          "batch": RESNET_FULL["batch"], "slots": 1,
+          "quotas": TENANTS, "plan_key": key,
+          "trials": {t: len(tuner.all_trials) for t, tuner in studies},
+          "steps": {"merged": stats.steps_run, "alone": alone,
+                    "alone_sum": sum(alone.values())},
+          "by_study_steps": {sid: ss.steps_run
+                             for sid, ss in stats.by_study.items()},
+          "counts": ref["counts"],
+          "tenant_ledger": ledger,
+          "wall_seconds": {"gateway": wall,
+                           "direct": runs["direct"]["wall"],
+                           **{f"alone_{t}": runs[t]["wall"]
+                              for t in TENANTS}},
+          "events_before_snapshot": events,
+          "snapshot_bytes": os.path.getsize(path),
+          "snapshot_seconds": snapshot_s,
+          "child_seconds": child_s,
+          "child_restore_seconds": child["restore_seconds"],
+          "child_study_seconds": child["seconds"],
+          "b1_launches": {"gateway": launches,
+                          "direct": runs["direct"]["launches"],
+                          "before_snapshot": before,
+                          "after_restore": child["launches"],
+                          **{f"alone_{t}": runs[t]["launches"]
+                             for t in TENANTS}},
+          "b1_launches_equal_device_steps": True,
+          "checkpoints_held": len(ref["digests"]),
+          "bit_equal_to_direct_service": True,
+          "restored_bit_equal": True,
+          "ledger_equals_by_study": True,
+          "service_restore_refused": True,
+          "best_trials": ref["best"]})
+    shutil.rmtree(d)
+    return {"gateway": launches, "before_snapshot": before,
+            "after_restore": child["launches"]}
 
 
 def group_fault():
@@ -3515,10 +3766,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--session-child"]:     # the session phase's child
+    children = {"--session-child": session_child,      # the session and
+                "--gateway-child": gateway_child}      # gateway phases'
+    if sys.argv[1:2] and sys.argv[1] in children:
         sys.path[:0] = [os.path.join(ROOT, "src"),
                         os.path.join(ROOT, "examples")]
-        return session_child(json.loads(sys.argv[2]))
+        return children[sys.argv[1]](json.loads(sys.argv[2]))
     # before the first allocation: without expandable segments, the qwen2
     # M 4 chunk of group_step (62.3 GiB) can fail to find a 9.27 GiB block
     # beside 16 GiB of free fragments that earlier phases left
@@ -3568,6 +3821,7 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     del memory_runs
     fault_launches = timed("fault_plane", fault_plane_phase)     # 19
     session_launches = timed("session", session_phase, store_dir)  # 20
+    gateway_launches = timed("gateway", gateway_phase, store_dir)  # 22
     fa_rows = timed("attention_kernels", attention_phase, join_build)  # 6
     timed("lm_small", lm_small_phase, "lm_small", "qwen2-0.5b", (2, 200),
           4, True)
@@ -3612,6 +3866,7 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     del lm_grouped
     b1_row["launches_fault_plane"] = fault_launches
     b1_row["launches_session"] = session_launches
+    b1_row["launches_gateway"] = gateway_launches
     b1_row["launches_lm_group_degraded"] = {
         tier: r["stacked_tree_update"] for tier, r in d_launches.items()}
     for key in ("B2", "B3", "B4"):

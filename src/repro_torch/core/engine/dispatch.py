@@ -105,6 +105,12 @@ class Worker:
     failures: int = 0               # crashes since the last success
     times_quarantined: int = 0      # consecutive quarantines (backoff exp)
     quarantined_until: float = 0.0  # virtual time probation starts
+    # ---- front door (lease revocation; see repro_torch.frontdoor.leases).
+    # A draining worker finishes its current chain but is never offered
+    # new work; the engine removes it when its idle event fires —
+    # revocation lands exactly at a chain boundary, where the retry
+    # machinery guarantees every boundary checkpoint is committed. ----
+    draining: bool = False
 
 
 class Dispatcher:
@@ -235,7 +241,7 @@ class Dispatcher:
     def _assign_round(self) -> bool:
         """One scheduling round; True when a checkpoint miss warrants a
         retry (idle workers remain and requests were re-derived)."""
-        idle = [w for w in self.workers if w.idle]
+        idle = [w for w in self.workers if w.idle and not w.draining]
         if not idle:
             return False
         tree = self.tree_builder.build()
@@ -291,7 +297,8 @@ class Dispatcher:
                 pool.append(worker)
             if not pending:
                 refill()
-        return missed and any(w.idle for w in self.workers)
+        return missed and any(w.idle and not w.draining
+                              for w in self.workers)
 
     def _group_pass(self, tree, idle: List[Worker],
                     produced: Dict[str, Tuple[Any, float, Optional[str]]],

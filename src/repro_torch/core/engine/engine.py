@@ -60,8 +60,13 @@ Ray Tune trial.
 
 Session snapshots (:mod:`repro_torch.core.engine.session`) capture a live
 engine between two :meth:`step` calls and rebuild it against a fresh
-backend and store.  Mesh workers (``worker_meshes=``) are not in this
-package yet and raise ``NotImplementedError`` (ROADMAP queue A, slice 8).
+backend and store.  The worker fleet is dynamic: the front door's lease
+manager grows it (:meth:`add_worker`, a ``wake`` event that cannot fire
+before the grant's time) and shrinks it (:meth:`remove_worker`: an idle
+worker leaves at once, a busy one drains to its chain boundary), so
+workers are keyed by id, never by list position.  Mesh workers
+(``worker_meshes=``, ``add_worker(mesh=...)``) are not in this package
+yet and raise ``NotImplementedError`` (ROADMAP queue A, slice 8).
 """
 
 from __future__ import annotations
@@ -247,6 +252,7 @@ class ExecutionEngine:
         self.plan = plan
         self.backend = backend
         self.workers = [Worker(i) for i in range(n_workers)]
+        self._next_wid = n_workers    # ids are never reused (dynamic fleets)
         self.gpus_per_worker = gpus_per_worker
         self.scheduler = scheduler or CriticalPathScheduler()
         # NOT `store or ...`: an empty CheckpointStore is falsy (__len__ == 0)
@@ -298,6 +304,53 @@ class ExecutionEngine:
         empty).  Quiescence is NOT termination: a quiescent session stays
         open — a later :meth:`admit` wakes it again."""
         return not self.events
+
+    # ----------------------------------------------------------- worker fleet
+    def worker(self, wid: int) -> Optional[Worker]:
+        """The live worker with id ``wid`` (None once removed).  Workers
+        are keyed by id, not list position — dynamic fleets (front-door
+        leases) remove workers mid-session, so positions shift."""
+        for w in self.workers:
+            if w.wid == wid:
+                return w
+        return None
+
+    def add_worker(self, mesh=None, at: Optional[float] = None) -> Worker:
+        """Grow the fleet by one worker (front-door lease grant).
+
+        The worker is idle immediately but cannot *start* work before
+        ``at`` (default: now) — ``busy_until`` gates its first chain, so a
+        worker leased over from another session at global time T does not
+        retroactively compute in the past.  A worker with a device mesh
+        needs the mesh plane (ROADMAP queue A, slice 8) and is refused."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "a worker mesh needs the mesh plane, which repro_torch does "
+                "not have yet (ROADMAP queue A, slice 8)")
+        t = self.events.time if at is None else max(at, self.events.time)
+        w = Worker(self._next_wid, busy_until=t)
+        self._next_wid += 1
+        self.workers.append(w)     # the dispatcher shares this list object
+        # a session that drained its event queue while starved of workers
+        # has nothing left to trigger a dispatcher round — the grant itself
+        # must be schedulable, or waiting stages would never start
+        self.events.push(t, "wake", w.wid)
+        return w
+
+    def remove_worker(self, wid: int) -> bool:
+        """Shrink the fleet (front-door lease revocation).  An idle worker
+        leaves immediately (True); a busy one is marked draining and leaves
+        when its current chain's idle event fires (False) — revocation
+        only ever lands at a chain boundary, where every boundary
+        checkpoint is already committed, so no work is lost."""
+        w = self.worker(wid)
+        if w is None:
+            return True
+        if w.idle:
+            self.workers.remove(w)
+            return True
+        w.draining = True
+        return False
 
     # ------------------------------------------------------------------ API
     def handle(self, tuner: Tuner, study_id: Optional[str] = None) -> StudyHandle:
@@ -406,7 +459,22 @@ class ExecutionEngine:
                     and handle.study_id not in self._cancelled):
                 handle.tuner.on_result(trial, step, metrics)
         elif ev.kind == "idle":
-            self.workers[ev.payload].idle = True
+            # keyed by wid, not list index: dynamic fleets (front-door
+            # leases) remove workers mid-session, so positions shift and
+            # an event may outlive its worker
+            w = self.worker(ev.payload)
+            if w is not None:
+                if w.draining:
+                    # revoked lease: the chain boundary has been reached —
+                    # the worker departs instead of rejoining the pool
+                    self.workers.remove(w)
+                else:
+                    w.idle = True
+        elif ev.kind == "wake":
+            # lease grant landed: nothing to mutate — the dispatcher round
+            # below hands the new worker any stages that were waiting for
+            # capacity
+            pass
         elif ev.kind == "retry":
             # backoff expired: release the failed stages' running marks so
             # Algorithm 1 re-derives them from the last boundary checkpoint

@@ -45,8 +45,10 @@ picklable, and their classes must live in ``repro_torch`` (the reader
 admits no other package's classes: a snapshot the JAX package wrote never
 imports it).  ``StudyHandle`` / ``StudyFuture`` drop their engine/service
 references when pickled and are re-wired on restore.  The worker rows keep
-the JAX package's eight columns; the mesh and the front door's
-``draining`` flag are always ``None`` / ``False`` here (slices 8 and 7).
+the JAX package's eight columns; the mesh is always ``None`` here
+(slice 8), and a worker row carries its captured id and the front door's
+``draining`` flag, so a leased fleet with gaps in its ids and a lease
+being revoked restore as they were.
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ class SessionState:
                                                  #  mesh (None),
                                                  #  failures, times_quar.,
                                                  #  quarantined_until,
-                                                 #  draining (False))
+                                                 #  draining)
     waiters: Dict[Tuple[str, int], List[Tuple[Any, Any]]]
     killed: Set[str]
     trials: Dict[str, Any]
@@ -135,7 +137,7 @@ def capture_session(engine, service: Optional[Dict[str, Any]] = None
         scheduler=engine.scheduler,
         stats=engine.stats,
         workers=[(w.wid, w.busy_until, w.idle, None, w.failures,
-                  w.times_quarantined, w.quarantined_until, False)
+                  w.times_quarantined, w.quarantined_until, w.draining)
                  for w in engine.workers],
         waiters=engine.aggregator.waiters,
         killed=engine.aggregator.killed,
@@ -204,16 +206,13 @@ def restore_engine(state: SessionState, backend: TrainerBackend,
     eagerly (recompute-on-miss, applied up front), so a store that lost
     blobs since the snapshot degrades to recomputation instead of
     KeyErrors.  Older snapshot formats are migrated forward (see
-    :func:`migrate_session`).  A row with a mesh or a draining lease
-    cannot be restored here (the engine refuses ``worker_meshes``, slice
-    8; leases are the front door's, slice 7)."""
+    :func:`migrate_session`).  Each worker is rebuilt under its captured
+    id, draining or not (a leased fleet has gaps in its ids), and new ids
+    continue past the largest.  A row with a mesh cannot be restored here
+    (the engine refuses ``worker_meshes``, slice 8)."""
     from repro_torch.core.engine.engine import ExecutionEngine
 
     migrate_session(state)
-    if any(row[7] for row in state.workers):
-        raise NotImplementedError(
-            "a draining worker is a front-door lease, which repro_torch "
-            "does not have yet (ROADMAP queue A, slice 7)")
     if store is None:
         store = CheckpointStore()
     if state.store_mem is not None and not store.directory:
@@ -242,10 +241,14 @@ def restore_engine(state: SessionState, backend: TrainerBackend,
     eng.aggregator.waiters = state.waiters
     eng.aggregator.killed = state.killed
     for w, (wid, busy_until, idle, _, fails, quars, quntil,
-            _) in zip(eng.workers, state.workers):
+            draining) in zip(eng.workers, state.workers):
         w.wid, w.busy_until, w.idle = wid, busy_until, idle
         w.failures, w.times_quarantined = fails, quars
         w.quarantined_until = quntil
+        w.draining = bool(draining)
+    # ids keep growing where the captured fleet left off — a restored
+    # session's next lease grant must not collide with a live wid
+    eng._next_wid = 1 + max((row[0] for row in state.workers), default=-1)
     eng._trials = state.trials
     eng._handles = state.handles
     eng._study_trials = state.study_trials
@@ -294,14 +297,15 @@ def save_session(state: SessionState, path: str) -> str:
     return path
 
 
-def load_session(path: str) -> SessionState:
-    """Read a session snapshot — the v5 schema'd container, or a legacy
-    v2-v4 pickle (sniffed by its first bytes) migrated forward on restore.
-    Both are read by the restricted unpickler of
+def load_session(path: str):
+    """Read a session (or gateway) snapshot — the v5 schema'd container,
+    or a legacy v2-v4 session pickle (sniffed by its first bytes) migrated
+    forward on restore.  Both are read by the restricted unpickler of
     :mod:`repro_torch.frontdoor.snapshot_v5`.  Digest mismatches, classes
     from outside ``repro_torch`` / ``torch`` / ``numpy`` / the standard
-    library, and anything that is not a session raise ``ValueError`` so
-    the rotation reader falls back to the previous slot."""
+    library, and a legacy pickle that is not a session raise
+    ``ValueError`` so the rotation reader falls back to the previous
+    slot."""
     from repro_torch.frontdoor.snapshot_v5 import (decode_snapshot,
                                                    is_v5_snapshot,
                                                    restricted_loads)

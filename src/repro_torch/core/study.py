@@ -64,7 +64,8 @@ __all__ = ["Study", "StudySpec", "StudyFuture", "StudyService",
 class PlanKeyMismatch(ValueError):
     """A study was submitted to a session driving a different plan key.
 
-    Structured (it carries both keys) so a router can catch it and
+    Structured (it carries both keys) so a router — the front-door
+    :class:`~repro_torch.frontdoor.gateway.StudyGateway` — can catch it and
     re-route the submission to the right per-key session instead of
     string-matching an error message.  Subclasses ``ValueError`` for
     backward compatibility with callers that caught the old bare error.
@@ -306,7 +307,8 @@ class StudyService:
 
     @property
     def engine(self) -> Optional[ExecutionEngine]:
-        """The live engine (None until the first submission)."""
+        """The live engine (None until the first submission) — the
+        front-door lease manager grows/shrinks its worker fleet."""
         return self._engine
 
     @property
@@ -519,6 +521,11 @@ class StudyService:
                        backend: TrainerBackend,
                        store: Optional[CheckpointStore],
                        fault_injector) -> "StudyService":
+        if not isinstance(state, SessionState):
+            raise ValueError(
+                "snapshot holds a gateway envelope (multiple sessions) — "
+                "restore it with repro_torch.frontdoor.StudyGateway.restore, "
+                "not StudyService.restore")
         eng = restore_engine(state, backend, store,
                              fault_injector=fault_injector)
         db.put(state.plan_key, state.plan)

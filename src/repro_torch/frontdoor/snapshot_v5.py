@@ -1,4 +1,4 @@
-"""Schema'd session snapshots — the v5 on-disk format (session half).
+"""Schema'd session/gateway snapshots — the v5 on-disk format.
 
 The container is the JAX package's (``repro.frontdoor.snapshot_v5``), so
 a manifest written by either package can be compared key for key::
@@ -13,12 +13,16 @@ a manifest written by either package can be compared key for key::
 
 Everything with a stable schema lives **typed in the JSON manifest** —
 plan key, engine knobs, the full :class:`EngineStats` (including
-``by_study``), worker rows, the committed-checkpoint index.  Components
-that are inherently Python object graphs (the search plan, the event heap,
-tuners, scheduling-policy memory, a memory tier's trees) ride as named
-**pickle records**, each independently blake2b-digested, so a torn tail
-or bit rot is detected at load (and the rotation reader falls back a
-slot) instead of surfacing as a confusing unpickle error.
+``by_study``), worker rows, the committed-checkpoint index, tenant maps,
+quotas, leases, the admission queue's metadata.  Components that are
+inherently Python object graphs (the search plan, the event heap, tuners,
+scheduling-policy memory, a memory tier's trees) ride as named **pickle
+records**, each independently blake2b-digested, so a torn tail or bit rot
+is detected at load (and the rotation reader falls back a slot) instead of
+surfacing as a confusing unpickle error.  A **gateway** envelope nests one
+complete session record per plan key plus the front-door control state
+(:class:`GatewayState`), so one SIGKILL'd file restores the whole
+deployment.
 
 Reading never imports a package outside ``repro_torch``, ``torch``,
 ``numpy`` and the standard library: the records are read by an unpickler
@@ -26,11 +30,6 @@ whose ``find_class`` admits only those (:func:`restricted_loads`) and
 raises ``ValueError`` for anything else.  A snapshot the JAX package wrote
 names ``repro.*`` classes, so reading it here raises instead of importing
 the JAX package.
-
-The **gateway** envelope (one session record per plan key plus the front
-door's control state) is the front door's, which this package does not
-have yet: encoding or decoding one raises ``NotImplementedError`` (ROADMAP
-queue A, slice 7).
 
 Cross-version story: the manifest's typed fields migrate like dataclass
 defaults — a reader fills fields the file lacks and ignores fields it
@@ -46,18 +45,16 @@ import hashlib
 import io
 import json
 import pickle
-from typing import Any, Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.core.engine.session import (SESSION_FORMAT_VERSION,
                                              SessionState)
 
-__all__ = ["encode_snapshot", "decode_snapshot", "is_v5_snapshot",
-           "restricted_loads", "SNAPSHOT_MAGIC"]
+__all__ = ["GatewayState", "encode_snapshot", "decode_snapshot",
+           "is_v5_snapshot", "restricted_loads", "SNAPSHOT_MAGIC"]
 
 SNAPSHOT_MAGIC = "hippo-snapshot"
-
-_NO_GATEWAY = ("the gateway envelope belongs to the front door, which "
-               "repro_torch does not have yet (ROADMAP queue A, slice 7)")
 
 # packages whose classes a snapshot may name (prefix match), and the
 # standard-library modules the session graph's pickles reach
@@ -92,6 +89,33 @@ def restricted_loads(data: bytes) -> Any:
     except Exception as exc:
         raise ValueError(f"unreadable snapshot record: "
                          f"{type(exc).__name__}: {exc}") from exc
+
+
+# --------------------------------------------------------------------------
+# Gateway envelope state
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class GatewayState:
+    """Complete front-door state: every per-key session plus the control
+    plane around them (admission queues, quotas, tenant map, worker
+    leases, the global clock, and the mid-run fault-schedule state)."""
+
+    version: int
+    time: float                                  # global virtual clock
+    max_concurrent: Optional[int]
+    seq: int                                     # admission sequence counter
+    quotas: Dict[str, Dict[str, Any]]            # tenant -> quota fields
+    default_quota: Dict[str, Any]
+    tenants: Dict[str, Dict[str, str]]           # plan key -> {study: tenant}
+    sessions: List[Tuple[str, SessionState]]     # (key, state), creation order
+    slot_meshes: List[Any]                       # fleet slots (all None here)
+    leases: List[Tuple[int, str, int, bool]]     # (slot, key, wid, draining)
+    queued: List[Any]                            # admission.Submission objects
+    retired: List[Tuple[str, Any, List[Any]]]    # (key, EngineStats, futures)
+    injector_state: Optional[Dict[str, Any]] = None
+    service: Dict[str, Any] = field(default_factory=dict)
 
 
 # --------------------------------------------------------------------------
@@ -288,29 +312,112 @@ def _decode_session(header: Dict[str, Any],
 
 
 # --------------------------------------------------------------------------
+# Gateway encode/decode
+# --------------------------------------------------------------------------
+
+
+def _encode_gateway(state: GatewayState) -> bytes:
+    recs = _Records()
+    for i, (key, sess) in enumerate(state.sessions):
+        recs.add(f"session.{i}", "blob", _encode_session(sess))
+    recs.pickle("slot_meshes", state.slot_meshes)
+    recs.pickle("queued_tuners", [sub.tuner for sub in state.queued])
+    recs.pickle("retired_futures", [futs for _, _, futs in state.retired])
+    recs.pickle("injector_state", state.injector_state)
+    recs.pickle("service", state.service)
+    manifest = {
+        "time": state.time,
+        "max_concurrent": state.max_concurrent,
+        "seq": state.seq,
+        "quotas": state.quotas,
+        "default_quota": state.default_quota,
+        "tenants": state.tenants,
+        "session_keys": [key for key, _ in state.sessions],
+        "leases": [list(lease) for lease in state.leases],
+        "queued": [{"tenant": sub.tenant, "priority": sub.priority,
+                    "seq": sub.seq, "key": sub.key,
+                    "study_id": sub.study_id,
+                    "min_devices": sub.min_devices,
+                    "arrival": sub.arrival} for sub in state.queued],
+        "retired": [{"key": key, "stats": _stats_to_json(stats)}
+                    for key, stats, _ in state.retired],
+    }
+    return recs.pack("gateway", manifest)
+
+
+def _decode_gateway(header: Dict[str, Any],
+                    records: Dict[str, Tuple[str, bytes]]) -> GatewayState:
+    from repro_torch.frontdoor.admission import Submission
+
+    man = header["manifest"]
+    sessions = []
+    for i, key in enumerate(man.get("session_keys", [])):
+        blob = _record(records, f"session.{i}")
+        if blob is None:
+            raise ValueError(f"gateway record session.{i} is missing")
+        shdr, srecs = _read_container(blob)
+        if shdr.get("kind") != "session":
+            raise ValueError(f"gateway record session.{i} is not a session")
+        sessions.append((key, _decode_session(shdr, srecs)))
+    tuners = _record(records, "queued_tuners", [])
+    queued = []
+    for i, row in enumerate(man.get("queued", [])):
+        queued.append(Submission(
+            tenant=row["tenant"], priority=row["priority"], seq=row["seq"],
+            key=row["key"], tuner=tuners[i] if i < len(tuners) else None,
+            study_id=row.get("study_id"),
+            min_devices=row.get("min_devices", 1),
+            arrival=row.get("arrival")))
+    retired_futs = _record(records, "retired_futures", [])
+    retired = []
+    for i, row in enumerate(man.get("retired", [])):
+        futs = retired_futs[i] if i < len(retired_futs) else []
+        retired.append((row["key"], _stats_from_json(row["stats"]), futs))
+    return GatewayState(
+        version=int(header.get("version", SESSION_FORMAT_VERSION)),
+        time=man.get("time", 0.0),
+        max_concurrent=man.get("max_concurrent"),
+        seq=man.get("seq", 0),
+        quotas=man.get("quotas", {}),
+        default_quota=man.get("default_quota", {}),
+        tenants=man.get("tenants", {}),
+        sessions=sessions,
+        slot_meshes=_record(records, "slot_meshes", []),
+        leases=[tuple(lease) for lease in man.get("leases", [])],
+        queued=queued,
+        retired=retired,
+        injector_state=_record(records, "injector_state"),
+        service=_record(records, "service", {}),
+    )
+
+
+# --------------------------------------------------------------------------
 # Public entry points
 # --------------------------------------------------------------------------
 
 
-def encode_snapshot(state: SessionState) -> bytes:
-    """Serialize a :class:`SessionState` into the v5 container."""
+def encode_snapshot(state) -> bytes:
+    """Serialize a :class:`SessionState` or :class:`GatewayState` into the
+    v5 container."""
     if isinstance(state, SessionState):
         return _encode_session(state)
-    if type(state).__name__ == "GatewayState":
-        raise NotImplementedError(_NO_GATEWAY)
+    if isinstance(state, GatewayState):
+        return _encode_gateway(state)
     raise TypeError(
-        f"cannot snapshot {type(state).__name__!r} — expected SessionState")
+        f"cannot snapshot {type(state).__name__!r} — expected SessionState "
+        "or GatewayState")
 
 
-def decode_snapshot(data: bytes) -> SessionState:
-    """Parse a v5 container into a :class:`SessionState`; every record is
-    digest-verified and read by the restricted unpickler.  Raises
-    ``ValueError`` on corruption or a foreign class, so rotation readers
-    fall back to an older slot."""
+def decode_snapshot(data: bytes):
+    """Parse a v5 container into a :class:`SessionState` or
+    :class:`GatewayState` (dispatched on the header's ``kind``); every
+    record is digest-verified and read by the restricted unpickler.
+    Raises ``ValueError`` on corruption or a foreign class, so rotation
+    readers fall back to an older slot."""
     header, records = _read_container(data)
     kind = header.get("kind")
     if kind == "session":
         return _decode_session(header, records)
     if kind == "gateway":
-        raise NotImplementedError(_NO_GATEWAY)
+        return _decode_gateway(header, records)
     raise ValueError(f"unknown snapshot kind {kind!r}")

@@ -636,3 +636,112 @@ def test_service_key_mismatch_and_closed_session():
             [(T.Study.create(svc.db, "m", "d", ("lr",)), TT.GridTuner([])),
              (T.Study.create(svc.db, "x", "d", ("lr",)), TT.GridTuner([]))],
             SimulatedTrainer())
+
+
+# ------------------------------------------------------- a leased fleet
+
+
+def fleet(side):
+    """Workers in a row: ``(wid, idle, draining, busy_until)``."""
+    return [(w.wid, w.idle, w.draining, w.busy_until)
+            for w in side.engine.workers]
+
+
+def fleet_moves(side, n_workers):
+    """One session under a fixed grant / revoke script (the front door's
+    moves, made by hand): a grant that may not start before ``at``, a busy
+    worker revoked (it drains to its chain boundary), an idle one removed
+    at once, two more grants; returns the fleet after every move and the
+    final stats."""
+    C = side.core
+    svc = C.StudyService(C.SearchPlanDB(), side.sim(), n_workers=n_workers)
+    svc.submit(C.StudySpec("m", "d", ("lr", "bs")),
+               side.tuners.GridTuner(engine_space(side).trials(200)))
+    side.engine = eng = svc.engine
+    trace = []
+    for _ in range(3):
+        svc.step()
+    trace.append(("grant", eng.add_worker(at=eng.time + 10.0).wid,
+                  fleet(side)))
+    while all(w.idle for w in eng.workers) and svc.step():
+        pass
+    busy = [w.wid for w in eng.workers if not w.idle][0]
+    trace.append(("revoke busy", eng.remove_worker(busy), fleet(side)))
+    idle = [w.wid for w in eng.workers if w.idle and not w.draining]
+    if idle:
+        trace.append(("remove idle", eng.remove_worker(idle[-1]),
+                      fleet(side)))
+    while eng.worker(busy) is not None and svc.step():
+        trace.append(("step", eng.time, fleet(side)))
+    trace.append(("gone", eng.remove_worker(busy), fleet(side)))
+    for _ in range(2):
+        trace.append(("grant", eng.add_worker().wid, fleet(side)))
+    return trace, det(svc.close())
+
+
+@pytest.mark.parametrize("n_workers", [0, 1, 3])
+def test_add_and_remove_workers_equal_the_reference(n_workers):
+    """``add_worker`` / ``remove_worker`` / the ``wake`` event / draining:
+    the same script gives the reference's fleet after every move and
+    ``EngineStats`` equal field for field — from a session spawned with no
+    worker (quiescent until the grant wakes it) too."""
+    assert fleet_moves(PORT, n_workers) == fleet_moves(REF, n_workers)
+
+
+def test_draining_worker_takes_no_new_work():
+    """A draining worker is skipped by the dispatcher's pool even where it
+    shows idle; the other workers take the waiting stages."""
+    svc = T.StudyService(T.SearchPlanDB(), SimulatedTrainer(), n_workers=1)
+    svc.submit(T.StudySpec("m", "d", ("lr", "bs")),
+               TT.GridTuner(engine_space(PORT).trials(200)))
+    eng = svc.engine
+    svc.step()
+    w = eng.workers[0]
+    assert not w.idle and eng.remove_worker(w.wid) is False
+    w.idle, until = True, w.busy_until
+    assert eng.dispatcher.tree_builder.build().stages    # work is waiting
+    eng.dispatcher.assign()
+    assert w.idle and w.busy_until == until               # none of it here
+    eng.workers.remove(w)
+    eng.add_worker()
+    svc.close()
+    assert svc.futures[0].done()
+
+
+def test_session_with_a_draining_lease_and_wid_gaps_restores(tmp_path):
+    """A session captured with a draining worker and a gap in its worker
+    ids (a leased fleet) saves, loads and restores as it was: each worker
+    under its captured id, new ids past the largest, and the restored run
+    finishes equal to the uninterrupted one."""
+    from repro_torch.core.engine import (capture_session, load_session,
+                                         save_session)
+
+    def session():
+        svc = T.StudyService(T.SearchPlanDB(), SimulatedTrainer(),
+                             n_workers=3)
+        svc.submit(T.StudySpec("m", "d", ("lr", "bs")),
+                   TT.GridTuner(engine_space(PORT).trials(200)))
+        eng = svc.engine
+        eng.add_worker()
+        assert eng.remove_worker(1)               # idle: leaves at once
+        while all(w.idle for w in eng.workers):
+            svc.step()
+        busy = [w.wid for w in eng.workers if not w.idle][-1]
+        assert eng.remove_worker(busy) is False   # busy: drains
+        eng.add_worker(at=eng.time + 5.0)
+        return svc, eng
+
+    svc, eng = session()
+    wids = [(w.wid, w.draining) for w in eng.workers]
+    assert any(d for _, d in wids)
+    assert [w for w, _ in wids] != list(range(len(wids)))   # a gap
+    path = str(tmp_path / "s.snap")
+    save_session(capture_session(eng, service={"futures": svc.futures}),
+                 path)
+    assert [row[7] for row in load_session(path).workers] == \
+        [d for _, d in wids]
+    ref = det(svc.close())
+    back = T.StudyService.restore(T.SearchPlanDB(), path, SimulatedTrainer())
+    assert [(w.wid, w.draining) for w in back.engine.workers] == wids
+    assert back.engine._next_wid == eng._next_wid
+    assert det(back.close()) == ref

@@ -13,13 +13,20 @@ same seed, rates and plan give the same ``inj.log`` entry for entry and
 fixed virtual stage time, the same log and counts and leaves within the
 side-by-side tolerance of ``tests/test_torch_trainer.py``.
 
-Left for slice 7 (they drive ``launch/serve_studies``, which this package
-does not have yet): ``test_sigkill_then_restore_finishes_identically``,
-``test_sigterm_graceful_shutdown_snapshot`` and
-``test_serve_studies_inject_faults``.
+The launcher's durability and fault surface
+(``test_sigkill_then_restore_finishes_identically``,
+``test_sigterm_graceful_shutdown_snapshot``,
+``test_serve_studies_inject_faults``) drives
+``repro_torch.launch.serve_studies`` and holds it to the JAX package's
+launcher and service.
 """
 
 import dataclasses
+import os
+import signal
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -742,3 +749,159 @@ def test_group_resume_load_outage_equals_the_reference():
                                             raw_store)
     assert clean.batched_groups >= 1 and clean.ckpt_loads >= 1
     assert_leaves_equal(leaves_clean, leaves_got)
+
+
+# ---------------------------------------------------------------------------
+# the launcher: kill / restore, graceful shutdown, fault injection
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_KILLED_SCRIPT = """
+import os, signal, sys
+sys.path.insert(0, {src!r})
+from repro_torch.core import (Constant, Exponential, SearchPlanDB, StepLR,
+                              StudyService, StudySpec, Warmup)
+from repro_torch.core.trainer import SimulatedTrainer
+from repro_torch.core.tuners import GridSearchSpace, GridTuner
+
+space = GridSearchSpace(fns={{
+    "lr": [StepLR(0.1, 0.1, [30]), StepLR(0.1, 0.1, [40]),
+           Warmup(5, 0.1, Exponential(0.1, 0.95))],
+    "bs": [Constant(64), Constant(128)]}})
+spec = StudySpec("m", "d", ("lr", "bs"))
+svc = StudyService(SearchPlanDB(), SimulatedTrainer(horizon=80),
+                   n_workers=2, policy="fair_share")
+svc.enable_auto_snapshot({base!r}, every=25.0, keep=3)
+svc.submit(spec, GridTuner(space.trials(80)))
+svc.submit(spec, GridTuner(space.trials(80)[:4]), at=200.0)
+n = 0
+while svc.step():
+    n += 1
+    if n == {kill_after}:
+        os.kill(os.getpid(), signal.SIGKILL)   # no atexit, no flush
+raise SystemExit("ran to completion before the kill point")
+"""
+
+
+def test_sigkill_then_restore_finishes_identically(tmp_path):
+    """SIGKILL mid-drain (no graceful path at all), then restore from the
+    newest readable rotation slot and finish: final EngineStats — by_study
+    included — match an uninterrupted run, and the JAX package's."""
+    from repro_torch.core.engine import session_rotation
+
+    ref, _, _ = run_session(None, n_workers=2)
+    base = str(tmp_path / "sess.snap")
+    script = tmp_path / "killed.py"
+    script.write_text(_KILLED_SCRIPT.format(
+        src=os.path.join(REPO, "src"), base=base, kill_after=14))
+    proc = subprocess.run([sys.executable, str(script)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == -signal.SIGKILL, proc.stderr[-2000:]
+    assert session_rotation(base), "no snapshot survived the kill"
+
+    svc = StudyService.restore_latest(SearchPlanDB(), base,
+                                      SimulatedTrainer(horizon=80))
+    got = svc.close()
+    assert det(got) == det(ref)
+    assert {k: (v.gpu_seconds, v.steps_run, v.instant_results)
+            for k, v in got.by_study.items()} == \
+           {k: (v.gpu_seconds, v.steps_run, v.instant_results)
+            for k, v in ref.by_study.items()}
+    jax_ref, _, _ = run_session(None, n_workers=2, C=R, tuners=RT)
+    assert fields(det(got)) == fields(det(jax_ref))
+
+
+def _handles_sigterm(pid):
+    """Has process ``pid`` installed a SIGTERM handler yet (Linux
+    ``SigCgt``)?"""
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("SigCgt:"):
+                return bool(int(line.split()[1], 16)
+                            & (1 << (signal.SIGTERM - 1)))
+    return False
+
+
+def test_sigterm_graceful_shutdown_snapshot(tmp_path):
+    """The launcher's SIGTERM handler takes a final gateway snapshot to
+    --session before exiting; it resumes to the uninterrupted totals, the
+    JAX package's service's too."""
+    from repro_torch.frontdoor import StudyGateway
+    from repro_torch.launch.serve_studies import _space as launcher_space
+
+    sess = str(tmp_path / "term.snap")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    argv = [sys.executable, "-m", "repro_torch.launch.serve_studies",
+            "--studies", "2", "--steps", "60", "--workers", "2",
+            "--arrival-gap", "600", "--sec-per-step", "10",
+            "--session", sess, "--throttle", "0.25"]
+    proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        # the handler is installed after the imports: signal once it is
+        deadline = time.monotonic() + 120
+        while not _handles_sigterm(proc.pid):
+            assert proc.poll() is None and time.monotonic() < deadline
+            time.sleep(0.05)
+        time.sleep(0.6)                    # a few throttled steps in
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, out[-2000:]
+    assert "SIGTERM: final snapshot" in out
+    assert os.path.exists(sess)
+
+    gw = StudyGateway.restore(
+        SearchPlanDB(), sess,
+        SimulatedTrainer(base_seconds_per_step=10.0, horizon=60))
+    gw.join()
+    [(_, got)] = gw.close()
+
+    def direct(C, tuners, space_fn):
+        svc = C.StudyService(C.SearchPlanDB(), C.SimulatedTrainer(
+            base_seconds_per_step=10.0, horizon=60), n_workers=2)
+        spec = C.StudySpec("resnet20", "cifar10", ("lr", "bs"))
+        for i in range(2):
+            svc.submit(spec, tuners.GridTuner(space_fn(i, 60).trials(60)),
+                       at=i * 600.0)
+        return svc.close()
+
+    from repro.launch.serve_studies import _space as ref_space
+    assert det(got) == det(direct(T, TT, launcher_space))
+    assert fields(det(got)) == fields(det(direct(R, RT, ref_space)))
+
+
+SERVE_FAULTS = ["serve_studies", "--studies", "2", "--workers", "4",
+                "--steps", "60", "--arrival-gap", "600",
+                "--sec-per-step", "10", "--inject-faults", "7",
+                "--fault-rates", "0.3,0.15,0.02"]
+
+
+def test_serve_studies_inject_faults(monkeypatch, capsys):
+    """The launcher's fault plane: it reports the faults it injected, and
+    every line it prints is the JAX package's launcher's."""
+    from repro.launch import serve_studies as ref_launcher
+    from repro_torch.launch import serve_studies
+
+    monkeypatch.setattr(sys, "argv", list(SERVE_FAULTS))
+    serve_studies.main()
+    out = capsys.readouterr().out
+    assert "fault plane:" in out
+    assert "served:" in out
+    ref_launcher.main()
+    assert capsys.readouterr().out == out
+
+
+def test_serve_studies_refuses_devices_per_worker(monkeypatch):
+    """Worker meshes are the mesh plane's (slice 8): refused before any
+    work starts, never ignored."""
+    from repro_torch.launch import serve_studies
+
+    monkeypatch.setattr(sys, "argv", ["serve_studies", "--studies", "1",
+                                      "--devices-per-worker", "2"])
+    monkeypatch.setattr(serve_studies, "StudyGateway", None)
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        serve_studies.main()

@@ -76,11 +76,15 @@ def test_ssd_modules_import_alone_without_jax_or_the_jax_package(module):
 
 @pytest.mark.parametrize("module", ["repro_torch.core.faults",
                                     "repro_torch.core.engine.session",
-                                    "repro_torch.frontdoor.snapshot_v5"])
+                                    "repro_torch.frontdoor.snapshot_v5",
+                                    "repro_torch.frontdoor.admission",
+                                    "repro_torch.frontdoor.leases",
+                                    "repro_torch.frontdoor.gateway",
+                                    "repro_torch.launch.serve_studies"])
 def test_fault_and_session_modules_import_alone_without_jax(module):
-    """The fault plane's and the session snapshots' modules, each imported
-    on its own in a fresh interpreter, before anything else of the
-    package."""
+    """The fault plane's, the session snapshots' and the front door's
+    modules, each imported on its own in a fresh interpreter, before
+    anything else of the package."""
     lines = run_walk(module, script=ALONE)
     assert lines["BAD"] == "[]"
     assert lines["TRITON"] == "False"

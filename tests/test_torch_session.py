@@ -464,8 +464,9 @@ def test_snapshot_holds_host_tensors_and_no_tensor_metrics(tmp_path):
 
 def test_restore_two_workers_and_refuse_meshes_and_leases():
     """A two-worker session restores (the rows' meshes are all None, so
-    the engine gets ``worker_meshes=None``); a row with a mesh or a
-    draining lease is refused, naming its slice."""
+    the engine gets ``worker_meshes=None``); a row with a mesh is refused,
+    naming its slice; a draining lease (the front door's) restores as
+    draining, under its captured id."""
     svc, state = _small_session()
     eng = restore_engine(state, SimulatedTrainer(horizon=80))
     assert len(eng.workers) == 2
@@ -476,26 +477,39 @@ def test_restore_two_workers_and_refuse_meshes_and_leases():
         restore_engine(meshed, SimulatedTrainer(horizon=80))
     _, leased = _small_session()
     leased.workers = [row[:7] + (True,) for row in leased.workers]
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        restore_engine(leased, SimulatedTrainer(horizon=80))
+    eng = restore_engine(leased, SimulatedTrainer(horizon=80))
+    assert [w.draining for w in eng.workers] == [True, True]
+    assert [w.wid for w in eng.workers] == [row[0] for row in leased.workers]
 
 
 def test_gateway_envelope_waits_for_the_front_door():
+    """The container's gateway kind, now that the front door is here: a
+    session encodes as ``session``, a gateway state as ``gateway`` and
+    decodes back to a ``GatewayState``; anything else is a TypeError."""
+    from repro_torch.frontdoor import GatewayState, StudyGateway
+
     _, state = _small_session()
     data = encode_snapshot(state)
     hdr, _ = _read_container(data)
     assert hdr["kind"] == "session"
 
-    class GatewayState:
+    class NotAState:
         pass
 
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        encode_snapshot(GatewayState())
+    with pytest.raises(TypeError):
+        encode_snapshot(NotAState())
     with pytest.raises(TypeError):
         encode_snapshot(object())
-    gw = data.replace(b'"kind": "session"', b'"kind": "gateway"', 1)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        decode_snapshot(gw)
+    gw = StudyGateway(SearchPlanDB(), SimulatedTrainer(horizon=80),
+                      n_slots=2)
+    gw.submit(SPEC, GridTuner(fault_space(1).trials(80)))
+    gw.step()
+    env = encode_snapshot(gw._capture())
+    assert _read_container(env)[0]["kind"] == "gateway"
+    back = decode_snapshot(env)
+    assert isinstance(back, GatewayState)
+    assert [k for k, _ in back.sessions] == [SPEC.key]
+    gw.close()
 
 
 def test_handles_and_futures_pickle_without_engine_or_service():
