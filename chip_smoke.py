@@ -226,14 +226,40 @@ Phases, each printing one JSON line:
    to the uninterrupted gateway run's, B1 before + after = uninterrupted;
    ``StudyService.restore`` refuses the envelope.  Each study alone too:
    the merged run's steps beside the sum of the two.
-23. last lines  — the script's run time and each phase's seconds, the card
+   Then ``serve_studies --workers 1`` (``main(argv, backend=...)``)
+   serving one ResNet56 study over a thread slot and over a one-device
+   mesh slot (``--devices-per-worker 1``): the count fields equal, B1 =
+   the device's steps in both (``gateway_serve_studies``).
+24. ``mesh_plane`` (run after ``gateway``) — phase 4's study on one
+   worker, a thread fleet against a one-device mesh fleet
+   (``worker_meshes=[WorkerMesh.build([0])]``), on the memory tier and on
+   a directory store, then over ``group_space`` with ``batch_siblings``
+   (the vectorised tier) on the memory tier: each pair's count fields
+   (``ckpt_loads`` included), held checkpoints, metrics, best trial and B1
+   launches equal (B1 = the device's steps solo); resumes served device
+   to device on the mesh fleet (``d2d_handoffs`` > 0), the store's reads
+   fewer by exactly the handoffs; the d2d cache's peak device bytes.
+25. ``launch_train`` (run after ``lm_study``) —
+   ``repro_torch.launch.train.main`` for qwen2-0.5b at full width, batch
+   4 × 1024: ``LAUNCH_STEPS`` (20) steps with the kernels, B1 = 20, B2 =
+   B3 = B4 = 480, all on the tensor cores, no fallback; its first 3 steps
+   again on the plain versions, each loss within ``LAUNCH_LOSS_RTOL``
+   (2^-8, one bf16 rounding) of the plain one; s/step and tokens/s.
+26. ``group_retry`` (run after ``lm_group_degraded``) — a retry that
+   crosses the group tiers on qwen2-0.5b, vectorised: a member of a
+   depth-2 group chain fails its second boundary's put after its first
+   committed and is retried solo; the run finishes with the bitwise retry
+   check unchanged (the committed boundary was taken back), the other
+   members' metrics bit-equal to the fault-free run's, the retried one's
+   within 2e-2; B1–B4 launches exact.
+27. last lines  — the script's run time and each phase's seconds, the card
    and its power limit, the
    ``kernels`` line (B1's tree kernel, B2–B6; with the grouped runs',
-   the fault plane's, the sessions', the gateway's and the degraded
-   runs' launches and the fold's checks) and ``{"ok": true, "device":
-   {...}}``.
+   the fault plane's, the sessions', the gateway's, the mesh plane's,
+   the launcher's, the retry's and the degraded runs' launches and the
+   fold's checks) and ``{"ok": true, "device": {...}}``.
 
-The solo studies of phases 4, 7, 10, 17, 19, 20 and 22 pass
+The solo studies of phases 4, 7, 10, 17, 19, 20, 22 and 24 pass
 ``batch_siblings=False``: their launch counts are those of PRs 11–17.
 
 Any failed check raises; nothing is caught and passed over.  The script
@@ -3285,7 +3311,8 @@ def gateway_phase(root):
           "best_trials": ref["best"]})
     shutil.rmtree(d)
     return {"gateway": launches, "before_snapshot": before,
-            "after_restore": child["launches"]}
+            "after_restore": child["launches"],
+            "serve_studies": serve_studies_meshes()}
 
 
 def group_fault():
@@ -3762,6 +3789,376 @@ def mamba2_group_study_phase(root):
     return launches
 
 
+# ------------------------ 24-27. the mesh plane, the launcher, cross-tier retry
+MESH = [0]                     # the one-device worker mesh: the card's id
+LAUNCH_STEPS, LAUNCH_PLAIN_STEPS = 20, 3
+# the launcher's kernel and plain paths differ only in rounding (bf16 p
+# and dS before their products, B1's fma contractions): each step's loss,
+# an f32 mean over 4,096 tokens, stays within one bf16 rounding of itself
+LAUNCH_LOSS_RTOL = 2.0 ** -8
+# the retried member of group_retry runs solo where its siblings ran on
+# the vectorised tier: qwen2's metrics differ by up to 3.53e-5 between the
+# tiers (ROADMAP queue C item 9); lm_group_study's tolerance
+GROUP_RETRY_METRIC_TOL = 2e-2
+
+
+def d2d_bytes(disp):
+    """Wrap ``disp._d2d_put`` to record the most device bytes and entries
+    the d2d cache held after any put; returns the live record."""
+    from repro_torch.utils.tree import tree_leaves
+    rec = {"peak_device_bytes": 0, "peak_entries": 0}
+    put = disp._d2d_put
+
+    def d2d_put(cid, state, worker):
+        put(cid, state, worker)
+        held = sum(x.numel() * x.element_size()
+                   for entry in disp._d2d.values()
+                   for x in tree_leaves(entry[0])
+                   if isinstance(x, torch.Tensor) and x.is_cuda)
+        rec["peak_device_bytes"] = max(rec["peak_device_bytes"], held)
+        rec["peak_entries"] = max(rec["peak_entries"], len(disp._d2d))
+
+    disp._d2d_put = d2d_put
+    return rec
+
+
+def mesh_study(example, backend, computed, meshes, store, space_fn,
+               siblings):
+    """Phase 4's SHA study (stage-based, one worker) over ``space_fn``
+    through ``Study.engine(worker_meshes=meshes)``; returns its record,
+    the count fields and B1's launches (held to the device's steps on the
+    solo path)."""
+    from repro_torch.core import SearchPlanDB, Study
+    db = SearchPlanDB()
+    study = Study.create(db, "resnet56", "synthetic-cifar", ("lr", "bs"))
+    tuner = example.RecordingSHATuner(
+        space_fn(RESNET_FULL["batch"]).trials(example.STEPS), min_steps=25,
+        max_steps=example.STEPS, eta=2)
+    b1_reset()             # before the engine: its kernel counts start here
+    eng = study.engine(backend, n_workers=1, store=store,
+                       batch_siblings=siblings, worker_meshes=meshes)
+    d2d = d2d_bytes(eng.dispatcher)
+    steps0 = computed["steps"]
+    t0 = time.perf_counter()
+    stats = eng.run([tuner])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = b1_read()
+    assert tuner.is_done() and tuner.best is not None
+    assert store.pending_writes == 0
+    assert launches == stats.kernel_calls, (launches, stats.kernel_calls)
+    if not siblings:
+        assert launches == computed["steps"] - steps0 == stats.steps_run, (
+            launches, computed["steps"] - steps0, stats.steps_run)
+    rec = plan_record(db.get(study.key), store, stats, [])
+    rec.update(best=tuner.best.trial_id, history=tuner.history, wall=wall,
+               launches=launches, d2d=d2d, stats=stats,
+               reads=stats.ckpt_disk_hits + stats.ckpt_mem_hits)
+    return rec
+
+
+def mesh_plane_phase(root):
+    """Phase 4's study on one worker, a thread fleet against a one-device
+    mesh fleet (``worker_meshes=[WorkerMesh.build([0])]``), on the memory
+    tier and on a directory store, then grouped (``group_space``,
+    ``batch_siblings=True``, the vectorised tier) on the memory tier:
+    each pair bit-equal — count fields (``ckpt_loads`` included), held
+    checkpoints, metrics, best trial, B1 launches (= device steps solo) —
+    with resumes served device to device on the mesh fleet
+    (``d2d_handoffs`` > 0) and the store's reads fewer by exactly the
+    handoffs; prints the d2d cache's peak device bytes.  Returns B1's
+    launches."""
+    import torch_hpo_resnet as example
+    from repro_torch.dist.meshes import WorkerMesh
+    from repro_torch.train.checkpoint import CheckpointStore
+    d = os.path.join(root, "mesh_plane")
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    computed = device_steps(backend)
+    fleets = {"thread": None, "mesh": [WorkerMesh.build(MESH)]}
+    rows, launches = {}, {}
+    for tier, space_fn, siblings in (("memory", example.space, False),
+                                     ("directory", example.space, False),
+                                     ("grouped", example.group_space, True)):
+        runs = {}
+        for fleet, meshes in fleets.items():
+            store = (CheckpointStore(os.path.join(d, fleet))
+                     if tier == "directory" else CheckpointStore())
+            runs[fleet] = mesh_study(example, backend, computed, meshes,
+                                     store, space_fn, siblings)
+            del store
+            free()
+        t, m = runs["thread"], runs["mesh"]
+        st_t, st_m = t["stats"], m["stats"]
+        assert m["counts"] == t["counts"], (m["counts"], t["counts"])
+        assert m["digests"] == t["digests"], \
+            "a held checkpoint differs from the thread fleet's"
+        assert m["metrics"] == t["metrics"] and m["history"] == t["history"]
+        assert m["best"] == t["best"] and m["launches"] == t["launches"]
+        assert st_m.mesh_placements > 0 and st_t.mesh_placements == 0
+        assert st_m.d2d_handoffs > 0 and st_t.d2d_handoffs == 0
+        assert t["reads"] - m["reads"] == st_m.d2d_handoffs, (
+            t["reads"], m["reads"], st_m.d2d_handoffs)
+        if siblings:
+            assert st_m.batched_groups >= 1
+        rows[tier] = {
+            "space": space_fn.__name__, "batch_siblings": siblings,
+            "counts": m["counts"], "best_trial": m["best"],
+            "checkpoints_held": len(m["digests"]),
+            "b1_launches": m["launches"],
+            "mesh_placements": st_m.mesh_placements,
+            "placement_rejections": st_m.placement_rejections,
+            "d2d_handoffs": st_m.d2d_handoffs,
+            "store_reads": {"thread": t["reads"], "mesh": m["reads"]},
+            "ckpt_load_seconds": {"thread": st_t.ckpt_load_seconds,
+                                  "mesh": st_m.ckpt_load_seconds},
+            "d2d_peak_device_bytes": m["d2d"]["peak_device_bytes"],
+            "d2d_peak_entries": m["d2d"]["peak_entries"],
+            "wall_seconds": {"thread": t["wall"], "mesh": m["wall"]}}
+        launches[tier] = m["launches"]
+    shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "mesh_plane", "model": "ResNet(n=9, width=16)",
+          "batch": RESNET_FULL["batch"], "workers": 1,
+          "mesh": {"device_ids": MESH, "axes": [["data", 1]]},
+          "tiers": rows, "bit_equal_to_thread_fleet": True,
+          "b1_launches_equal_device_steps": True,
+          "store_reads_fall_by_handoffs": True})
+    return launches
+
+
+def launch_train_phase():
+    """``repro_torch.launch.train.main`` for qwen2-0.5b at full width,
+    batch 4 × 1024: ``LAUNCH_STEPS`` steps with the kernels (B1 once a
+    step, B2 / B3 / B4 once a layer a step, all on the tensor cores, no
+    fallback), then its first ``LAUNCH_PLAIN_STEPS`` steps again on the
+    plain versions (no launch): each step's loss within
+    ``LAUNCH_LOSS_RTOL`` of the plain one.  Returns the kernels' run's
+    launches."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as launcher
+    counters = lm_counters()
+    tc = counters[2:5]
+    argv = ["--arch", "qwen2-0.5b", "--batch", str(LM_FULL["batch"]),
+            "--seq", str(LM_FULL["seq_len"])]
+    runs = {}
+    for label, extra in (("kernels", ["--steps", str(LAUNCH_STEPS)]),
+                         ("plain", ["--steps", str(LAUNCH_PLAIN_STEPS),
+                                    "--no-use-kernel"])):
+        for c in counters:                       # counts to 0 just before
+            c.launches = 0
+        tc0 = [c.launches_tc for c in tc]
+        kops.reset_kernel_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = launcher.main(argv + extra)
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+        out["all_launches"] = {c.__name__: c.launches for c in counters}
+        out["launches_tc"] = [c.launches_tc - t for c, t in zip(tc, tc0)]
+        runs[label] = out
+        free()
+    k, p = runs["kernels"], runs["plain"]
+    L, n = 24, LAUNCH_STEPS
+    assert k["launches"] == {"B1": n, "B2": L * n, "B3": L * n,
+                             "B4": L * n}, k["launches"]
+    assert k["all_launches"] == {
+        "stacked_tree_update": n, "stacked_leaf_update": 0,
+        "flash_attention_fwd": L * n, "flash_attention_bwd_dq": L * n,
+        "flash_attention_bwd_dkv": L * n, "ssd_intra_fwd": 0,
+        "ssd_intra_bwd": 0}, k["all_launches"]
+    assert k["launches_tc"] == [L * n] * 3, k["launches_tc"]
+    assert k["kernel_fallbacks"] == 0 and k["kernel_calls"] == n * (1 + L)
+    assert p["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    assert set(p["all_launches"].values()) == {0}
+    assert p["kernel_calls"] == p["kernel_fallbacks"] == 0
+    losses = np.array(k["losses"])
+    assert np.isfinite(losses).all() and len(losses) == n
+    ratios = [abs(a - b) / (LAUNCH_LOSS_RTOL * abs(b))
+              for a, b in zip(k["losses"], p["losses"])]
+    assert max(ratios) <= 1.0, (k["losses"][:3], p["losses"], ratios)
+    emit({"phase": "launch_train", "entry": "repro_torch.launch.train.main",
+          "model": "qwen2-0.5b", "dtype": "bfloat16", "layers": L,
+          "batch": LM_FULL["batch"], "seq_len": LM_FULL["seq_len"],
+          "device": k["device"], "steps": n,
+          "seconds_per_step": k["seconds_per_step"],
+          "tokens_per_s": k["tokens_per_s"],
+          "first_step_seconds": k["step_seconds"][0],
+          "wall_seconds": {"kernels": k["wall"], "plain": p["wall"]},
+          "plain_seconds_per_step": p["seconds_per_step"],
+          "launches": k["launches"], "launches_tc": k["launches_tc"],
+          "kernel_calls": k["kernel_calls"],
+          "kernel_fallbacks": k["kernel_fallbacks"],
+          "losses": k["losses"], "plain_losses": p["losses"],
+          "loss_rtol": LAUNCH_LOSS_RTOL,
+          "loss_difference_over_tolerance": ratios})
+    return k["launches"]
+
+
+def boundary_outage(step):
+    """A fault injector that, from the first batched-group attempt on,
+    fails the first put of a boundary at ``step`` (a chain's second
+    boundary, after its first committed) and nothing else."""
+    from repro_torch.core.faults import FaultInjector, StoreOutageError
+
+    class BoundaryOutage(FaultInjector):
+        def __init__(self):
+            super().__init__(0)
+            self._armed, self._left = False, 1
+
+        def before_execute(self, site):
+            if site.startswith(("group:", "group-chain:")):
+                self._armed = True
+
+        def on_store_op(self, op, key):
+            if (self._armed and self._left and op == "put"
+                    and key.endswith(f"@{step}")):
+                self._left = 0
+                self._record("outage", f"{op}:{key}")
+                raise StoreOutageError(f"injected store outage at {key}")
+
+    return BoundaryOutage()
+
+
+def group_retry_phase(backend):
+    """A retry that crosses the group tiers, on qwen2-0.5b at full width
+    on the vectorised tier (``backend``: lm_group_study's trainer): three
+    siblings forked at step 2 whose chains run 2 → 4 → 6, one worker, so
+    the first chain takes the prefix and one sibling and the other two run
+    as one depth-2 group chain; a store outage fails one member's put of
+    step 6 after its step-4 put committed.  The member is retried solo;
+    its committed boundary was taken back, so the run finishes with the
+    bitwise retry check unchanged (no re-put verified, none failed).
+    Against the fault-free run: the same ``steps_run`` and evaluations,
+    the other members' metrics bit-equal, the retried member's within the
+    tiers' tolerance; B1–B4 launches exact.  Returns the launches."""
+    from repro_torch.core import (Constant, HpConfig, MultiStep,
+                                  SearchPlanDB, StudyService, StudySpec,
+                                  Trial)
+    from repro_torch.core.tuners import GridTuner
+    from repro_torch.kernels import ops as kops
+    assert backend.vectorize_groups and not backend.batched_bitwise_solo
+    L = backend.task.cfg.num_layers
+    counters = lm_counters()
+    tc = counters[2:5]
+    spec = StudySpec("qwen2-0.5b", "synthetic-lm", ("lr", "bs"))
+    values = (6e-4, 1e-4, 3e-5)
+    runs = {}
+    for faulty in (False, True):
+        inj = boundary_outage(6) if faulty else None
+        trials = [Trial(HpConfig({"lr": MultiStep(3e-4, [2, 4],
+                                                  values=[3e-4, v, 1e-4]),
+                                  "bs": Constant(LM_FULL["batch"])}), 6)
+                  for v in values]
+        svc = StudyService(SearchPlanDB(), backend, n_workers=1,
+                           batch_siblings=True, fault_injector=inj)
+        for c in counters:
+            c.launches = 0
+        tc0 = [c.launches_tc for c in tc]
+        kops.reset_kernel_stats()
+        evals0 = backend.evaluations
+        t0 = time.perf_counter()
+        svc.submit(spec, GridTuner(trials))
+        stats = svc.close()
+        torch.cuda.synchronize()
+        plan = svc.engine.plan
+        runs[faulty] = dict(
+            stats=stats, wall=time.perf_counter() - t0, inj=inj,
+            launches={c.__name__: c.launches for c in counters},
+            launches_tc=[c.launches_tc - t for c, t in zip(tc, tc0)],
+            evals=backend.evaluations - evals0,
+            metrics={t.trial_id: plan.nodes[plan.trial_paths[t.trial_id][-1]]
+                     .metrics[6] for t in trials})
+        del svc, plan
+        free()
+    ref, got = runs[False], runs[True]
+    st, inj = got["stats"], got["inj"]
+    assert ref["stats"].batched_groups == st.batched_groups == 1
+    assert ref["stats"].stage_failures == 0
+    assert st.stage_failures == st.stage_retries == 1
+    assert st.groups_degraded == 0 and st.faults_injected == 1
+    assert [e["kind"] for e in inj.log] == ["outage"]
+    assert inj.log[0]["site"].endswith("@6")
+    assert inj.retries_verified == 0
+    assert st.steps_run == ref["stats"].steps_run == 6 + 2 * 4
+    assert got["evals"] == ref["evals"] == len(values)
+    for r, n in ((ref, 6 + 4), (got, 6 + 4 + 4)):   # + the solo retry
+        e = r["evals"]
+        assert r["launches"] == {
+            "stacked_tree_update": n, "stacked_leaf_update": 0,
+            "flash_attention_fwd": L * (n + e),
+            "flash_attention_bwd_dq": L * n,
+            "flash_attention_bwd_dkv": L * n,
+            "ssd_intra_fwd": 0, "ssd_intra_bwd": 0}, (r["launches"], n, e)
+        assert r["launches_tc"] == [L * (n + e), L * n, L * n]
+    diffs = {tid: max(abs(m[k] - ref["metrics"][tid][k]) for k in m)
+             for tid, m in got["metrics"].items()}
+    retried = [tid for tid, x in diffs.items() if x != 0.0]
+    assert len(retried) <= 1, diffs
+    assert max(diffs.values()) <= GROUP_RETRY_METRIC_TOL, diffs
+    emit({"phase": "group_retry", "model": "qwen2-0.5b",
+          "dtype": "bfloat16", "layers": L, "tier": "vectorised",
+          "chains": "prefix 0-2, siblings 2-4-6 (a depth-2 group chain of 2)",
+          "fault": inj.log[0], "stage_failures": st.stage_failures,
+          "stage_retries": st.stage_retries,
+          "retries_verified": inj.retries_verified,
+          "steps_run": st.steps_run, "evaluations": got["evals"],
+          "launches": {"fault_free": ref["launches"],
+                       "faulty": got["launches"]},
+          "launches_tc": {"fault_free": ref["launches_tc"],
+                          "faulty": got["launches_tc"]},
+          "metric_difference_by_trial": diffs,
+          "metric_tolerance": GROUP_RETRY_METRIC_TOL,
+          "retry_check": "bitwise, unchanged",
+          "wall_seconds": {"fault_free": ref["wall"], "faulty": got["wall"]}})
+    return {"fault_free": ref["launches"], "faulty": got["launches"]}
+
+
+def serve_studies_meshes():
+    """``serve_studies --workers 1`` serving one ResNet56 study (its own
+    grid at ``--steps 40``, the critical-path policy) over a thread slot
+    and over a one-device mesh slot (``--devices-per-worker 1``): the
+    count fields equal, B1 = the device's steps in both, mesh placements
+    and d2d handoffs only on the mesh slot.  Returns B1's launches."""
+    import torch_hpo_resnet as example
+    from repro_torch.launch import serve_studies
+    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    computed = device_steps(backend)
+    runs = {}
+    for dpw in (0, 1):
+        b1_reset()
+        steps0 = computed["steps"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            [(key, stats)] = serve_studies.main(
+                ["--studies", "1", "--workers", "1", "--steps", "40",
+                 "--policy", "critical_path", "--model", "resnet56",
+                 "--dataset", "synthetic-cifar", "--devices-per-worker",
+                 str(dpw)], backend=lambda: backend)
+        torch.cuda.synchronize()
+        launches = b1_read()
+        assert launches == stats.kernel_calls == \
+            computed["steps"] - steps0 == stats.steps_run, (
+                launches, stats.kernel_calls, stats.steps_run)
+        runs[dpw] = dict(stats=stats, launches=launches,
+                         wall=time.perf_counter() - t0)
+    t, m = runs[0]["stats"], runs[1]["stats"]
+    assert counts(m) == counts(t), (counts(m), counts(t))
+    assert m.mesh_placements > 0 and t.mesh_placements == 0
+    assert t.d2d_handoffs == 0
+    emit({"phase": "gateway_serve_studies",
+          "entry": "repro_torch.launch.serve_studies.main",
+          "argv": "--studies 1 --workers 1 --steps 40 --policy "
+                  "critical_path --devices-per-worker 0 | 1",
+          "model": "ResNet(n=9, width=16)", "counts": counts(m),
+          "mesh_placements": m.mesh_placements,
+          "d2d_handoffs": m.d2d_handoffs,
+          "counts_equal_to_thread_slot": True,
+          "b1_launches": {"thread": runs[0]["launches"],
+                          "mesh": runs[1]["launches"]},
+          "wall_seconds": {"thread": runs[0]["wall"],
+                           "mesh": runs[1]["wall"]}})
+    return {"thread": runs[0]["launches"], "mesh": runs[1]["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3822,6 +4219,7 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     fault_launches = timed("fault_plane", fault_plane_phase)     # 19
     session_launches = timed("session", session_phase, store_dir)  # 20
     gateway_launches = timed("gateway", gateway_phase, store_dir)  # 22
+    mesh_launches = timed("mesh_plane", mesh_plane_phase, store_dir)  # 24
     fa_rows = timed("attention_kernels", attention_phase, join_build)  # 6
     timed("lm_small", lm_small_phase, "lm_small", "qwen2-0.5b", (2, 200),
           4, True)
@@ -3829,6 +4227,10 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
                                 b1_resnet)                       # 7, 8
     for key in ("B2", "B3", "B4"):
         fa_rows[key]["launches"] = lm_launches[fa_rows[key]["name"]]
+    train_launches = timed("launch_train", launch_train_phase)   # 25
+    b1_row["launches_launch_train"] = train_launches["B1"]
+    for key in ("B2", "B3", "B4"):
+        fa_rows[key]["launches_launch_train"] = train_launches[key]
     emit({"phase": "free", "device_memory_allocated_bytes":
           torch.cuda.memory_allocated()})
     ssd_rows = timed("ssd_kernels", ssd_phase, join_build)       # 9
@@ -3864,9 +4266,16 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     d_launches = timed("lm_group_degraded", lm_group_degraded_phase,
                        lm_backend, lm_grouped)                   # 21
     del lm_grouped
+    r_launches = timed("group_retry", group_retry_phase, lm_backend)  # 26
+    b1_row["launches_group_retry"] = {
+        run: r["stacked_tree_update"] for run, r in r_launches.items()}
+    for key in ("B2", "B3", "B4"):
+        fa_rows[key]["launches_group_retry"] = {
+            run: r[fa_rows[key]["name"]] for run, r in r_launches.items()}
     b1_row["launches_fault_plane"] = fault_launches
     b1_row["launches_session"] = session_launches
     b1_row["launches_gateway"] = gateway_launches
+    b1_row["launches_mesh_plane"] = mesh_launches
     b1_row["launches_lm_group_degraded"] = {
         tier: r["stacked_tree_update"] for tier, r in d_launches.items()}
     for key in ("B2", "B3", "B4"):

@@ -88,19 +88,32 @@ class Aggregator:
         self.killed.add(trial_id)
         path = list(self.plan.trial_paths.get(trial_id, []))
         dead = self.plan.release_trial(trial_id)
-        # drop this trial's pending requests nobody else wants
+        self._drop_waiters(path, lambda h, t: t.trial_id == trial_id)
+        for nid in dead:
+            self._evict_node(nid)
+
+    def release(self, study_id: str, trial_id: str) -> None:
+        """One study lets go of a trial another live study still holds:
+        drop that study's waiters on the trial and the pending requests
+        nobody else wants; the trial and its nodes live on."""
+        self._drop_waiters(
+            list(self.plan.trial_paths.get(trial_id, [])),
+            lambda h, t: t.trial_id == trial_id and h.study_id == study_id)
+
+    def _drop_waiters(self, path, drop) -> None:
+        """Remove the waiters ``drop(handle, trial)`` selects from the
+        requests along ``path``, and withdraw each request left with no
+        waiter that is neither running nor satisfied."""
         for nid in path:
             node = self.plan.nodes[nid]
             for s in sorted(node.requests):
                 key = (nid, s)
                 ws = self.waiters.get(key)
                 if ws:
-                    ws[:] = [(h, t) for (h, t) in ws if t.trial_id != trial_id]
+                    ws[:] = [(h, t) for (h, t) in ws if not drop(h, t)]
                 if not ws and s not in node.running and s not in node.metrics:
                     self.plan.drop_request(nid, s)
                     self.waiters.pop(key, None)
-        for nid in dead:
-            self._evict_node(nid)
 
     # -------------------------------------------------------------- ckpt GC
     def _evict_node(self, nid: str) -> None:

@@ -63,13 +63,34 @@ attached, every re-put of a committed boundary is held bit for bit
 against the committed tree (:meth:`_assert_retry_identical`, read through
 the raw store, so it draws nothing from the fault schedule).
 
-Not in this package yet (the engine facade refuses the option): mesh
-workers with device-to-device handoff (ROADMAP queue A, slice 8).
+Cross-tier retries: on a backend whose group tier does not give solo
+bits (``batched_bitwise_solo`` false: TorchTrainer's vectorised tier), a
+unit that fails after some of its boundary puts committed takes those
+puts back (evicted; no event ever announced them), so its retry commits
+afresh on whichever tier runs it instead of re-putting a boundary the
+other tier committed — the retry check stays bitwise.
+
+Mesh workers: a worker may own a device set
+(:class:`~repro_torch.dist.meshes.WorkerMesh`).  Placement then goes
+through :meth:`Dispatcher._place`: workers whose mesh the backend rejects
+for the work (``backend.mesh_compatible`` — the divisibility gate) are
+skipped (``placement_rejections``), and among the compatible ones the
+scheduling policy's ``placement_hint`` picks narrow ("wide": sibling
+groups batch trials) or wide ("deep": solo chains shard the model).
+Boundary states of finished chains additionally populate a small
+host-local **d2d cache**: a resume whose producer ran on the same host is
+served by ``backend.device_transfer`` (``d2d_handoffs``; no store
+round-trip, same virtual-clock and ``ckpt_loads`` accounting), falling
+back to the store across hosts, after eviction, or when the backend
+declines.  An entry is the backend's own copy of the boundary state (a
+producing chain trains on from its carry), so a hit never hands out
+tensors another holder can change.
 """
 
 from __future__ import annotations
 
 import time as _time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -93,11 +114,14 @@ __all__ = ["Worker", "Dispatcher"]
 
 @dataclass
 class Worker:
-    """One thread worker: a single device slot on the local host."""
+    """One worker: a thread on the local device slot, or the owner of a
+    device set (``mesh``)."""
 
     wid: int
     busy_until: float = 0.0
     idle: bool = True
+    #: device set this worker owns (None = classic 1-slot thread worker)
+    mesh: Optional[Any] = None
     # ---- fault plane: crash record feeding quarantine (see
     # Dispatcher._crash_worker).  A quarantined worker simply stays
     # non-idle until its probation "idle" event fires — no placement-path
@@ -111,6 +135,14 @@ class Worker:
     # revocation lands exactly at a chain boundary, where the retry
     # machinery guarantees every boundary checkpoint is committed. ----
     draining: bool = False
+
+    @property
+    def host(self) -> str:
+        return self.mesh.host if self.mesh is not None else "host0"
+
+    @property
+    def devices(self) -> int:
+        return self.mesh.n_devices if self.mesh is not None else 1
 
 
 class Dispatcher:
@@ -141,6 +173,15 @@ class Dispatcher:
         # snapshot totals instead of clobbering them
         self._store_base = self._seed_store_base()
         self._kernel_base = self._kernel_counters()
+        # d2d handoff cache: boundary cid -> (state, producing host,
+        # producing wid); the wid lets a worker crash invalidate the
+        # boundary states its devices held.  Only active on mesh fleets, so
+        # thread-worker runs keep their store-counter behaviour bit for
+        # bit; transient by design (not snapshotted — a restored session
+        # falls back to the store).
+        self._d2d_enabled = any(w.mesh is not None for w in workers)
+        self._d2d: "OrderedDict[str, Tuple[Any, str, int]]" = OrderedDict()
+        self._d2d_cap = 16
         # ---- fault plane (failure domains; see core/faults.py) ----
         # Retry backoff runs on the VIRTUAL clock: a failed work unit keeps
         # its requests marked running (Algorithm 1 defers them), and a
@@ -285,16 +326,21 @@ class Dispatcher:
                     # refund the cut tail: it reschedules in a later round
                     self.scheduler.on_stages_unassigned(
                         self.plan, full[len(path):])
-            # thread workers are interchangeable: first idle one
-            worker = pool.pop(0)
-            status = self._execute_chain(path, worker, produced)
-            if status == "miss":
-                missed = True
-            elif status in ("deferred", "failed"):
-                # "failed": the unit failed before claiming the worker
-                # (resume-load outage) — the retry is scheduled and the
-                # worker can still host other work this round
-                pool.append(worker)
+            worker = self._place(pool, [path])
+            if worker is None:
+                # every compatible worker is busy — refund; the stages stay
+                # taken this round and re-extract in a later one
+                self.scheduler.on_stages_unassigned(self.plan, path)
+            else:
+                pool.remove(worker)
+                status = self._execute_chain(path, worker, produced)
+                if status == "miss":
+                    missed = True
+                elif status in ("deferred", "failed"):
+                    # "failed": the unit failed before claiming the worker
+                    # (resume-load outage) — the retry is scheduled and the
+                    # worker can still host other work this round
+                    pool.append(worker)
             if not pending:
                 refill()
         return missed and any(w.idle and not w.draining
@@ -303,9 +349,9 @@ class Dispatcher:
     def _group_pass(self, tree, idle: List[Worker],
                     produced: Dict[str, Tuple[Any, float, Optional[str]]],
                     taken: set) -> Tuple[List[Worker], bool]:
-        """Execute the round's sibling groups, each on the first idle
-        worker; returns the workers still idle and whether a resume
-        checkpoint was missed."""
+        """Execute the round's sibling groups, each on the worker
+        :meth:`_place` picks; returns the workers still idle and whether a
+        resume checkpoint was missed."""
         if self.chain_fusion:
             # groups extend down parallel chains with identical per-stage
             # signatures; the per-dispatch work cap applies to them like
@@ -324,12 +370,60 @@ class Dispatcher:
         for group in groups:
             if not idle:
                 break
-            worker = idle[0]
+            worker = self._place(idle, group)
+            if worker is None:
+                # no compatible idle worker: the stages were never claimed
+                # and fall through to the chain pass / a later round
+                continue
             ran, miss = self._execute_group(group, worker, produced, taken)
             missed |= miss
             if ran:
                 idle.remove(worker)
         return idle, missed
+
+    # -------------------------------------------------------------- placement
+    def _place(self, candidates: List[Worker],
+               chains: List[List[Stage]]) -> Optional[Worker]:
+        """Pick a worker for one work unit (a chain, or a sibling-chain
+        group) from ``candidates``: drop mesh workers the backend rejects
+        for this work (``placement_rejections``), then let the scheduling
+        policy's placement hint trade batch width against shard width.
+        Ties resolve to the earliest candidate, so a homogeneous fleet
+        places exactly like the classic first-idle dispatcher.
+
+        Rejection redirects work when an alternative exists; when EVERY
+        candidate is rejected the narrowest one hosts the work anyway
+        (replicated on a mesh it cannot shard over) — an all-incompatible
+        fleet must degrade, not starve the plan."""
+        ctxs = [self._ctx_for(st) for chain in chains for st in chain]
+        eligible = []
+        for w in candidates:
+            if w.mesh is not None and not self.backend.mesh_compatible(
+                    w.mesh, ctxs):
+                self.stats.placement_rejections += 1
+                continue
+            eligible.append(w)
+        if not eligible:
+            return min(candidates, key=lambda w: w.devices)
+        hint = self.scheduler.placement_hint(self.plan, chains, eligible)
+        if hint == "wide":
+            return min(eligible, key=lambda w: w.devices)
+        if hint == "deep":
+            return max(eligible, key=lambda w: w.devices)
+        return eligible[0]
+
+    def _worker_gpus(self, worker: Worker) -> int:
+        """Accounting width of a worker: its mesh size, or the engine-wide
+        ``gpus_per_worker`` for thread workers."""
+        return (worker.mesh.n_devices if worker.mesh is not None
+                else self.gpus_per_worker)
+
+    def _bind(self, worker: Worker) -> None:
+        """Claim ``worker`` for a unit and bind the backend to its mesh."""
+        worker.idle = False
+        self.backend.set_mesh(worker.mesh)
+        if worker.mesh is not None:
+            self.stats.mesh_placements += 1
 
     def _truncate(self, path: List[Stage]) -> List[Stage]:
         out, steps = [], 0
@@ -341,7 +435,8 @@ class Dispatcher:
         return out
 
     # ---------------------------------------------------------- resume input
-    def _load_resume(self, nid: str, step: int
+    def _load_resume(self, nid: str, step: int,
+                     worker: Optional[Worker] = None
                      ) -> Optional[Tuple[Any, str]]:
         """(state, cid) of checkpoint (node, step), or None after degrading
         a vanished checkpoint to recompute: count the miss and make the
@@ -349,10 +444,23 @@ class Dispatcher:
         request.  A checkpoint the plan no longer lists (already forgotten
         earlier this round) is not a fresh miss — one eviction counts once.
         The cid rides along as the fork-point parent of the chain's first
-        boundary checkpoint."""
+        boundary checkpoint.
+
+        On mesh fleets, a boundary state produced on ``worker``'s host is
+        served device-to-device (``backend.device_transfer``) with no
+        store round-trip; the virtual-clock and ``ckpt_loads`` accounting
+        is the caller's and stays identical either way."""
         cid = self.plan.node(nid).ckpts.get(step)
         if cid is None:
             return None
+        if self._d2d_enabled and worker is not None:
+            entry = self._d2d.get(cid)
+            if entry is not None and entry[1] == worker.host:
+                moved = self.backend.device_transfer(entry[0], worker.mesh)
+                if moved is not None:
+                    self._d2d.move_to_end(cid)
+                    self.stats.d2d_handoffs += 1
+                    return moved, cid
         t0 = _time.perf_counter()
         try:
             return self.store.get(cid), cid
@@ -363,6 +471,34 @@ class Dispatcher:
         self.stats.ckpt_misses += 1
         self.plan.forget_ckpt(nid, step)
         return None
+
+    def _d2d_put(self, cid: str, state: Any, worker: Worker) -> None:
+        """Retain a copy of a boundary state for host-local handoff
+        (LRU-bounded; content addressing keeps a stale entry harmless —
+        the plan simply stops asking for its cid).  The copy is the
+        backend's ``device_transfer`` to the producing worker's mesh; a
+        backend that declines caches nothing."""
+        if not self._d2d_enabled:
+            return
+        copy = self.backend.device_transfer(state, worker.mesh)
+        if copy is None:
+            return
+        self._d2d[cid] = (copy, worker.host, worker.wid)
+        self._d2d.move_to_end(cid)
+        while len(self._d2d) > self._d2d_cap:
+            self._d2d.popitem(last=False)
+
+    def _take_back(self, cids: List[str]) -> None:
+        """A failed unit's committed but unannounced boundary puts, on a
+        backend whose group and solo tiers differ in bits: evict them (and
+        their d2d copies), so the retry — on either tier — commits afresh
+        instead of re-putting a boundary the other tier committed.  On a
+        bitwise backend the re-put stays, and is verified."""
+        if self.backend.batched_bitwise_solo:
+            return
+        for cid in cids:
+            self.store.evict(cid)
+            self._d2d.pop(cid, None)
 
     def _put_boundary(self, path_key: str, stop: int, state: Any,
                       parent_cid: Optional[str] = None) -> str:
@@ -462,10 +598,13 @@ class Dispatcher:
     def _crash_worker(self, worker: Worker, t_fail: float) -> float:
         """Record one crash; returns the virtual time the worker rejoins
         the pool.  Repeat crashers are quarantined with exponentially
-        growing (capped) probation.  Quarantine is just a delayed idle
-        event, so it always expires — probation re-admission is the
+        growing (capped) probation; any boundary states their devices held
+        in the d2d cache are invalidated.  Quarantine is just a delayed
+        idle event, so it always expires — probation re-admission is the
         default, and a worker that then succeeds clears its record."""
         worker.failures += 1
+        for cid in [c for c, e in self._d2d.items() if e[2] == worker.wid]:
+            del self._d2d[cid]
         if worker.failures < self.quarantine_after:
             return t_fail
         worker.times_quarantined += 1
@@ -565,14 +704,14 @@ class Dispatcher:
         head = path[0]
         t = max(self.events.time, worker.busy_until)
         load_s, save_s = self.backend.overheads()
-        gpus = self.gpus_per_worker
+        gpus = self._worker_gpus(worker)
 
         # ------- input state (parent_cid = the fork-point checkpoint of
         # the chain's first boundary)
         if head.resume is not None:
             nid, step = head.resume
             try:
-                loaded = self._load_resume(nid, step)
+                loaded = self._load_resume(nid, step, worker)
             except Exception as exc:
                 # store outage (or kin) on the resume load: the worker was
                 # never claimed — refund, schedule the retry, keep the
@@ -606,7 +745,7 @@ class Dispatcher:
             state = self.backend.init_state()
             parent_cid = None
 
-        worker.idle = False
+        self._bind(worker)
         if self.chain_fusion:
             self._run_chain_fused(path, worker, state, t, produced,
                                   parent_cid)
@@ -653,6 +792,7 @@ class Dispatcher:
                 self.plan.record_profile(
                     st.node_id, (sim if sim is not None else wall) / st.steps)
             parent_cid = cid
+            self._d2d_put(cid, state, worker)
             produced[st.stage_id] = (state, t, cid)
             self.events.push(t, "stage", {
                 "node_id": st.node_id, "stop": st.stop, "cid": cid,
@@ -689,22 +829,23 @@ class Dispatcher:
         checkpoints — with per-stage events, profiles and virtual durations
         identical in structure to the unfused loop."""
         _, save_s = self.backend.overheads()
-        gpus = self.gpus_per_worker
+        gpus = self._worker_gpus(worker)
         ctxs = [self._ctx_for(st) for st in path]
         self.plan.mark_running([Request(st.node_id, st.stop) for st in path])
 
         comp0 = getattr(self.backend, "compile_seconds", 0.0)
         save0 = self.stats.ckpt_save_seconds
         wall0 = _time.perf_counter()
+        cids: List[str] = []
         try:
             bstates, fused = self._stages_of(path, ctxs, state)
             # boundary checkpoints enter the pending cache here
             # (write-behind); the enqueue slice is measured and subtracted
             # from the wall below
-            cids = []
             for st, ctx, s in zip(path, ctxs, bstates):
                 cid = self._put_boundary(ctx.path_key, st.stop, s,
                                          parent_cid=parent_cid)
+                self._d2d_put(cid, s, worker)
                 cids.append(cid)
                 parent_cid = cid
             metrics_l = [self.backend.evaluate(s, ctx) if st.report else None
@@ -712,7 +853,9 @@ class Dispatcher:
         except Exception as exc:
             # whole-chain failure domain: the attempt (and any boundary
             # that did commit — content addressing makes the re-put a
-            # verified no-op) retries from the chain's fork point
+            # verified no-op, or it is taken back) retries from the
+            # chain's fork point
+            self._take_back(cids)
             waste = self._waste_of(path, _time.perf_counter() - wall0, gpus)
             self._fail_unit(worker, path, exc, t, waste,
                             release_worker=True)
@@ -768,7 +911,7 @@ class Dispatcher:
         a crash or a fatal fault fails it whole."""
         t = max(self.events.time, worker.busy_until)
         load_s, save_s = self.backend.overheads()
-        gpus = self.gpus_per_worker
+        gpus = self._worker_gpus(worker)
         missed = False
         members: List[List[Stage]] = []
         states: List[Any] = []
@@ -788,7 +931,7 @@ class Dispatcher:
                     state = self.backend.clone_state(loaded[cid])
                 else:
                     try:
-                        got = self._load_resume(nid, step)
+                        got = self._load_resume(nid, step, worker)
                     except Exception as exc:
                         # store outage on one member's resume load: fail
                         # that member alone (refund + retry); the group
@@ -828,7 +971,7 @@ class Dispatcher:
                 taken.add(st.stage_id)
         self.plan.mark_running([Request(st.node_id, st.stop)
                                 for chain in members for st in chain])
-        worker.idle = False
+        self._bind(worker)
 
         comp0 = getattr(self.backend, "compile_seconds", 0.0)
         save0 = self.stats.ckpt_save_seconds
@@ -883,22 +1026,25 @@ class Dispatcher:
         # member threads its own parent down its chain, so every sibling
         # deltas against the shared fork point and then its own boundary.
         # A member whose put fails (store outage) is failed alone — its
-        # computed state is waste, the survivors keep their results.
+        # computed state is waste, the survivors keep their results; the
+        # member's earlier puts are taken back where the tiers differ.
         ok: List[int] = []
         cids: List[List[str]] = []
         metrics_l: List[List[Any]] = []
         for i, (chain, ctxs, out, pcid) in enumerate(
                 zip(members, ctx_chains, outs, parents)):
+            member_cids: List[str] = []
             try:
-                member_cids = []
                 for st, ctx, s in zip(chain, ctxs, out):
                     pcid = self._put_boundary(ctx.path_key, st.stop, s,
                                               parent_cid=pcid)
+                    self._d2d_put(pcid, s, worker)
                     member_cids.append(pcid)
                 member_metrics = [
                     self.backend.evaluate(s, ctx) if st.report else None
                     for st, ctx, s in zip(chain, ctxs, out)]
             except Exception as exc:
+                self._take_back(member_cids)
                 self._fail_unit(worker, chain, exc, t,
                                 self._waste_of(chain, 0.0, gpus),
                                 release_worker=False)
@@ -987,7 +1133,7 @@ class Dispatcher:
         A solo run is the looped tier's computation: bit-equal to the
         group on the looped tier, not in general on the vectorised one
         (a member-stacked product sums in another order)."""
-        gpus = self.gpus_per_worker
+        gpus = self._worker_gpus(worker)
         ok_m, ok_s, ok_p, ok_c, ok_o = [], [], [], [], []
         crash_rejoin: Optional[float] = None
         for chain, s, pcid, ctxs in zip(members, states, parents,

@@ -64,9 +64,11 @@ backend and store.  The worker fleet is dynamic: the front door's lease
 manager grows it (:meth:`add_worker`, a ``wake`` event that cannot fire
 before the grant's time) and shrinks it (:meth:`remove_worker`: an idle
 worker leaves at once, a busy one drains to its chain boundary), so
-workers are keyed by id, never by list position.  Mesh workers
-(``worker_meshes=``, ``add_worker(mesh=...)``) are not in this package
-yet and raise ``NotImplementedError`` (ROADMAP queue A, slice 8).
+workers are keyed by id, never by list position.  A worker may own a
+device set (``worker_meshes=``, ``add_worker(mesh=...)``: a
+:class:`~repro_torch.dist.meshes.WorkerMesh`); the backend refuses a mesh
+it can never run (:meth:`TrainerBackend.check_mesh`) before the worker
+joins.
 """
 
 from __future__ import annotations
@@ -87,6 +89,7 @@ from repro_torch.core.trial import Trial
 from repro_torch.train.checkpoint import CheckpointStore
 
 __all__ = ["ExecutionEngine", "Tuner", "StudyHandle", "EngineStats",
+           "check_fleet",
            "StudyStats"]
 
 
@@ -225,6 +228,15 @@ class EngineStats:
         return self.by_study.setdefault(study_id, StudyStats())
 
 
+def check_fleet(backend: TrainerBackend, meshes: Sequence) -> None:
+    """Refuse, before any work starts, a fleet whose meshes ``backend``
+    can never run (:meth:`TrainerBackend.check_mesh`; ``None`` is a thread
+    worker)."""
+    for m in meshes:
+        if m is not None:
+            backend.check_mesh(m)
+
+
 class ExecutionEngine:
     def __init__(self, plan: SearchPlan, backend: TrainerBackend,
                  n_workers: int = 4, gpus_per_worker: int = 1,
@@ -236,12 +248,14 @@ class ExecutionEngine:
                  chain_fusion: Optional[bool] = None,
                  worker_meshes: Optional[Sequence] = None,
                  fault_injector=None):
-        # an option whose machinery this package does not have yet is
-        # refused, never accepted and ignored
-        if worker_meshes is not None:
-            raise NotImplementedError(
-                "worker_meshes= needs the mesh plane, which repro_torch does "
-                "not have yet (ROADMAP queue A, slice 8)")
+        # worker_meshes: per-worker WorkerMesh descriptors (None entries =
+        # thread workers); shorter lists pad with None
+        meshes = list(worker_meshes or [])
+        if len(meshes) > n_workers:
+            raise ValueError(
+                f"{len(meshes)} worker meshes for {n_workers} workers")
+        meshes += [None] * (n_workers - len(meshes))
+        check_fleet(backend, meshes)
         # fault plane: wrap backend and store in the injector's fault
         # surface BEFORE anything reads capability flags or touches the
         # store — the whole engine then sees the faulty views, and the
@@ -251,7 +265,7 @@ class ExecutionEngine:
         self.fault_injector = fault_injector
         self.plan = plan
         self.backend = backend
-        self.workers = [Worker(i) for i in range(n_workers)]
+        self.workers = [Worker(i, mesh=m) for i, m in enumerate(meshes)]
         self._next_wid = n_workers    # ids are never reused (dynamic fleets)
         self.gpus_per_worker = gpus_per_worker
         self.scheduler = scheduler or CriticalPathScheduler()
@@ -321,16 +335,15 @@ class ExecutionEngine:
         The worker is idle immediately but cannot *start* work before
         ``at`` (default: now) — ``busy_until`` gates its first chain, so a
         worker leased over from another session at global time T does not
-        retroactively compute in the past.  A worker with a device mesh
-        needs the mesh plane (ROADMAP queue A, slice 8) and is refused."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a worker mesh needs the mesh plane, which repro_torch does "
-                "not have yet (ROADMAP queue A, slice 8)")
+        retroactively compute in the past.  A mesh the backend can never
+        run is refused before the worker joins."""
+        check_fleet(self.backend, [mesh])
         t = self.events.time if at is None else max(at, self.events.time)
-        w = Worker(self._next_wid, busy_until=t)
+        w = Worker(self._next_wid, busy_until=t, mesh=mesh)
         self._next_wid += 1
         self.workers.append(w)     # the dispatcher shares this list object
+        if mesh is not None:
+            self.dispatcher._d2d_enabled = True
         # a session that drained its event queue while starved of workers
         # has nothing left to trigger a dispatcher round — the grant itself
         # must be schedulable, or waiting stages would never start
@@ -425,7 +438,18 @@ class ExecutionEngine:
         self.aggregator.add_waiter(node.node_id, step, handle, trial)
 
     def _kill(self, handle: StudyHandle, trial: Trial) -> None:
-        self.aggregator.kill(trial.trial_id)
+        """A tuner stops a trial: the study lets go of it, and the trial
+        dies only when no other live study holds it — the check
+        :meth:`cancel_study` makes.  Two studies whose tuners submit the
+        same schedule share one trial id; the JAX package kills the trial
+        for both, and the study that promoted it then waits forever."""
+        tid = trial.trial_id
+        if (self.plan.studies_of_trial(tid) - self._cancelled
+                - {handle.study_id}):
+            self.plan.detach_study(tid, handle.study_id)
+            self.aggregator.release(handle.study_id, tid)
+        else:
+            self.aggregator.kill(tid)
 
     # ----------------------------------------------------------- cancellation
     def cancel_study(self, study_id: str) -> None:
@@ -456,7 +480,9 @@ class ExecutionEngine:
         elif ev.kind == "reply":
             handle, trial, step, metrics = ev.payload
             if (trial.trial_id not in self.aggregator.killed
-                    and handle.study_id not in self._cancelled):
+                    and handle.study_id not in self._cancelled
+                    and handle.study_id
+                    in self.plan.studies_of_trial(trial.trial_id)):
                 handle.tuner.on_result(trial, step, metrics)
         elif ev.kind == "idle":
             # keyed by wid, not list index: dynamic fleets (front-door

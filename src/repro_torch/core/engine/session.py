@@ -45,9 +45,9 @@ picklable, and their classes must live in ``repro_torch`` (the reader
 admits no other package's classes: a snapshot the JAX package wrote never
 imports it).  ``StudyHandle`` / ``StudyFuture`` drop their engine/service
 references when pickled and are re-wired on restore.  The worker rows keep
-the JAX package's eight columns; the mesh is always ``None`` here
-(slice 8), and a worker row carries its captured id and the front door's
-``draining`` flag, so a leased fleet with gaps in its ids and a lease
+the JAX package's eight columns — the mesh a
+:class:`~repro_torch.dist.meshes.WorkerMesh` or ``None`` —, and a worker
+row carries its captured id and the front door's ``draining`` flag, so a leased fleet with gaps in its ids and a lease
 being revoked restore as they were.
 """
 
@@ -136,7 +136,7 @@ def capture_session(engine, service: Optional[Dict[str, Any]] = None
         events=engine.events,
         scheduler=engine.scheduler,
         stats=engine.stats,
-        workers=[(w.wid, w.busy_until, w.idle, None, w.failures,
+        workers=[(w.wid, w.busy_until, w.idle, w.mesh, w.failures,
                   w.times_quarantined, w.quarantined_until, w.draining)
                  for w in engine.workers],
         waiters=engine.aggregator.waiters,
@@ -208,8 +208,7 @@ def restore_engine(state: SessionState, backend: TrainerBackend,
     KeyErrors.  Older snapshot formats are migrated forward (see
     :func:`migrate_session`).  Each worker is rebuilt under its captured
     id, draining or not (a leased fleet has gaps in its ids), and new ids
-    continue past the largest.  A row with a mesh cannot be restored here
-    (the engine refuses ``worker_meshes``, slice 8)."""
+    continue past the largest, each with its captured mesh."""
     from repro_torch.core.engine.engine import ExecutionEngine
 
     migrate_session(state)
@@ -218,8 +217,6 @@ def restore_engine(state: SessionState, backend: TrainerBackend,
     if state.store_mem is not None and not store.directory:
         store.load_trees(state.store_mem)
 
-    # all-None meshes are thread workers: worker_meshes=None (the engine
-    # refuses any list until the mesh plane, slice 8)
     meshes = [row[3] for row in state.workers]
     eng = ExecutionEngine(
         state.plan, backend, n_workers=state.n_workers,

@@ -47,6 +47,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 from repro_torch.core.db import SearchPlanDB, study_key
 from repro_torch.core.engine import (EngineStats, ExecutionEngine, StudyStats,
                                      Tuner)
+from repro_torch.core.engine.engine import check_fleet
 from repro_torch.core.engine.session import (SessionState, capture_session,
                                              load_latest_session,
                                              load_session, restore_engine,
@@ -155,9 +156,9 @@ class Study:
         carries + write-behind boundary checkpoints) on/off (defaults:
         whatever the backend supports).  ``fault_injector`` (a
         :class:`repro_torch.core.faults.FaultInjector`) wraps the backend
-        and store in the deterministic fault plane.  ``worker_meshes`` is
-        refused by the engine with ``NotImplementedError`` until the mesh
-        plane is ported (slice 8)."""
+        and store in the deterministic fault plane.  ``worker_meshes`` gives
+        workers device sets (:class:`repro_torch.dist.meshes.WorkerMesh`;
+        None entries = thread workers)."""
         return ExecutionEngine(
             self.db.get(self.key), backend, n_workers=n_workers,
             gpus_per_worker=gpus_per_worker,
@@ -277,6 +278,7 @@ class StudyService:
         self.batch_siblings = batch_siblings
         self.chain_fusion = chain_fusion
         self.worker_meshes = worker_meshes
+        check_fleet(backend, worker_meshes or [])
         self.fault_injector = fault_injector
         self._engine: Optional[ExecutionEngine] = None
         self._key: Optional[str] = None
@@ -535,6 +537,7 @@ class StudyService:
                   max_steps_per_chain=state.max_steps_per_chain,
                   batch_siblings=state.batch_siblings,
                   chain_fusion=state.chain_fusion,
+                  worker_meshes=[row[3] for row in state.workers],
                   fault_injector=fault_injector)
         svc._engine = eng
         svc._key = state.plan_key

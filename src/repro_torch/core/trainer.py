@@ -126,11 +126,48 @@ class TrainerBackend:
         """(checkpoint-load seconds, checkpoint-save seconds)."""
         return (0.0, 0.0)
 
+    #: True when every member of a batched group call gets the bits its
+    #: solo run would (a looped group tier, the simulator): a retry may then
+    #: re-put a boundary that the other tier committed.  A vectorised tier
+    #: (member-stacked products) clears it, and the dispatcher then takes
+    #: back the unannounced boundary puts of a unit that fails.
+    batched_bitwise_solo: bool = True
+
     def clone_state(self, state: Any) -> Any:
         """An independent copy of a state pytree, for a caller that hands
         one restored state to several consumers.  Backends that never
         mutate a leaf in place override with a cheap container copy."""
         return copy.deepcopy(state)
+
+    # ------------------------------------------------------- mesh protocol
+    def check_mesh(self, mesh: Any) -> None:
+        """Raise if this backend can never execute on ``mesh`` (a
+        :class:`repro_torch.dist.meshes.WorkerMesh`).  Called when a worker
+        with that mesh joins an engine, and by the gateway for its slots,
+        so a fleet the backend cannot run is refused before any work
+        starts.  Default: every mesh (the simulator schedules against
+        inert descriptors)."""
+
+    def set_mesh(self, mesh: Optional[Any]) -> None:
+        """Bind subsequent ``run_*`` calls to the dispatching worker's
+        device mesh, or reset with ``None``.  Host-only backends ignore
+        it — the dispatcher calls this before every execution, so it must
+        be cheap."""
+
+    def mesh_compatible(self, mesh: Any,
+                        ctxs: Sequence[StageContext]) -> bool:
+        """Can the work described by ``ctxs`` run on ``mesh``?  The
+        dispatcher skips incompatible workers during placement (counting
+        ``placement_rejections``).  Default: any mesh hosts any work."""
+        return True
+
+    def device_transfer(self, state: Any, mesh: Optional[Any]) -> Any:
+        """Device-to-device handoff of a boundary state to a worker bound
+        to ``mesh``, bypassing the checkpoint store.  Must return a state
+        no one else holds (a fresh copy on the mesh's device); return
+        ``None`` to decline — the dispatcher then falls back to the
+        store."""
+        return self.clone_state(state)
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 from repro_torch.core.db import SearchPlanDB
 from repro_torch.core.engine import EngineStats, StudyStats, Tuner
+from repro_torch.core.engine.engine import check_fleet
 from repro_torch.core.engine.session import (SESSION_FORMAT_VERSION,
                                        capture_session, load_latest_session,
                                        load_session, save_session,
@@ -142,9 +143,10 @@ class StudyGateway:
     """The front door: multi-tenant, multi-key study traffic over one
     worker fleet (see module docstring).
 
-    ``slot_meshes`` defines the fleet — one entry per worker slot, each
-    ``None`` (a thread worker on the local device; a mesh needs the mesh
-    plane, ROADMAP queue A, slice 8, and is refused); ``n_slots`` is
+    ``slot_meshes`` defines the fleet — one entry per worker slot
+    (``None`` = thread worker, or a
+    :class:`~repro_torch.dist.meshes.WorkerMesh`; a mesh the backend can
+    never run is refused here, before any work starts); ``n_slots`` is
     shorthand for ``[None] * n``.  Remaining keyword arguments are forwarded to each
     per-key :class:`StudyService` it spawns (policy, share,
     gpus_per_worker, ...).
@@ -162,10 +164,7 @@ class StudyGateway:
         elif n_slots is not None and n_slots != len(slot_meshes):
             raise ValueError(
                 f"n_slots={n_slots} but {len(slot_meshes)} slot meshes")
-        if any(m is not None for m in slot_meshes):
-            raise NotImplementedError(
-                "slot meshes need the mesh plane, which repro_torch does "
-                "not have yet (ROADMAP queue A, slice 8)")
+        check_fleet(backend, slot_meshes)
         self.db = db
         self.backend = backend
         self.fault_injector = fault_injector

@@ -1,10 +1,9 @@
 """Worker leases — one fleet, many sessions, boundary-safe rebalancing.
 
-The gateway owns a fixed fleet of worker *slots*; sessions own none.
-Every worker a session runs is a **lease** of one slot, granted and
-revoked here.  A slot's mesh descriptor is always ``None`` in this
-package — a thread worker on the local device — until the mesh plane is
-ported (ROADMAP queue A, slice 8).  The fault plane makes revocation
+The gateway owns a fixed fleet of worker *slots* (each optionally a
+:class:`~repro_torch.dist.meshes.WorkerMesh`); sessions own none.  Every
+worker a session runs is a **lease** of one slot, granted and revoked
+here, and carries its slot's mesh.  The fault plane makes revocation
 lossless: the engine only ever releases
 a worker at a *chain boundary* (``ExecutionEngine.remove_worker`` marks a
 busy worker draining; it departs when its idle event fires), and every

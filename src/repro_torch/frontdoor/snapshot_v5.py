@@ -110,7 +110,7 @@ class GatewayState:
     default_quota: Dict[str, Any]
     tenants: Dict[str, Dict[str, str]]           # plan key -> {study: tenant}
     sessions: List[Tuple[str, SessionState]]     # (key, state), creation order
-    slot_meshes: List[Any]                       # fleet slots (all None here)
+    slot_meshes: List[Any]                       # fleet slots (WorkerMesh|None)
     leases: List[Tuple[int, str, int, bool]]     # (slot, key, wid, draining)
     queued: List[Any]                            # admission.Submission objects
     retired: List[Tuple[str, Any, List[Any]]]    # (key, EngineStats, futures)
@@ -257,8 +257,9 @@ def _encode_session(state: SessionState) -> bytes:
     recs = _Records()
     recs.pickle("graph", {name: getattr(state, name)
                           for name in _SESSION_GRAPH})
-    # worker rows: typed scalars in the manifest, mesh objects in one
-    # aligned pickle record (all None here: slice 8)
+    # worker rows: typed scalars in the manifest, mesh objects (WorkerMesh
+    # descriptors with their ShardingRules, or None) in one aligned pickle
+    # record
     rows = [tuple(row) for row in state.workers]
     recs.pickle("worker_meshes", [row[3] for row in rows])
     manifest = {

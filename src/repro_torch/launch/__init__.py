@@ -1,6 +1,7 @@
-"""Launchers: ``serve_studies`` drives the front-door study gateway.
+"""Launchers: ``serve_studies`` drives the front-door study gateway,
+``train`` trains one architecture on the local mesh (``specs`` holds its
+input stand-ins).
 
-The JAX package's other launchers (``train``, ``dryrun``, ``hillclimb``,
-``specs``, ``mesh``) need the mesh plane and its sharding rules, and are
-ROADMAP queue A, slices 8 and 9.
+The JAX package's ``dryrun``, ``hillclimb`` and ``mesh`` are ROADMAP
+queue A, slice 9.
 """

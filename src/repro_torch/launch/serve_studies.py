@@ -27,9 +27,13 @@ Examples::
 snapshots the whole gateway envelope (every session + admission state +
 lease table), then **kills the live gateway** and finishes from the
 snapshot via ``StudyGateway.restore``.  Uses the simulator backend, so it
-touches no device; swap ``SimulatedTrainer`` for ``TorchTrainer`` to serve
-real training.  ``--devices-per-worker`` above 0 needs the mesh plane
-(ROADMAP queue A, slice 8) and is refused before any work starts.
+touches no device; a caller serves real training by passing
+``main(argv, backend=...)`` a factory of ``TorchTrainer`` s.
+``--devices-per-worker N`` gives every slot an ``N``-device
+:class:`~repro_torch.dist.meshes.WorkerMesh` (``plan_worker_meshes``); a
+backend that cannot run such a mesh (a ``TorchTrainer`` for ``N > 1``:
+sharded stage execution over several cards) refuses it before any work
+starts.
 
 The port of the JAX package's ``repro.launch.serve_studies``: the same
 flags and output lines.
@@ -47,6 +51,7 @@ from repro_torch.core import FaultInjector, SearchPlanDB, StudySpec
 from repro_torch.core.engine import session_rotation
 from repro_torch.core.trainer import SimulatedTrainer
 from repro_torch.core.tuners import GridSearchSpace, GridTuner
+from repro_torch.dist.meshes import plan_worker_meshes
 from repro_torch.core.hpseq import (Constant, Exponential, MultiStep, StepLR,
                                     Warmup)
 from repro_torch.frontdoor import StudyGateway, TenantQuota
@@ -175,7 +180,12 @@ def _store_factory(args):
     return factory
 
 
-def main() -> None:
+def main(argv=None, backend=None):
+    """Run the deployment the flags describe (``argv``, default
+    ``sys.argv[1:]``) and return the gateway's archive, ``[(plan key,
+    EngineStats)]``.  ``backend`` is a zero-argument factory of the
+    trainer each gateway (and each restore) runs over; default: the
+    simulator the flags configure."""
     ap = argparse.ArgumentParser(
         description="front-door study gateway under mixed multi-tenant "
                     "traffic (simulated backend)",
@@ -248,14 +258,14 @@ def main() -> None:
                          "demote to --remote-dir")
     ap.add_argument("--devices-per-worker", type=int, default=0,
                     help="give every worker slot a mesh of this many "
-                         "devices (0 = plain thread workers, the only kind "
-                         "this package has: above 0 is refused until the "
-                         "mesh plane, ROADMAP queue A, slice 8)")
+                         "devices (0 = plain thread workers).  The "
+                         "simulator accounts the mesh width; the PyTorch "
+                         "trainer runs a one-device mesh and refuses a "
+                         "wider one")
     ap.add_argument("--mesh-host", default="host0",
                     help="host label for the worker meshes (device-to-"
-                         "device checkpoint handoff is host-local; unused "
-                         "until the mesh plane, slice 8)")
-    args = ap.parse_args()
+                         "device checkpoint handoff is host-local)")
+    args = ap.parse_args(argv)
     if args.remote_dir and not args.ckpt_dir:
         ap.error("--remote-dir requires --ckpt-dir")
     if args.disk_capacity_mb and not args.remote_dir:
@@ -266,10 +276,6 @@ def main() -> None:
         ap.error("--snapshot-every requires --session PATH")
     if args.keys < 1:
         ap.error("--keys must be >= 1")
-    if args.devices_per_worker > 0:
-        raise NotImplementedError(
-            "--devices-per-worker needs the mesh plane, which repro_torch "
-            "does not have yet (ROADMAP queue A, slice 8)")
 
     try:
         quotas = dict(_parse_quota(q) for q in args.tenant_quota)
@@ -277,9 +283,10 @@ def main() -> None:
         ap.error(str(exc))
     tenants = sorted(quotas) or ["default"]
 
-    def backend():
-        return SimulatedTrainer(base_seconds_per_step=args.sec_per_step,
-                                horizon=args.steps)
+    if backend is None:
+        def backend():
+            return SimulatedTrainer(base_seconds_per_step=args.sec_per_step,
+                                    horizon=args.steps)
 
     def injector():
         if args.inject_faults is None:
@@ -291,6 +298,9 @@ def main() -> None:
                              crash_rate=crash, outage_rate=outage,
                              admission_fault_rate=admission)
 
+    meshes = (plan_worker_meshes(args.workers, args.devices_per_worker,
+                                 host=args.mesh_host)
+              if args.devices_per_worker > 0 else None)
     restored = False
     if args.session and session_rotation(args.session):
         # a prior --snapshot-every run left rotated snapshots: resume the
@@ -307,7 +317,8 @@ def main() -> None:
               f"{len(gw.futures)} studies attached)")
     else:
         gw = StudyGateway(SearchPlanDB(), backend(),
-                          n_slots=args.workers, quotas=quotas,
+                          n_slots=None if meshes else args.workers,
+                          slot_meshes=meshes, quotas=quotas,
                           max_concurrent=args.max_concurrent,
                           fault_injector=injector(),
                           store_factory=_store_factory(args),
@@ -372,6 +383,7 @@ def main() -> None:
             signal.signal(s, h)
     archive = gw.close()
     _report(gw, archive)
+    return archive
 
 
 if __name__ == "__main__":

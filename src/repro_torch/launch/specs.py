@@ -1,0 +1,57 @@
+"""Stand-ins for every model input: ``torch.device("meta")`` tensors.
+
+``input_specs`` mirrors what the data pipeline / serving frontend would
+feed each step: token ids for LM training, patch/frame embeddings for the
+vision / audio frontends, (cache, token, index) for decode.  Meta tensors
+carry a shape and a dtype and allocate nothing, so the sharding rules
+(:mod:`repro_torch.dist.sharding`) read them as they read real batches.
+Token ids are int64, the dtype the port's pipelines upload.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs import InputShape
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import DECODE_SLICE
+
+__all__ = ["input_specs", "batch_struct"]
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_struct(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
+    """Training/prefill batch for one global step."""
+    act = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cfg.frontend == "audio":
+        return {"features": _meta((batch, seq, cfg.frontend_dim), act),
+                "labels": _meta((batch, seq), torch.int64)}
+    if cfg.frontend == "vision":
+        P = cfg.frontend_tokens
+        if seq <= P:
+            raise ValueError(f"seq {seq} leaves no text after {P} patches")
+        return {"tokens": _meta((batch, seq - P), torch.int64),
+                "patches": _meta((batch, P, cfg.frontend_dim), act),
+                "positions": _meta((3, batch, seq), torch.int64)}
+    return {"tokens": _meta((batch, seq), torch.int64)}
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape
+                ) -> Tuple[str, Dict[str, Any]]:
+    """Returns (step kind, kwargs structs) for the shape's step.
+
+    * train_4k    → ``train_step(params, opt, batch, lr, step)``
+    * prefill_32k → ``prefill_step(params, batch)``
+    * decode shapes need ``LM.init_cache`` (ROADMAP queue A, slice 10) and
+      raise."""
+    if shape.kind in ("train", "prefill"):
+        return shape.kind, {
+            "batch": batch_struct(cfg, shape.global_batch, shape.seq_len)}
+    raise NotImplementedError(
+        f"{shape.name}: decode inputs need the LM's cache, which is not in "
+        f"repro_torch yet ({DECODE_SLICE})")

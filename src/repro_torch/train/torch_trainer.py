@@ -88,6 +88,18 @@ view: a view ``x[g]`` would pin the whole stack for as long as any
 member's checkpoint lives, so a group whose siblings a tuner kills would
 hold every member's memory; the copy frees a killed member's share and
 costs one device copy of the state per boundary.
+
+Mesh plane: a one-device :class:`~repro_torch.dist.meshes.WorkerMesh`
+takes the default path (the trainer's device), as the JAX trainer's does,
+so a one-device-mesh fleet computes a thread fleet's bits.  A wider mesh
+is sharded stage execution over several cards, which this package does
+not have: :meth:`check_mesh` refuses it when a worker with it joins an
+engine, a gateway or ``serve_studies``.  :meth:`mesh_compatible` is the
+divisibility gate over the task's parameter shapes (nothing is placed
+on the card for it), cached per mesh.  :meth:`device_transfer`, the
+dispatcher's device-to-device handoff, hands out a clone on the mesh's
+device (the trainer's own device for a CPU trainer): the dispatcher's
+cached copy and each consumer's copy are tensors no one else holds.
 """
 
 from __future__ import annotations
@@ -101,6 +113,8 @@ from repro_torch.core.trainer import (ChainNotFusable, StageContext,
                                       TrainerBackend)
 from repro_torch.core.values import desc_static, desc_values
 from repro_torch.data.pipeline import DataPipeline
+from repro_torch.dist.sharding import (SHARDED_EXECUTION, generic_param_specs,
+                                       spec_leaves)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.optim import fused_apply_update, stacked_apply_update
 from repro_torch.train.optimizer import (apply_update, apply_update_stacked,
@@ -206,6 +220,7 @@ class TorchTrainer(TrainerBackend):
         self.exec_calls = 0          # chunks (or single steps) issued
         self.evaluations = 0         # evaluate() calls
         self._params0 = None         # initial parameters, drawn at first use
+        self._mesh_ok: Dict[Tuple, bool] = {}   # mesh_compatible verdicts
 
     # ------------------------------------------------- kernel-plane counters
     @property
@@ -228,10 +243,71 @@ class TorchTrainer(TrainerBackend):
     def supports_chain_fusion(self) -> bool:  # type: ignore[override]
         return self.fused
 
+    @property
+    def batched_bitwise_solo(self) -> bool:  # type: ignore[override]
+        # the looped tier runs each member's solo chunks; the vectorised
+        # tier's member-stacked products sum in another order
+        return not self.vectorize_groups
+
     def clone_state(self, state):
         # leaves are never mutated in place — a fresh container tree is a
         # full-depth safe copy
         return tree_map(lambda x: x, state)
+
+    # ------------------------------------------------------------ mesh plane
+    def check_mesh(self, mesh) -> None:
+        """Refuse a mesh wider than one device: executing a stage over
+        several cards is not in this package."""
+        if mesh.n_devices > 1:
+            raise NotImplementedError(
+                f"a {mesh.n_devices}-device worker mesh needs "
+                f"{SHARDED_EXECUTION}; this trainer runs one-device meshes")
+
+    def set_mesh(self, mesh) -> None:
+        """Bind to the dispatching worker's mesh: a one-device mesh (or a
+        thread worker) takes the default path, on the trainer's device."""
+        if mesh is not None:
+            self.check_mesh(mesh)
+
+    def mesh_compatible(self, mesh, ctxs) -> bool:
+        """The divisibility gate as a placement gate: a mesh wider than
+        one device is only worth occupying when at least one parameter
+        dimension shards over it under ``generic_param_specs``.  The
+        shapes are those of the trainer's initial parameters, or of the
+        task's draw on the host when :meth:`init_state` has not drawn
+        them: nothing is placed on the card for the gate."""
+        if mesh is None or mesh.n_devices == 1:
+            return True
+        ok = self._mesh_ok.get(mesh.key)
+        if ok is None:
+            params = self._params0
+            if params is None:
+                params = self.task.init(
+                    torch.Generator().manual_seed(self.seed))
+            specs = generic_param_specs(params, mesh.rules, sizes=mesh.sizes)
+            ok = any(ax is not None for spec in spec_leaves(specs)
+                     for ax in spec)
+            self._mesh_ok[mesh.key] = ok
+        return ok
+
+    def device_transfer(self, state, mesh):
+        """Device-to-device handoff: a clone of every tensor leaf on the
+        mesh's first device (the trainer's device for a CPU trainer or a
+        thread worker), in a fresh container tree.  Declines (``None`` →
+        the store) when that device is not visible to this process."""
+        dev = self.device
+        if mesh is not None and dev.type == "cuda":
+            try:
+                dev = mesh.torch_devices()[0]
+            except ValueError:
+                return None
+
+        def clone(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach().to(dev, copy=True)
+            return x
+
+        return tree_map(clone, state)
 
     # ------------------------------------------------------------------ state
     def init_state(self) -> Dict[str, Any]:

@@ -30,6 +30,7 @@ from repro.train.checkpoint import CheckpointStore as RefCheckpointStore
 from repro.train.checkpoint import DirectoryObjectStore as RefObjectStore
 from repro_torch.core.trainer import SimulatedTrainer
 from repro_torch.data import DataPipeline, synthetic_cifar
+from repro_torch.dist.meshes import WorkerMesh
 from repro_torch.models.resnet import ResNet
 from repro_torch.train.checkpoint import CheckpointStore, DirectoryObjectStore
 from repro_torch.train.torch_trainer import TorchTrainer
@@ -589,13 +590,27 @@ def test_on_device_moves_restored_leaves_once(backend, monkeypatch):
 
 @pytest.mark.parametrize("kw", [{"worker_meshes": [None]}],
                          ids=["worker_meshes"])
-def test_engine_refuses_options_of_unported_planes(kw):
+def test_engine_refuses_options_of_unported_planes(kw, backend):
+    """The plane still missing is sharded stage execution over several
+    cards: a ``TorchTrainer`` engine refuses a worker mesh wider than one
+    device when it is built (and a study's run before any work), naming
+    the ROADMAP item; a one-device mesh and the simulator's wide meshes
+    are accepted."""
+    wide = {k: [WorkerMesh.build([0, 1])] for k in kw}
     plan = T.SearchPlan("gate")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.ExecutionEngine(plan, SimulatedTrainer(), **kw)
+    with pytest.raises(NotImplementedError,
+                       match="sharded stage execution.*ROADMAP"):
+        T.ExecutionEngine(plan, backend, **wide)
     st = T.Study.create(T.SearchPlanDB(), "m", "d", ("lr",))
-    with pytest.raises(NotImplementedError):
-        st.run(TT.GridTuner([]), SimulatedTrainer(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        st.run(TT.GridTuner([]), backend, **wide)
+    eng = T.ExecutionEngine(plan, backend,
+                            **{k: [WorkerMesh.build([0])] for k in kw})
+    assert eng.workers[0].mesh == WorkerMesh.build([0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.add_worker(mesh=WorkerMesh.build([0, 1]))
+    eng = T.ExecutionEngine(plan, SimulatedTrainer(), **wide)
+    assert eng.workers[0].devices == 2
 
 
 def test_trainer_refuses_batched_tiers_and_missing_gpu(backend):

@@ -48,6 +48,7 @@ from repro_torch.core.trainer import SimulatedTrainer
 from repro_torch.core.trial import Trial
 from repro_torch.core.tuners import GridSearchSpace, GridTuner
 from repro_torch.data import DataPipeline
+from repro_torch.dist.meshes import WorkerMesh
 from repro_torch.train.torch_trainer import TorchTrainer
 from repro_torch.utils.tree import tree_leaves
 
@@ -344,9 +345,16 @@ def test_engine_wraps_backend_and_store_and_still_refuses_meshes():
     assert isinstance(eng.store, T.FaultyStore)
     assert eng.dispatcher._injector is inj and raw_store(eng.store) \
         is eng.store.inner
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        T.ExecutionEngine(T.SearchPlan("x"), SimulatedTrainer(),
-                          worker_meshes=[None], fault_injector=inj)
+    # a worker mesh the trainer cannot run is refused with the fault plane
+    # on as without it (sharded stage execution over several cards)
+    with pytest.raises(NotImplementedError, match="sharded stage execution"):
+        T.ExecutionEngine(T.SearchPlan("x"), tiny_backend(),
+                          worker_meshes=[WorkerMesh.build([0, 1])],
+                          fault_injector=inj)
+    eng = T.ExecutionEngine(T.SearchPlan("x"), SimulatedTrainer(),
+                            worker_meshes=[WorkerMesh.build([0, 1])],
+                            fault_injector=inj)
+    assert eng.workers[0].devices == 2 and eng.dispatcher._d2d_enabled
 
 
 # ---------------------------------------------------------------------------
@@ -752,6 +760,101 @@ def test_group_resume_load_outage_equals_the_reference():
 
 
 # ---------------------------------------------------------------------------
+# a retry that crosses the group tiers (vectorised group vs solo bits)
+# ---------------------------------------------------------------------------
+
+class OneUlpGroupSim(BatchedChainSim):
+    """A vectorised tier in miniature: a batched call returns each member's
+    solo states one ulp up (``np.nextafter``), as member-stacked products
+    that sum in another order would; its tiers are not bitwise."""
+
+    batched_bitwise_solo = False
+
+    @staticmethod
+    def _ulp(s):
+        return dict(s, progress=float(np.nextafter(s["progress"], np.inf)))
+
+    def run_stages_batched(self, states, ctxs):
+        return [self._ulp(s) for s in super().run_stages_batched(states,
+                                                                 ctxs)]
+
+    def run_chains_batched(self, states, chains):
+        return [[self._ulp(s) for s in out]
+                for out in super().run_chains_batched(states, chains)]
+
+
+class BoundaryOutage(FaultInjector):
+    """From the first batched-group attempt on, fail the first ``n`` puts
+    of a chain's second boundary (step 36) — each after that chain's first
+    boundary (step 24) committed; with ``group_fault`` that first group
+    attempt fails too, so the group degrades to solo runs first."""
+
+    def __init__(self, n=1, group_fault=False):
+        super().__init__(0)
+        self._puts, self._group_fault, self._armed = n, group_fault, False
+
+    def before_execute(self, site):
+        if site.startswith(("group:", "group-chain:")) and not self._armed:
+            self._armed = True
+            if self._group_fault:
+                self._record("stage", site)
+                raise TransientStageError(f"injected group fault at {site}")
+
+    def on_store_op(self, op, key):
+        if self._armed and self._puts and op == "put" and key.endswith("@36"):
+            self._puts -= 1
+            self._record("outage", f"{op}:{key}")
+            raise StoreOutageError(f"injected store outage at {op} {key}")
+
+
+def cross_tier_run(inj):
+    """Four siblings forked at step 12 whose chains run two stages, 12 →
+    24 → 36, on one worker: the first chain takes the shared prefix and
+    one sibling, the other three then run as one depth-2 group chain."""
+    trials = [T.Trial(T.HpConfig({"lr": T.MultiStep(
+        0.1, [12, 24], values=[0.1, v, 0.01])}), 36)
+        for v in (0.05, 0.03, 0.02, 0.01)]
+    svc = StudyService(SearchPlanDB(), OneUlpGroupSim(horizon=36),
+                       n_workers=1, fault_injector=inj, batch_siblings=True)
+    svc.submit(StudySpec("m", "d", ("lr",)), GridTuner(trials))
+    stats = svc.close()
+    store = raw_store(svc._engine.store)
+    leaves = {(nid, st): store.get(cid)
+              for nid, node in svc._engine.plan.nodes.items()
+              for st, cid in node.ckpts.items() if store.contains(cid)}
+    return stats, leaves
+
+
+@pytest.mark.parametrize("case", ["group member retried solo",
+                                  "degraded members retried as a group"])
+def test_retry_across_group_tiers_keeps_the_bitwise_check(case):
+    """A member of a depth-2 group chain fails alone at its second
+    boundary's put, after its first boundary committed on one tier; its
+    retry runs on the other tier (solo after a group, a group after a
+    degraded solo run).  The committed boundary is taken back, so the
+    retry commits afresh and ``_assert_retry_identical`` — bitwise, with no
+    tolerance — never compares the two tiers' bits: the study finishes
+    with every leaf and best result of the fault-free run's tier."""
+    degraded = case.startswith("degraded")
+    inj = BoundaryOutage(n=2 if degraded else 1, group_fault=degraded)
+    got, leaves = cross_tier_run(inj)
+    clean, clean_leaves = cross_tier_run(None)
+    assert clean.batched_groups == 1 and clean.steps_run == 36 + 3 * 24
+    assert inj.by_kind["outage"] == (2 if degraded else 1)
+    assert got.groups_degraded == int(degraded)
+    assert got.stage_retries == (2 if degraded else 1)
+    assert got.stage_failures == got.stage_retries + int(degraded)
+    assert got.batched_groups == 1 and got.steps_run == clean.steps_run
+    assert inj.retries_verified == 0
+    # the retried members computed on the other tier: a leaf differs
+    # from the fault-free group's by its tier's ulp, never more
+    assert leaves.keys() == clean_leaves.keys()
+    for key, s in leaves.items():
+        c = clean_leaves[key]["progress"]
+        assert s["progress"] in (c, float(np.nextafter(c, -np.inf)),
+                                 float(np.nextafter(c, np.inf))), key
+
+# ---------------------------------------------------------------------------
 # the launcher: kill / restore, graceful shutdown, fault injection
 # ---------------------------------------------------------------------------
 
@@ -896,12 +999,20 @@ def test_serve_studies_inject_faults(monkeypatch, capsys):
 
 
 def test_serve_studies_refuses_devices_per_worker(monkeypatch):
-    """Worker meshes are the mesh plane's (slice 8): refused before any
-    work starts, never ignored."""
+    """Two devices a worker over the PyTorch trainer are sharded stage
+    execution over several cards: refused when the gateway is built,
+    before any work starts, never ignored."""
     from repro_torch.launch import serve_studies
 
-    monkeypatch.setattr(sys, "argv", ["serve_studies", "--studies", "1",
-                                      "--devices-per-worker", "2"])
-    monkeypatch.setattr(serve_studies, "StudyGateway", None)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        serve_studies.main()
+    built = []
+
+    def backend():
+        built.append(tiny_backend())
+        return built[-1]
+
+    monkeypatch.setattr(serve_studies, "_submit_all", None)
+    with pytest.raises(NotImplementedError,
+                       match="sharded stage execution.*ROADMAP"):
+        serve_studies.main(["--studies", "1", "--workers", "2",
+                            "--devices-per-worker", "2"], backend=backend)
+    assert len(built) == 1 and built[0].exec_calls == 0

@@ -30,6 +30,7 @@ import torch
 import repro.core as R
 import repro.core.tuners as RT
 import repro.frontdoor as RF
+from repro.dist.meshes import plan_worker_meshes as ref_plan_worker_meshes
 import repro_torch.core as T
 import repro_torch.core.tuners as TT
 import repro_torch.frontdoor as TF
@@ -37,6 +38,8 @@ from repro_torch.core import SearchPlanDB, StudyService
 from repro_torch.core.engine.session import load_latest_session, load_session
 from repro_torch.core.scheduler import FairShareScheduler
 from repro_torch.core.trainer import SimulatedTrainer
+from repro_torch.dist.meshes import WorkerMesh, plan_worker_meshes
+from repro_torch.train.torch_trainer import TorchTrainer
 from repro_torch.frontdoor import (GatewayState, StudyGateway, TenantQuota,
                                    WorkerLeaseManager, decode_snapshot,
                                    encode_snapshot, is_v5_snapshot)
@@ -48,6 +51,14 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = {"jax": (R, RT, RF), "torch": (T, TT, TF)}
+PLANNERS = {"jax": ref_plan_worker_meshes, "torch": plan_worker_meshes}
+
+
+class _TinyTask:
+    """A parameter tree to gate meshes on; nothing trains it."""
+
+    def init(self, gen):
+        return {"w": torch.zeros((4, 2))}
 
 
 def det(stats):
@@ -104,6 +115,9 @@ class Pkg:
 
     def quota(self, **kw):
         return self.F.TenantQuota(**kw)
+
+    def plan_worker_meshes(self, *args, **kw):
+        return PLANNERS[self.name](*args, **kw)
 
     def injector(self, seed, **kw):
         return self.C.FaultInjector(seed, **kw)
@@ -246,13 +260,27 @@ def _capacity(P):
     return {"seq": gw.admission.seq, "futures": len(gw.futures)}
 
 
+def _capacity_meshes(P):
+    """The reference's mesh case: two 2-device slots."""
+    gw = P.gateway(slot_meshes=P.plan_worker_meshes(2, 2))
+    with pytest.raises(P.F.CapacityError, match="widest fleet slot has 2"):
+        gw.submit(P.A, P.tuner(), min_devices=4)
+    return {"widths": gw.leases.slot_widths(), "seq": gw.admission.seq}
+
+
 def test_capacity_gate_refuses_unplaceable_work():
-    """The gate on plain slots in both packages; a slot mesh is the mesh
-    plane's (slice 8), refused here."""
+    """The gate on plain slots and on mesh slots in both packages; over
+    the PyTorch trainer a 2-device slot is sharded stage execution over
+    several cards, refused when the gateway is built."""
     both(_capacity)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        StudyGateway(SearchPlanDB(), SimulatedTrainer(),
-                     slot_meshes=[object(), None])
+    assert both(_capacity_meshes)["widths"] == [2, 2]
+    trainer = TorchTrainer(_TinyTask(), lambda: None, {}, device="cpu")
+    with pytest.raises(NotImplementedError, match="sharded stage execution"):
+        StudyGateway(SearchPlanDB(), trainer,
+                     slot_meshes=plan_worker_meshes(2, 2))
+    gw = StudyGateway(SearchPlanDB(), trainer,
+                      slot_meshes=plan_worker_meshes(2, 1))
+    assert gw.leases.slot_widths() == [1, 1]
 
 
 def _max_concurrent(P):
@@ -533,8 +561,8 @@ def test_quiescent_zero_worker_session_wakes_on_a_grant():
     assert svc.engine.events.peek().kind == "wake"
     fut.result()
     assert svc.stats.steps_run > 0 and svc.time > 25.0
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        svc.engine.add_worker(mesh=object())
+    w = svc.engine.add_worker(mesh=WorkerMesh.build([1], host="h1"))
+    assert w.mesh.host == "h1" and svc.engine.dispatcher._d2d_enabled
     svc.close()
 
 

@@ -80,11 +80,16 @@ def test_ssd_modules_import_alone_without_jax_or_the_jax_package(module):
                                     "repro_torch.frontdoor.admission",
                                     "repro_torch.frontdoor.leases",
                                     "repro_torch.frontdoor.gateway",
-                                    "repro_torch.launch.serve_studies"])
+                                    "repro_torch.launch.serve_studies",
+                                    "repro_torch.dist.meshes",
+                                    "repro_torch.dist.sharding",
+                                    "repro_torch.train.step",
+                                    "repro_torch.launch.specs",
+                                    "repro_torch.launch.train"])
 def test_fault_and_session_modules_import_alone_without_jax(module):
-    """The fault plane's, the session snapshots' and the front door's
-    modules, each imported on its own in a fresh interpreter, before
-    anything else of the package."""
+    """The fault plane's, the session snapshots', the front door's, the
+    mesh plane's and the launcher's modules, each imported on its own in a
+    fresh interpreter, before anything else of the package."""
     lines = run_walk(module, script=ALONE)
     assert lines["BAD"] == "[]"
     assert lines["TRITON"] == "False"

@@ -33,6 +33,7 @@ from repro_torch.core.hpseq import (Constant, Exponential, MultiStep,
 from repro_torch.core.trainer import SimulatedTrainer
 from repro_torch.core.tuners import GridSearchSpace, GridTuner, SHATuner
 from repro_torch.data import DataPipeline, synthetic_cifar
+from repro_torch.dist.meshes import plan_worker_meshes
 from repro_torch.frontdoor import decode_snapshot, encode_snapshot
 from repro_torch.frontdoor.snapshot_v5 import _read_container
 from repro_torch.kernels import ops as kops
@@ -464,17 +465,22 @@ def test_snapshot_holds_host_tensors_and_no_tensor_metrics(tmp_path):
 
 def test_restore_two_workers_and_refuse_meshes_and_leases():
     """A two-worker session restores (the rows' meshes are all None, so
-    the engine gets ``worker_meshes=None``); a row with a mesh is refused,
-    naming its slice; a draining lease (the front door's) restores as
-    draining, under its captured id."""
+    the engine gets ``worker_meshes=None``); rows with meshes restore with
+    them, and a trainer that cannot run a mesh (a 2-device one: sharded
+    stage execution over several cards) refuses it; a draining lease (the
+    front door's) restores as draining, under its captured id."""
     svc, state = _small_session()
     eng = restore_engine(state, SimulatedTrainer(horizon=80))
     assert len(eng.workers) == 2
     _, meshed = _small_session()
-    meshed.workers = [row[:3] + ("mesh",) + row[4:]
-                      for row in meshed.workers]
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        restore_engine(meshed, SimulatedTrainer(horizon=80))
+    meshes = plan_worker_meshes(2, 2, host="hq")
+    meshed.workers = [row[:3] + (m,) + row[4:]
+                      for row, m in zip(meshed.workers, meshes)]
+    eng = restore_engine(meshed, SimulatedTrainer(horizon=80))
+    assert [w.mesh for w in eng.workers] == list(meshes)
+    with pytest.raises(NotImplementedError, match="sharded stage execution"):
+        restore_engine(meshed, TorchTrainer(
+            ResNet(n=1, width=4), lambda: None, {}, device="cpu"))
     _, leased = _small_session()
     leased.workers = [row[:7] + (True,) for row in leased.workers]
     eng = restore_engine(leased, SimulatedTrainer(horizon=80))
