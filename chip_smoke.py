@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Drives the package's main paths once — whole hyper-parameter studies
-through ``Study.run`` → engine → ``TorchTrainer`` → the kernels — at full
-width: the paper's ResNet56 (``ResNet(n=9, width=16)``, batch 128,
-momentum), qwen2-0.5b (24 layers, d_model 896, 14 / 2 heads, vocab
-151,936, bf16, batch 4 × 1024 tokens, AdamW) and mamba2-2.7b (d_model
-2560, 80 SSD heads of 64, state 128, chunk 128, vocab 50,280, bf16, batch
-1 × 2048 tokens, AdamW; the study at 16 of its 64 layers with its
-checkpoints on the disk tier), random weights from a seed, and holds every kernel of
+through ``Study.run`` → engine → ``TorchTrainer`` → the kernels, and
+decode through the serve step — at full width: the paper's ResNet56
+(``ResNet(n=9, width=16)``, batch 128, momentum), qwen2-0.5b (24 layers,
+d_model 896, 14 / 2 heads, vocab 151,936, bf16, batch 4 × 1024 tokens,
+AdamW), mamba2-2.7b (d_model 2560, 80 SSD heads of 64, state 128, chunk
+128, vocab 50,280, bf16, batch 1 × 2048 tokens, AdamW; the study at 8 of
+its 64 layers with its checkpoints on the disk tier) and qwen2-moe-a2.7b
+(d_model 2048, 60 experts top-4 and 4 shared, bf16; served at 4 layers,
+its study at 1), random weights from a seed, and holds every kernel of
 those paths against its plain PyTorch version on the card.  Needs one CUDA device and
 no network; fails (non-zero exit, no result line) without a GPU or outside
 a checkout of the repository.
@@ -73,7 +75,9 @@ Phases, each printing one JSON line:
    kernel's bound, the backward's bound as a whole, and the library's flash
    forward and flash backward (yardsticks the package never calls), the
    earlier CUDA-core kernels' times beside, marked as figures from the
-   record.  ``lm_small``: qwen2-0.5b reduced (f32) on the card, loss and
+   record; and at qwen2-moe-a2.7b's MHA hd-128 attention (B 4, S 1024, Hq
+   16, Hkv 16, causal) by the same rules, beside SDPA.  ``lm_small``:
+   qwen2-0.5b reduced (f32) on the card, loss and
    gradients through the kernels against the plain attention path (atol
    1e-5 / 1e-4), B2–B4 on the CUDA-core kernels only.
 7. ``lm_study`` — the SHA study of ``examples/torch_hpo_lm.py`` at full
@@ -112,9 +116,9 @@ Phases, each printing one JSON line:
    the kernels against the plain SSD path (atol 1e-5 / 1e-4), B5 and B6 on
    the CUDA-core kernels only.
 10. ``mamba2_study`` — the SHA study of ``examples/torch_hpo_lm.py`` with
-   mamba2-2.7b at full width and ``MAMBA_STUDY["layers"]`` (16) of its 64
+   mamba2-2.7b at full width and ``MAMBA_STUDY["layers"]`` (8) of its 64
    layers, stage-based then trial-based, each on a directory store
-   (4.6 GB a checkpoint: the
+   (2.7 GB a checkpoint: the
    card holds the running state only; the first run's checkpoints are
    dropped before the second starts); every launch count is zeroed just
    before and read just after: B5 = L × (steps + evaluations), B6 = L ×
@@ -252,12 +256,45 @@ Phases, each printing one JSON line:
    check unchanged (the committed boundary was taken back), the other
    members' metrics bit-equal to the fault-free run's, the retried one's
    within 2e-2; B1–B4 launches exact.
-27. last lines  — the script's run time and each phase's seconds, the card
+27. ``serve`` (last but two) — decode through
+   ``repro_torch.train.step.build_serve_step``: qwen2-0.5b at all 24
+   layers, bf16, random weights from a seed: batch 8, a 256-token prompt
+   fed token by token, then 64 greedy tokens, the position a 0-d device
+   tensor and CUDA's sync debug mode set to raise (no step reads the card
+   back); every step's logits held against the port's forward over the
+   same 320 tokens on B2, per row within 4 × the row's largest |bf16
+   forward − f32 forward| (the plain path on the same weights in f32),
+   greedy tokens equal to the forward's arg-max wherever its top-1 /
+   top-2 margin passes twice that bound; again with ``sliding_window=128``
+   (the ring buffer wraps); B2 = 24 per forward, nothing else launched.
+   Then the ``decode_32k`` shape at its full size (batch 128, 32,768 slots
+   as ``init_cache`` makes them, the position from 32,767 on): 20 steps,
+   ms / step and tokens/s beside the bytes bound (the KV cache and the
+   parameters read once at 3.35 TB/s), launches per token and the idle
+   share (profiler), peak memory and one step's transient memory (whether
+   the attention einsum copies a layer's K and V).
+28. ``mamba2_serve`` — the same for mamba2-2.7b at full width and
+   ``MAMBA_SERVE["layers"]`` (16) of its 64 layers: batch 8, 128 prompt
+   tokens and 32 new ones against the B5 forward (padded to whole
+   chunks), B5 = 16; ``decode_32k``'s batch of 128 against its bound (the
+   SSD state read and written, the parameters read).
+29. ``moe`` (last) — qwen2-moe-a2.7b at full width (d_model 2048, 60
+   experts top-4, 4 shared, 16 / 16 heads of 128): served at
+   ``MOE_SERVE["layers"]`` (4) layers drop-free (``capacity_factor=16``)
+   in f32 (bf16 routing flips between decode and forward) against the B2
+   forward on its f32 route within 5e-3 (B2 = 4); then ``lm_study`` on it at
+   ``MOE_STUDY["layers"]`` (1) layer, batch 4 × 1024 (``moe_study``: the
+   same best trial, every metric bit-equal, B1 = steps, B2 = layers ×
+   (steps + evaluations), B3 = B4 = layers × steps, on the tensor cores);
+   an evaluation's loss equal to ``LM.loss`` on the same batch and to
+   ``nll + router_aux_weight · moe_aux / layers`` (f32), ``moe_aux`` > 0.
+30. last lines  — the script's run time and each phase's seconds, the card
    and its power limit, the
    ``kernels`` line (B1's tree kernel, B2–B6; with the grouped runs',
    the fault plane's, the sessions', the gateway's, the mesh plane's,
-   the launcher's, the retry's and the degraded runs' launches and the
-   fold's checks) and ``{"ok": true, "device": {...}}``.
+   the launcher's, the retry's, the degraded runs', the serve phases' and
+   the MoE study's launches and the fold's checks) and ``{"ok": true,
+   "device": {...}}``.
 
 The solo studies of phases 4, 7, 10, 17, 19, 20, 22 and 24 pass
 ``batch_siblings=False``: their launch counts are those of PRs 11–17.
@@ -269,6 +306,7 @@ set it (fragments left by the 64 GiB phases can otherwise keep the qwen2 M
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -301,6 +339,7 @@ FA_SHAPES = [(1, 128, 4, 4, 64), (2, 128, 8, 2, 64), (1, 256, 8, 1, 32),
 FA_MASKS = [(True, 0), (False, 0), (True, 48)]
 QWEN = dict(B=4, S=1024, Hq=14, Hkv=2, hd=64)     # qwen2-0.5b's attention
 QWEN3 = dict(B=1, S=2048, Hq=32, Hkv=8, hd=128)   # qwen3-8b's, at hd 128
+QWEN_MOE = dict(B=4, S=1024, Hq=16, Hkv=16, hd=128)  # qwen2-moe's: MHA, hd 128
 # B2 at qwen2-0.5b's shape before the tensor-core kernel: the CUDA-core
 # kernel's bf16 instantiation, median of four runs on an NVIDIA H100 80GB
 # HBM3, 700.00 W (PERF.md, kernel table).  A figure from the record,
@@ -324,8 +363,10 @@ SSD_RAGGED = (1, 2, 96, 2, 40, 20)     # ragged tiles, the model's decays
 MAMBA = dict(B=1, nc=16, Q=128, H=80, P=64, N=128)   # mamba2-2.7b's SSD
 # the study's depth: all 64 layers fit (63.8 GiB) but their 16.2 GB
 # checkpoints make the study writer-bound (391 s of a 939 s run), so it is
-# cut for the run's time; tools/step_compare.py times the 64-layer step
-MAMBA_STUDY = dict(batch=1, seq_len=2048, n_train=64, n_eval=2, layers=16)
+# cut for the run's time; at 16 layers it took 104.6 s of a 751.4 s run
+# (the serve and MoE phases added 108.6 s), so 8;
+# tools/step_compare.py times the 64-layer step
+MAMBA_STUDY = dict(batch=1, seq_len=2048, n_train=64, n_eval=2, layers=8)
 # the SHA study of examples/torch_hpo_lm.py on the reduced model on the
 # CPU: 3 + 7 commits (stage- and trial-based), and at most 4 blobs on the
 # directory at once (the four trials' first rung), the one being written
@@ -349,6 +390,18 @@ ADAM_HPS = dict(HPS, lr=1e-3)
 FOLD_M = 2                          # members of the fold phase's groups
 GROUP_MS = (2, 4)                   # group sizes of group_step
 QWEN_GROUP_MS = (2, 4)
+# the serve phases: batch, prompt tokens fed token by token, new greedy
+# tokens; qwen2-0.5b's second pass with a 128-slot ring buffer
+SERVE = dict(batch=8, prompt=256, new=64, window=128)
+# mamba2-2.7b served at the studies' depth: a 64-layer host draw (2.7 B
+# parameters) would take about half the three new phases' budget
+MAMBA_SERVE = dict(batch=8, prompt=128, new=32, layers=16)
+MOE_SERVE = dict(batch=4, prompt=64, new=32, layers=4)
+# the MoE study's depth: one layer's held states fit the card beside its
+# step (a state is 6 bytes a parameter: bf16 weights and AdamW slots)
+MOE_STUDY = dict(batch=4, seq_len=1024, n_train=256, n_eval=8, layers=1)
+DECODE_32K_STEPS = 20
+F32_DECODE_TOL = 5e-3      # tests/test_models.py::test_decode_matches_forward
 
 
 def emit(obj):
@@ -1450,8 +1503,8 @@ def bwd_case(fa, q, k, v, do, out, lse, label):
 
 
 def attention_phase(join_build):
-    """B2–B4 on the grid and at qwen2-0.5b's and qwen3-8b's shapes;
-    returns their rows."""
+    """B2–B4 on the grid and at qwen2-0.5b's, qwen3-8b's and
+    qwen2-moe-a2.7b's shapes; returns their rows."""
     from repro_torch.kernels import flash_attention as fa
     build_s = join_build("flash_attention")
     fa._lib()                                   # load, check tile sizes
@@ -1568,6 +1621,16 @@ def attention_phase(join_build):
     out3, lse3, hd128 = b2_case(fa, *q3[:3], lse_rule, shape3)
     bwd3_rows, pair3 = bwd_case(fa, *q3, out3, lse3, shape3)
     del q3, out3, lse3
+    free()
+    # qwen2-moe-a2.7b's: MHA (a GQA group of 1) at hd 128, the shape the
+    # moe phase's study trains on
+    shape_m = ("B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, hd {hd}, causal, bf16 "
+               "(qwen2-moe-a2.7b, MHA)".format(**QWEN_MOE))
+    qm = fa_inputs(*(QWEN_MOE[x] for x in ("B", "S", "Hq", "Hkv", "hd")),
+                   torch.bfloat16)
+    out_m, lse_m, moe128 = b2_case(fa, *qm[:3], lse_rule, shape_m)
+    bwdm_rows, pairm = bwd_case(fa, *qm, out_m, lse_m, shape_m)
+    del qm, out_m, lse_m
 
     def kernel_row(key, name):
         return {"name": name, "route": "cuda", "source": FA_SOURCE,
@@ -1586,7 +1649,8 @@ def attention_phase(join_build):
             "wrapper_host_us", "library_host_us", "flops", "bytes")},
         library="F.scaled_dot_product_attention(enable_gqa=True)",
         route_bf16="wgmma (fa_fwd_tc)", route_f32="simt (fa_fwd)",
-        grid_bf16=grid_b2_bf16, qwen3_8b_hd128=hd128)}
+        grid_bf16=grid_b2_bf16, qwen3_8b_hd128=hd128,
+        qwen2_moe_hd128_mha=moe128)}
     for key, wrapper, route in (
             ("B3", fa.flash_attention_bwd_dq, "fa_bwd_dq"),
             ("B4", fa.flash_attention_bwd_dkv, "fa_bwd_dkv")):
@@ -1600,7 +1664,8 @@ def attention_phase(join_build):
             grid_bf16_max_err_over_allowed={
                 x: grid_bwd_bf16[x] for x in (
                     ("dq",) if key == "B3" else ("dk_h", "dv_h"))},
-            qwen3_8b_hd128=dict(bwd3_rows[key], shape=shape3))
+            qwen3_8b_hd128=dict(bwd3_rows[key], shape=shape3),
+            qwen2_moe_hd128_mha=dict(bwdm_rows[key], shape=shape_m))
     emit({"phase": "attention_kernels",
           "build_seconds": build_s, "cases": fa_cases,
           "bit_equal_twice": True, "tiles_equal_fa_tile_counts": True,
@@ -1618,7 +1683,7 @@ def attention_phase(join_build):
           "b2": dict({x: rows["B2"][x] for x in (
               "ms", "library_ms", "ms_over_library_ms", "device_ms",
               "library_device_ms", "wrapper_host_us", "library_host_us",
-              "grid_bf16", "qwen3_8b_hd128")},
+              "grid_bf16", "qwen3_8b_hd128", "qwen2_moe_hd128_mha")},
               cuda_core_ms_not_from_this_run={
                   "ms": B2_CUDA_CORE_MS,
                   "what": "the CUDA-core kernel's bf16 instantiation "
@@ -1637,7 +1702,10 @@ def attention_phase(join_build):
           "backward_b3_plus_b4_qwen3_8b_hd128": dict(
               {x: y for x, y in pair3.items() if x != "vs_plain"},
               vs_plain=pair3["vs_plain"],
-              cuda_core_ms_not_from_this_run="none in the record")})
+              cuda_core_ms_not_from_this_run="none in the record"),
+          "backward_b3_plus_b4_qwen2_moe_hd128_mha": dict(
+              {x: y for x, y in pairm.items() if x != "vs_plain"},
+              vs_plain=pairm["vs_plain"])})
     return rows
 
 
@@ -2284,8 +2352,8 @@ def mamba2_state_bytes(cfg):
 
 def mamba2_study_phase(root):
     """The mamba2-2.7b study at full width and ``MAMBA_STUDY["layers"]``
-    layers, its checkpoints on a directory store under ``root`` (4.6 GB
-    each at 16 layers: the card holds the running state only); returns its
+    layers, its checkpoints on a directory store under ``root`` (2.7 GB
+    each at 8 layers: the card holds the running state only); returns its
     launch counts and the trainer (its parameters drawn)."""
     import torch_hpo_lm as lm_example
     from repro_torch.configs import get_config
@@ -4159,6 +4227,389 @@ def serve_studies_meshes():
     return {"thread": runs[0]["launches"], "mesh": runs[1]["launches"]}
 
 
+# ------------------------------------------ 27-29. decode and Mixture-of-Experts
+def decode_counters():
+    """The launch counters of every kernel the serve and MoE phases may
+    run, zeroed; ``read()`` gives each one's launches since."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan as ssk
+    from repro_torch.kernels.optim import (stacked_leaf_update,
+                                           stacked_tree_update)
+    counters = (stacked_tree_update, stacked_leaf_update,
+                fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv, ssk.ssd_intra_fwd,
+                ssk.ssd_intra_bwd)
+    for c in counters:
+        c.launches = 0
+    kops.reset_kernel_stats()
+
+    def read():
+        calls, fallbacks = kops.KERNEL_STATS.snapshot()
+        assert fallbacks == 0, kops.KERNEL_STATS.reasons
+        return {c.__name__: c.launches for c in counters}
+    return read
+
+
+def serve_pass(model, params, params_f32, prompts, new):
+    """``prompts`` (B, P) fed token by token through ``build_serve_step``,
+    then ``new`` greedy tokens, the position a 0-d device tensor and CUDA's
+    sync debug mode set to raise (a step that reads the device back to the
+    host fails).  Every step's logits are recorded on the way (a wrapper of
+    ``model.decode_step``, which the serve step calls) and held against the
+    port's forward over the same P + new tokens (the kernels' path: B2 /
+    B5 in bf16; an SSD model's padded to whole chunks): per row, within ``tol = 4 · e``, ``e`` the row's largest
+    |bf16 forward − f32 forward| (the plain path on the same weights in
+    f32, ``params_f32``).  Decode and the bf16 forward are two bf16
+    computations of one function, each about ``e`` from the f32 one; the
+    second 2 is margin.  Greedy tokens must equal the forward's arg-max
+    wherever its top-1 / top-2 margin exceeds ``2 · tol``.  An f32 model
+    (``params_f32`` None) is held within ``F32_DECODE_TOL``, the
+    reference's own decode test's tolerance.  Returns the pass's record."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.step import build_serve_step
+    cfg = model.cfg
+    B, P = prompts.shape
+    logits = []
+    inner = model.decode_step
+
+    def recording(*args):
+        lg, cache = inner(*args)
+        logits.append(lg[:, 0])
+        return lg, cache
+
+    model.decode_step = recording
+    try:
+        serve = build_serve_step(model)
+        cache = model.init_cache(B, P + new, device=DEV)
+        index = torch.zeros((), dtype=torch.int64, device=DEV)
+        nexts = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(P):
+                tok, cache = serve(params, cache, prompts[:, i:i + 1], index)
+                nexts.append(tok)
+                index += 1
+            t1 = time.perf_counter()
+            for _ in range(new):
+                tok, cache = serve(params, cache, tok[:, None], index)
+                nexts.append(tok)
+                index += 1
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        del model.decode_step            # the class's method again
+    del cache
+    nexts = torch.stack(nexts, 1)                    # (B, P + new)
+    seq = torch.cat([prompts, nexts[:, P - 1:-1].long()], 1)
+    dec = torch.stack(logits, 1)                     # (B, P + new, V)
+    del logits
+    # the SSD forward takes whole chunks: pad the sequence to one with
+    # zeros, which a causal model's earlier positions do not see
+    T = seq.shape[1]
+    chunk = cfg.ssm_chunk if "ssm" in model.pattern else 1
+    padded = torch.nn.functional.pad(seq, (0, -T % chunk))
+    with torch.no_grad():
+        fwd = model.forward(params, {"tokens": padded})[0][:, :T]
+        if params_f32 is None:       # an f32 model: the reference's 5e-3
+            e = torch.zeros(fwd.shape[:2], device=DEV)
+            tol = torch.full_like(e, F32_DECODE_TOL)
+        else:
+            f32 = LM(dataclasses.replace(cfg, dtype="float32")).forward(
+                params_f32, {"tokens": padded})[0][:, :T]
+            e = (fwd - f32).abs().amax(-1)           # (B, T)
+            del f32
+            tol = 4.0 * e
+    diff = (dec - fwd).abs().amax(-1)
+    ratio = float((diff / tol.clamp_min(1e-30)).max())
+    assert bool(dec.isfinite().all()) and dec.shape == fwd.shape
+    assert ratio <= 1.0, ("decode disagrees with the forward", ratio)
+    top2 = fwd.topk(2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    sure = margin > 2.0 * tol
+    agree = nexts.long() == top2.indices[..., 0]
+    assert bool(agree[sure].all()), "a greedy token differs where the " \
+        "forward's margin exceeds twice the bound"
+    return {"batch": B, "prompt_tokens": P, "new_tokens": new,
+            "steps": P + new,
+            "prefill_ms_per_step": (t1 - t0) / P * 1e3,
+            "decode_ms_per_step": (t2 - t1) / new * 1e3,
+            "decode_tokens_per_second": B * new / (t2 - t1),
+            "no_host_sync": True,
+            "max_abs_logit_diff": float(diff.max()),
+            "max_diff_over_bound": ratio,
+            "bound_median": float(tol.median()),
+            "bound_max": float(tol.max()),
+            "bf16_forward_err_vs_f32_max": float(e.max()),
+            "max_abs_logit": float(fwd.abs().max()),
+            "greedy_positions_checked": int(sure.sum()),
+            "greedy_positions": int(sure.numel()),
+            "greedy_agree_share_all": float(agree.float().mean())}
+
+
+def decode_32k(model, params, steps):
+    """The ``decode_32k`` shape at its full size: batch 128 and 32,768
+    cache slots as ``init_cache`` makes them, the position from 32,767 on
+    (every KV slot live; the work does not depend on the values).
+    ``steps`` serve steps timed on the host clock (ending in a sync) and
+    by CUDA events; the bound: the bytes a step must move — the cache read
+    (a KV slot once; an SSD state read and written) and the parameters
+    read once — over 3.35 TB/s; peak memory; one step's transient memory
+    beyond the cache (whether the attention einsum copies a layer's K / V:
+    1.07 GB for qwen2-0.5b); launches per token and the device's idle
+    share from the profiler."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.train.step import build_serve_step
+    from repro_torch.utils.tree import tree_leaves
+    shape = SHAPES["decode_32k"]
+    B, L = shape.global_batch, shape.seq_len
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(B, L, device=DEV)
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(cache))
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+    kv = any(k == "attn" for k in model.pattern)
+    layer_k_bytes = (B * L * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+                     if kv else 0)
+    serve = build_serve_step(model)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=DEV)
+    index = torch.full((), L - 1, dtype=torch.int64, device=DEV)
+
+    def step():
+        nonlocal tok, cache
+        nxt, cache = serve(params, cache, tok, index)
+        tok = nxt[:, None]
+        index.add_(1)
+
+    step()
+    step()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - before
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(steps):
+            step()
+        e1.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    event_ms = e0.elapsed_time(e1) / steps
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: [step() for _ in range(2)], 2, host_ms * 2)
+    nbytes = (cache_bytes if kv else 2 * cache_bytes) + param_bytes
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    assert bool(tok.ge(0).all()) and int(index) == L - 1 + steps + 5
+    del cache
+    return {"shape": f"decode_32k: batch {B}, {L} slots, index >= {L - 1}",
+            "steps": steps, "ms_per_step": host_ms,
+            "ms_per_step_events": event_ms,
+            "tokens_per_second": B / (host_ms / 1e3),
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_bytes": nbytes, "cache_bytes": cache_bytes,
+            "parameter_bytes": param_bytes,
+            "ms_over_bound": host_ms / bound_ms,
+            "launches_per_token": prof["device_kernel_launches_per_step"],
+            "device_busy_ms_per_step":
+                prof["device_busy_ms"] / 2
+                if isinstance(prof["device_busy_ms"], float)
+                else "not measured",
+            "device_idle_share": prof["device_idle_share"],
+            "top_device_time": prof["top_device_time"][:5],
+            "step_transient_bytes": transient,
+            "layer_k_bytes": layer_k_bytes,
+            "attention_einsum_copies_cache":
+                bool(kv and transient >= layer_k_bytes),
+            "peak_device_memory_gib": peak / 2 ** 30,
+            "no_host_sync": True}
+
+
+def lm_params(cfg, seed=0):
+    """``LM(cfg).init(seed)`` on the card (drawn on the host), its f32
+    copy, and the draw's seconds."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.utils.tree import tree_map
+    t0 = time.perf_counter()
+    params = LM(cfg).init(seed, device=DEV)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    return params, tree_map(lambda x: x.float(), params), draw_s
+
+
+def serve_phase():
+    """qwen2-0.5b at all 24 layers, bf16: batch 8, a 256-token prompt fed
+    token by token, 64 greedy tokens, held against the B2 forward; again
+    with ``sliding_window=128`` so the ring buffer wraps; then the
+    ``decode_32k`` shape at its full size.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    cfg = get_config("qwen2-0.5b")
+    assert (cfg.num_layers, cfg.d_model, cfg.dtype) == (24, 896, "bfloat16")
+    read = decode_counters()
+    params, params_f32, draw_s = lm_params(cfg)
+    gen = torch.Generator().manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE["batch"],
+                                                SERVE["prompt"]),
+                            generator=gen).to(DEV)
+    passes = {}
+    for name, window in (("full_cache", 0), ("window", SERVE["window"])):
+        model = LM(dataclasses.replace(cfg, sliding_window=window),
+                   use_kernel=True)
+        passes[name] = serve_pass(model, params, params_f32, prompts,
+                                  SERVE["new"])
+        free()
+    ring = passes["window"]
+    assert ring["steps"] > SERVE["window"]            # the ring wrapped
+    launches = read()
+    # decode launches no kernel of the port's; each forward 24 B2 launches
+    expected = {name: 0 for name in launches}
+    expected["flash_attention_fwd"] = 2 * cfg.num_layers
+    assert launches == expected, launches
+    del params_f32
+    free()
+    d32 = decode_32k(LM(cfg), params, DECODE_32K_STEPS)
+    emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
+          "dtype": cfg.dtype, "entry": "repro_torch.train.step."
+          "build_serve_step", "init_draw_seconds": draw_s,
+          "bound_rule": "per row, 4 x max |bf16 forward - f32 forward|",
+          "passes": passes, "decode_32k": d32, "launches": launches})
+    return launches
+
+
+def mamba2_serve_phase():
+    """mamba2-2.7b at full width and ``MAMBA_SERVE["layers"]`` layers:
+    batch 8, 128 prompt tokens and 32 new ones, held against the B5
+    forward; then ``decode_32k``'s batch of 128.  Returns the launches."""
+    from repro_torch.models.transformer import LM
+    cfg = mamba2_cut(MAMBA_SERVE["layers"])
+    read = decode_counters()
+    params, params_f32, draw_s = lm_params(cfg)
+    gen = torch.Generator().manual_seed(22)
+    prompts = torch.randint(0, cfg.vocab_size, (MAMBA_SERVE["batch"],
+                                                MAMBA_SERVE["prompt"]),
+                            generator=gen).to(DEV)
+    model = LM(cfg, use_kernel=True)
+    run = serve_pass(model, params, params_f32, prompts, MAMBA_SERVE["new"])
+    launches = read()
+    expected = {name: 0 for name in launches}
+    expected["ssd_intra_fwd"] = cfg.num_layers
+    assert launches == expected, launches
+    del params_f32
+    free()
+    d32 = decode_32k(LM(cfg), params, DECODE_32K_STEPS)
+    emit({"phase": "mamba2_serve", "model": cfg.name,
+          "layers": cfg.num_layers, "layers_published": 64,
+          "dtype": cfg.dtype, "init_draw_seconds": draw_s,
+          "bound_rule": "per row, 4 x max |bf16 forward - f32 forward|",
+          "pass": run, "decode_32k": d32, "launches": launches})
+    return launches
+
+
+def moe_phase():
+    """qwen2-moe-a2.7b at full width (d_model 2048, 60 experts top-4, 4
+    shared, 16 / 16 heads of 128): served at ``MOE_SERVE["layers"]``
+    layers drop-free (``capacity_factor=16``) in f32, held against the B2
+    forward; then the SHA study of ``examples/torch_hpo_lm.py`` at
+    ``MOE_STUDY["layers"]`` layer(s), stage-based against trial-based
+    (``lm_study``: the same best trial, every metric bit-equal, exact B1 –
+    B4 launches), and the evaluation's loss with its router term equal to
+    ``LM.loss`` on the same batch and to ``nll + w · moe_aux / layers``.
+    Returns the serve run's and the study's launches."""
+    import torch_hpo_lm as lm_example
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    full = get_config("qwen2-moe-a2.7b")
+    assert (full.d_model, full.n_experts, full.top_k, full.n_shared_experts,
+            full.num_heads, full.num_kv_heads, full.resolved_head_dim) == \
+        (2048, 60, 4, 4, 16, 16, 128)
+    # served in f32: a token's top-4 of 60 experts flips where two router
+    # probabilities sit within a bf16 rounding of each other, and a
+    # flipped expert (outputs ~10^3 at this init) moves the logits by
+    # units, so bf16 decode and forward are not comparable token by token
+    # (on an H100, 14x outside the bf16 rule); B2 takes its f32 route
+    cfg = dataclasses.replace(full, num_layers=MOE_SERVE["layers"],
+                              capacity_factor=16.0, dtype="float32")
+    read = decode_counters()
+    t0 = time.perf_counter()
+    params = LM(cfg).init(0, device=DEV)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(23)
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_SERVE["batch"],
+                                                MOE_SERVE["prompt"]),
+                            generator=gen).to(DEV)
+    run = serve_pass(LM(cfg, use_kernel=True), params, None, prompts,
+                     MOE_SERVE["new"])
+    launches = read()
+    expected = {name: 0 for name in launches}
+    expected["flash_attention_fwd"] = cfg.num_layers
+    assert launches == expected, launches
+    del params
+    free()
+
+    layers = MOE_STUDY["layers"]
+    data = {k: MOE_STUDY[k] for k in ("batch", "seq_len", "n_train",
+                                      "n_eval")}
+    study_launches, backend = lm_study(
+        "moe_study", lambda: lm_example.make_backend(
+            "qwen2-moe-a2.7b", use_kernel=True, layers=layers, **data),
+        data["batch"], data["seq_len"], fwd=("flash_attention_fwd",),
+        bwd=("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+        model_fields={"d_model": full.d_model, "experts": full.n_experts,
+                      "top_k": full.top_k,
+                      "shared_d_ff": full.shared_d_ff,
+                      "heads": [full.num_heads, full.num_kv_heads],
+                      "head_dim": full.resolved_head_dim,
+                      "capacity_factor": full.capacity_factor,
+                      "vocab": full.vocab_size})
+    # the router term: an evaluation through the trainer against LM.loss
+    # on the same batch, and against nll + w * moe_aux / layers in f32
+    mcfg = backend.task.cfg
+    state = backend.init_state()
+    metrics = backend.evaluate(state, None)
+    with torch.no_grad():
+        loss, aux = backend.task.loss(
+            backend.on_device(state)[0]["params"], backend.eval_batch)
+    nll = torch.tensor(metrics["nll"], dtype=torch.float32)
+    moe_aux = torch.tensor(metrics["moe_aux"], dtype=torch.float32)
+    recomposed = nll + mcfg.router_aux_weight * moe_aux / max(
+        1, mcfg.num_layers)
+    assert metrics["loss"] == float(loss), (metrics["loss"], float(loss))
+    assert metrics["moe_aux"] == float(aux["moe_aux"]) > 0
+    assert metrics["loss"] == float(recomposed), (metrics, float(recomposed))
+    del backend, state
+    free()
+    emit({"phase": "moe", "model": full.name, "serve_layers": cfg.num_layers,
+          "study_layers": layers, "serve_dtype": cfg.dtype,
+          "study_dtype": full.dtype,
+          "serve_capacity_factor": cfg.capacity_factor,
+          "init_draw_seconds": draw_s,
+          "bound_rule": f"f32, {F32_DECODE_TOL} (the reference's decode "
+                        f"test)", "serve": run, "serve_launches": launches,
+          "router_term": {"loss": metrics["loss"], "nll": metrics["nll"],
+                          "moe_aux": metrics["moe_aux"],
+                          "router_aux_weight": mcfg.router_aux_weight,
+                          "equals_lm_loss": True,
+                          "equals_nll_plus_router_term": True},
+          "study_launches": study_launches})
+    return launches, study_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4293,6 +4744,18 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     for key in ("B5", "B6"):
         ssd_rows[key]["launches_grouped_study"] = \
             m_study[ssd_rows[key]["name"]]
+    # 27-29: decode (qwen2-0.5b, mamba2-2.7b) and Mixture-of-Experts
+    s_launches = timed("serve", serve_phase)
+    ms_launches = timed("mamba2_serve", mamba2_serve_phase)
+    moe_serve, moe_launches = timed("moe", moe_phase)
+    fa_rows["B2"]["launches_serve"] = {
+        "qwen2-0.5b": s_launches["flash_attention_fwd"],
+        "qwen2-moe-a2.7b": moe_serve["flash_attention_fwd"]}
+    ssd_rows["B5"]["launches_mamba2_serve"] = ms_launches["ssd_intra_fwd"]
+    b1_row["launches_moe_study"] = moe_launches["stacked_tree_update"]
+    for key in ("B2", "B3", "B4"):
+        fa_rows[key]["launches_moe_study"] = \
+            moe_launches[fa_rows[key]["name"]]
 
     # ------------------------------------------------------------ last lines
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

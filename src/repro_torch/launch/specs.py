@@ -5,7 +5,8 @@ feed each step: token ids for LM training, patch/frame embeddings for the
 vision / audio frontends, (cache, token, index) for decode.  Meta tensors
 carry a shape and a dtype and allocate nothing, so the sharding rules
 (:mod:`repro_torch.dist.sharding`) read them as they read real batches.
-Token ids are int64, the dtype the port's pipelines upload.
+Token ids and the decode index are int64, the dtype the port's pipelines
+upload (the reference's are int32).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.configs import InputShape
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DECODE_SLICE
+from repro_torch.models.transformer import LM
 
 __all__ = ["input_specs", "batch_struct"]
 
@@ -45,13 +46,16 @@ def input_specs(cfg: ModelConfig, shape: InputShape
                 ) -> Tuple[str, Dict[str, Any]]:
     """Returns (step kind, kwargs structs) for the shape's step.
 
-    * train_4k    → ``train_step(params, opt, batch, lr, step)``
-    * prefill_32k → ``prefill_step(params, batch)``
-    * decode shapes need ``LM.init_cache`` (ROADMAP queue A, slice 10) and
-      raise."""
+    * train_4k              → ``train_step(params, opt, batch, lr, step)``
+    * prefill_32k           → ``prefill_step(params, batch)``
+    * decode_32k / long_500k → ``serve_step(params, cache, tokens, index)``,
+      the cache ``LM.init_cache``'s tree (``LM`` raises for a family the
+      port does not build yet)."""
     if shape.kind in ("train", "prefill"):
         return shape.kind, {
             "batch": batch_struct(cfg, shape.global_batch, shape.seq_len)}
-    raise NotImplementedError(
-        f"{shape.name}: decode inputs need the LM's cache, which is not in "
-        f"repro_torch yet ({DECODE_SLICE})")
+    cache = LM(cfg).init_cache(shape.global_batch, shape.seq_len,
+                               device="meta")
+    return "decode", {"cache": cache,
+                      "tokens": _meta((shape.global_batch, 1), torch.int64),
+                      "index": _meta((), torch.int64)}

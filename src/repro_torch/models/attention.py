@@ -10,13 +10,19 @@ contiguous.
 
 ``use_kernel=True`` routes attention through
 :func:`repro_torch.kernels.ops.flash_attention` (kernels B2, B3 and B4);
-the plain path :func:`_sdpa` is the reference.  Decode with a KV cache is
-not here yet (ROADMAP queue A).
+the plain path :func:`_sdpa` is the reference.
+
+Decode (:func:`init_kv_cache`, :func:`attention_decode`) keeps the
+reference's ring buffer of ``window`` slots (sliding window) or
+``max_len`` and its ``(B, L, n_kv, hd)`` layout, and writes the new key
+and value in place (``index_copy_`` at slot ``index % L``): ``index`` may
+be a 0-d device tensor, so a step reads nothing back to the host.  The
+reference's einsum softmax has no Pallas kernel; nor has the port's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -26,7 +32,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, init_rms,
                                        mrope_angles, rms_norm, rope_angles)
 
-__all__ = ["init_attention", "attention_forward", "make_mask"]
+__all__ = ["init_attention", "attention_forward", "attention_decode",
+           "init_kv_cache", "make_mask"]
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator,
@@ -122,3 +129,57 @@ def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
         out = _sdpa(q, k, v, mask, cfg.num_kv_heads)
     H, hd, _ = params["wo"].shape
     return out.reshape(B, S, H * hd) @ params["wo"].reshape(H * hd, D)
+
+
+# ---------------------------------------------------------------------------
+# decode (one new token against a KV cache)
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
+                  dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
+    """Ring-buffer cache of ``window`` slots if sliding, else ``max_len``:
+    the window bound is what makes ``long_500k`` decode O(window)."""
+    L = window if window > 0 else max_len
+    shape = (batch, L, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor],
+                     index: Union[int, torch.Tensor], *, window: int = 0
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode.  x: (B, 1, D); ``index``: the new token's absolute
+    position (an int or a 0-d integer tensor).  Writes the token's key and
+    value into ``cache`` in place and returns (out (B, 1, D), ``cache``)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    L = cache["k"].shape[1]
+    index = torch.as_tensor(index, device=x.device)
+
+    q, k, v = _project_qkv(params, cfg, x)
+    pos = index.expand(B, 1)
+    if cfg.mrope_sections:
+        pos = pos[None].expand(3, B, 1)
+    q, k = _qk_rope(cfg, q, k, pos)
+
+    slot = torch.remainder(index, L).reshape(1).long()
+    ck = cache["k"].index_copy_(1, slot, k)
+    cv = cache["v"].index_copy_(1, slot, v)
+
+    # slot s holds the newest of the positions ≡ s (mod L): before the ring
+    # wraps only slots ≤ index are filled; after, all are live, and a key
+    # past the window was overwritten
+    live = torch.arange(L, device=x.device) <= index            # (L,)
+
+    n_kv = cfg.num_kv_heads
+    qh = q.reshape(B, 1, n_kv, cfg.num_heads // n_kv, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qh, ck).float()
+    scores = scores * hd ** -0.5
+    scores = torch.where(live, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = torch.einsum("bngst,btnh->bsngh", probs, cv)
+    H, _, D = params["wo"].shape
+    out = out.reshape(B, 1, H * hd) @ params["wo"].reshape(H * hd, D)
+    return out, cache

@@ -16,9 +16,10 @@ reference; the depthwise causal conv stays a sum of shifted products, as
 in the reference (no kernel there either).  B and C are shared across
 heads (``ngroups=1``).
 
-Decode with a carried state (``init_ssm_cache`` / ``ssm_decode``) is not
-here yet: both raise ``NotImplementedError`` naming ROADMAP queue A
-slice 10.
+Decode (``init_ssm_cache`` / ``ssm_decode``) is the reference's O(1)
+recurrence: the state updated in f32 and stored back in the cache's dtype,
+the conv's left context carried; both are written into the cache in
+place.
 """
 
 from __future__ import annotations
@@ -33,8 +34,6 @@ from repro_torch.models.layers import dense_init, init_rms, rms_norm
 
 __all__ = ["init_ssm", "ssm_forward", "ssm_decode", "init_ssm_cache",
            "ssd_chunked", "ssd_sequential"]
-
-DECODE_SLICE = "ROADMAP queue A, slice 10"
 
 
 # ---------------------------------------------------------------------------
@@ -225,11 +224,38 @@ def ssm_forward(params, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, dtype):
-    raise NotImplementedError(f"SSM decode state is not in repro_torch yet "
-                              f"({DECODE_SLICE})")
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                   device=None) -> Dict[str, Any]:
+    inner, N, K = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_conv
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    return {"state": zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim, N),
+            "conv": {"x": zeros(batch, K - 1, inner),
+                     "B": zeros(batch, K - 1, N),
+                     "C": zeros(batch, K - 1, N)}}
 
 
-def ssm_decode(params, cfg: ModelConfig, x: torch.Tensor, cache):
-    raise NotImplementedError(f"SSM decode is not in repro_torch yet "
-                              f"({DECODE_SLICE})")
+def ssm_decode(params, cfg: ModelConfig, x: torch.Tensor, cache
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One-token decode: x (B,1,D) → (B,1,D); O(1) state update, written
+    into ``cache`` in place.  Returns (out, ``cache``)."""
+    B = x.shape[0]
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xs, Bm, Cm, dt_raw, conv_state = _ssm_project(params, cfg, x,
+                                                     cache["conv"])
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])         # (B,1,H)
+    A = -torch.exp(params["A_log"])
+    xh = xs.reshape(B, 1, H, P)
+
+    dA = torch.exp(dt[:, 0] * A)                                # (B,H)
+    state = cache["state"].float()
+    state = (state * dA[..., None, None]
+             + torch.einsum("bhp,bn->bhpn",
+                            (xh[:, 0] * dt[:, 0, :, None]).float(),
+                            Bm[:, 0].float()))
+    y = torch.einsum("bhpn,bn->bhp", state, Cm[:, 0].float())
+    y = y[:, None].to(x.dtype)                                  # (B,1,H,P)
+    out = _ssm_post(params, cfg, y, z, xh)
+    cache["state"].copy_(state)
+    for k, v in conv_state.items():
+        cache["conv"][k].copy_(v)
+    return out, cache

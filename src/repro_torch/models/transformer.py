@@ -1,13 +1,15 @@
-"""Decoder LM assembly for the attention and SSM families (``attn`` /
-``local`` / ``ssm`` blocks).
+"""Decoder LM assembly for the attention, Mixture-of-Experts and SSM
+families (``attn`` / ``local`` / ``ssm`` blocks, dense or MoE FFNs).
 
-The counterpart of ``repro/models/transformer.py:141-269`` for dense
-attention models and Mamba2: the parameter tree is the JAX package's —
-``{"embed", "final_norm", ["lm_head"], "cycles": [one dict of
-(n_full, ...) stacked leaves per pattern slot], "rest": [per-layer dicts]}``
-— so weights carry across leaf for leaf.  Blocks are pre-norm residual:
-``x += mixer(norm1(x)); x += mlp(norm2(x))``, the mixer being attention or
-the SSD layer (SSD blocks carry no FFN, matching Mamba2).
+The counterpart of ``repro/models/transformer.py``: the parameter tree is
+the JAX package's — ``{"embed", "final_norm", ["lm_head"], "cycles": [one
+dict of (n_full, ...) stacked leaves per pattern slot], "rest": [per-layer
+dicts]}`` — so weights carry across leaf for leaf, and so is the decode
+cache's (``init_cache``: ``{"cycles": [...], "rest": [...]}`` of KV ring
+buffers and SSD states).  Blocks are pre-norm residual: ``x +=
+mixer(norm1(x)); x += ffn(norm2(x))``, the mixer being attention or the
+SSD layer (SSD blocks carry no FFN, matching Mamba2), the FFN a SwiGLU or
+the MoE layer, whose load-balancing loss is summed over layers.
 
 The JAX layer ``scan`` becomes a Python loop.  Each stacked leaf is split
 once per forward with ``torch.unbind`` (whose backward is one ``stack``),
@@ -16,11 +18,13 @@ tensor per layer per leaf).  The embedding lookup is ``F.embedding`` and
 the loss ``log_softmax`` + ``gather``: neither backward needs float
 atomics with colliding indices on the GPU, so a training step is
 bit-reproducible there.  The tied output head is ``F.linear(x, embed)``,
-whose weight gradient comes back contiguous.
+whose weight gradient comes back contiguous.  ``decode_step`` writes each
+layer's cache in place through views of the stacked buffers, so a step
+allocates no cache and returns the one it was given.
 
 Not here yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue A slice: RG-LRU blocks, Mixture-of-Experts, vision / audio
-frontends, decode with caches.
+queue A slice: RG-LRU blocks (slice 12) and the vision / audio frontends
+(slice 11).
 """
 
 from __future__ import annotations
@@ -30,18 +34,22 @@ from typing import Any, Dict, List, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.attention import attention_forward, init_attention
+from repro_torch.models.attention import (attention_decode,
+                                          attention_forward, init_attention,
+                                          init_kv_cache)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.ffn import MOE_SLICE, init_mlp, mlp_forward
+from repro_torch.models.ffn import (init_mlp, init_moe, mlp_forward,
+                                    moe_forward)
 from repro_torch.models.layers import (dense_init, embed_init, init_rms,
                                        rms_norm)
-from repro_torch.models.ssm import init_ssm, ssm_forward
+from repro_torch.models.ssm import (init_ssm, init_ssm_cache, ssm_decode,
+                                    ssm_forward)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["LM"]
 
 RGLRU_SLICE = "ROADMAP queue A, slice 12"
-DECODE_SLICE = "ROADMAP queue A, slice 10"
+FRONTEND_SLICE = "ROADMAP queue A, slice 11"
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -49,8 +57,12 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
-    """SSD blocks carry no FFN (Mamba2); MoE blocks are not built here."""
-    return kind != "ssm" and cfg.d_ff > 0
+    """SSD blocks carry no FFN (Mamba2)."""
+    return kind != "ssm" and (cfg.d_ff > 0 or cfg.n_experts > 0)
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind == "attn" else cfg.local_window
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
@@ -62,23 +74,56 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
         p["attn"] = init_attention(cfg, gen, dtype)
     if _has_ffn(cfg, kind):
         p["norm2"] = init_rms(cfg.d_model, dtype)
-        p["ffn"] = init_mlp(cfg.d_model, cfg.d_ff, gen, dtype,
-                            gated=cfg.mlp_gated)
+        p["ffn"] = (init_moe(cfg, gen, dtype) if cfg.n_experts
+                    else init_mlp(cfg.d_model, cfg.d_ff, gen, dtype,
+                                  gated=cfg.mlp_gated))
     return p
 
 
+def _ffn(cfg: ModelConfig, p, x) -> Tuple[torch.Tensor, Any]:
+    """``x + ffn(norm2(x))`` and the MoE aux loss (None for a dense
+    FFN)."""
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if cfg.n_experts:
+        h, aux = moe_forward(p["ffn"], cfg, h)
+        return x + h, aux
+    return x + mlp_forward(p["ffn"], h), None
+
+
 def _block_forward(cfg: ModelConfig, kind: str, p, x, positions,
-                   use_kernel: bool) -> torch.Tensor:
+                   use_kernel: bool) -> Tuple[torch.Tensor, Any]:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         h = ssm_forward(p["ssm"], cfg, h, use_kernel=use_kernel)
     else:
-        window = cfg.sliding_window if kind == "attn" else cfg.local_window
-        h = attention_forward(p["attn"], cfg, h, positions, window=window,
+        h = attention_forward(p["attn"], cfg, h, positions,
+                              window=_window(cfg, kind),
                               use_kernel=use_kernel)
     x = x + h
     if _has_ffn(cfg, kind):
-        x = x + mlp_forward(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+        return _ffn(cfg, p, x)
+    return x, None
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype: torch.dtype, device) -> Dict[str, Any]:
+    if kind == "ssm":
+        return init_ssm_cache(cfg, batch, dtype, device)
+    return init_kv_cache(cfg, batch, max_len, _window(cfg, kind), dtype,
+                         device)
+
+
+def _block_decode(cfg: ModelConfig, kind: str, p, x, cache, index
+                  ) -> torch.Tensor:
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "ssm":
+        h, _ = ssm_decode(p["ssm"], cfg, h, cache)
+    else:
+        h, _ = attention_decode(p["attn"], cfg, h, cache, index,
+                                window=_window(cfg, kind))
+    x = x + h
+    if _has_ffn(cfg, kind):
+        x, _ = _ffn(cfg, p, x)
     return x
 
 
@@ -100,7 +145,7 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 class LM:
     """Decoder LM / encoder (``causal=False``) over ``attn`` / ``local`` /
-    ``ssm`` layer patterns."""
+    ``ssm`` layer patterns, dense or MoE."""
 
     def __init__(self, cfg: ModelConfig, use_kernel: bool = False):
         kinds = set(cfg.layer_kinds()) - {"attn", "local", "ssm"}
@@ -108,13 +153,10 @@ class LM:
             raise NotImplementedError(
                 f"{cfg.name}: {sorted(kinds)} blocks are not in repro_torch "
                 f"yet ({RGLRU_SLICE})")
-        if cfg.n_experts:
-            raise NotImplementedError(f"{cfg.name}: Mixture-of-Experts is "
-                                      f"not in repro_torch yet ({MOE_SLICE})")
         if cfg.frontend != "none":
             raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} "
                                       f"frontend is not in repro_torch yet "
-                                      f"({MOE_SLICE})")
+                                      f"({FRONTEND_SLICE})")
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.pattern = cfg.layer_pattern
@@ -150,43 +192,91 @@ class LM:
         return params
 
     # --------------------------------------------------------------- forward
+    def _layers(self, tree) -> List[Tuple[str, Any]]:
+        """``(kind, per-layer tree)`` in depth order: the stacked cycles,
+        one ``unbind`` per leaf (views, which a decode step writes in
+        place), then the rest."""
+        cycles = [_unstack(c, self.n_full) for c in tree["cycles"]]
+        out = [(kind, cycles[s][i]) for i in range(self.n_full)
+               for s, kind in enumerate(self.pattern)]
+        return out + list(zip(self.rest_kinds, tree["rest"]))
+
+    def _head(self, params, x) -> torch.Tensor:
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            return F.linear(x, params["embed"]).float()
+        return (x @ params["lm_head"]).float()
+
     def forward(self, params, batch) -> Tuple[torch.Tensor,
                                               Dict[str, torch.Tensor]]:
-        """``batch["tokens"]`` (B, S) int64 → f32 logits (B, S, V)."""
+        """``batch["tokens"]`` (B, S) int64 → f32 logits (B, S, V) and
+        ``{"moe_aux"}``, the MoE loss summed over layers (0 without
+        experts)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = F.embedding(tokens, params["embed"])
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        layers = [_unstack(c, self.n_full) for c in params["cycles"]]
-        for i in range(self.n_full):
-            for s, kind in enumerate(self.pattern):
-                x = _block_forward(cfg, kind, layers[s][i], x, positions,
-                                   self.use_kernel)
-        for p, kind in zip(params["rest"], self.rest_kinds):
-            x = _block_forward(cfg, kind, p, x, positions, self.use_kernel)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            logits = F.linear(x, params["embed"])
-        else:
-            logits = x @ params["lm_head"]
-        return logits.float(), {"moe_aux": torch.zeros((), device=x.device)}
+        aux = torch.zeros((), device=x.device)
+        for kind, p in self._layers(params):
+            x, a = _block_forward(cfg, kind, p, x, positions,
+                                  self.use_kernel)
+            if a is not None:
+                aux = aux + a
+        return self._head(params, x), {"moe_aux": aux}
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch) -> Tuple[torch.Tensor,
                                            Dict[str, torch.Tensor]]:
-        """Mean next-token NLL (framewise for an encoder), with metrics
+        """Mean next-token NLL (framewise for an encoder), plus
+        ``router_aux_weight · moe_aux / num_layers`` with experts; metrics
         ``nll`` and ``moe_aux`` as in the JAX package."""
+        cfg = self.cfg
         logits, aux = self.forward(params, batch)
-        if self.cfg.is_encoder_only:
+        if cfg.is_encoder_only:
             lg, lb = logits, batch["labels"]
         else:
             lg, lb = logits[:, :-1], batch["tokens"][:, 1:]
         logp = F.log_softmax(lg, dim=-1)
-        nll = -torch.gather(logp, -1, lb[..., None])[..., 0]
-        loss = torch.mean(nll)
-        return loss, {"nll": loss.detach(), "moe_aux": aux["moe_aux"]}
+        nll = torch.mean(-torch.gather(logp, -1, lb[..., None])[..., 0])
+        loss = nll
+        if cfg.n_experts:
+            loss = loss + cfg.router_aux_weight * aux["moe_aux"] / max(
+                1, cfg.num_layers)
+        return loss, {"nll": nll.detach(),
+                      "moe_aux": aux["moe_aux"].detach()}
 
-    def decode_step(self, *args, **kw):
-        raise NotImplementedError(f"decode with a KV cache is not in "
-                                  f"repro_torch yet ({DECODE_SLICE})")
+    # ---------------------------------------------------------------- decode
+    def init_cache(self, batch: int, max_len: int,
+                   device: Union[str, torch.device, None] = None
+                   ) -> Dict[str, Any]:
+        """Zeroed decode caches in the reference's tree: ``{"cycles": [one
+        dict of (n_full, ...) stacked buffers per pattern slot], "rest":
+        [per-layer dicts]}``; a KV buffer holds ``window`` slots for a
+        sliding-window layer, else ``max_len``."""
+        cfg, dt = self.cfg, _dtype(self.cfg)
+
+        def stacked(kind):
+            one = _block_cache(cfg, kind, batch, max_len, dt, "meta")
+            return tree_map(lambda a: torch.zeros(
+                (self.n_full, *a.shape), dtype=a.dtype, device=device), one)
+
+        return {"cycles": [stacked(kind) for kind in self.pattern],
+                "rest": [_block_cache(cfg, kind, batch, max_len, dt, device)
+                         for kind in self.rest_kinds]}
+
+    def decode_step(self, params, cache, tokens: torch.Tensor,
+                    index: Union[int, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """tokens: (B, 1) ids; ``index``: their absolute position (an int
+        or a 0-d integer tensor on the tokens' device).  Returns (f32
+        logits (B, 1, V), ``cache``), the cache written in place."""
+        cfg = self.cfg
+        if cfg.is_encoder_only:
+            raise ValueError(f"{cfg.name}: an encoder-only model has no "
+                             f"decode")
+        x = F.embedding(tokens, params["embed"])
+        for (kind, p), (_, c) in zip(self._layers(params),
+                                     self._layers(cache)):
+            x = _block_decode(cfg, kind, p, x, c, index)
+        return self._head(params, x), cache

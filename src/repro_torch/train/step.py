@@ -78,11 +78,14 @@ def build_prefill_step(model: LM):
 
 
 def build_serve_step(model: LM):
-    """One decode step; ``LM.decode_step`` raises until decode with a
-    cache is ported (ROADMAP queue A, slice 10)."""
+    """``(params, cache, tokens (B, 1), index) → (next tokens (B,) int32,
+    cache)``: one greedy decode step, the cache written in place and
+    returned.  With ``index`` a 0-d tensor on the card the step reads
+    nothing back to the host."""
 
     def serve_step(params, cache, tokens, index):
-        logits, cache = model.decode_step(params, cache, tokens, index)
+        with torch.no_grad():
+            logits, cache = model.decode_step(params, cache, tokens, index)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, cache
 

@@ -58,7 +58,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("module", ["chip_smoke", "torch_hpo_resnet",
-                                    "torch_hpo_lm"])
+                                    "torch_hpo_lm", "torch_serve_lm",
+                                    "torch_quickstart", "torch_multi_study"])
 def test_entry_scripts_import_without_jax_or_the_jax_package(module):
     lines = run_walk(module)
     assert lines["BAD"] == "[]"

@@ -26,6 +26,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models.transformer import LM as JaxLM
 from repro.train.optimizer import init_opt_state as jax_init_opt_state
 from repro.train.step import build_prefill_step as jax_build_prefill_step
+from repro.train.step import build_serve_step as jax_build_serve_step
 from repro.train.step import build_train_step as jax_build_train_step
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops as kops
@@ -88,6 +89,9 @@ def test_train_step_equals_the_reference():
 
 
 def test_prefill_step_equals_the_reference_and_serve_step_waits():
+    """The prefill step's last-position logits, and (decode is ported now)
+    three serve steps: the next tokens equal, the cache written in place
+    and within 1e-4 of the reference's."""
     jmodel = JaxLM(JCFG)
     jparams = jmodel.init(jax.random.PRNGKey(1))
     params = tree_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
@@ -99,8 +103,18 @@ def test_prefill_step_equals_the_reference_and_serve_step_waits():
     assert got.shape == (2, CFG.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        build_serve_step(LM(CFG))(params, None, None, 0)
+    jcache, cache = jmodel.init_cache(2, 8), LM(CFG).init_cache(2, 8)
+    jserve, serve = jax_build_serve_step(jmodel), build_serve_step(LM(CFG))
+    jtok = jnp.asarray(toks[:, :1])
+    tok = torch.from_numpy(toks[:, :1].astype(np.int64))
+    for i in range(3):
+        jtok, jcache = jserve(jparams, jcache, jtok, jnp.int32(i))
+        nxt, out = serve(params, cache, tok, torch.tensor(i))
+        assert out is cache
+        np.testing.assert_array_equal(nxt.numpy(), np.asarray(jtok))
+        jtok, tok = jtok[:, None], nxt[:, None]
+    for a, b in zip(flat(tree_to_numpy(cache)), jax.tree.leaves(jcache)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-4, rtol=0)
 
 
 def test_shardings_place_whole_leaves_on_one_device():

@@ -149,10 +149,22 @@ def test_ssm_forward_matches_jax(use_kernel):
 
 
 def test_decode_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        ssm.init_ssm_cache(CFG, 1, torch.float32)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        ssm.ssm_decode({}, CFG, torch.zeros((1, 1, CFG.d_model)), {})
+    """SSM decode is ported (slice 10): the cache has the reference's
+    shapes and one step updates it in place; the RG-LRU family's decode,
+    not ported, still raises naming its slice (12).  The decode itself is
+    held against the JAX package in ``tests/test_torch_decode.py``."""
+    cache = ssm.init_ssm_cache(CFG, 1, torch.float32)
+    want = jax_ssm.init_ssm_cache(JCFG, 1, jnp.float32)
+    assert [tuple(a.shape) for a in flat(cache)] == \
+        [b.shape for b in jax.tree.leaves(want)]
+    params = LM(CFG).init(0)["cycles"][0]["ssm"]
+    params = {k: v[0] for k, v in params.items()}
+    out, same = ssm.ssm_decode(params, CFG, torch.ones((1, 1, CFG.d_model)),
+                               cache)
+    assert same is cache and out.shape == (1, 1, CFG.d_model)
+    assert float(cache["state"].abs().max()) > 0
+    with pytest.raises(NotImplementedError, match="slice 12"):
+        LM(get_config("recurrentgemma-2b").reduced()).init_cache(1, 8)
 
 
 # ------------------------------------------------------ config and tree

@@ -5,8 +5,9 @@ single-pod and multi-pod production meshes — the port's parameter,
 optimizer-state, batch and decode-cache spec trees equal the reference's
 ``PartitionSpec`` trees entry for entry.  The shape trees are the JAX
 package's ``eval_shape`` output carried over as ``torch.device("meta")``
-tensors: nothing is allocated, and the port's LM (which does not build
-every family yet) is not needed.
+tensors (nothing is allocated, and the port's LM, which does not build
+every family yet, is not needed), and for decode the port's own
+``LM.init_cache`` on the meta device.
 
 The one departure: the port never names a mesh axis twice.  Where the
 reference's spec does — roles that share an axis, as in
@@ -31,13 +32,15 @@ from repro.configs import get_config as r_get_config
 from repro.launch.specs import batch_struct as r_batch_struct
 from repro.models import LM as RLM
 from repro.train.optimizer import init_opt_state as r_init_opt_state
-from repro_torch.configs import SHAPES, get_config, list_archs
+from repro_torch.configs import SHAPES, config_for_shape, get_config, \
+    list_archs
 from repro_torch.dist.sharding import (MESH_SIZES, P, ShardingRules,
                                        batch_specs, cache_specs,
                                        generic_param_specs, param_specs,
                                        seq_constrainer, spec_axes,
                                        spec_leaves)
 from repro_torch.launch.specs import batch_struct, input_specs
+from repro_torch.models.transformer import LM
 from repro_torch.train.optimizer import init_opt_state
 
 # the suite runs several worker processes side by side: one intra-op
@@ -154,21 +157,39 @@ def test_batch_specs_equal_the_reference(arch, shape_name, multi_pod):
                                   "recurrentgemma-2b", "grok-1-314b"])
 @pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
 def test_cache_specs_equal_the_reference(arch, shape_name):
-    """Decode caches: the reference's ``init_cache`` shapes, built by hand
-    here until the port has the cache (ROADMAP queue A, slice 10)."""
+    """Decode caches: the port's own ``LM.init_cache`` tree (meta tensors)
+    and the cache of ``input_specs``'s decode inputs have the reference's
+    keys, nesting and shapes, and their specs equal the reference's.  The
+    RG-LRU family, not built by the port (ROADMAP queue A, slice 12), is
+    held on the reference's shapes, and its decode inputs raise."""
     shape = R_SHAPES[shape_name]
     cfg = r_config_for_shape(r_get_config(arch), shape)
     cache = jax.eval_shape(
         lambda: RLM(cfg).init_cache(shape.global_batch, shape.seq_len))
+    tcfg = config_for_shape(get_config(arch), SHAPES[shape_name])
+    if arch == "recurrentgemma-2b":
+        ours = to_meta(cache)
+        with pytest.raises(NotImplementedError, match="slice 12"):
+            input_specs(tcfg, SHAPES[shape_name])
+    else:
+        ours = LM(tcfg).init_cache(shape.global_batch, shape.seq_len,
+                                   device="meta")
+        kind, kwargs = input_specs(tcfg, SHAPES[shape_name])
+        assert kind == "decode"
+        assert jax.tree.structure(cache) == jax.tree.structure(
+            jax.tree.map(lambda _: 0, kwargs["cache"])) == \
+            jax.tree.structure(jax.tree.map(lambda _: 0, ours))
+        for a, b, c in zip(jax.tree.leaves(cache),
+                           jax.tree.leaves(kwargs["cache"]),
+                           jax.tree.leaves(ours)):
+            assert a.shape == tuple(b.shape) == tuple(c.shape)
+            assert b.device.type == c.device.type == "meta"
     for multi_pod in (False, True):
         assert assert_specs_equal(
             RS.cache_specs(cfg, cache, RS.ShardingRules.for_mesh(multi_pod),
                            shape.global_batch),
-            cache_specs(get_config(arch), to_meta(cache),
-                        ShardingRules.for_mesh(multi_pod),
+            cache_specs(tcfg, ours, ShardingRules.for_mesh(multi_pod),
                         shape.global_batch)) == 0
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        input_specs(get_config(arch), SHAPES[shape_name])
 
 
 def test_no_spec_names_an_axis_twice():
