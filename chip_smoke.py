@@ -9,10 +9,14 @@ decode through the serve step — at full width: the paper's ResNet56
 (``ResNet(n=9, width=16)``, batch 128, momentum), qwen2-0.5b (24 layers,
 d_model 896, 14 / 2 heads, vocab 151,936, bf16, batch 4 × 1024 tokens,
 AdamW), mamba2-2.7b (d_model 2560, 80 SSD heads of 64, state 128, chunk
-128, vocab 50,280, bf16, batch 1 × 2048 tokens, AdamW; the study at 8 of
-its 64 layers with its checkpoints on the disk tier) and qwen2-moe-a2.7b
-(d_model 2048, 60 experts top-4 and 4 shared, bf16; served at 4 layers,
-its study at 1), random weights from a seed, and holds every kernel of
+128, vocab 50,280, bf16, batch 1 × 2048 tokens, AdamW; the study at 4 of
+its 64 layers with its checkpoints on the disk tier), qwen2-moe-a2.7b
+(d_model 2048, 60 experts top-4 and 4 shared, bf16; served at 2 layers,
+its study at 1), recurrentgemma-2b (d_model 2560, RG-LRU width 2560, 10 /
+1 heads of 256, window 2048, vocab 256,000, bf16, batch 1 × 4096 tokens;
+studied and served at 5 of its 26 layers), hubert-xlarge (48 layers,
+audio frames) and qwen2-vl-7b (patches and text, M-RoPE; 2 of its 28
+layers), random weights from a seed, and holds every kernel of
 those paths against its plain PyTorch version on the card.  Needs one CUDA device and
 no network; fails (non-zero exit, no result line) without a GPU or outside
 a checkout of the repository.
@@ -57,8 +61,9 @@ Phases, each printing one JSON line:
    ``src/repro_torch/kernels/csrc/flash_attention.cu``: bf16 on the tensor
    cores (``fa_fwd_tc``, ``fa_bwd_dq_tc``, ``fa_bwd_dkv_tc``), f32 on the
    CUDA cores (``fa_fwd``, ``fa_bwd_dq``, ``fa_bwd_dkv``).  Against their
-   plain versions over MHA / GQA 4:1 / MQA / ragged 96 / head dim 32, 64,
-   128 × causal, non-causal, window 48 × f32 and bf16 (forward f32 2e-5;
+   plain versions over MHA / GQA 4:1 / MQA / ragged 96 and 160 / head dim
+   32, 64, 80, 128, 256 × causal, non-causal, window 48 × f32 and bf16
+   (forward f32 2e-5;
    bf16 ``out``, ``dq``, ``dk_h``, ``dv_h`` by ``rounding_rule`` against
    the plain version on the inputs cast to f32 — one bf16 ulp + 2^-16 ×
    scale + what rounding p or dS to bf16 before a product can move, 2^-8
@@ -76,7 +81,14 @@ Phases, each printing one JSON line:
    forward and flash backward (yardsticks the package never calls), the
    earlier CUDA-core kernels' times beside, marked as figures from the
    record; and at qwen2-moe-a2.7b's MHA hd-128 attention (B 4, S 1024, Hq
-   16, Hkv 16, causal) by the same rules, beside SDPA.  ``lm_small``:
+   16, Hkv 16, causal) by the same rules, beside SDPA; then (``wide``) at
+   recurrentgemma-2b's local attention (B 1, S 4096, Hq 10, Hkv 1, hd 256,
+   causal, window 2048), hubert-xlarge's (B 4, S 1024, 16 / 16, hd 80,
+   non-causal) and qwen2-vl-7b's (B 2, S 2048, 28 / 4, hd 128, causal) by
+   the same rules, beside SDPA (over a boolean mask with a window), their
+   bounds 4·B·Hq·hd·(live pairs) operations (backward 2.5×); the line
+   carries each kernel's registers and spills from ``ptxas -v``.
+   ``lm_small``:
    qwen2-0.5b reduced (f32) on the card, loss and
    gradients through the kernels against the plain attention path (atol
    1e-5 / 1e-4), B2–B4 on the CUDA-core kernels only.
@@ -116,9 +128,9 @@ Phases, each printing one JSON line:
    the kernels against the plain SSD path (atol 1e-5 / 1e-4), B5 and B6 on
    the CUDA-core kernels only.
 10. ``mamba2_study`` — the SHA study of ``examples/torch_hpo_lm.py`` with
-   mamba2-2.7b at full width and ``MAMBA_STUDY["layers"]`` (8) of its 64
+   mamba2-2.7b at full width and ``MAMBA_STUDY["layers"]`` (4) of its 64
    layers, stage-based then trial-based, each on a directory store
-   (2.7 GB a checkpoint: the
+   (1.7 GB a checkpoint: the
    card holds the running state only; the first run's checkpoints are
    dropped before the second starts); every launch count is zeroed just
    before and read just after: B5 = L × (steps + evaluations), B6 = L ×
@@ -274,13 +286,13 @@ Phases, each printing one JSON line:
    share (profiler), peak memory and one step's transient memory (whether
    the attention einsum copies a layer's K and V).
 28. ``mamba2_serve`` — the same for mamba2-2.7b at full width and
-   ``MAMBA_SERVE["layers"]`` (16) of its 64 layers: batch 8, 128 prompt
+   ``MAMBA_SERVE["layers"]`` (8) of its 64 layers: batch 8, 128 prompt
    tokens and 32 new ones against the B5 forward (padded to whole
    chunks), B5 = 16; ``decode_32k``'s batch of 128 against its bound (the
    SSD state read and written, the parameters read).
 29. ``moe`` (last) — qwen2-moe-a2.7b at full width (d_model 2048, 60
    experts top-4, 4 shared, 16 / 16 heads of 128): served at
-   ``MOE_SERVE["layers"]`` (4) layers drop-free (``capacity_factor=16``)
+   ``MOE_SERVE["layers"]`` (2) layers drop-free (``capacity_factor=16``)
    in f32 (bf16 routing flips between decode and forward) against the B2
    forward on its f32 route within 5e-3 (B2 = 4); then ``lm_study`` on it at
    ``MOE_STUDY["layers"]`` (1) layer, batch 4 × 1024 (``moe_study``: the
@@ -288,13 +300,34 @@ Phases, each printing one JSON line:
    (steps + evaluations), B3 = B4 = layers × steps, on the tensor cores);
    an evaluation's loss equal to ``LM.loss`` on the same batch and to
    ``nll + router_aux_weight · moe_aux / layers`` (f32), ``moe_aux`` > 0.
-30. last lines  — the script's run time and each phase's seconds, the card
+30. ``rglru_study`` — the SHA study of ``examples/torch_hpo_lm.py`` with
+   recurrentgemma-2b at full width and ``RGLRU_STUDY["layers"]`` (5) of
+   its 26 layers — one (RG-LRU, RG-LRU, local) cycle and the two trailing
+   RG-LRU layers, 1,043,422,720 parameters — batch 1 × 4096 (``lm_study``:
+   fewer steps stage-based, the same best trial, every metric bit-equal,
+   B1 = steps, B2 = 1 × (steps + evaluations), B3 = B4 = steps on the
+   tensor cores at head dim 256); ``rglru_scan``: the log-depth RG-LRU
+   scan alone at one layer's (1, 4096, 2560), forward and backward.
+31. ``rglru_serve`` — decode with the study's model: batch 8, 256 prompt
+   tokens fed one by one and 64 greedy ones (``serve_pass``: every step
+   within 4 × the bf16 forward's distance from an f32 forward, on the B2
+   forward), ms a step, CUDA launches a token, peak memory.
+32. ``frontends`` — ``train/step.py``'s train step: hubert-xlarge at all
+   48 layers (features (4, 1024, 512) bf16, labels in [0, 504); B2–B4 48
+   a step at head dim 80) and qwen2-vl-7b at 2 of its 28 layers (1,024
+   patches (2, 1024, 1280) and 1,024 text tokens, M-RoPE ids on a 32 × 32
+   grid), ``FRONTEND_STEPS`` steps with the kernels and the first 3 again
+   on the plain versions, each loss within 2^-8 of the plain one; s/step,
+   tokens/s, peak memory.
+33. last lines  — the script's run time and each phase's seconds, the card
    and its power limit, the
-   ``kernels`` line (B1's tree kernel, B2–B6; with the grouped runs',
+   ``kernels`` line (B1's tree kernel, B2–B6, and B2–B4's rows at head
+   dims 256 (recurrentgemma-2b's shape and study) and 80 (hubert-xlarge's
+   shape and train steps); with the grouped runs',
    the fault plane's, the sessions', the gateway's, the mesh plane's,
-   the launcher's, the retry's, the degraded runs', the serve phases' and
-   the MoE study's launches and the fold's checks) and ``{"ok": true,
-   "device": {...}}``.
+   the launcher's, the retry's, the degraded runs', the serve phases',
+   the MoE study's, the RG-LRU study's and the frontends' launches and
+   the fold's checks) and ``{"ok": true, "device": {...}}``.
 
 The solo studies of phases 4, 7, 10, 17, 19, 20, 22 and 24 pass
 ``batch_siblings=False``: their launch counts are those of PRs 11–17.
@@ -335,11 +368,24 @@ FA_REPLACES = {"B2": "src/repro/kernels/flash_attention.py:202",
                "B4": "src/repro/kernels/flash_attention.py:406"}
 # the attention grid of tests/test_kernels.py: (B, S, Hq, Hkv, hd)
 FA_SHAPES = [(1, 128, 4, 4, 64), (2, 128, 8, 2, 64), (1, 256, 8, 1, 32),
-             (1, 96, 4, 2, 64), (2, 64, 2, 1, 128)]
+             (1, 96, 4, 2, 64), (2, 64, 2, 1, 128),
+             # hubert-xlarge's head dim (MHA) and recurrentgemma-2b's (MQA),
+             # on a ragged length
+             (2, 160, 4, 4, 80), (1, 160, 4, 1, 256)]
 FA_MASKS = [(True, 0), (False, 0), (True, 48)]
 QWEN = dict(B=4, S=1024, Hq=14, Hkv=2, hd=64)     # qwen2-0.5b's attention
 QWEN3 = dict(B=1, S=2048, Hq=32, Hkv=8, hd=128)   # qwen3-8b's, at hd 128
 QWEN_MOE = dict(B=4, S=1024, Hq=16, Hkv=16, hd=128)  # qwen2-moe's: MHA, hd 128
+# the attention of the slices that run at head dims 256 and 80, and
+# qwen2-vl-7b's over 1,024 patches + 1,024 text tokens, at their training
+# shapes (bf16)
+WIDE_ATTENTION = {
+    "recurrentgemma-2b": dict(B=1, S=4096, Hq=10, Hkv=1, hd=256, causal=True,
+                              window=2048),
+    "hubert-xlarge": dict(B=4, S=1024, Hq=16, Hkv=16, hd=80, causal=False,
+                          window=0),
+    "qwen2-vl-7b": dict(B=2, S=2048, Hq=28, Hkv=4, hd=128, causal=True,
+                        window=0)}
 # B2 at qwen2-0.5b's shape before the tensor-core kernel: the CUDA-core
 # kernel's bf16 instantiation, median of four runs on an NVIDIA H100 80GB
 # HBM3, 700.00 W (PERF.md, kernel table).  A figure from the record,
@@ -364,9 +410,10 @@ MAMBA = dict(B=1, nc=16, Q=128, H=80, P=64, N=128)   # mamba2-2.7b's SSD
 # the study's depth: all 64 layers fit (63.8 GiB) but their 16.2 GB
 # checkpoints make the study writer-bound (391 s of a 939 s run), so it is
 # cut for the run's time; at 16 layers it took 104.6 s of a 751.4 s run
-# (the serve and MoE phases added 108.6 s), so 8;
-# tools/step_compare.py times the 64-layer step
-MAMBA_STUDY = dict(batch=1, seq_len=2048, n_train=64, n_eval=2, layers=8)
+# (the serve and MoE phases added 108.6 s), so 8; at 8, 67.8 s of a 976.6
+# s run on a slow host (the RG-LRU and frontend phases added 79.2 s), so
+# 4; tools/step_compare.py times the 64-layer step
+MAMBA_STUDY = dict(batch=1, seq_len=2048, n_train=64, n_eval=2, layers=4)
 # the SHA study of examples/torch_hpo_lm.py on the reduced model on the
 # CPU: 3 + 7 commits (stage- and trial-based), and at most 4 blobs on the
 # directory at once (the four trials' first rung), the one being written
@@ -378,8 +425,8 @@ GROUP_STUDY_COMMITS = 8
 # the group study's depth: 32 layers fit (a 2-member step 43.1 GiB,
 # tools/group_probe.py memory mamba2-2.7b 32; the grouped study 51.0 GiB)
 # but took 145 s of a 1,004 s run (16 layers 83 s of 939 s), so it is
-# cut for the run's time
-MAMBA_GROUP_LAYERS = 8
+# cut for the run's time; 8 layers took 98.4 s of a 976.6 s run, so 4
+MAMBA_GROUP_LAYERS = 4
 RESNET_FULL = dict(n=9, width=16, n_train=8192, n_eval=512, batch=128)
 RESNET_LEAVES = 114
 
@@ -395,13 +442,27 @@ QWEN_GROUP_MS = (2, 4)
 SERVE = dict(batch=8, prompt=256, new=64, window=128)
 # mamba2-2.7b served at the studies' depth: a 64-layer host draw (2.7 B
 # parameters) would take about half the three new phases' budget
-MAMBA_SERVE = dict(batch=8, prompt=128, new=32, layers=16)
-MOE_SERVE = dict(batch=4, prompt=64, new=32, layers=4)
+MAMBA_SERVE = dict(batch=8, prompt=128, new=32, layers=8)
+# qwen2-moe served in f32 at 2 layers: its 4-layer host draw (2.9 B f32
+# parameters) took 25-31 s, and the script's budget needs it (PR 24)
+MOE_SERVE = dict(batch=4, prompt=64, new=32, layers=2)
 # the MoE study's depth: one layer's held states fit the card beside its
 # step (a state is 6 bytes a parameter: bf16 weights and AdamW slots)
 MOE_STUDY = dict(batch=4, seq_len=1024, n_train=256, n_eval=8, layers=1)
 DECODE_32K_STEPS = 20
 F32_DECODE_TOL = 5e-3      # tests/test_models.py::test_decode_matches_forward
+# recurrentgemma-2b's study at full width and 5 of its 26 layers: one
+# (RG-LRU, RG-LRU, local) cycle and the two trailing RG-LRU layers, 1.04 B
+# parameters (6.3 GB a state), cut for the host's draw time and the
+# script's budget; batch 1 x 4096 tokens (train_4k's length: the 2,048
+# window bites)
+RGLRU_STUDY = dict(batch=1, seq_len=4096, n_train=64, n_eval=1, layers=5)
+RGLRU_SERVE = dict(batch=8, prompt=256, new=64)
+# the frontends' train steps: hubert-xlarge at all 48 layers, qwen2-vl-7b
+# at 2 of its 28 (1.56 B parameters, 0.55 B of them its untied head)
+FRONTEND_STEPS, FRONTEND_PLAIN_STEPS = 4, 3
+HUBERT_TRAIN = dict(batch=4, frames=1024)
+QWEN_VL_TRAIN = dict(batch=2, patches=1024, text=1024, layers=2)
 
 
 def emit(obj):
@@ -460,6 +521,11 @@ def device_ms(fn, reps=20, expect=None):
                      getattr(e, "self_cuda_time_total", 0.0)) for e in rows)
     if expect is not None:
         reps = sum(e.count for e in rows if expect in e.key)
+    elif rows:
+        # whole calls' records dropped (seen late in a long run, where one
+        # call of twenty was kept): a kernel that each call launches once
+        # counts the calls the trace holds
+        reps = min(reps, min(e.count for e in rows))
     return us / 1e3 / reps if us > 0 and reps > 0 else "not measured"
 
 
@@ -1348,49 +1414,84 @@ def resnet_step_phase():
 
 
 # ------------------------------- 6. attention kernels vs plain version
-def b2_case(fa, q, k, v, lse_rule, label):
-    """B2 in bf16 at a main path's shape (causal): two launches bit-equal,
-    executed tiles equal to ``fa_tile_counts``, ``out`` by
-    ``p_rounding_rule`` and ``lse`` by ``lse_rule`` against the plain
-    version on the same inputs; timed by CUDA events and by the profiler
-    beside SDPA (a yardstick the package never calls), with its bound.
-    Returns (out, lse, row)."""
+CAUSAL = dict(causal=True, window=0)
+
+
+def live_pairs(S, causal, window):
+    """The (query, key) pairs a mask keeps over S positions: the work of
+    the attention kernels, which skip dead tiles and mask the rest."""
+    q = np.arange(S)
+    hi = q if causal else np.full(S, S - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(S, int)
+    return int((hi - lo + 1).clip(min=0).sum())
+
+
+def sdpa_inputs(q, k, v, mk):
+    """(B, H, S, hd) views for the library's attention, K / V repeated
+    onto the query heads, and the boolean mask of a windowed case (None
+    otherwise: the library's causal flag serves)."""
+    from repro_torch.kernels.ref import attention_mask
+    group = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ke, ve = (x.repeat_interleave(group, dim=1) for x in (kt, vt))
+    mask = attention_mask(q.shape[1], k.shape[1], mk["causal"],
+                          mk["window"], q.device) if mk["window"] else None
+    return qt, ke, ve, mask
+
+
+def b2_case(fa, q, k, v, lse_rule, label, mk=CAUSAL):
+    """B2 in bf16 at a main path's shape under the mask ``mk``: two
+    launches bit-equal, executed tiles equal to ``fa_tile_counts``,
+    ``out`` by ``p_rounding_rule`` and ``lse`` by ``lse_rule`` against the
+    plain version on the same inputs; timed by CUDA events and by the
+    profiler beside SDPA (a yardstick the package never calls; with a
+    window, over its boolean mask), with its bound: 4·B·Hq·hd·(the live
+    (query, key) pairs) operations.  Returns (out, lse, row)."""
     import torch.nn.functional as F
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
+    tc0 = fa.flash_attention_fwd.launches_tc
     runs = [fa.flash_attention_fwd(q, k, v, return_lse=True,
-                                   count_tiles=True) for _ in range(2)]
+                                   count_tiles=True, **mk) for _ in range(2)]
     torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_tc - tc0 == 2, label
     assert all(torch.equal(a, b) for a, b in zip(runs[0][:2], runs[1][:2])), (
         "two launches differ", label)
-    want = B * Hq * fa.fa_tile_counts(S, S, *fa.fwd_blocks(torch.bfloat16),
-                                      True, 0)[0]
+    want = B * Hq * fa.fa_tile_counts(S, S, *fa.fwd_blocks(torch.bfloat16,
+                                                           hd),
+                                      mk["causal"], mk["window"])[0]
     assert int(runs[0][2]) == int(runs[1][2]) == want, (
         "executed tiles", label, int(runs[0][2]), want)
     out, lse = runs[0][:2]
     del runs
     qf, kf, vf = q.float(), k.float(), v.float()
-    out_row, ok = p_rounding_rule(out, fa.fwd_plain(qf, kf, vf)[0],
-                                  fa.fwd_plain(qf, kf, vf.abs())[0])
+    out_row, ok = p_rounding_rule(out, fa.fwd_plain(qf, kf, vf, **mk)[0],
+                                  fa.fwd_plain(qf, kf, vf.abs(), **mk)[0])
     assert ok, ("B2 disagrees with its plain version", label, out_row)
     del qf, kf, vf
-    lse_row, ok = at_scale(lse, fa.fwd_plain(q, k, v)[1], lse_rule)
+    lse_row, ok = at_scale(lse, fa.fwd_plain(q, k, v, **mk)[1], lse_rule)
     assert ok, ("B2 lse disagrees with its plain version", label, lse_row)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kern = lambda: fa.flash_attention_fwd(q, k, v, return_lse=True)
-    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 enable_gqa=True)
+    qt, ke, ve, mask = sdpa_inputs(q, k, v, mk)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    kern = lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **mk)
+    if mask is None:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=mk["causal"], enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(qt, ke, ve,
+                                                     attn_mask=mask)
     lib_err = float((lib().transpose(1, 2).float() - out.float()).abs().max()
                     ) / float(out.float().abs().max())
     assert lib_err <= 2e-2, ("yardstick differs", label, lib_err)
     ms, lib_ms = time_ms(kern, reps=20, warm=3), time_ms(lib, reps=20, warm=3)
-    flops = 4.0 * B * Hq * S * S * hd * 0.5                 # causal
+    flops = 4.0 * B * Hq * hd * live_pairs(S, mk["causal"], mk["window"])
     # each input read once, each output written once
     nbytes = 2 * 2 * B * S * (Hq + Hkv) * hd + 4 * B * Hq * S
     t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return out, lse, {
         "shape": label, "ms": ms,
-        "plain_ms": time_ms(lambda: fa.fwd_plain(q, k, v), reps=5, warm=1),
+        "plain_ms": time_ms(lambda: fa.fwd_plain(q, k, v, **mk), reps=5,
+                            warm=1),
         "library_ms": lib_ms, "ms_over_library_ms": ms / lib_ms,
         "device_ms": device_ms(kern), "library_device_ms": device_ms(lib),
         "wrapper_host_us": launch_us(kern), "library_host_us": launch_us(lib),
@@ -1401,23 +1502,26 @@ def b2_case(fa, q, k, v, lse_rule, label):
         "library_vs_kernel_err_over_scale": lib_err}
 
 
-def bwd_case(fa, q, k, v, do, out, lse, label):
-    """B3 and B4 in bf16 at a main path's shape (causal), fed B2's ``lse``:
-    two launches of each bit-equal, every one on the tensor-core kernels;
-    dq, dk_h, dv_h by ``ds_rounding_rule`` against the plain versions and
-    within 2e-2 of the largest value of the library's flash backward (a
-    yardstick the package never calls); each kernel timed by CUDA events
-    and by the profiler beside its plain version and its bound, the pair
-    beside the library's backward and the backward's bound as a whole.
-    Returns ({"B3": row, "B4": row}, the pair's row)."""
+def bwd_case(fa, q, k, v, do, out, lse, label, mk=CAUSAL):
+    """B3 and B4 in bf16 at a main path's shape under the mask ``mk``, fed
+    B2's ``lse``: two launches of each bit-equal, every one on the
+    tensor-core kernels; dq, dk_h, dv_h by ``ds_rounding_rule`` against the
+    plain versions and within 2e-2 of the largest value of the library's
+    backward (a yardstick the package never calls: the flash backward, or
+    with a window SDPA's backward over its boolean mask); each kernel timed
+    by CUDA events and by the profiler beside its plain version and its
+    bound, the pair beside the library's backward and the backward's bound
+    as a whole.  Returns ({"B3": row, "B4": row}, the pair's row)."""
+    import torch.nn.functional as F
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    kern = {"B3": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+    kern = {"B3": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    **mk),
             "B4": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                     delta)}
-    plain = {"B3": lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta),
-             "B4": lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta)}
+                                                     delta, **mk)}
+    plain = {"B3": lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta, **mk),
+             "B4": lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta, **mk)}
     wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     tc0 = [w.launches_tc for w in wrappers]
     got = (kern["B3"](),) + kern["B4"]()
@@ -1427,24 +1531,34 @@ def bwd_case(fa, q, k, v, do, out, lse, label):
     for a, b in zip(got, again):
         assert torch.equal(a, b), ("two launches differ", label)
     del again
-    vs_plain, ok = ds_rounding_rule(fa, q, k, v, do, lse, delta, got,
-                                    dict(causal=True, window=0))
+    vs_plain, ok = ds_rounding_rule(fa, q, k, v, do, lse, delta, got, mk)
     assert ok, ("B3 / B4 disagree with their plain versions", label,
                 vs_plain)
 
-    # yardstick only — the package never calls it: the library's flash
-    # backward alone, on its own forward's residuals, over K / V repeated
-    # onto the query heads: one call that computes what B3 and B4 compute
-    # together (dq and the per-query-head dk_h, dv_h; bf16 P and dS)
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    ke, ve = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
-    res = torch.ops.aten._scaled_dot_product_flash_attention(
-        qt, ke, ve, 0.0, True, False)
+    # yardstick only — the package never calls it: the library's backward
+    # alone, on its own forward's residuals, over K / V repeated onto the
+    # query heads: one call that computes what B3 and B4 compute together
+    # (dq and the per-query-head dk_h, dv_h)
+    qt, ke, ve, mask = sdpa_inputs(q, k, v, mk)
+    dot = do.transpose(1, 2)
+    if mask is None:
+        res = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, ke, ve, 0.0, mk["causal"], False)
 
-    def sdpa_bwd():
-        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            dot, qt, ke, ve, res[0], res[1], res[2], res[3], res[4], res[5],
-            0.0, True, res[6], res[7])
+        def sdpa_bwd():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, ke, ve, res[0], res[1], res[2], res[3], res[4],
+                res[5], 0.0, mk["causal"], res[6], res[7])
+        library = ("aten._scaled_dot_product_flash_attention_backward over "
+                   "K / V repeated onto the query heads")
+    else:
+        leaves = [x.detach().requires_grad_(True) for x in (qt, ke, ve)]
+        o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o_lib, leaves, dot, retain_graph=True)
+        library = ("the backward of F.scaled_dot_product_attention over its "
+                   "boolean window mask, K / V repeated onto the query heads")
 
     lib_err = {}
     for name, a, b in zip(("dq", "dk_h", "dv_h"), sdpa_bwd(), got):
@@ -1457,7 +1571,7 @@ def bwd_case(fa, q, k, v, do, out, lse, label):
 
     e_bf16, e_f32 = 2, 4
     n_q, n_kv, n_row = B * S * Hq * hd, B * S * Hkv * hd, B * Hq * S
-    fwd_flops = 4.0 * B * Hq * S * S * hd * 0.5                 # causal
+    fwd_flops = 4.0 * B * Hq * hd * live_pairs(S, mk["causal"], mk["window"])
     # (flops, bytes) of each backward kernel's function: each input read
     # once, each output written once.  Alone, B3 must recompute s and dp
     # and form ds·K (three products of the forward's two: 1.5x); B4 must
@@ -1496,15 +1610,39 @@ def bwd_case(fa, q, k, v, do, out, lse, label):
             "flops": bwd_flops, "bytes": bwd_bytes,
             "per_kernel_bound_ms": rows["B3"]["bound_ms"]
             + rows["B4"]["bound_ms"],
-            "library": "aten._scaled_dot_product_flash_attention_backward"
-                       " over K / V repeated onto the query heads",
+            "library": library,
             "vs_plain": vs_plain, "library_vs_kernel_err_over_scale": lib_err}
     return rows, pair
 
 
+def wide_attention_case(fa, arch, lse_rule, gen):
+    """B2–B4 in bf16 at ``WIDE_ATTENTION[arch]``'s training shape by
+    :func:`b2_case` / :func:`bwd_case`; returns {"B2", "B3", "B4": row,
+    "pair": the backward's row}."""
+    spec = WIDE_ATTENTION[arch]
+    mk = {x: spec[x] for x in ("causal", "window")}
+    B, S, Hq, Hkv, hd = (spec[x] for x in ("B", "S", "Hq", "Hkv", "hd"))
+    label = (f"B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, hd {hd}, "
+             f"{'causal' if mk['causal'] else 'non-causal'}"
+             + (f", window {mk['window']}" if mk["window"] else "")
+             + f", bf16 ({arch})")
+    q, k, v, do = [torch.randn(shape, generator=gen).to(DEV, torch.bfloat16)
+                   for shape in ((B, S, Hq, hd), (B, S, Hkv, hd),
+                                 (B, S, Hkv, hd), (B, S, Hq, hd))]
+    out, lse, b2 = b2_case(fa, q, k, v, lse_rule, label, mk)
+    bwd, pair = bwd_case(fa, q, k, v, do, out, lse, label, mk)
+    del q, k, v, do, out, lse
+    free()
+    return {"B2": b2, "B3": dict(bwd["B3"], shape=label),
+            "B4": dict(bwd["B4"], shape=label), "pair": pair}
+
+
 def attention_phase(join_build):
-    """B2–B4 on the grid and at qwen2-0.5b's, qwen3-8b's and
-    qwen2-moe-a2.7b's shapes; returns their rows."""
+    """B2–B4 on the grid and at qwen2-0.5b's, qwen3-8b's,
+    qwen2-moe-a2.7b's, recurrentgemma-2b's (hd 256), hubert-xlarge's (hd
+    80) and qwen2-vl-7b's shapes; returns their rows (the kernels line's
+    B2–B4 and their ``_hd256`` / ``_hd80`` rows)."""
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as fa
     build_s = join_build("flash_attention")
     fa._lib()                                   # load, check tile sizes
@@ -1552,8 +1690,8 @@ def attention_phase(join_build):
                 for a, b in zip(runs[0][:2] + (dqs[0],) + dkvs[0],
                                 runs[1][:2] + (dqs[1],) + dkvs[1]):
                     assert torch.equal(a, b), ("two launches differ", case)
-                want = B * Hq * fa.fa_tile_counts(S, S, *fa.fwd_blocks(dtype),
-                                                  causal, window)[0]
+                want = B * Hq * fa.fa_tile_counts(
+                    S, S, *fa.fwd_blocks(dtype, hd), causal, window)[0]
                 assert int(tiles) == int(runs[1][2]) == p_tiles == want, (
                     "executed tiles", case, int(tiles), want)
                 assert float(dqs[0].float().abs().max()) > 0
@@ -1631,6 +1769,10 @@ def attention_phase(join_build):
     out_m, lse_m, moe128 = b2_case(fa, *qm[:3], lse_rule, shape_m)
     bwdm_rows, pairm = bwd_case(fa, *qm, out_m, lse_m, shape_m)
     del qm, out_m, lse_m
+    free()
+    # the slices' head dims 256 and 80, and qwen2-vl-7b's attention
+    wide = {arch: wide_attention_case(fa, arch, lse_rule, gen)
+            for arch in WIDE_ATTENTION}
 
     def kernel_row(key, name):
         return {"name": name, "route": "cuda", "source": FA_SOURCE,
@@ -1666,8 +1808,35 @@ def attention_phase(join_build):
                     ("dq",) if key == "B3" else ("dk_h", "dv_h"))},
             qwen3_8b_hd128=dict(bwd3_rows[key], shape=shape3),
             qwen2_moe_hd128_mha=dict(bwdm_rows[key], shape=shape_m))
+    # each wide row of the kernels line: B2–B4 at recurrentgemma-2b's head
+    # dim 256 and hubert-xlarge's 80 (their launches are the rglru_study's
+    # and the frontends phase's, filled in by run_phases)
+    for arch, hd in (("recurrentgemma-2b", 256), ("hubert-xlarge", 80)):
+        for key, wrapper in (("B2", fa.flash_attention_fwd),
+                             ("B3", fa.flash_attention_bwd_dq),
+                             ("B4", fa.flash_attention_bwd_dkv)):
+            r = wide[arch][key]
+            errs = (r["vs_plain"] if key == "B2" else {
+                x: wide[arch]["pair"]["vs_plain"][x]
+                for x in (("dq",) if key == "B3" else ("dk_h", "dv_h"))})
+            rows[f"{key}_hd{hd}"] = dict(
+                {x: r[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "device_ms", "wrapper_host_us", "flops",
+                                   "bytes", "shape")},
+                name=wrapper.__name__, route="cuda", source=FA_SOURCE,
+                replaces=FA_REPLACES[key], launches=None, head_dim=hd,
+                model=arch, max_abs_err=max(e["max_abs_err"]
+                                            for e in errs.values()),
+                vs_plain=errs,
+                library_ms=r["library_ms"] if key == "B2" else None,
+                library=("F.scaled_dot_product_attention" if key == "B2"
+                         else None),
+                route_bf16=rows[key]["route_bf16"])
+    # each kernel's registers and spills, from the build's ptxas -v report
+    ptxas = _cuda.ptxas_report("flash_attention")
     emit({"phase": "attention_kernels",
           "build_seconds": build_s, "cases": fa_cases,
+          "ptxas": ptxas,
           "bit_equal_twice": True, "tiles_equal_fa_tile_counts": True,
           "bf16_on_tensor_cores": ["B2", "B3", "B4"],
           "max_abs_err": fa_err, "shape": shape_s,
@@ -1705,7 +1874,11 @@ def attention_phase(join_build):
               cuda_core_ms_not_from_this_run="none in the record"),
           "backward_b3_plus_b4_qwen2_moe_hd128_mha": dict(
               {x: y for x, y in pairm.items() if x != "vs_plain"},
-              vs_plain=pairm["vs_plain"])})
+              vs_plain=pairm["vs_plain"]),
+          "wide": {arch: {"b2": {x: y for x, y in w["B2"].items()},
+                          "b3": w["B3"], "b4": w["B4"],
+                          "backward_b3_plus_b4": w["pair"]}
+                   for arch, w in wide.items()}})
     return rows
 
 
@@ -1767,7 +1940,7 @@ def lm_small_phase(phase, arch, tokens, seed, attention):
 
 # --------------------------------------------------- an LM study, both modes
 def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields,
-             make_store=None, verify=None):
+             make_store=None, verify=None, kernel_layers=None):
     """Both modes of the SHA study of ``examples/torch_hpo_lm.py`` on one
     trainer, made by ``make_backend()`` after the kernel-plane accounting is
     reset (a trainer counts its calls and fallbacks from its construction);
@@ -1775,6 +1948,7 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields,
     (the draw launches no kernel).  Every launch count is zeroed just
     before and read just after: each of the ``fwd`` kernels = layers ×
     (steps + evaluations), each of the ``bwd`` kernels = layers × steps
+    (``kernel_layers``: the layers that run them, default all)
     (the bf16 attention and SSD ones all on the tensor cores), B1's
     tree kernel = steps, the per-leaf kernel and every other kernel 0; no
     fallback; fewer steps
@@ -1857,7 +2031,7 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields,
     calls, fallbacks = kops.KERNEL_STATS.snapshot()
     peak = max(r["peak"] for r in runs.values())
 
-    L = cfg.num_layers
+    L = cfg.num_layers if kernel_layers is None else kernel_layers
     steps = sum(r["stats"].steps_run for r in runs.values())
     evals = sum(r["evals"] for r in runs.values())
     expected = {name: 0 for name in launches}
@@ -1884,7 +2058,8 @@ def lm_study(phase, make_backend, batch, seq_len, fwd, bwd, model_fields,
     text.update({name: f"{L} x steps" for name in bwd})
     text["stacked_tree_update"] = "steps (one launch per step)"
     emit({"phase": phase, "model": cfg.name, "dtype": cfg.dtype,
-          "layers": L, **model_fields, "parameters": n_params,
+          "layers": cfg.num_layers, "kernel_layers": L, **model_fields,
+          "parameters": n_params,
           "leaves": n_leaves, "init_draw_seconds": draw_s, "batch": batch,
           "seq_len": seq_len, "optimizer": "adamw",
           "modes": {("stage" if share else "trial"): {
@@ -2352,8 +2527,8 @@ def mamba2_state_bytes(cfg):
 
 def mamba2_study_phase(root):
     """The mamba2-2.7b study at full width and ``MAMBA_STUDY["layers"]``
-    layers, its checkpoints on a directory store under ``root`` (2.7 GB
-    each at 8 layers: the card holds the running state only); returns its
+    layers, its checkpoints on a directory store under ``root`` (1.7 GB
+    each at 4 layers: the card holds the running state only); returns its
     launch counts and the trainer (its parameters drawn)."""
     import torch_hpo_lm as lm_example
     from repro_torch.configs import get_config
@@ -4610,6 +4785,262 @@ def moe_phase():
     return launches, study_launches
 
 
+# ------------------------------------ 30-32. RG-LRU and the frontends
+def rglru_study_phase():
+    """The SHA study of ``examples/torch_hpo_lm.py`` with recurrentgemma-2b
+    at full width and ``RGLRU_STUDY["layers"]`` layers (``lm_study``:
+    stage- and trial-based, the same best trial, every metric bit-equal,
+    B1 = steps, B2 = 1 × (steps + evaluations), B3 = B4 = steps — the one
+    local-attention layer, at head dim 256 on the tensor cores); then the
+    log-depth RG-LRU scan alone at the study's shape.  Returns the launch
+    counts and the trainer."""
+    import torch_hpo_lm as lm_example
+    from repro_torch.configs import get_config
+    from repro_torch.models.rglru import linear_scan
+    full = get_config("recurrentgemma-2b")
+    cut = dataclasses.replace(full, num_layers=RGLRU_STUDY["layers"])
+    assert (full.d_model, full.rglru_width, full.num_heads,
+            full.num_kv_heads, full.resolved_head_dim, full.d_ff,
+            full.vocab_size, full.local_window, full.tie_embeddings,
+            full.dtype) == (2560, 2560, 10, 1, 256, 7680, 256000, 2048,
+                            True, "bfloat16")
+    data = {k: RGLRU_STUDY[k] for k in ("batch", "seq_len", "n_train",
+                                        "n_eval")}
+    launches, backend = lm_study(
+        "rglru_study", lambda: lm_example.make_backend(
+            "recurrentgemma-2b", use_kernel=True,
+            layers=RGLRU_STUDY["layers"], **data),
+        data["batch"], data["seq_len"], fwd=("flash_attention_fwd",),
+        bwd=("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+        model_fields={"d_model": full.d_model,
+                      "rglru_width": full.rglru_width,
+                      "heads": [full.num_heads, full.num_kv_heads],
+                      "head_dim": full.resolved_head_dim,
+                      "local_window": full.local_window,
+                      "layer_kinds": list(cut.layer_kinds()),
+                      "layers_published": full.num_layers,
+                      "d_ff": full.d_ff, "vocab": full.vocab_size},
+        kernel_layers=1)
+    assert backend.task.cfg == cut
+    assert cut.layer_kinds() == ("rglru", "rglru", "local", "rglru",
+                                 "rglru")
+    assert cut.param_count() == 1_043_422_720
+    # the scan alone, forward and backward, at one layer's (B, S, W)
+    B, S, W = data["batch"], data["seq_len"], full.rglru_width
+    gen = torch.Generator().manual_seed(30)
+    a = (0.9 + 0.0999 * torch.rand((B, S, W), generator=gen)).to(DEV)
+    b = torch.randn((B, S, W), generator=gen).to(DEV).requires_grad_(True)
+    dh = torch.randn((B, S, W), generator=gen).to(DEV)
+    fwd_ms = time_ms(lambda: linear_scan(a, b), reps=10, warm=2)
+
+    def fwd_bwd():
+        torch.autograd.grad(linear_scan(a, b), b, dh)
+    both_ms = time_ms(fwd_bwd, reps=10, warm=2)
+    assert torch.equal(linear_scan(a, b), linear_scan(a, b))
+    emit({"phase": "rglru_scan", "shape": [B, S, W], "dtype": "float32",
+          "levels": (S - 1).bit_length(), "forward_ms": fwd_ms,
+          "forward_backward_ms": both_ms, "bit_equal_twice": True,
+          "timing": "CUDA events, mean of 10 calls, median of 3 windows"})
+    return launches, backend
+
+
+def rglru_serve_phase(backend):
+    """Decode with the study's model (its trainer's parameters): batch 8,
+    256 prompt tokens fed one by one, 64 greedy tokens (``serve_pass``:
+    every step within 4 × the bf16 forward's distance from an f32
+    forward, on the B2 forward over the same tokens); ms a step, CUDA
+    launches a token (profiler) and the peak memory.  Returns the
+    launches."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.step import build_serve_step
+    from repro_torch.utils.tree import tree_map
+    cfg = backend.task.cfg
+    read = decode_counters()
+    params = backend.on_device(backend.init_state())[0]["params"]
+    params_f32 = tree_map(lambda x: x.float(), params)
+    gen = torch.Generator().manual_seed(24)
+    B, P, new = (RGLRU_SERVE[k] for k in ("batch", "prompt", "new"))
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen).to(DEV)
+    model = LM(cfg, use_kernel=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve_pass(model, params, params_f32, prompts, new)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read()
+    # decode launches no kernel of the port's; the forward one B2 (the
+    # local layer)
+    expected = {name: 0 for name in launches}
+    expected["flash_attention_fwd"] = 1
+    assert launches == expected, launches
+    del params_f32
+    free()
+    # CUDA launches a token: a few decode steps under the profiler
+    serve = build_serve_step(model)
+    cache = model.init_cache(B, P + new, device=DEV)
+    state = {"tok": prompts[:, :1], "cache": cache}
+    index = torch.zeros((), dtype=torch.int64, device=DEV)
+
+    def step():
+        nxt, state["cache"] = serve(params, state["cache"], state["tok"],
+                                    index)
+        state["tok"] = nxt[:, None]
+        index.add_(1)
+
+    ms = host_ms(step, 8)
+    prof = device_profile(lambda: [step() for _ in range(4)], 4, 4 * ms)
+    emit({"phase": "rglru_serve", "model": cfg.name,
+          "layers": cfg.num_layers, "layer_kinds": list(cfg.layer_kinds()),
+          "dtype": cfg.dtype,
+          "bound_rule": "per row, 4 x max |bf16 forward - f32 forward|",
+          "pass": run, "ms_per_step": ms,
+          "launches_per_token": prof["device_kernel_launches_per_step"],
+          "device_idle_share": prof["device_idle_share"],
+          "peak_device_memory_gib": peak / 2 ** 30, "launches": launches})
+    return launches
+
+
+def mrope_grid(batch, patches, text):
+    """M-RoPE ids of a square patch grid then text, (3, B, P + T) on the
+    card: patches (t, h, w) = (0, row, column), the text continuing at
+    max + 1 in all three sections."""
+    side = int(round(patches ** 0.5))
+    assert side * side == patches
+    idx = torch.arange(patches)
+    rows, cols = idx // side, idx % side
+    txt = side + torch.arange(text)
+    pos = torch.stack([torch.cat([torch.zeros(patches, dtype=torch.long),
+                                  txt]),
+                       torch.cat([rows, txt]), torch.cat([cols, txt])])
+    assert not torch.equal(pos[1], pos[2]) and not torch.equal(pos[0],
+                                                               pos[1])
+    return pos[:, None].expand(3, batch, patches + text).contiguous().to(DEV)
+
+
+def frontend_train(cfg, batch, tokens, kernel_layers):
+    """``FRONTEND_STEPS`` steps of ``train/step.py``'s train step on one
+    batch with the kernels (B1 once a step, B2–B4 once per kernel layer a
+    step, all on the tensor cores, no fallback), then the first
+    ``FRONTEND_PLAIN_STEPS`` again on the plain versions from the same
+    parameters: each loss within ``LAUNCH_LOSS_RTOL`` of the plain one.
+    Returns the row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.tree import tree_leaves
+    t0 = time.perf_counter()
+    params0 = LM(cfg).init(0, device=DEV)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params0))
+    assert n_params == cfg.param_count(), n_params
+    counters = lm_counters()
+    tc = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+          fa.flash_attention_bwd_dkv)
+    runs = {}
+    for label, use_kernel, n in (("kernels", True, FRONTEND_STEPS),
+                                 ("plain", False, FRONTEND_PLAIN_STEPS)):
+        step_fn = build_train_step(LM(cfg, use_kernel=use_kernel), "adamw")
+        params, opt = params0, init_opt_state("adamw", params0)
+        for c in counters:                       # counts to 0 just before
+            c.launches = 0
+        tc0 = [c.launches_tc for c in tc]
+        kops.reset_kernel_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds = [], []
+        for i in range(n):
+            t1 = time.perf_counter()
+            params, opt, loss = step_fn(params, opt, batch, 3e-4, i)
+            losses.append(float(loss))           # waits for the step
+            seconds.append(time.perf_counter() - t1)
+        runs[label] = dict(
+            losses=losses, seconds=seconds,
+            peak=torch.cuda.max_memory_allocated(),
+            launches={c.__name__: c.launches for c in counters},
+            launches_tc=[c.launches_tc - t for c, t in zip(tc, tc0)],
+            stats=kops.KERNEL_STATS.snapshot())
+        del params, opt, step_fn
+        free()
+    k, p = runs["kernels"], runs["plain"]
+    n, L = FRONTEND_STEPS, kernel_layers
+    assert k["launches"] == {
+        "stacked_tree_update": n, "stacked_leaf_update": 0,
+        "flash_attention_fwd": L * n, "flash_attention_bwd_dq": L * n,
+        "flash_attention_bwd_dkv": L * n, "ssd_intra_fwd": 0,
+        "ssd_intra_bwd": 0}, k["launches"]
+    assert k["launches_tc"] == [L * n] * 3, k["launches_tc"]
+    assert k["stats"] == (n * (1 + L), 0), k["stats"]
+    assert set(p["launches"].values()) == {0} and p["stats"] == (0, 0)
+    assert np.isfinite(k["losses"]).all()
+    ratios = [abs(a - b) / (LAUNCH_LOSS_RTOL * abs(b))
+              for a, b in zip(k["losses"], p["losses"])]
+    assert max(ratios) <= 1.0, (k["losses"], p["losses"], ratios)
+    steady = k["seconds"][1:]
+    s_step = sum(steady) / len(steady)
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "dtype": cfg.dtype, "parameters": n_params,
+            "init_draw_seconds": draw_s, "steps": n,
+            "seconds_per_step": s_step, "first_step_seconds":
+                k["seconds"][0],
+            "tokens_per_s": tokens / s_step,
+            "plain_seconds_per_step": sum(p["seconds"][1:])
+            / max(1, len(p["seconds"]) - 1),
+            "peak_device_memory_gib": k["peak"] / 2 ** 30,
+            "launches": k["launches"], "launches_tc": k["launches_tc"],
+            "kernel_calls": k["stats"][0], "kernel_fallbacks": 0,
+            "losses": k["losses"], "plain_losses": p["losses"],
+            "loss_rtol": LAUNCH_LOSS_RTOL,
+            "loss_difference_over_tolerance": ratios}
+
+
+def frontends_phase():
+    """Train steps through the frontends on seeded synthetic inputs:
+    hubert-xlarge at all 48 layers (audio features (4, 1024, 512) bf16,
+    framewise labels in [0, 504); B2–B4 at head dim 80, non-causal) and
+    qwen2-vl-7b at ``QWEN_VL_TRAIN["layers"]`` layers (1,024 patches
+    (2, 1024, 1280) bf16 and 1,024 text tokens, M-RoPE ids on a 32 × 32
+    grid); each by :func:`frontend_train`.  Returns {model: launches}."""
+    from repro_torch.configs import get_config
+    gen = torch.Generator().manual_seed(31)
+    hub = get_config("hubert-xlarge")
+    assert (hub.num_layers, hub.d_model, hub.num_heads, hub.num_kv_heads,
+            hub.resolved_head_dim, hub.frontend_dim, hub.vocab_size,
+            hub.causal) == (48, 1280, 16, 16, 80, 512, 504, False)
+    Bh, F_ = HUBERT_TRAIN["batch"], HUBERT_TRAIN["frames"]
+    hbatch = {"features": torch.randn((Bh, F_, hub.frontend_dim),
+                                      generator=gen).to(DEV, torch.bfloat16),
+              "labels": torch.randint(0, hub.vocab_size, (Bh, F_),
+                                      generator=gen).to(DEV)}
+    rows = {hub.name: frontend_train(hub, hbatch, Bh * F_, hub.num_layers)}
+    del hbatch
+    free()
+    vl_full = get_config("qwen2-vl-7b")
+    vl = dataclasses.replace(vl_full, num_layers=QWEN_VL_TRAIN["layers"])
+    assert (vl.d_model, vl.num_heads, vl.num_kv_heads, vl.resolved_head_dim,
+            vl.frontend_dim, vl.mrope_sections, vl.vocab_size) == \
+        (3584, 28, 4, 128, 1280, (16, 24, 24), 152064)
+    assert vl.param_count() == 1_560_701_440
+    Bv, P, T = (QWEN_VL_TRAIN[k] for k in ("batch", "patches", "text"))
+    vbatch = {"patches": torch.randn((Bv, P, vl.frontend_dim),
+                                     generator=gen).to(DEV, torch.bfloat16),
+              "tokens": torch.randint(0, vl.vocab_size, (Bv, T),
+                                      generator=gen).to(DEV),
+              "positions": mrope_grid(Bv, P, T)}
+    rows[vl.name] = frontend_train(vl, vbatch, Bv * (P + T), vl.num_layers)
+    rows[vl.name]["layers_published"] = vl_full.num_layers
+    del vbatch
+    emit({"phase": "frontends", "entry": "repro_torch.train.step."
+          "build_train_step", "optimizer": "adamw",
+          "shapes": {"hubert-xlarge": f"features ({Bh}, {F_}, 512) bf16",
+                     "qwen2-vl-7b": f"patches ({Bv}, {P}, 1280) bf16 + "
+                                    f"{T} text tokens, M-RoPE on a "
+                                    f"{int(P ** 0.5)} x {int(P ** 0.5)} grid"},
+          "runs": rows})
+    return {name: r["launches"] for name, r in rows.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4756,13 +5187,37 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     for key in ("B2", "B3", "B4"):
         fa_rows[key]["launches_moe_study"] = \
             moe_launches[fa_rows[key]["name"]]
+    # 30-32: RG-LRU (recurrentgemma-2b's study and decode) and the
+    # frontends (hubert-xlarge, qwen2-vl-7b); B2–B4's head-dim-256 rows
+    # count the study's launches, their head-dim-80 rows hubert's
+    rg_launches, rg_backend = timed("rglru_study", rglru_study_phase)
+    rg_serve = timed("rglru_serve", rglru_serve_phase, rg_backend)
+    del rg_backend
+    free()
+    fe_launches = timed("frontends", frontends_phase)
+    b1_row["launches_rglru_study"] = rg_launches["stacked_tree_update"]
+    b1_row["launches_frontends"] = {
+        name: r["stacked_tree_update"] for name, r in fe_launches.items()}
+    fa_rows["B2"]["launches_serve"]["recurrentgemma-2b"] = \
+        rg_serve["flash_attention_fwd"]
+    for key in ("B2", "B3", "B4"):
+        name = fa_rows[key]["name"]
+        fa_rows[f"{key}_hd256"]["launches"] = rg_launches[name]
+        fa_rows[f"{key}_hd80"]["launches"] = \
+            fe_launches["hubert-xlarge"][name]
+        fa_rows[key]["launches_frontends"] = {
+            model: r[name] for model, r in fe_launches.items()}
+        assert fa_rows[f"{key}_hd256"]["launches"] > 0
+        assert fa_rows[f"{key}_hd80"]["launches"] > 0
 
     # ------------------------------------------------------------ last lines
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"kernels": [b1_row, fa_rows["B2"], fa_rows["B3"], fa_rows["B4"],
-                      ssd_rows["B5"], ssd_rows["B6"]]})
+                      ssd_rows["B5"], ssd_rows["B6"]]
+          + [fa_rows[f"{key}_hd{hd}"] for hd in (256, 80)
+             for key in ("B2", "B3", "B4")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

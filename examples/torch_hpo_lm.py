@@ -1,7 +1,8 @@
 """End-to-end example: a hyper-parameter study of a language model, in PyTorch.
 
-Trains qwen2-0.5b or mamba2-2.7b (``repro_torch.configs``) on a synthetic
-token stream through the full Hippo stack — search plan, stage tree,
+Trains qwen2-0.5b, mamba2-2.7b or recurrentgemma-2b
+(``repro_torch.configs``) on a synthetic token stream through the full
+Hippo stack — search plan, stage tree,
 scheduler, chain-fused execution with write-behind checkpoints, SHA tuner
 — once stage-based and once trial-based, over four AdamW learning-rate
 schedules that share their first eight steps.  On a CUDA device every
@@ -14,13 +15,20 @@ backward) and every optimizer update through the fused update kernel.
     PYTHONPATH=src python examples/torch_hpo_lm.py --device cpu   # CPU, reduced
     PYTHONPATH=src python examples/torch_hpo_lm.py --arch mamba2-2.7b \
         --full --layers 32                                        # GPU
+    PYTHONPATH=src python examples/torch_hpo_lm.py \
+        --arch recurrentgemma-2b --full --layers 5                # GPU
 
 ``--full`` is the model at its published width and depth — qwen2-0.5b: 24
 layers, d_model 896, 14 / 2 heads, vocab 151,936, bf16, batch 4 × 1024
 tokens; mamba2-2.7b: 64 layers, d_model 2560, 80 SSD heads of 64, state
-128, chunk 128, vocab 50,280, bf16, batch 1 × 2048 tokens — and
-``--layers`` cuts its depth; the default is the ``reduced()`` variant (2
-layers, d_model 256, vocab 512, f32), batch 4 × 128.  With one worker,
+128, chunk 128, vocab 50,280, bf16, batch 1 × 2048 tokens;
+recurrentgemma-2b: 26 layers, (RG-LRU, RG-LRU, local attention) × 8 + 2
+RG-LRU, d_model and RG-LRU width 2560, 10 / 1 heads of 256, window 2048,
+d_ff 7680, vocab 256,000, tied, bf16, batch 1 × 4096 tokens (train_4k's
+length, so the window bites) — and ``--layers`` cuts its depth (5 keeps
+one cycle and recurrentgemma's two trailing RG-LRU layers); the default
+is the ``reduced()`` variant (d_model 256, vocab 512, f32; 2 layers, 3
+for recurrentgemma's cycle), batch 4 × 128.  With one worker,
 stage-based and trial-based execution report the same metrics bit for bit
 and pick the same best trial.  ``--groups`` runs the study over
 :func:`group_space`, whose SHA survivors resume together and train as
@@ -43,7 +51,8 @@ from repro_torch.train.torch_trainer import TorchTrainer
 
 MIN_STEPS, MAX_STEPS, ETA = 4, 16, 2
 # (batch, sequence length) of a full-width study
-FULL_SHAPE = {"qwen2-0.5b": (4, 1024), "mamba2-2.7b": (1, 2048)}
+FULL_SHAPE = {"qwen2-0.5b": (4, 1024), "mamba2-2.7b": (1, 2048),
+              "recurrentgemma-2b": (1, 4096)}
 
 
 def space(batch=4):
@@ -118,12 +127,13 @@ def drop_checkpoints(store):
         store.evict(cid)
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen2-0.5b", choices=sorted(FULL_SHAPE))
     ap.add_argument("--full", action="store_true",
                     help="the published size: qwen2-0.5b batch 4 x 1024, "
-                         "mamba2-2.7b batch 1 x 2048")
+                         "mamba2-2.7b batch 1 x 2048, recurrentgemma-2b "
+                         "batch 1 x 4096")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers")
     ap.add_argument("--device", default=None,
@@ -131,7 +141,7 @@ def main():
     ap.add_argument("--groups", action="store_true",
                     help="the study over group_space, whose SHA survivors "
                          "train as sibling groups")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     space_fn = group_space if args.groups else space
     batch, seq_len = FULL_SHAPE[args.arch] if args.full else (4, 128)
     cfg = dict(arch=args.arch, reduced=not args.full, batch=batch,
@@ -154,6 +164,7 @@ def main():
     print(f"\nstage-based trained {t[0].steps_run / s[0].steps_run:.2f}x "
           f"fewer steps for the same search; same best trial: "
           f"{s[1] == t[1]}; every reported metric bit-equal: {s[2] == t[2]}")
+    return results
 
 
 if __name__ == "__main__":

@@ -44,9 +44,11 @@
 // reverse), so the short tiles of the causal tail fill the last wave.
 // Q, K and V arrive by TMA, read in place from the (B, S, H, hd) layouts
 // through 4-D tensor maps over (hd, H, S, B) with boxes (64, 1, rows, 1):
-// 64 bf16 columns are one 128-byte swizzle row, so hd 128 is two boxes per
-// tile and hd <= 64 one; TMA's zero fill covers S past its end and the
-// columns past hd.  Q is loaded once; K / V tiles of 128 keys go through a
+// 64 bf16 columns are one 128-byte swizzle row, so a tile is NCB = 1, 2 or
+// 4 boxes (hd <= 64, <= 128, <= 256); TMA's zero fill covers S past its end
+// and the columns past hd (hd 80: columns 80-127 of the second box), and
+// the epilogues store no column at or past hd.  At hd 256 the tiles
+// shrink to fit a block's 227 KB and the registers (see tc_bk below).  Q is loaded once; K / V tiles of 128 keys go through a
 // ring of 2 stages with a full and an empty mbarrier each.  The loads are
 // issued by one elected consumer thread (thread 0), not by a producer
 // warp: with 256 threads each thread may hold 255 registers without
@@ -91,7 +93,10 @@
 //
 // B3, B4 and B2 in f32: one block of 256 threads (a 16 x 16 grid) per
 // (q-tile, head, batch) for fa_fwd / fa_bwd_dq and per (kv-tile, head,
-// batch) for fa_bwd_dkv; tiles are 64 x 64.  The block loops over the live
+// batch) for fa_bwd_dkv; tiles are 64 x 64 (fa_bwd_dkv's query tiles 32
+// rows above hd 128, and fa_bwd_dq's K and V share one buffer there: f32
+// tiles of 256 columns would pass 227 KB); hd is padded to 32, 64, 128 or
+// 256 columns.  The block loops over the live
 // tiles of the other axis: the TPU's pl.when(_tile_live) skip becomes the
 // loop's bounds (lo / hi below, mirrored by _live_range in
 // flash_attention.py and checked there against the predicate).  Operand
@@ -146,13 +151,13 @@ __device__ __forceinline__ int64_t row_off(int b, int s, int h, int S, int H,
   return ((int64_t)b * S + s) * H * (int64_t)hd + (int64_t)h * hd;
 }
 
-// 64 rows [row0, row0 + 64) of head h into dst[64][HDP + 1] as f32; rows at
-// or past S and columns at or past hd read as 0.
-template <typename T, int HDP>
+// ROWS rows [row0, row0 + ROWS) of head h into dst[ROWS][HDP + 1] as f32;
+// rows at or past S and columns at or past hd read as 0.
+template <typename T, int HDP, int ROWS = 64>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
                                           int row0, int S, int H, int h,
                                           int hd) {
-  for (int idx = threadIdx.x; idx < 64 * HDP; idx += NT) {
+  for (int idx = threadIdx.x; idx < ROWS * HDP; idx += NT) {
     const int r = idx / HDP, c = idx % HDP, s = row0 + r;
     float x = 0.f;
     if (s < S && c < hd) x = to_f(src[row_off(b, s, h, S, H, hd) + c]);
@@ -330,23 +335,49 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------- B2, bf16, tensor cores
 constexpr int TC_BQ = 128;      // query rows per block: two warpgroups of 64
-constexpr int TC_BK = 128;      // keys per K / V tile
+constexpr int TC_BK = 128;      // keys per K / V tile up to hd 128
+constexpr int TC_BK_WIDE = 64;  // ... and at hd 256 (NCB 4)
 constexpr int TC_STAGES = 2;    // tile ring depth (K / V; B4: Q / dO)
 constexpr int TC_NT = 256;      // two consumer warpgroups
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// The tiles by NCB, the 64-column blocks of the padded head dim (hd <= 64:
+// 1, <= 128: 2, <= 256: 4).  At NCB 4 a 128-key K / V tile is 64 KB and
+// B2's O accumulator alone is 128 registers a thread, so:
+//   B2 (fa_fwd_tc)     K / V tiles of 64 keys: Q 64 KB + a ring of 2 x
+//                      (K + V) 128 KB; S is m64n64 (32 registers);
+//   B3 (fa_bwd_dq_tc)  K / V tiles of 64 keys in a ring of one stage: Q +
+//                      dO 128 KB + K + V 64 KB (two stages would need 256);
+//   B4 (fa_bwd_dkv_tc) a block of 64 keys whose two warpgroups split the
+//                      outputs: warpgroup 0 forms S^T, P^T and dV += P^T
+//                      dO, warpgroup 1 S^T, dP^T, dS^T and dK += dS^T Q
+//                      (either one holds a 64 x 256 accumulator, 128
+//                      registers; both would need 256); K + V 64 KB, the
+//                      Q / dO ring 128 KB.  S^T is formed twice.
+// Each block still owns its outputs and sums in a fixed order.
+__host__ __device__ constexpr int tc_bk(int ncb) {
+  return ncb > 2 ? TC_BK_WIDE : TC_BK;
+}
+__host__ __device__ constexpr int dq_stages(int ncb) {
+  return ncb > 2 ? 1 : TC_STAGES;
+}
+__host__ __device__ constexpr int dkv_keys(int ncb) {   // B4 keys per block
+  return ncb > 2 ? 64 : TC_BK;
+}
+
 // The tile ring's barriers at bar_s: full[st] = bar_s + 8 st (one arrival,
 // the expect_tx of the thread that loads the stage) and empty[st] = bar_s +
-// 8 (TC_STAGES + st) (all TC_NT threads), and `once` (one arrival) for the
+// 8 (STAGES + st) (all TC_NT threads), and `once` (one arrival) for the
 // tiles loaded once.  Thread 0 initialises them; every thread returns after
 // the block has synchronised.
+template <int STAGES>
 __device__ __forceinline__ void ring_init(uint32_t bar_s, uint32_t once) {
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int st = 0; st < TC_STAGES; ++st) {
+    for (int st = 0; st < STAGES; ++st) {
       mbar_init(bar_s + 8 * st, 1);
-      mbar_init(bar_s + 8 * (TC_STAGES + st), TC_NT);
+      mbar_init(bar_s + 8 * (STAGES + st), TC_NT);
     }
     mbar_init(once, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -361,19 +392,31 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// S (64 x N keys, f32) += A B with both operands K-major in shared memory:
+// m64n128 for 128-key tiles, m64n64 for 64-key ones (the same accumulator
+// map over N columns)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  wgmma_ss_n128(d, da, db);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  wgmma_ss_n64(d, da, db);
+}
+
 template <int NCB>
 __host__ __device__ constexpr int tc_q_bytes() { return NCB * TC_BQ * SW_ROW; }
-template <int NCB>
-__host__ __device__ constexpr int tc_kv_bytes() {  // one K or one V tile
-  return NCB * TC_BK * SW_ROW;
+template <int NCB, int ROWS>
+__host__ __device__ constexpr int tc_tile_bytes() {  // one K, V, Q or dO tile
+  return NCB * ROWS * SW_ROW;
 }
 template <int NCB>
 constexpr size_t tc_fwd_smem() {   // + 1024 to align the tiles by hand
-  return 1024 + tc_q_bytes<NCB>() + 2 * TC_STAGES * tc_kv_bytes<NCB>() +
+  return 1024 + tc_q_bytes<NCB>() +
+         2 * TC_STAGES * tc_tile_bytes<NCB, tc_bk(NCB)>() +
          8 * (2 * TC_STAGES + 1);
 }
 
-// NCB 64-column blocks of the padded head dim (hd <= 64: 1, <= 128: 2).
 template <int NCB>
 __global__ void __launch_bounds__(TC_NT, 1)
 fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -382,7 +425,8 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  int* __restrict__ tiles, int Sq, int Sk, int Hq, int Hkv,
                  int hd, int causal, int window, float scale_log2) {
-  constexpr int QB = tc_q_bytes<NCB>(), KVB = tc_kv_bytes<NCB>();
+  constexpr int BK = tc_bk(NCB);    // keys per K / V tile
+  constexpr int QB = tc_q_bytes<NCB>(), KVB = tc_tile_bytes<NCB, BK>();
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on it
   const uint32_t raw = smem_u32(smem_raw);
@@ -399,24 +443,23 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lane = tid & 31;
   const int first_q = qi * TC_BQ, wg_q = first_q + 64 * wg;
   int lo, hi;
-  kv_range<TC_BQ, TC_BK>(qi, (Sk + TC_BK - 1) / TC_BK, causal, window, &lo,
-                         &hi);
+  kv_range<TC_BQ, BK>(qi, (Sk + BK - 1) / BK, causal, window, &lo, &hi);
   const int n_tiles = hi >= lo ? hi - lo + 1 : 0;
 
   auto load_kv = [&](int i) {     // tile lo + i into stage i % TC_STAGES
-    const int st = i % TC_STAGES, row0 = (lo + i) * TC_BK;
+    const int st = i % TC_STAGES, row0 = (lo + i) * BK;
     const uint32_t full = bar_s + 8 * st, k_dst = kv_s + 2 * st * KVB;
     mbar_expect_tx(full, 2 * KVB);
 #pragma unroll
     for (int cb = 0; cb < NCB; ++cb) {
-      tma_load_4d(k_dst + cb * TC_BK * SW_ROW, &tm_k, full, 64 * cb, hk,
+      tma_load_4d(k_dst + cb * BK * SW_ROW, &tm_k, full, 64 * cb, hk, row0,
+                  b);
+      tma_load_4d(k_dst + KVB + cb * BK * SW_ROW, &tm_v, full, 64 * cb, hk,
                   row0, b);
-      tma_load_4d(k_dst + KVB + cb * TC_BK * SW_ROW, &tm_v, full, 64 * cb,
-                  hk, row0, b);
     }
   };
 
-  ring_init(bar_s, q_bar);
+  ring_init<TC_STAGES>(bar_s, q_bar);
   if (tid == 0) {
     mbar_expect_tx(q_bar, QB);
 #pragma unroll
@@ -445,28 +488,26 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(bar_s + 8 * st, phase);
 
     // S = Q K^T over hd in steps of 16 (32 bytes of a swizzle row)
-    float s[64];
+    float s[BK / 2];
 #pragma unroll
-    for (int j = 0; j < 64; ++j) s[j] = 0.f;
+    for (int j = 0; j < BK / 2; ++j) s[j] = 0.f;
     wg_fence();
 #pragma unroll
     for (int t = 0; t < 4 * NCB; ++t)
-      wgmma_ss_n128(s,
-                    sw128_desc(q_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
-                    sw128_desc(k_t + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32));
+      wgmma_ss(s, sw128_desc(q_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
+               sw128_desc(k_t + (t >> 2) * BK * SW_ROW + (t & 3) * 32));
     wg_commit();
     wg_wait_all();
     reg_fence(s);
 
     // online softmax on the fragment: m in log2 units (m = max(s) scale
     // log2(e), the scale positive), p = 2^(s scale log2(e) - m) by one FMA
-    const int k0 = ki * TC_BK;
-    const bool edge = k0 + TC_BK > Sk ||
-                      (causal && k0 + TC_BK - 1 > wg_q) ||
+    const int k0 = ki * BK;
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > wg_q) ||
                       (window > 0 && k0 <= wg_q + 63 - window);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 64; ++j) {
+      for (int j = 0; j < BK / 2; ++j) {
         const int r = r0 + 8 * ((j >> 1) & 1);
         const int c = k0 + 8 * (j >> 2) + c0 + (j & 1);
         if (!visible(r, c, Sk, causal, window))
@@ -475,7 +516,7 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     float mx[2] = {__uint_as_float(0xff800000u), __uint_as_float(0xff800000u)};
 #pragma unroll
-    for (int j = 0; j < 64; ++j)
+    for (int j = 0; j < BK / 2; ++j)
       mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
     float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
@@ -487,7 +528,7 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       m_r[x] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 64; ++j) {   // masked: 2^-inf = 0
+    for (int j = 0; j < BK / 2; ++j) {   // masked: 2^-inf = 0
       s[j] = ex2(fmaf(s[j], scale_log2, -m_r[(j >> 1) & 1]));
       rs[(j >> 1) & 1] += s[j];
     }
@@ -504,9 +545,9 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // P as bf16 A fragments: keys 16 t .. 16 t + 15 are S's columns 8 (2t)
     // and 8 (2t + 1), registers 8 t .. 8 t + 7
-    uint32_t pa[TC_BK / 16][4];
+    uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int t = 0; t < TC_BK / 16; ++t)
+    for (int t = 0; t < BK / 16; ++t)
 #pragma unroll
       for (int x = 0; x < 4; ++x)
         pa[t][x] = pack_bf16(s[8 * t + 2 * x], s[8 * t + 2 * x + 1]);
@@ -514,11 +555,11 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // O += P V over the tile's keys in steps of 16 (16 swizzle rows)
     wg_fence();
 #pragma unroll
-    for (int t = 0; t < TC_BK / 16; ++t)
+    for (int t = 0; t < BK / 16; ++t)
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb)
         wgmma_rs_n64(o[cb], pa[t],
-                     sw128_desc(v_t + cb * TC_BK * SW_ROW + t * 16 * SW_ROW));
+                     sw128_desc(v_t + cb * BK * SW_ROW + t * 16 * SW_ROW));
     wg_commit();
     wg_wait_all();
 #pragma unroll
@@ -533,7 +574,8 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncwarp();
   }
 
-  // epilogue: out = O / l (0 for a row that saw no key), lse, tile count
+  // epilogue: out = O / l (0 for a row that saw no key), lse, tile count;
+  // columns at or past hd (zero-filled by TMA) are not stored
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int row = r0 + 8 * x;
@@ -564,22 +606,20 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 constexpr int DKV_BQ = 64;      // fa_bwd_dkv_tc: query rows per Q / dO tile
 
 template <int NCB>
-__host__ __device__ constexpr int tc_qt_bytes() {  // one Q or dO tile of B4
-  return NCB * DKV_BQ * SW_ROW;
-}
-template <int NCB>
 constexpr size_t tc_dq_smem() {
-  return 1024 + 2 * tc_q_bytes<NCB>() + 2 * TC_STAGES * tc_kv_bytes<NCB>() +
-         8 * (2 * TC_STAGES + 1);
+  return 1024 + 2 * tc_q_bytes<NCB>() +
+         2 * dq_stages(NCB) * tc_tile_bytes<NCB, tc_bk(NCB)>() +
+         8 * (2 * dq_stages(NCB) + 1);
 }
 template <int NCB>
 constexpr size_t tc_dkv_smem() {
-  return 1024 + 2 * tc_kv_bytes<NCB>() + 2 * TC_STAGES * tc_qt_bytes<NCB>() +
+  return 1024 + 2 * tc_tile_bytes<NCB, dkv_keys(NCB)>() +
+         2 * TC_STAGES * tc_tile_bytes<NCB, DKV_BQ>() +
          8 * (2 * TC_STAGES + 1);
 }
 
 // B3: one block per (q-tile of 128 rows, head, batch), q-tiles heaviest
-// first under causal masking; Q and dO by TMA once, K / V tiles of 128 keys
+// first under causal masking; Q and dO by TMA once, K / V tiles of BK keys
 // through the ring.  Per tile S = Q K^T and dP = dO V^T (both operands
 // K-major), P = 2^(S scale log2(e) - lse log2(e)), dS = P (dP - delta),
 // then dQ += dS K with dS packed to bf16 A fragments and K the N-major B
@@ -595,15 +635,16 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq,
                     int Hkv, int hd, int causal, int window, float scale,
                     float scale_log2) {
-  constexpr int QB = tc_q_bytes<NCB>(), KVB = tc_kv_bytes<NCB>();
+  constexpr int BK = tc_bk(NCB), STAGES = dq_stages(NCB);
+  constexpr int QB = tc_q_bytes<NCB>(), KVB = tc_tile_bytes<NCB, BK>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t q_s = raw + ((1024 - (raw & 1023)) & 1023);
   const uint32_t do_s = q_s + QB;
   const uint32_t kv_s = do_s + QB;  // stage st: K at kv_s + 2 st KVB, V after
-  const uint32_t bar_s = kv_s + 2 * TC_STAGES * KVB;
-  // full[st] = bar_s + 8 st, empty[st] = bar_s + 8 (TC_STAGES + st)
-  const uint32_t q_bar = bar_s + 16 * TC_STAGES;
+  const uint32_t bar_s = kv_s + 2 * STAGES * KVB;
+  // full[st] = bar_s + 8 st, empty[st] = bar_s + 8 (STAGES + st)
+  const uint32_t q_bar = bar_s + 16 * STAGES;
 
   const int h = blockIdx.x, b = blockIdx.y, nq = gridDim.z;
   const int qi = causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z;
@@ -612,24 +653,23 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lane = tid & 31;
   const int first_q = qi * TC_BQ, wg_q = first_q + 64 * wg;
   int lo, hi;
-  kv_range<TC_BQ, TC_BK>(qi, (Sk + TC_BK - 1) / TC_BK, causal, window, &lo,
-                         &hi);
+  kv_range<TC_BQ, BK>(qi, (Sk + BK - 1) / BK, causal, window, &lo, &hi);
   const int n_tiles = hi >= lo ? hi - lo + 1 : 0;
 
-  auto load_kv = [&](int i) {     // tile lo + i into stage i % TC_STAGES
-    const int st = i % TC_STAGES, row0 = (lo + i) * TC_BK;
+  auto load_kv = [&](int i) {     // tile lo + i into stage i % STAGES
+    const int st = i % STAGES, row0 = (lo + i) * BK;
     const uint32_t full = bar_s + 8 * st, k_dst = kv_s + 2 * st * KVB;
     mbar_expect_tx(full, 2 * KVB);
 #pragma unroll
     for (int cb = 0; cb < NCB; ++cb) {
-      tma_load_4d(k_dst + cb * TC_BK * SW_ROW, &tm_k, full, 64 * cb, hk,
+      tma_load_4d(k_dst + cb * BK * SW_ROW, &tm_k, full, 64 * cb, hk, row0,
+                  b);
+      tma_load_4d(k_dst + KVB + cb * BK * SW_ROW, &tm_v, full, 64 * cb, hk,
                   row0, b);
-      tma_load_4d(k_dst + KVB + cb * TC_BK * SW_ROW, &tm_v, full, 64 * cb,
-                  hk, row0, b);
     }
   };
 
-  ring_init(bar_s, q_bar);
+  ring_init<STAGES>(bar_s, q_bar);
   if (tid == 0) {
     mbar_expect_tx(q_bar, 2 * QB);
 #pragma unroll
@@ -639,7 +679,7 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_load_4d(do_s + cb * TC_BQ * SW_ROW, &tm_do, q_bar, 64 * cb, h,
                   first_q, b);
     }
-    for (int i = 0; i < TC_STAGES && i < n_tiles; ++i) load_kv(i);
+    for (int i = 0; i < STAGES && i < n_tiles; ++i) load_kv(i);
   }
 
   // this thread's rows r0 and r0 + 8: lse in log2 units and delta, read
@@ -663,38 +703,36 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   mbar_wait(q_bar, 0);
   for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % TC_STAGES, ki = lo + i;
-    const uint32_t phase = (i / TC_STAGES) & 1;
+    const int st = i % STAGES, ki = lo + i;
+    const uint32_t phase = (i / STAGES) & 1;
     const uint32_t k_t = kv_s + 2 * st * KVB, v_t = k_t + KVB;
     mbar_wait(bar_s + 8 * st, phase);
 
     // S = Q K^T and dP = dO V^T over hd in steps of 16, one commit group
-    float s[64], dp[64];
+    float s[BK / 2], dp[BK / 2];
 #pragma unroll
-    for (int j = 0; j < 64; ++j) s[j] = dp[j] = 0.f;
+    for (int j = 0; j < BK / 2; ++j) s[j] = dp[j] = 0.f;
     wg_fence();
 #pragma unroll
     for (int t = 0; t < 4 * NCB; ++t)
-      wgmma_ss_n128(s,
-                    sw128_desc(q_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
-                    sw128_desc(k_t + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32));
+      wgmma_ss(s, sw128_desc(q_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
+               sw128_desc(k_t + (t >> 2) * BK * SW_ROW + (t & 3) * 32));
 #pragma unroll
     for (int t = 0; t < 4 * NCB; ++t)
-      wgmma_ss_n128(dp,
-                    sw128_desc(do_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
-                    sw128_desc(v_t + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32));
+      wgmma_ss(dp,
+               sw128_desc(do_wg + (t >> 2) * TC_BQ * SW_ROW + (t & 3) * 32),
+               sw128_desc(v_t + (t >> 2) * BK * SW_ROW + (t & 3) * 32));
     wg_commit();
     wg_wait_all();
     reg_fence(s);
     reg_fence(dp);
 
-    const int k0 = ki * TC_BK;
-    const bool edge = k0 + TC_BK > Sk ||
-                      (causal && k0 + TC_BK - 1 > wg_q) ||
+    const int k0 = ki * BK;
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > wg_q) ||
                       (window > 0 && k0 <= wg_q + 63 - window);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 64; ++j) {
+      for (int j = 0; j < BK / 2; ++j) {
         const int r = r0 + 8 * ((j >> 1) & 1);
         const int c = k0 + 8 * (j >> 2) + c0 + (j & 1);
         if (!visible(r, c, Sk, causal, window))
@@ -704,14 +742,14 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // dS = P (dP - delta) with P = 2^(s scale log2(e) - lse log2(e)) by
     // one FMA (masked: 2^-inf = 0), packed as bf16 A fragments in place:
     // keys 16 t .. 16 t + 15 are registers 8 t .. 8 t + 7
-    uint32_t da[TC_BK / 16][4];
+    uint32_t da[BK / 16][4];
 #pragma unroll
-    for (int j = 0; j < 64; ++j) {
+    for (int j = 0; j < BK / 2; ++j) {
       const int x = (j >> 1) & 1;
       s[j] = ex2(fmaf(s[j], scale_log2, -lse2[x])) * (dp[j] - dlt[x]);
     }
 #pragma unroll
-    for (int t = 0; t < TC_BK / 16; ++t)
+    for (int t = 0; t < BK / 16; ++t)
 #pragma unroll
       for (int x = 0; x < 4; ++x)
         da[t][x] = pack_bf16(s[8 * t + 2 * x], s[8 * t + 2 * x + 1]);
@@ -719,21 +757,21 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // dQ += dS K over the tile's keys in steps of 16: K N-major
     wg_fence();
 #pragma unroll
-    for (int t = 0; t < TC_BK / 16; ++t)
+    for (int t = 0; t < BK / 16; ++t)
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb)
         wgmma_rs_n64(acc[cb], da[t],
-                     sw128_desc(k_t + cb * TC_BK * SW_ROW + t * 16 * SW_ROW));
+                     sw128_desc(k_t + cb * BK * SW_ROW + t * 16 * SW_ROW));
     wg_commit();
     wg_wait_all();
 #pragma unroll
     for (int cb = 0; cb < NCB; ++cb) reg_fence(acc[cb]);
 
     // release the stage; thread 0 refills it once all 256 threads have
-    mbar_arrive(bar_s + 8 * (TC_STAGES + st));
-    if (tid == 0 && i + TC_STAGES < n_tiles) {
-      mbar_wait(bar_s + 8 * (TC_STAGES + st), phase);
-      load_kv(i + TC_STAGES);
+    mbar_arrive(bar_s + 8 * (STAGES + st));
+    if (tid == 0 && i + STAGES < n_tiles) {
+      mbar_wait(bar_s + 8 * (STAGES + st), phase);
+      load_kv(i + STAGES);
     }
     __syncwarp();
   }
@@ -756,15 +794,18 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// B4: one block per (kv-tile of 128 keys, query head, batch), two
-// warpgroups of 64 keys; under causal masking the first kv-tiles are the
-// heaviest and are launched first.  K and V by TMA once, Q / dO tiles of
-// 64 rows through the ring.  The transposed form keeps every A operand in
-// shared memory or registers: S^T = K Q^T and dP^T = V dO^T (m64n64, both
-// K-major), P^T = 2^(S^T scale log2(e) - lse_col log2(e)), dS^T = P^T
-// (dP^T - delta_col), dV += P^T dO and dK += dS^T Q with P^T / dS^T as
-// bf16 A fragments and dO / Q the N-major B operand (the same dO and Q
-// tiles as above, read through another descriptor).  dk_h = scale dK.
+// B4: one block per (kv-tile of TK keys, query head, batch); under causal
+// masking the first kv-tiles are the heaviest and are launched first.  K
+// and V by TMA once, Q / dO tiles of 64 rows through the ring.  The
+// transposed form keeps every A operand in shared memory or registers:
+// S^T = K Q^T and dP^T = V dO^T (m64n64, both K-major), P^T = 2^(S^T scale
+// log2(e) - lse_col log2(e)), dS^T = P^T (dP^T - delta_col), dV += P^T dO
+// and dK += dS^T Q with P^T / dS^T as bf16 A fragments and dO / Q the
+// N-major B operand (the same dO and Q tiles as above, read through another
+// descriptor).  dk_h = scale dK.  Up to hd 128 (TK 128) each warpgroup
+// owns 64 keys and both of their outputs; at hd 256 (SPLIT, TK 64) both
+// warpgroups take the block's 64 keys, warpgroup 0 forming dV and
+// warpgroup 1 dK (see tc_bk above).
 template <int NCB>
 __global__ void __launch_bounds__(TC_NT, 1)
 fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -777,7 +818,10 @@ fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                      __nv_bfloat16* __restrict__ dv_h, int Sq, int Sk,
                      int Hq, int Hkv, int hd, int causal, int window,
                      float scale, float scale_log2) {
-  constexpr int KVB = tc_kv_bytes<NCB>(), QTB = tc_qt_bytes<NCB>();
+  constexpr bool SPLIT = NCB > 2;
+  constexpr int TK = dkv_keys(NCB);
+  constexpr int KVB = tc_tile_bytes<NCB, TK>();
+  constexpr int QTB = tc_tile_bytes<NCB, DKV_BQ>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t k_s = raw + ((1024 - (raw & 1023)) & 1023);
@@ -791,10 +835,12 @@ fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
   const int lane = tid & 31;
-  const int first_k = ki * TC_BK, wg_k = first_k + 64 * wg;
+  const int first_k = ki * TK, wg_k = first_k + (SPLIT ? 0 : 64 * wg);
+  // which outputs this warpgroup forms
+  const bool want_dv = !SPLIT || wg == 0, want_dk = !SPLIT || wg == 1;
   int lo, hi;
-  q_range<DKV_BQ, TC_BK>(ki, (Sq + DKV_BQ - 1) / DKV_BQ, causal, window, &lo,
-                         &hi);
+  q_range<DKV_BQ, TK>(ki, (Sq + DKV_BQ - 1) / DKV_BQ, causal, window, &lo,
+                      &hi);
   const int n_tiles = hi >= lo ? hi - lo + 1 : 0;
 
   auto load_q = [&](int i) {      // q-tile lo + i into stage i % TC_STAGES
@@ -810,14 +856,14 @@ fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   };
 
-  ring_init(bar_s, kv_bar);
+  ring_init<TC_STAGES>(bar_s, kv_bar);
   if (tid == 0) {
     mbar_expect_tx(kv_bar, 2 * KVB);
 #pragma unroll
     for (int cb = 0; cb < NCB; ++cb) {
-      tma_load_4d(k_s + cb * TC_BK * SW_ROW, &tm_k, kv_bar, 64 * cb, hk,
+      tma_load_4d(k_s + cb * TK * SW_ROW, &tm_k, kv_bar, 64 * cb, hk,
                   first_k, b);
-      tma_load_4d(v_s + cb * TC_BK * SW_ROW, &tm_v, kv_bar, 64 * cb, hk,
+      tma_load_4d(v_s + cb * TK * SW_ROW, &tm_v, kv_bar, 64 * cb, hk,
                   first_k, b);
     }
     for (int i = 0; i < TC_STAGES && i < n_tiles; ++i) load_q(i);
@@ -829,12 +875,19 @@ fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int c0 = 2 * (lane & 3);
   const float* lse_bh = lse + ((int64_t)b * Hq + h) * Sq;
   const float* delta_bh = delta + ((int64_t)b * Hq + h) * Sq;
-  float dk[NCB][32], dv[NCB][32];
+  // dV and dK; at SPLIT one array, warpgroup 0's dV or warpgroup 1's dK
+  constexpr int NACC = SPLIT ? 1 : 2;
+  float acc[NACC][NCB][32];
 #pragma unroll
-  for (int cb = 0; cb < NCB; ++cb)
+  for (int a = 0; a < NACC; ++a)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk[cb][i] = dv[cb][i] = 0.f;
-  const uint32_t k_wg = k_s + wg * 64 * SW_ROW, v_wg = v_s + wg * 64 * SW_ROW;
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[a][cb][i] = 0.f;
+  float(&dv)[NCB][32] = acc[0];
+  float(&dk)[NCB][32] = acc[NACC - 1];
+  const uint32_t k_wg = k_s + (wg_k - first_k) * SW_ROW;
+  const uint32_t v_wg = v_s + (wg_k - first_k) * SW_ROW;
 
   mbar_wait(kv_bar, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -862,13 +915,15 @@ fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int t = 0; t < 4 * NCB; ++t)
       wgmma_ss_n64(s,
-                   sw128_desc(k_wg + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32),
+                   sw128_desc(k_wg + (t >> 2) * TK * SW_ROW + (t & 3) * 32),
                    sw128_desc(q_t + (t >> 2) * DKV_BQ * SW_ROW + (t & 3) * 32));
+    if (want_dk) {
 #pragma unroll
-    for (int t = 0; t < 4 * NCB; ++t)
-      wgmma_ss_n64(dp,
-                   sw128_desc(v_wg + (t >> 2) * TC_BK * SW_ROW + (t & 3) * 32),
-                   sw128_desc(do_t + (t >> 2) * DKV_BQ * SW_ROW + (t & 3) * 32));
+      for (int t = 0; t < 4 * NCB; ++t)
+        wgmma_ss_n64(
+            dp, sw128_desc(v_wg + (t >> 2) * TK * SW_ROW + (t & 3) * 32),
+            sw128_desc(do_t + (t >> 2) * DKV_BQ * SW_ROW + (t & 3) * 32));
+    }
     wg_commit();
     wg_wait_all();
     reg_fence(s);
@@ -908,18 +963,21 @@ fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int t = 0; t < DKV_BQ / 16; ++t)
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb) {
-        wgmma_rs_n64(dv[cb], pa[t],
-                     sw128_desc(do_t + cb * DKV_BQ * SW_ROW + t * 16 * SW_ROW));
-        wgmma_rs_n64(dk[cb], da[t],
-                     sw128_desc(q_t + cb * DKV_BQ * SW_ROW + t * 16 * SW_ROW));
+        if (want_dv)
+          wgmma_rs_n64(dv[cb], pa[t],
+                       sw128_desc(do_t + cb * DKV_BQ * SW_ROW +
+                                  t * 16 * SW_ROW));
+        if (want_dk)
+          wgmma_rs_n64(dk[cb], da[t],
+                       sw128_desc(q_t + cb * DKV_BQ * SW_ROW +
+                                  t * 16 * SW_ROW));
       }
     wg_commit();
     wg_wait_all();
 #pragma unroll
-    for (int cb = 0; cb < NCB; ++cb) {
-      reg_fence(dv[cb]);
-      reg_fence(dk[cb]);
-    }
+    for (int a = 0; a < NACC; ++a)
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) reg_fence(acc[a][cb]);
 
     // release the stage; thread 0 refills it once all 256 threads have
     mbar_arrive(bar_s + 8 * (TC_STAGES + st));
@@ -942,14 +1000,15 @@ fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * cb + 8 * j + c0;
-        if (col < hd) {
+        if (col >= hd) continue;
+        if (want_dk)
           *reinterpret_cast<__nv_bfloat162*>(k_row + col) =
               __floats2bfloat162_rn(scale * dk[cb][4 * j + 2 * x],
                                     scale * dk[cb][4 * j + 2 * x + 1]);
+        if (want_dv)
           *reinterpret_cast<__nv_bfloat162*>(v_row + col) =
               __floats2bfloat162_rn(dv[cb][4 * j + 2 * x],
                                     dv[cb][4 * j + 2 * x + 1]);
-        }
       }
   }
 }
@@ -964,11 +1023,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int Sk, int Hq, int Hkv, int hd, int causal, int window,
                  float scale) {
   constexpr int LD = HDP + 1, LDP = BK + 1, DC = HDP / 16;
+  // hd > 128: K and V take turns in one buffer (V for dP, then K for S and
+  // dQ), or the five tiles would pass the 227 KB a block may hold
+  constexpr bool SHARE = HDP > 128;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + BQ * LD;
   float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
+  float* Vs = SHARE ? Ks : Ks + BK * LD;
   float* DSs = Vs + BK * LD;
   const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -992,7 +1054,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int ki = lo; ki <= hi; ++ki) {
     __syncthreads();
-    load_tile<T, HDP>(Ks, k, b, ki * BK, Sk, Hkv, hk, hd);
+    if (!SHARE) load_tile<T, HDP>(Ks, k, b, ki * BK, Sk, Hkv, hk, hd);
     load_tile<T, HDP>(Vs, v, b, ki * BK, Sk, Hkv, hk, hd);
     __syncthreads();
 
@@ -1001,25 +1063,55 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < HDP; ++d) {
-      float a[4], o[4], kb[4], vb[4];
+    if (SHARE) {
+      // dP = dO V^T, then K replaces V, then S = Q K^T: each sum in the
+      // order of the shared loop below
+      for (int d = 0; d < HDP; ++d) {
+        float o[4], vb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty + 16 * i) * LD + d];
-        o[i] = dOs[(ty + 16 * i) * LD + d];
+        for (int i = 0; i < 4; ++i) o[i] = dOs[(ty + 16 * i) * LD + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) vb[j] = Vs[(tx + 16 * j) * LD + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(o[i], vb[j], dp[i][j]);
       }
+      __syncthreads();
+      load_tile<T, HDP>(Ks, k, b, ki * BK, Sk, Hkv, hk, hd);
+      __syncthreads();
+      for (int d = 0; d < HDP; ++d) {
+        float a[4], kb[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kb[j] = Ks[(tx + 16 * j) * LD + d];
-        vb[j] = Vs[(tx + 16 * j) * LD + d];
+        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kb[j], s[i][j]);
       }
+    } else {
+      for (int d = 0; d < HDP; ++d) {
+        float a[4], o[4], kb[4], vb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          a[i] = Qs[(ty + 16 * i) * LD + d];
+          o[i] = dOs[(ty + 16 * i) * LD + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(o[i], vb[j], dp[i][j]);
+          kb[j] = Ks[(tx + 16 * j) * LD + d];
+          vb[j] = Vs[(tx + 16 * j) * LD + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], kb[j], s[i][j]);
+            dp[i][j] = fmaf(o[i], vb[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -1063,6 +1155,11 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ B4
+// Query tiles of TQ rows: 64, and 32 at hd > 128, where four 64-row tiles
+// of 256 f32 columns would pass the 227 KB a block may hold.
+template <int HDP>
+__host__ __device__ constexpr int dkv_tq() { return HDP > 128 ? 32 : BQ; }
+
 template <typename T, int HDP>
 __global__ void __launch_bounds__(NT)
 fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1071,22 +1168,23 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ delta, T* __restrict__ dk_h,
                   T* __restrict__ dv_h, int Sq, int Sk, int Hq, int Hkv,
                   int hd, int causal, int window, float scale) {
-  constexpr int LD = HDP + 1, LDT = BQ + 1, DC = HDP / 16;
+  constexpr int TQ = dkv_tq<HDP>(), NJ = TQ / 16;
+  constexpr int LD = HDP + 1, LDT = TQ + 1, DC = HDP / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + BK * LD;
   float* Qs = Vs + BK * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Pt = dOs + BQ * LD;
+  float* dOs = Qs + TQ * LD;
+  float* Pt = dOs + TQ * LD;
   float* DSt = Pt + BK * LDT;
   float* lse_s = DSt + BK * LDT;
-  float* delta_s = lse_s + BQ;
+  float* delta_s = lse_s + TQ;
   const int ki = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int first_k = ki * BK;
   int lo, hi;
-  q_range(ki, (Sq + BQ - 1) / BQ, causal, window, &lo, &hi);
+  q_range<TQ, BK>(ki, (Sq + TQ - 1) / TQ, causal, window, &lo, &hi);
 
   load_tile<T, HDP>(Ks, k, b, first_k, Sk, Hkv, hk, hd);
   load_tile<T, HDP>(Vs, v, b, first_k, Sk, Hkv, hk, hd);
@@ -1098,10 +1196,10 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int qi = lo; qi <= hi; ++qi) {
     __syncthreads();
-    load_tile<T, HDP>(Qs, q, b, qi * BQ, Sq, Hq, h, hd);
-    load_tile<T, HDP>(dOs, dout, b, qi * BQ, Sq, Hq, h, hd);
-    if (threadIdx.x < BQ) {
-      const int row = qi * BQ + threadIdx.x;
+    load_tile<T, HDP, TQ>(Qs, q, b, qi * TQ, Sq, Hq, h, hd);
+    load_tile<T, HDP, TQ>(dOs, dout, b, qi * TQ, Sq, Hq, h, hd);
+    if (threadIdx.x < TQ) {
+      const int row = qi * TQ + threadIdx.x;
       const int64_t o = ((int64_t)b * Hq + h) * Sq + row;
       lse_s[threadIdx.x] = row < Sq ? lse[o] : LSE_EMPTY;
       delta_s[threadIdx.x] = row < Sq ? delta[o] : 0.f;
@@ -1109,27 +1207,27 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // transposed tile: rows are keys (ty + 16 i), columns queries (tx + 16 j)
-    float st[4][4], dpt[4][4];
+    float st[4][NJ], dpt[4][NJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+      for (int j = 0; j < NJ; ++j) st[i][j] = dpt[i][j] = 0.f;
     for (int d = 0; d < HDP; ++d) {
-      float kb[4], vb[4], a[4], o[4];
+      float kb[4], vb[4], a[NJ], o[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         kb[i] = Ks[(ty + 16 * i) * LD + d];
         vb[i] = Vs[(ty + 16 * i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         a[j] = Qs[(tx + 16 * j) * LD + d];
         o[j] = dOs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           st[i][j] = fmaf(a[j], kb[i], st[i][j]);
           dpt[i][j] = fmaf(o[j], vb[i], dpt[i][j]);
         }
@@ -1138,8 +1236,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int k_pos = first_k + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j, q_pos = qi * BQ + qc;
+      for (int j = 0; j < NJ; ++j) {
+        const int qc = tx + 16 * j, q_pos = qi * TQ + qc;
         const bool ok = q_pos < Sq && visible(q_pos, k_pos, Sk, causal, window);
         const float p = ok ? expf(st[i][j] * scale - lse_s[qc]) : 0.f;
         Pt[(ty + 16 * i) * LDT + qc] = p;
@@ -1148,7 +1246,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    for (int c = 0; c < BQ; ++c) {
+    for (int c = 0; c < TQ; ++c) {
       float pv[4], dsv[4], ov[DC], qv[DC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1194,13 +1292,15 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * ((BQ + 2 * BK) * (HDP + 1) + BQ * (BK + 1));
 }
 template <int HDP>
-constexpr size_t dq_smem() {
-  return sizeof(float) * ((2 * BQ + 2 * BK) * (HDP + 1) + BQ * (BK + 1));
+constexpr size_t dq_smem() {   // hd > 128: K and V share one buffer
+  return sizeof(float) * ((2 * BQ + (HDP > 128 ? 1 : 2) * BK) * (HDP + 1) +
+                          BQ * (BK + 1));
 }
 template <int HDP>
 constexpr size_t dkv_smem() {
+  constexpr int TQ = dkv_tq<HDP>();
   return sizeof(float) *
-         ((2 * BK + 2 * BQ) * (HDP + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
+         ((2 * BK + 2 * TQ) * (HDP + 1) + 2 * BK * (TQ + 1) + 2 * TQ);
 }
 
 template <typename T, int HDP>
@@ -1265,8 +1365,8 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* out,
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!encode_bshd(enc, &tm_q, q, B, Sq, Hq, hd, TC_BQ) ||
-      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, TC_BK) ||
-      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, TC_BK))
+      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, tc_bk(NCB)) ||
+      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, tc_bk(NCB)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = tc_fwd_smem<NCB>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -1289,8 +1389,8 @@ int launch_dq_tc(const void* q, const void* k, const void* v,
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   if (!encode_bshd(enc, &tm_q, q, B, Sq, Hq, hd, TC_BQ) ||
-      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, TC_BK) ||
-      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, TC_BK) ||
+      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, tc_bk(NCB)) ||
+      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, tc_bk(NCB)) ||
       !encode_bshd(enc, &tm_do, dout, B, Sq, Hq, hd, TC_BQ))
     return (int)cudaErrorInvalidValue;
   const size_t smem = tc_dq_smem<NCB>();
@@ -1316,8 +1416,8 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   if (!encode_bshd(enc, &tm_q, q, B, Sq, Hq, hd, DKV_BQ) ||
-      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, TC_BK) ||
-      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, TC_BK) ||
+      !encode_bshd(enc, &tm_k, k, B, Sk, Hkv, hd, dkv_keys(NCB)) ||
+      !encode_bshd(enc, &tm_v, v, B, Sk, Hkv, hd, dkv_keys(NCB)) ||
       !encode_bshd(enc, &tm_do, dout, B, Sq, Hq, hd, DKV_BQ))
     return (int)cudaErrorInvalidValue;
   const size_t smem = tc_dkv_smem<NCB>();
@@ -1325,7 +1425,7 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
       fa_bwd_dkv_tc_kernel<NCB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(Hq, B, (Sk + TC_BK - 1) / TC_BK);   // kv-tiles slowest
+  dim3 grid(Hq, B, (Sk + dkv_keys(NCB) - 1) / dkv_keys(NCB));  // kv-tiles
   fa_bwd_dkv_tc_kernel<NCB><<<grid, TC_NT, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta,
       (__nv_bfloat16*)dk_h, (__nv_bfloat16*)dv_h, Sq, Sk, Hq, Hkv, hd, causal,
@@ -1333,41 +1433,50 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// f32 only (dtype 0); hd <= 32 / 64 / 128 -> padded width 32 / 64 / 128
+// f32 only (dtype 0); hd <= 32 / 64 / 128 / 256 -> padded width 32 / 64 /
+// 128 / 256
 #define FA_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                   \
-    if (hd <= 0 || hd > 128 || dtype != 0)                               \
+    if (hd <= 0 || hd > 256 || dtype != 0)                               \
       return (int)cudaErrorInvalidValue;                                 \
     if (hd <= 32) return LAUNCH<float, 32>(__VA_ARGS__);                 \
     if (hd <= 64) return LAUNCH<float, 64>(__VA_ARGS__);                 \
-    return LAUNCH<float, 128>(__VA_ARGS__);                              \
+    if (hd <= 128) return LAUNCH<float, 128>(__VA_ARGS__);               \
+    return LAUNCH<float, 256>(__VA_ARGS__);                              \
   } while (0)
 
-// bf16 only (dtype 1), on the tensor cores: what fa_fwd_tc asks, and Sq > 0
+// bf16 only (dtype 1), on the tensor cores: hd a multiple of 8 (TMA needs
+// the row stride H hd 2 bytes to be a multiple of 16), at most 256, padded
+// to NCB = 1, 2 or 4 blocks of 64 columns (TMA zero-fills the columns past
+// hd); Sq, Sk > 0
 #define FA_TC_DISPATCH(LAUNCH, ...)                                      \
   do {                                                                   \
-    if (dtype != 1 || hd <= 0 || hd > 128 || hd % 8 != 0 || Sq <= 0 ||   \
+    if (dtype != 1 || hd <= 0 || hd > 256 || hd % 8 != 0 || Sq <= 0 ||   \
         Sk <= 0)                                                         \
       return (int)cudaErrorInvalidValue;                                 \
     if (hd <= 64) return LAUNCH<1>(__VA_ARGS__);                         \
-    return LAUNCH<2>(__VA_ARGS__);                                       \
+    if (hd <= 128) return LAUNCH<2>(__VA_ARGS__);                        \
+    return LAUNCH<4>(__VA_ARGS__);                                       \
   } while (0)
 
 }  // namespace
 
 extern "C" {
 
-// Tile sizes, for the wrapper's tile accounting: fa_fwd, fa_bwd_dq and
-// fa_bwd_dkv (f32) use 64 x 64, fa_fwd_tc and fa_bwd_dq_tc (bf16) 128 x
-// 128, fa_bwd_dkv_tc (bf16) 64 query rows x 128 keys.
-int fa_block_q() { return BQ; }
-int fa_block_k() { return BK; }
-int fa_fwd_block_q() { return TC_BQ; }
-int fa_fwd_block_k() { return TC_BK; }
-int fa_dq_tc_block_q() { return TC_BQ; }
-int fa_dq_tc_block_k() { return TC_BK; }
-int fa_dkv_tc_block_q() { return DKV_BQ; }
-int fa_dkv_tc_block_k() { return TC_BK; }
+// Tile sizes at head dim hd, for the wrapper's tile accounting: fa_fwd,
+// fa_bwd_dq (f32) 64 x 64; fa_bwd_dkv (f32) 64 (hd <= 128) or 32 query
+// rows x 64 keys; fa_fwd_tc and fa_bwd_dq_tc (bf16) 128 query rows x 128
+// keys (hd <= 128) or 64; fa_bwd_dkv_tc (bf16) 64 query rows x 128 keys
+// (hd <= 128) or 64.
+static int ncb_of(int hd) { return hd <= 64 ? 1 : hd <= 128 ? 2 : 4; }
+int fa_block_q(int hd) { return BQ; }
+int fa_block_k(int hd) { return BK; }
+int fa_fwd_block_q(int hd) { return TC_BQ; }
+int fa_fwd_block_k(int hd) { return tc_bk(ncb_of(hd)); }
+int fa_dq_tc_block_q(int hd) { return TC_BQ; }
+int fa_dq_tc_block_k(int hd) { return tc_bk(ncb_of(hd)); }
+int fa_dkv_tc_block_q(int hd) { return DKV_BQ; }
+int fa_dkv_tc_block_k(int hd) { return dkv_keys(ncb_of(hd)); }
 
 // f32 only (dtype 0): out (B,Sq,Hq,hd) f32, lse (B,Hq,Sq) f32, tiles
 // (B,Hq,ceil(Sq/64)) int32 or null (not counted).  Returns
@@ -1375,35 +1484,20 @@ int fa_dkv_tc_block_k() { return TC_BK; }
 int fa_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
            void* tiles, int dtype, int B, int Sq, int Sk, int Hq, int Hkv,
            int hd, int causal, int window, float scale, void* stream) {
-  if (dtype != 0 || hd <= 0 || hd > 128) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (hd <= 32)
-    return launch_fwd<float, 32>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq,
-                                 Hkv, hd, causal, window, scale, st);
-  if (hd <= 64)
-    return launch_fwd<float, 64>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq,
-                                 Hkv, hd, causal, window, scale, st);
-  return launch_fwd<float, 128>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv,
-                                hd, causal, window, scale, st);
+  FA_DISPATCH(launch_fwd, q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv, hd,
+              causal, window, scale, (cudaStream_t)stream);
 }
 
-// bf16 only (dtype 1), on the tensor cores: hd a multiple of 8 (TMA needs
-// the row stride H hd 2 bytes to be a multiple of 16), at most 128; Sk > 0;
-// q, k, v 16-byte aligned.  out (B,Sq,Hq,hd) bf16, lse (B,Hq,Sq) f32, tiles
+// bf16 only (dtype 1), on the tensor cores (FA_TC_DISPATCH); q, k, v
+// 16-byte aligned.  out (B,Sq,Hq,hd) bf16, lse (B,Hq,Sq) f32, tiles
 // (B,Hq,ceil(Sq/128)) int32 or null (not counted).  Returns
 // cudaGetLastError() after the launch.
 int fa_fwd_tc(const void* q, const void* k, const void* v, void* out,
               void* lse, void* tiles, int dtype, int B, int Sq, int Sk,
               int Hq, int Hkv, int hd, int causal, int window, float scale,
               void* stream) {
-  if (dtype != 1 || hd <= 0 || hd > 128 || hd % 8 != 0 || Sk <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (hd <= 64)
-    return launch_fwd_tc<1>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv, hd,
-                            causal, window, scale, st);
-  return launch_fwd_tc<2>(q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv, hd,
-                          causal, window, scale, st);
+  FA_TC_DISPATCH(launch_fwd_tc, q, k, v, out, lse, tiles, B, Sq, Sk, Hq, Hkv,
+                 hd, causal, window, scale, (cudaStream_t)stream);
 }
 
 // f32 only (dtype 0): dq (B,Sq,Hq,hd) f32.
@@ -1424,8 +1518,8 @@ int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
               Hq, Hkv, hd, causal, window, scale, (cudaStream_t)stream);
 }
 
-// bf16 only (dtype 1), on the tensor cores: hd a multiple of 8, at most
-// 128; Sq, Sk > 0; q, k, v, dout 16-byte aligned.  dq (B,Sq,Hq,hd) bf16.
+// bf16 only (dtype 1), on the tensor cores (FA_TC_DISPATCH); q, k, v,
+// dout 16-byte aligned.  dq (B,Sq,Hq,hd) bf16.
 int fa_bwd_dq_tc(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int dtype, int B, int Sq, int Sk, int Hq, int Hkv,

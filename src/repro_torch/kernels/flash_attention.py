@@ -15,17 +15,21 @@ f32) and a plain integer ``launches`` counter:
 * :func:`flash_attention_fwd` (B2) — ``out``, optionally ``lse`` and the
   executed-tile count.  It routes by dtype (:func:`fwd_route`): bf16 goes
   to ``fa_fwd_tc``, the tensor-core kernel (``wgmma`` over TMA-fed tiles of
-  128 × 128, counted also in ``flash_attention_fwd.launches_tc``), f32 to
-  ``fa_fwd``, the CUDA-core kernel of 64 × 64 tiles;
+  128 query rows × 128 keys, 64 keys above head dim 128, counted also in
+  ``flash_attention_fwd.launches_tc``), f32 to ``fa_fwd``, the CUDA-core
+  kernel of 64 × 64 tiles;
 * :func:`flash_attention_bwd_dq` (B3) — ``dq``;
 * :func:`flash_attention_bwd_dkv` (B4) — per-query-head ``dk_h, dv_h``
   ``(B,Sk,Hq,hd)`` in the k / v dtype.
 
 B3 and B4 route by dtype too (:func:`bwd_route`): bf16 goes to
 ``fa_bwd_dq_tc`` / ``fa_bwd_dkv_tc``, tensor-core kernels (``wgmma`` over
-TMA-fed tiles: B3 128 query rows × 128 keys, B4 128 keys × 64 query rows,
-counted also in ``launches_tc``), f32 to ``fa_bwd_dq`` / ``fa_bwd_dkv`` on
-the CUDA cores.  The tensor-core backward rounds ``P`` (for dv) and ``dS``
+TMA-fed tiles: B3 128 query rows × 128 keys, B4 128 keys × 64 query rows;
+64 keys each above head dim 128, :func:`tc_blocks`; counted also in
+``launches_tc``), f32 to ``fa_bwd_dq`` / ``fa_bwd_dkv`` on the CUDA cores.
+Every kernel takes head dims up to 256 (a bf16 one a multiple of 8: TMA
+zero-fills the columns of the last 64-column block past it, and the
+stores stop at it).  The tensor-core backward rounds ``P`` (for dv) and ``dS``
 (for dk, dq) to bf16 before its products, as the library's flash backward
 does; the plain versions keep them in f32.
 
@@ -36,9 +40,11 @@ each kernel is its plain PyTorch version on whole matrices
 takes the plain version only for tensors that lie on the CPU; on a CUDA
 tensor it launches its kernel or raises.
 
-Tiles are 64 × 64 (``BLOCK_Q``, ``BLOCK_K``) on the CUDA cores; the bf16
-kernels' are ``FWD_BLOCK_*`` (:func:`fwd_blocks`), ``DQ_BLOCK_*`` (B3)
-and ``DKV_BLOCK_*`` (B4).  The TPU kernel's
+Tiles are 64 × 64 (``BLOCK_Q``, ``BLOCK_K``) on the CUDA cores (B4's
+query tiles 32 rows above head dim 128); the bf16 kernels' are
+``FWD_BLOCK_*`` (:func:`fwd_blocks`), ``DQ_BLOCK_*`` (B3) and
+``DKV_BLOCK_*`` (B4) up to head dim 128, and ``WIDE_BLOCK_K`` keys above
+it (:func:`tc_blocks`).  The TPU kernel's
 ``pl.when(_tile_live)`` skip becomes loop bounds in the CUDA kernels;
 :func:`_live_range` mirrors those bounds here, and the tests hold
 them against :func:`_tile_live`.  The executed-tile count is one int32 per
@@ -61,9 +67,10 @@ from repro_torch.kernels.ref import attention_mask
 __all__ = ["flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "fwd_plain", "bwd_dq_plain", "bwd_dkv_plain", "fa_tile_counts",
-           "fwd_route", "fwd_blocks", "bwd_route", "BLOCK_Q", "BLOCK_K", "FWD_BLOCK_Q", "FWD_BLOCK_K", "DQ_BLOCK_Q",
-           "DQ_BLOCK_K", "DKV_BLOCK_Q", "DKV_BLOCK_K", "NEG_INF",
-           "LSE_EMPTY"]
+           "fwd_route", "fwd_blocks", "tc_blocks", "bwd_route", "BLOCK_Q",
+           "BLOCK_K", "FWD_BLOCK_Q", "FWD_BLOCK_K", "DQ_BLOCK_Q",
+           "DQ_BLOCK_K", "DKV_BLOCK_Q", "DKV_BLOCK_K", "WIDE_BLOCK_K",
+           "MAX_HEAD_DIM", "NEG_INF", "LSE_EMPTY"]
 
 NEG_INF = -1e30
 # LSE filler for rows that saw no valid key (and for padded Q rows in the
@@ -77,6 +84,8 @@ DQ_BLOCK_Q = 128      # bf16 B3 (fa_bwd_dq_tc): query rows x keys
 DQ_BLOCK_K = 128
 DKV_BLOCK_Q = 64      # bf16 B4 (fa_bwd_dkv_tc): DKV_BQ x TC_BK there
 DKV_BLOCK_K = 128
+WIDE_BLOCK_K = 64     # keys of every bf16 tile above head dim 128
+MAX_HEAD_DIM = 256    # the largest head dim any kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -142,8 +151,9 @@ def _route(name: str, dtype: torch.dtype, hd: int) -> str:
             raise ValueError(f"{name}: bf16 head dim {hd} is not a multiple "
                              f"of 8, so TMA cannot address its rows (their "
                              f"stride H*hd*2 bytes must be a multiple of 16)")
-        if not 0 < hd <= 128:
-            raise ValueError(f"{name}: bf16 head dim {hd} outside (0, 128]")
+        if not 0 < hd <= MAX_HEAD_DIM:
+            raise ValueError(f"{name}: bf16 head dim {hd} outside (0, "
+                             f"{MAX_HEAD_DIM}]")
         return "wgmma"
     return "simt"
 
@@ -153,7 +163,7 @@ def fwd_route(dtype: torch.dtype, hd: int) -> str:
     on the tensor cores) or ``"simt"`` (``fa_fwd``, f32 on the CUDA cores).
     Raises ``ValueError`` for a bf16 head dim that TMA cannot address
     (``hd % 8``: the row stride ``H·hd·2`` bytes must be a multiple of 16) or
-    that the kernel does not hold (``hd > 128``)."""
+    that the kernel does not hold (``hd > 256``)."""
     return _route("flash_attention_fwd", dtype, hd)
 
 
@@ -166,10 +176,22 @@ def bwd_route(dtype: torch.dtype, hd: int) -> str:
     return _route("flash_attention_bwd", dtype, hd)
 
 
-def fwd_blocks(dtype: torch.dtype) -> Tuple[int, int]:
-    """(query, key) tile sizes of the B2 kernel that ``dtype`` routes to."""
+def tc_blocks(kernel: str, hd: int) -> Tuple[int, int]:
+    """(query rows, keys) of a tile of the bf16 kernel ``kernel`` —
+    ``"fwd"`` (B2), ``"dq"`` (B3) or ``"dkv"`` (B4) — at head dim ``hd``:
+    above 128 every tile holds ``WIDE_BLOCK_K`` keys, so that its operands
+    fit a block's shared memory (``tc_bk`` / ``dkv_keys`` in
+    ``csrc/flash_attention.cu``)."""
+    q, k = {"fwd": (FWD_BLOCK_Q, FWD_BLOCK_K), "dq": (DQ_BLOCK_Q, DQ_BLOCK_K),
+            "dkv": (DKV_BLOCK_Q, DKV_BLOCK_K)}[kernel]
+    return q, (WIDE_BLOCK_K if hd > 128 else k)
+
+
+def fwd_blocks(dtype: torch.dtype, hd: int) -> Tuple[int, int]:
+    """(query, key) tile sizes of the B2 kernel that ``dtype`` routes to at
+    head dim ``hd``."""
     if dtype == torch.bfloat16:
-        return FWD_BLOCK_Q, FWD_BLOCK_K
+        return tc_blocks("fwd", hd)
     return BLOCK_Q, BLOCK_K
 
 
@@ -205,7 +227,7 @@ def fwd_plain(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.where(empty, 0.0, acc / torch.where(empty, 1.0, l))
     lse = torch.where(empty, LSE_EMPTY,
                       m + torch.log(torch.where(empty, 1.0, l)))[..., 0]
-    tiles = B * Hq * fa_tile_counts(Sq, Sk, *fwd_blocks(q.dtype), causal,
+    tiles = B * Hq * fa_tile_counts(Sq, Sk, *fwd_blocks(q.dtype, hd), causal,
                                     window)[0]
     return out.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse, tiles
 
@@ -258,28 +280,31 @@ def _lib():
     lib.fa_bwd_dq_tc.argtypes = [P] * 7 + shape
     lib.fa_bwd_dkv.argtypes = [P] * 8 + shape
     lib.fa_bwd_dkv_tc.argtypes = [P] * 8 + shape
-    tiles = {("fa_block_q", "fa_block_k"): (BLOCK_Q, BLOCK_K),
-             ("fa_fwd_block_q", "fa_fwd_block_k"): (FWD_BLOCK_Q, FWD_BLOCK_K),
-             ("fa_dq_tc_block_q", "fa_dq_tc_block_k"): (DQ_BLOCK_Q,
-                                                        DQ_BLOCK_K),
-             ("fa_dkv_tc_block_q", "fa_dkv_tc_block_k"): (DKV_BLOCK_Q,
-                                                          DKV_BLOCK_K)}
+    tiles = {("fa_block_q", "fa_block_k"): lambda hd: (BLOCK_Q, BLOCK_K),
+             ("fa_fwd_block_q", "fa_fwd_block_k"):
+                 lambda hd: tc_blocks("fwd", hd),
+             ("fa_dq_tc_block_q", "fa_dq_tc_block_k"):
+                 lambda hd: tc_blocks("dq", hd),
+             ("fa_dkv_tc_block_q", "fa_dkv_tc_block_k"):
+                 lambda hd: tc_blocks("dkv", hd)}
     for fn in (lib.fa_fwd, lib.fa_fwd_tc, lib.fa_bwd_dq, lib.fa_bwd_dq_tc,
                lib.fa_bwd_dkv, lib.fa_bwd_dkv_tc):
         fn.restype = I
     for names, want in tiles.items():
         for n in names:
-            getattr(lib, n).argtypes, getattr(lib, n).restype = [], I
-        got = tuple(getattr(lib, n)() for n in names)
-        if got != want:
-            raise RuntimeError(f"csrc/flash_attention.cu tile sizes {names} "
-                               f"= {got} differ from the module's {want}")
+            getattr(lib, n).argtypes, getattr(lib, n).restype = [I], I
+        for hd in (64, 128, MAX_HEAD_DIM):      # each NCB's tiles
+            got = tuple(getattr(lib, n)(hd) for n in names)
+            if got != want(hd):
+                raise RuntimeError(
+                    f"csrc/flash_attention.cu tile sizes {names} at head "
+                    f"dim {hd} = {got} differ from the module's {want(hd)}")
     return lib
 
 
 def _check(name, q, k, v, do=None, lse=None, delta=None):
     """Validate CUDA operands: one device, f32 or bf16, contiguous
-    (B,S,H,hd) layouts, hd <= 128, Hq a multiple of Hkv; for the backward
+    (B,S,H,hd) layouts, hd <= 256, Hq a multiple of Hkv; for the backward
     also dO shaped and typed like q, lse and delta (B,Hq,Sq) f32."""
     B, Sq, Hq, hd = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != B \
@@ -289,8 +314,9 @@ def _check(name, q, k, v, do=None, lse=None, delta=None):
     if Hq % k.shape[2]:
         raise ValueError(f"{name}: Hq={Hq} is not a multiple of "
                          f"Hkv={k.shape[2]}")
-    if not 0 < hd <= 128:
-        raise ValueError(f"{name}: head dim {hd} outside (0, 128]")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {hd} outside (0, "
+                         f"{MAX_HEAD_DIM}]")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q, k, v must share a dtype in "
                          f"{sorted(map(str, _DTYPES))}, got {q.dtype}, "
@@ -345,7 +371,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         tc = fwd_route(q.dtype, hd) == "wgmma"
         out = torch.empty_like(q)
         lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-        slots = torch.empty((B, Hq, -(-Sq // fwd_blocks(q.dtype)[0])),
+        slots = torch.empty((B, Hq, -(-Sq // fwd_blocks(q.dtype, hd)[0])),
                             dtype=torch.int32, device=q.device) \
             if count_tiles else None       # the kernel counts only if asked
         if out.numel():

@@ -49,8 +49,8 @@ def input_specs(cfg: ModelConfig, shape: InputShape
     * train_4k              → ``train_step(params, opt, batch, lr, step)``
     * prefill_32k           → ``prefill_step(params, batch)``
     * decode_32k / long_500k → ``serve_step(params, cache, tokens, index)``,
-      the cache ``LM.init_cache``'s tree (``LM`` raises for a family the
-      port does not build yet)."""
+      the cache ``LM.init_cache``'s tree (an encoder-only model's too, as
+      the reference gives; ``shape_applicable`` rules that shape out)."""
     if shape.kind in ("train", "prefill"):
         return shape.kind, {
             "batch": batch_struct(cfg, shape.global_batch, shape.seq_len)}

@@ -1,15 +1,26 @@
-"""Decoder LM assembly for the attention, Mixture-of-Experts and SSM
-families (``attn`` / ``local`` / ``ssm`` blocks, dense or MoE FFNs).
+"""Model assembly for all six architecture families: ``attn`` / ``local``
+/ ``rglru`` / ``ssm`` blocks, dense or MoE FFNs, and the vision and audio
+frontends.
 
 The counterpart of ``repro/models/transformer.py``: the parameter tree is
 the JAX package's — ``{"embed", "final_norm", ["lm_head"], "cycles": [one
 dict of (n_full, ...) stacked leaves per pattern slot], "rest": [per-layer
 dicts]}`` — so weights carry across leaf for leaf, and so is the decode
 cache's (``init_cache``: ``{"cycles": [...], "rest": [...]}`` of KV ring
-buffers and SSD states).  Blocks are pre-norm residual: ``x +=
-mixer(norm1(x)); x += ffn(norm2(x))``, the mixer being attention or the
-SSD layer (SSD blocks carry no FFN, matching Mamba2), the FFN a SwiGLU or
-the MoE layer, whose load-balancing loss is summed over layers.
+buffers, RG-LRU and SSD states).  Blocks are pre-norm residual: ``x +=
+mixer(norm1(x)); x += ffn(norm2(x))``, the mixer being attention, the
+RG-LRU recurrence or the SSD layer (SSD blocks carry no FFN, matching
+Mamba2), the FFN a SwiGLU or the MoE layer, whose load-balancing loss is
+summed over layers.  Layers that do not fill a whole cycle (26 = 8 × 3 + 2
+for recurrentgemma) run after the cycles.
+
+The frontends are the reference's stubs: an audio model (hubert,
+encoder-only) embeds ``batch["features"] @ frontend_proj`` with 1-D
+positions; a vision model (qwen2-vl) puts ``batch["patches"] @
+frontend_proj`` before the embedded text tokens and takes
+``batch["positions"]`` (3, B, S) as M-RoPE ids, and its loss reads the
+text's logits after the patch prefix.  Features and patches come in the
+config's dtype; another dtype raises (the reference would promote).
 
 The JAX layer ``scan`` becomes a Python loop.  Each stacked leaf is split
 once per forward with ``torch.unbind`` (whose backward is one ``stack``),
@@ -21,10 +32,6 @@ bit-reproducible there.  The tied output head is ``F.linear(x, embed)``,
 whose weight gradient comes back contiguous.  ``decode_step`` writes each
 layer's cache in place through views of the stacked buffers, so a step
 allocates no cache and returns the one it was given.
-
-Not here yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue A slice: RG-LRU blocks (slice 12) and the vision / audio frontends
-(slice 11).
 """
 
 from __future__ import annotations
@@ -42,14 +49,13 @@ from repro_torch.models.ffn import (init_mlp, init_moe, mlp_forward,
                                     moe_forward)
 from repro_torch.models.layers import (dense_init, embed_init, init_rms,
                                        rms_norm)
+from repro_torch.models.rglru import (init_rglru, init_rglru_cache,
+                                      rglru_decode, rglru_forward)
 from repro_torch.models.ssm import (init_ssm, init_ssm_cache, ssm_decode,
                                     ssm_forward)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["LM"]
-
-RGLRU_SLICE = "ROADMAP queue A, slice 12"
-FRONTEND_SLICE = "ROADMAP queue A, slice 11"
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -70,6 +76,8 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
     p: Dict[str, Any] = {"norm1": init_rms(cfg.d_model, dtype)}
     if kind == "ssm":
         p["ssm"] = init_ssm(cfg, gen, dtype)
+    elif kind == "rglru":
+        p["rglru"] = init_rglru(cfg, gen, dtype)
     else:
         p["attn"] = init_attention(cfg, gen, dtype)
     if _has_ffn(cfg, kind):
@@ -95,6 +103,8 @@ def _block_forward(cfg: ModelConfig, kind: str, p, x, positions,
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         h = ssm_forward(p["ssm"], cfg, h, use_kernel=use_kernel)
+    elif kind == "rglru":
+        h = rglru_forward(p["rglru"], cfg, h)
     else:
         h = attention_forward(p["attn"], cfg, h, positions,
                               window=_window(cfg, kind),
@@ -109,6 +119,8 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  dtype: torch.dtype, device) -> Dict[str, Any]:
     if kind == "ssm":
         return init_ssm_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return init_rglru_cache(cfg, batch, dtype, device)
     return init_kv_cache(cfg, batch, max_len, _window(cfg, kind), dtype,
                          device)
 
@@ -118,6 +130,8 @@ def _block_decode(cfg: ModelConfig, kind: str, p, x, cache, index
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         h, _ = ssm_decode(p["ssm"], cfg, h, cache)
+    elif kind == "rglru":
+        h, _ = rglru_decode(p["rglru"], cfg, h, cache)
     else:
         h, _ = attention_decode(p["attn"], cfg, h, cache, index,
                                 window=_window(cfg, kind))
@@ -144,19 +158,15 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 
 class LM:
-    """Decoder LM / encoder (``causal=False``) over ``attn`` / ``local`` /
-    ``ssm`` layer patterns, dense or MoE."""
+    """Decoder LM / encoder (``causal=False``) over any layer pattern of
+    ``attn`` / ``local`` / ``rglru`` / ``ssm`` blocks, dense or MoE, with
+    an optional vision or audio frontend."""
 
     def __init__(self, cfg: ModelConfig, use_kernel: bool = False):
-        kinds = set(cfg.layer_kinds()) - {"attn", "local", "ssm"}
+        kinds = set(cfg.layer_kinds()) - {"attn", "local", "rglru", "ssm"}
         if kinds:
-            raise NotImplementedError(
-                f"{cfg.name}: {sorted(kinds)} blocks are not in repro_torch "
-                f"yet ({RGLRU_SLICE})")
-        if cfg.frontend != "none":
-            raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} "
-                                      f"frontend is not in repro_torch yet "
-                                      f"({FRONTEND_SLICE})")
+            raise ValueError(f"{cfg.name}: unknown block kinds "
+                             f"{sorted(kinds)}")
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.pattern = cfg.layer_pattern
@@ -181,6 +191,9 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                            dtype=dt)
+        if cfg.frontend_dim:
+            params["frontend_proj"] = dense_init(
+                gen, (cfg.frontend_dim, cfg.d_model), dtype=dt)
         params["cycles"] = [
             _stack([_init_block(cfg, kind, gen, dt)
                     for _ in range(self.n_full)])
@@ -207,16 +220,43 @@ class LM:
             return F.linear(x, params["embed"]).float()
         return (x @ params["lm_head"]).float()
 
+    def _frontend_input(self, batch, key: str) -> torch.Tensor:
+        """``batch[key]`` (features or patches), which must come in the
+        model's dtype: the reference would promote an input of another
+        dtype, and the port does not cast behind the caller's back."""
+        x = batch[key]
+        want = _dtype(self.cfg)
+        if x.dtype != want:
+            raise ValueError(f"{self.cfg.name}: batch[{key!r}] is {x.dtype}; "
+                             f"the {self.cfg.frontend} frontend takes {want} "
+                             f"(the model's dtype)")
+        return x
+
+    def _embed(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(hidden (B, S, D), positions): (B, S) ids, or for the vision
+        frontend ``batch["positions"]`` (3, B, S) as M-RoPE ids."""
+        cfg = self.cfg
+        if cfg.frontend == "audio":
+            x = self._frontend_input(batch, "features") @ \
+                params["frontend_proj"]
+        else:
+            x = F.embedding(batch["tokens"], params["embed"])
+            if cfg.frontend == "vision":
+                patches = self._frontend_input(batch, "patches") @ \
+                    params["frontend_proj"]
+                return torch.cat([patches, x], dim=1), batch["positions"]
+        B, S = x.shape[:2]
+        return x, torch.arange(S, device=x.device)[None].expand(B, S)
+
     def forward(self, params, batch) -> Tuple[torch.Tensor,
                                               Dict[str, torch.Tensor]]:
-        """``batch["tokens"]`` (B, S) int64 → f32 logits (B, S, V) and
+        """``batch["tokens"]`` (B, S) int64 (audio: ``features`` (B, S,
+        frontend_dim); vision: ``tokens``, ``patches`` (B, P, frontend_dim)
+        and ``positions`` (3, B, P + S)) → f32 logits (B, S, V) and
         ``{"moe_aux"}``, the MoE loss summed over layers (0 without
         experts)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = F.embedding(tokens, params["embed"])
-        B, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x, positions = self._embed(params, batch)
         aux = torch.zeros((), device=x.device)
         for kind, p in self._layers(params):
             x, a = _block_forward(cfg, kind, p, x, positions,
@@ -228,13 +268,19 @@ class LM:
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch) -> Tuple[torch.Tensor,
                                            Dict[str, torch.Tensor]]:
-        """Mean next-token NLL (framewise for an encoder), plus
+        """Mean next-token NLL (framewise for an encoder; over the text after
+        the patch prefix for the vision frontend), plus
         ``router_aux_weight · moe_aux / num_layers`` with experts; metrics
         ``nll`` and ``moe_aux`` as in the JAX package."""
         cfg = self.cfg
         logits, aux = self.forward(params, batch)
         if cfg.is_encoder_only:
             lg, lb = logits, batch["labels"]
+        elif cfg.frontend == "vision":
+            # text tokens sit after the patch prefix: logits[:, P + i]
+            # predicts text token i + 1
+            P, n_text = batch["patches"].shape[1], batch["tokens"].shape[1]
+            lg, lb = logits[:, P:P + n_text - 1], batch["tokens"][:, 1:]
         else:
             lg, lb = logits[:, :-1], batch["tokens"][:, 1:]
         logp = F.log_softmax(lg, dim=-1)

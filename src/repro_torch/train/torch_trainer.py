@@ -154,21 +154,28 @@ def group_value_and_grad(loss_fn, params: Any, batch: Any,
     so its slice of the gradient is its own).  Not
     ``vmap(grad_and_value(loss))``: ``torch.func.grad`` differentiates with
     ``create_graph=True`` and keeps the backward's graph, ~1.7× a solo
-    step's memory a member (qwen2-0.5b, ``tools/group_probe.py memory``)."""
+    step's memory a member (qwen2-0.5b, ``tools/group_probe.py memory``).
+    A leaf the loss never reads gets zeros, as under ``jax.grad``."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, aux = torch.func.vmap(loss_fn, in_dims=(0, batch_dim))(leaves,
                                                                  batch)
-    grads = iter(torch.autograd.grad(loss.sum(), tree_leaves(leaves)))
+    grads = iter(torch.autograd.grad(loss.sum(), tree_leaves(leaves),
+                                     allow_unused=True,
+                                     materialize_grads=True))
     return (loss.detach(), aux), tree_map(lambda _: next(grads), params)
 
 
 def value_and_grad(loss_fn, params: Any, batch: Any):
     """``(loss, aux), grads`` of ``loss_fn(params, batch) -> (loss, aux)``
     with ``grads`` a tree shaped like ``params``.  The parameters are not
-    touched: gradients are taken with respect to detached views."""
+    touched: gradients are taken with respect to detached views.  A leaf
+    the loss never reads (an audio model's ``embed``) gets zeros, as under
+    ``jax.grad``, so the update decays it as the reference's does."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, aux = loss_fn(leaves, batch)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                     allow_unused=True,
+                                     materialize_grads=True))
     return (loss.detach(), aux), tree_map(lambda _: next(grads), params)
 
 

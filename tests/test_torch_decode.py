@@ -9,7 +9,8 @@ packages and JAX-initialised weights carried across leaf for leaf:
   1e-4·max(1, |ref|);
 * ``init_ssm_cache`` / ``ssm_decode`` the same;
 * ``LM.decode_step`` over 32 tokens for qwen2-0.5b, mamba2-2.7b,
-  qwen2-moe-a2.7b and grok-1-314b (the MoE ones drop-free, as
+  qwen2-moe-a2.7b, grok-1-314b and recurrentgemma-2b (the MoE ones
+  drop-free, as
   ``tests/test_models.py::test_decode_matches_forward`` runs them): logits
   and the whole cache tree against JAX's within 1e-4·max(1, |ref|), and
   the port's decode against its own forward within 5e-3 (the reference
@@ -17,9 +18,9 @@ packages and JAX-initialised weights carried across leaf for leaf:
 * the serve step against the reference's (next tokens equal, cache within
   1e-4), written in place on the cache it was given;
 * ``input_specs`` decode structures equal to the reference's
-  ``eval_shape`` structures for every architecture the port builds, on
-  ``decode_32k`` and on ``long_500k`` (through ``config_for_shape``'s
-  8,192 window); the families it does not build raise naming their slice;
+  ``eval_shape`` structures for every architecture whose decode shapes
+  apply (all but encoder-only hubert), on ``decode_32k`` and on
+  ``long_500k`` (through ``config_for_shape``'s 8,192 window);
 * ``examples/torch_serve_lm.py --device cpu``: its greedy tokens are the
   forward's arg-max over prompt + generation; without a card and without
   ``--device cpu`` it refuses.
@@ -44,7 +45,7 @@ from repro.models import ssm as jax_ssm
 from repro.models.transformer import LM as JaxLM
 from repro.train.step import build_serve_step as jax_build_serve_step
 from repro_torch.configs import SHAPES, config_for_shape, get_config, \
-    list_archs
+    list_archs, shape_applicable
 from repro_torch.launch.specs import input_specs
 from repro_torch.models import attention, ssm
 from repro_torch.models.transformer import LM
@@ -59,7 +60,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4            # across frameworks, relative to max(1, |ref|)
 SELF_TOL = 5e-3       # decode against forward (tests/test_models.py)
 DECODE_ARCHS = ["qwen2-0.5b", "mamba2-2.7b", "qwen2-moe-a2.7b",
-                "grok-1-314b"]
+                "grok-1-314b", "recurrentgemma-2b"]
 
 
 def flat(tree):
@@ -231,23 +232,27 @@ def test_lm_decode_step_matches_jax_and_its_own_forward(arch):
 
 
 def test_encoder_only_and_unported_families_have_no_decode():
-    """hubert (encoder-only, audio) and qwen2-vl (vision) are refused at
-    build naming slice 11, recurrentgemma naming slice 12 — and so is
-    their decode input; an encoder-only config has no decode step."""
-    for arch, slice_no in (("hubert-xlarge", "slice 11"),
-                           ("qwen2-vl-7b", "slice 11"),
-                           ("recurrentgemma-2b", "slice 12")):
-        with pytest.raises(NotImplementedError, match=slice_no):
-            LM(get_config(arch).reduced())
-        with pytest.raises(NotImplementedError, match=slice_no):
-            input_specs(get_config(arch), SHAPES["decode_32k"])
+    """hubert (encoder-only, audio), qwen2-vl (vision) and recurrentgemma
+    (RG-LRU) all build now (slices 11 and 12); the two decoders have a
+    decode input as the reference gives it, while an encoder-only config's
+    decode shapes are not applicable (``shape_applicable``, the
+    reference's rule) and it has no decode step."""
+    for arch in ("hubert-xlarge", "qwen2-vl-7b", "recurrentgemma-2b"):
+        cfg = get_config(arch)
+        LM(cfg.reduced())
+        applicable = shape_applicable(cfg, SHAPES["decode_32k"])
+        assert applicable == (arch != "hubert-xlarge")
+        if applicable:
+            kind, got = input_specs(cfg, SHAPES["decode_32k"])
+            assert kind == "decode" and set(got) == {"cache", "tokens",
+                                                     "index"}
     enc = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
                               causal=False, frontend="none")
     assert enc.is_encoder_only
-    m = LM(enc)
-    with pytest.raises(ValueError, match="encoder-only"):
-        m.decode_step(m.init(0), m.init_cache(1, 4),
-                      torch.zeros((1, 1), dtype=torch.int64), 0)
+    for m in (LM(enc), LM(get_config("hubert-xlarge").reduced())):
+        with pytest.raises(ValueError, match="encoder-only"):
+            m.decode_step(m.init(0), m.init_cache(1, 4),
+                          torch.zeros((1, 1), dtype=torch.int64), 0)
 
 
 # ------------------------------------------------------------- serve step
@@ -274,15 +279,11 @@ def test_serve_step_matches_the_reference():
 
 
 # ----------------------------------------------------------- input specs
-def _ported(arch):
-    try:
-        LM(get_config(arch).reduced())
-    except NotImplementedError:
-        return False
-    return True
-
-
-PORTED = [a for a in list_archs() if _ported(a)]
+# every architecture builds; an encoder-only one has no decode shapes
+PORTED = list_archs()
+DECODE_CASES = [(arch, shape_name) for shape_name in ("decode_32k", "long_500k")
+                for arch in PORTED
+                if shape_applicable(get_config(arch), SHAPES[shape_name])]
 
 
 def meta_struct(tree):
@@ -294,8 +295,7 @@ def meta_struct(tree):
     return (tuple(tree.shape), str(tree.dtype).split(".")[-1])
 
 
-@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch,shape_name", DECODE_CASES)
 def test_input_specs_decode_equal_the_reference(arch, shape_name):
     """Kind, keys, nesting, shapes and dtypes of the decode inputs; token
     ids and the index are int64 in the port, int32 in the reference."""

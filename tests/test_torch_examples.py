@@ -86,3 +86,22 @@ def test_the_ports_space_is_the_benchmarks_space(examples):
         want = spaces.resnet20_space_high_merge(seed=seed).trials(160)
         got = port.resnet20_space_high_merge(seed=seed).trials(160)
         assert [t.trial_id for t in got] == [t.trial_id for t in want]
+
+
+def test_lm_study_example_runs_recurrentgemma_reduced_on_the_cpu(examples):
+    """``examples/torch_hpo_lm.py --arch recurrentgemma-2b --device cpu
+    --layers 5``: the reduced model at one (RG-LRU, RG-LRU, local) cycle
+    plus the two trailing RG-LRU layers, stage-based against
+    trial-based — fewer steps, the same best trial, every reported metric
+    bit-equal."""
+    example = examples("torch_hpo_lm")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        results = example.main(["--arch", "recurrentgemma-2b", "--device",
+                                "cpu", "--layers", "5"])
+    lines = buf.getvalue().splitlines()
+    (s_stats, s_best, s_hist) = results["stage"]
+    (t_stats, t_best, t_hist) = results["trial"]
+    assert s_stats.steps_run == 16 and t_stats.steps_run == 32
+    assert s_best == t_best and s_hist == t_hist
+    assert s_stats.kernel_fallbacks == 0
+    assert lines[-1].endswith("every reported metric bit-equal: True")

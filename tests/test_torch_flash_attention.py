@@ -99,7 +99,7 @@ def test_plain_forward_matches_jax_kernel(dtype, shape, mask):
     (it clamps a tile to a shorter sequence; the count stays one tile)."""
     causal, window = mask
     q, k, v = inputs(*shape, seed=sum(shape))
-    bq, bk = fa.fwd_blocks(to_torch(q[:0], dtype).dtype)
+    bq, bk = fa.fwd_blocks(to_torch(q[:0], dtype).dtype, shape[4])
     jo, jl, jt = jax_fwd(*(to_jax(a, dtype) for a in (q, k, v)),
                          causal=causal, window=window,
                          block_q=bq, block_k=bk,
@@ -141,6 +141,90 @@ def test_plain_backward_matches_jax_kernel(dtype, shape, causal, window):
     for a, b, name in zip(tg, jg, ("dq", "dk", "dv")):
         assert tuple(a.shape) == b.shape and a.dtype == to_torch(q, dtype).dtype
         np.testing.assert_allclose(f32(a), f32(b), err_msg=name, **t)
+
+
+# head dims 80 (hubert-xlarge, MHA, non-causal) and 256 (recurrentgemma-2b,
+# MQA, windowed): the bf16 kernels pad 80 to two 64-column blocks and take
+# 256 in four, with 64-key tiles (``tc_blocks``)
+WIDE_CASES = [(dtype, shape, mask) for dtype in ("float32", "bfloat16")
+              for shape, mask in (((1, 96, 2, 2, 80), (False, 0)),
+                                  ((1, 96, 2, 2, 80), (True, 48)),
+                                  ((1, 160, 2, 1, 256), (True, 0)),
+                                  ((1, 160, 2, 1, 256), (True, 48)))]
+
+
+@pytest.mark.parametrize("dtype,shape,mask", WIDE_CASES)
+def test_plain_forward_at_head_dims_80_and_256_matches_jax_kernel(
+        dtype, shape, mask):
+    """The plain forward against the Pallas kernel under ``interpret=True``
+    at the tiles of the port's kernel for the dtype and head dim: out,
+    lse and the executed-tile count."""
+    causal, window = mask
+    q, k, v = inputs(*shape, seed=sum(shape) + 5)
+    bq, bk = fa.fwd_blocks(to_torch(q[:0], dtype).dtype, shape[4])
+    jo, jl, jt = jax_fwd(*(to_jax(a, dtype) for a in (q, k, v)),
+                         causal=causal, window=window, block_q=bq,
+                         block_k=bk, return_lse=True, count_tiles=True,
+                         interpret=True)
+    to, tl, tt = fa.flash_attention_fwd(
+        *(to_torch(a, dtype) for a in (q, k, v)), causal=causal,
+        window=window, return_lse=True, count_tiles=True)
+    np.testing.assert_allclose(f32(to), f32(jo), **tol(dtype))
+    np.testing.assert_allclose(f32(tl), f32(jl), **tol(dtype))
+    assert tt == int(jt) > 0
+
+
+@pytest.mark.parametrize("dtype,shape,mask", WIDE_CASES)
+def test_plain_backward_at_head_dims_80_and_256_matches_jax_kernel(
+        dtype, shape, mask):
+    """The plain backward (dq, dk, dv) against the Pallas backward under
+    ``interpret=True`` on the JAX forward's residuals."""
+    causal, window = mask
+    q, k, v, do = inputs(*shape, seed=sum(shape) + 6, n_extra=1)
+    jq, jk, jv, jdo = (to_jax(a, dtype) for a in (q, k, v, do))
+    jo, jl = jax_fwd(jq, jk, jv, causal=causal, window=window,
+                     return_lse=True, interpret=True)
+    jg = jax_bwd(jq, jk, jv, jo, jl, jdo, causal=causal, window=window,
+                 interpret=True)
+    tg = fa.flash_attention_bwd(
+        *(to_torch(a, dtype) for a in (q, k, v, jo)),
+        torch.tensor(np.asarray(jl)), to_torch(do, dtype), causal=causal,
+        window=window)
+    t = GRAD_TOL if dtype == "float32" else tol(dtype)
+    for a, b, name in zip(tg, jg, ("dq", "dk", "dv")):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(f32(a), f32(b), err_msg=name, **t)
+
+
+@pytest.mark.parametrize("S", [64, 96, 130, 1024, 4096])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 1),
+                                           (True, 48), (True, 127),
+                                           (True, 2048), (False, 100)])
+def test_wide_head_dim_loop_bounds_are_the_live_tiles(S, causal, window):
+    """Above head dim 128 the kernels' loop bounds at their tiles — B2 /
+    B3 ``kv_range<128, 64>``, B4 ``q_range<64, 64>`` (bf16) and the f32
+    B4's ``q_range<32, 64>`` — cover exactly the live tiles, and the
+    counts are the JAX package's at the same tiles."""
+    tiles = [fa.tc_blocks("fwd", 256) + (True,),
+             fa.tc_blocks("dq", 256) + (True,),
+             fa.tc_blocks("dkv", 256) + (False,), (32, 64, False)]
+    assert [t[:2] for t in tiles] == [(128, 64), (128, 64), (64, 64),
+                                      (32, 64)]
+    for bq, bk, kv_loop in tiles:
+        nq, nk = -(-S // bq), -(-S // bk)
+        live = {(qi, ki) for qi in range(nq) for ki in range(nk)
+                if fa._tile_live(qi, ki, causal=causal, window=window, bq=bq,
+                                 bk=bk, seq_k=S)}
+        walked = set()
+        for tile in range(nq if kv_loop else nk):
+            lo, hi = fa._live_range(tile, nk if kv_loop else nq,
+                                    kv_loop=kv_loop, causal=causal,
+                                    window=window, bq=bq, bk=bk)
+            walked |= {(tile, o) if kv_loop else (o, tile)
+                       for o in range(lo, hi + 1)}
+        assert walked == live, (bq, bk)
+        assert fa.fa_tile_counts(S, S, bq, bk, causal, window) == \
+            jax_tile_counts(S, S, bq, bk, causal, window)
 
 
 @pytest.mark.parametrize("shape,causal,window", [
@@ -214,7 +298,7 @@ def test_forward_loop_bounds_are_the_live_tiles(S, causal, window):
     """The bf16 forward's loop bounds (``kv_range<128, 128>``, mirrored by
     ``_live_range`` at ``fwd_blocks``) cover exactly the live tiles, and
     their count is the JAX package's at the same tiles."""
-    bq, bk = fa.fwd_blocks(torch.bfloat16)
+    bq, bk = fa.fwd_blocks(torch.bfloat16, 128)
     assert (bq, bk) == (fa.FWD_BLOCK_Q, fa.FWD_BLOCK_K) == (128, 128)
     nq, nk = -(-S // bq), -(-S // bk)
     live = {(qi, ki) for qi in range(nq) for ki in range(nk)
@@ -234,17 +318,24 @@ def test_forward_loop_bounds_are_the_live_tiles(S, causal, window):
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 32, "wgmma"),
-    (torch.bfloat16, 8, "wgmma"), (torch.float32, 64, "simt"),
-    (torch.float32, 20, "simt"), (torch.float32, 128, "simt")])
+    (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 136, "wgmma"), (torch.float32, 64, "simt"),
+    (torch.float32, 20, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 256, "simt")])
 def test_forward_routes_by_dtype(dtype, hd, route):
+    """bf16 goes to the tensor-core kernel, whose key tiles are 128 up to
+    head dim 128 and 64 above (its operands must fit a block's shared
+    memory); f32 to the CUDA-core kernel's 64 x 64 tiles."""
     assert fa.fwd_route(dtype, hd) == route
-    assert fa.fwd_blocks(dtype) == ((128, 128) if route == "wgmma"
-                                    else (fa.BLOCK_Q, fa.BLOCK_K))
+    want = ((128, 128 if hd <= 128 else 64) if route == "wgmma"
+            else (fa.BLOCK_Q, fa.BLOCK_K))
+    assert fa.fwd_blocks(dtype, hd) == want
 
 
 @pytest.mark.parametrize("hd,match", [(20, "multiple of 8"),
                                       (100, "multiple of 8"),
-                                      (136, "outside"), (256, "outside")])
+                                      (140, "multiple of 8"),
+                                      (264, "outside")])
 def test_forward_route_refuses_what_tma_cannot_address(hd, match):
     with pytest.raises(ValueError, match=match):
         fa.fwd_route(torch.bfloat16, hd)
@@ -253,15 +344,18 @@ def test_forward_route_refuses_what_tma_cannot_address(hd, match):
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 32, "wgmma"),
-    (torch.bfloat16, 8, "wgmma"), (torch.float32, 64, "simt"),
-    (torch.float32, 20, "simt"), (torch.float32, 128, "simt")])
+    (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 136, "wgmma"), (torch.float32, 64, "simt"),
+    (torch.float32, 20, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 256, "simt")])
 def test_backward_routes_by_dtype(dtype, hd, route):
     assert fa.bwd_route(dtype, hd) == route
 
 
 @pytest.mark.parametrize("hd,match", [(20, "multiple of 8"),
                                       (100, "multiple of 8"),
-                                      (136, "outside"), (256, "outside")])
+                                      (140, "multiple of 8"),
+                                      (264, "outside")])
 def test_backward_route_refuses_what_tma_cannot_address(hd, match):
     """A bf16 head dim the tensor-core backward cannot take raises; it is
     never handed to the CUDA-core kernels instead."""
@@ -367,15 +461,17 @@ def tma_offset(row: int, col: int, rows: int) -> int:
     return (col // 64) * rows * 128 + row * 128 + (col % 64) * 2
 
 
-def desc_start(operand: str, t: int, *, wg: int = 0, cb: int = 0) -> int:
+def desc_start(operand: str, t: int, *, wg: int = 0, cb: int = 0,
+               bk: int = fa.FWD_BLOCK_K) -> int:
     """Start offset of the kernel's descriptor for k-step ``t``: ``"q"``
-    (warpgroup ``wg``'s 64 rows, hd columns 16t …), ``"k"`` (all 128 keys,
-    hd columns 16t …) or ``"v"`` (keys 16t …, columns 64cb …)."""
+    (warpgroup ``wg``'s 64 rows, hd columns 16t …), ``"k"`` (all ``bk``
+    keys, hd columns 16t …) or ``"v"`` (keys 16t …, columns 64cb …), with
+    tiles of ``bk`` keys (128 up to head dim 128, 64 above)."""
     if operand == "q":
         return wg * 64 * 128 + (t // 4) * fa.FWD_BLOCK_Q * 128 + (t % 4) * 32
     if operand == "k":
-        return (t // 4) * fa.FWD_BLOCK_K * 128 + (t % 4) * 32
-    return cb * fa.FWD_BLOCK_K * 128 + t * 16 * 128
+        return (t // 4) * bk * 128 + (t % 4) * 32
+    return cb * bk * 128 + t * 16 * 128
 
 
 def desc_offset(start: int, mn: int, k: int, *, k_major: bool) -> int:
@@ -415,16 +511,19 @@ def _bf16_values(rng, shape):
         ).numpy()
 
 
-@pytest.mark.parametrize("ncb", [1, 2])
+@pytest.mark.parametrize("ncb", [1, 2, 4])
 def test_tensor_core_maps_reproduce_the_tile_products(ncb):
-    """One 128 × 128 tile of the bf16 forward, hd padded to 64·ncb: Q, K,
-    V placed as TMA leaves them, read back through the kernel's
-    descriptors k-step by k-step, give Q·Kᵀ; an accumulator spread over
-    the threads by the ``wgmma`` map and packed into A fragments as the
-    kernel packs P gives back the same matrix, and its product with V read
-    N-major gives P·V (bf16 values: every sum exact in f64)."""
+    """One tile of the bf16 forward, hd padded to 64·ncb (128 query rows ×
+    128 keys, 64 keys at ncb 4, whose S is m64n64): Q, K, V placed as TMA
+    leaves them, read back through the kernel's descriptors k-step by
+    k-step, give Q·Kᵀ; an accumulator spread over the threads by the
+    ``wgmma`` map and packed into A fragments as the kernel packs P gives
+    back the same matrix, and its product with V read N-major gives P·V
+    (bf16 values: every sum exact in f64)."""
     rng = np.random.default_rng(ncb)
-    hdp, bq, bk = 64 * ncb, fa.FWD_BLOCK_Q, fa.FWD_BLOCK_K
+    hdp = 64 * ncb
+    bq, bk = fa.tc_blocks("fwd", hdp)
+    assert bk == (64 if ncb == 4 else 128)
     Q, K, V = (_bf16_values(rng, (n, hdp)) for n in (bq, bk, bk))
     sq, sk, sv = _tma_tile(Q, bq), _tma_tile(K, bk), _tma_tile(V, bk)
     tid, reg = np.meshgrid(np.arange(128), np.arange(bk // 2), indexing="ij")
@@ -432,7 +531,7 @@ def test_tensor_core_maps_reproduce_the_tile_products(ncb):
     assert len(set(zip(rows.ravel(), cols.ravel()))) == 64 * bk
     for wg in (0, 1):
         S = sum(_desc_read(sq, desc_start("q", t, wg=wg), 64, True)
-                @ _desc_read(sk, desc_start("k", t), bk, True).T
+                @ _desc_read(sk, desc_start("k", t, bk=bk), bk, True).T
                 for t in range(4 * ncb))
         np.testing.assert_array_equal(S, Q[64 * wg:64 * wg + 64] @ K.T)
 
@@ -451,7 +550,8 @@ def test_tensor_core_maps_reproduce_the_tile_products(ncb):
         O = np.zeros((64, hdp))
         for t in range(bk // 16):
             for cb in range(ncb):
-                Bv = _desc_read(sv, desc_start("v", t, cb=cb), 64, False)
+                Bv = _desc_read(sv, desc_start("v", t, cb=cb, bk=bk), 64,
+                                False)
                 O[:, 64 * cb:64 * cb + 64] += A[:, 16 * t:16 * t + 16] @ Bv.T
         np.testing.assert_array_equal(O, P @ V)
 
@@ -460,13 +560,17 @@ def test_tensor_core_maps_reproduce_the_tile_products(ncb):
 # K, V as B2 reads Q, K (K-major) and V (N-major); fa_bwd_dkv_tc_kernel
 # (B4) reads its 128-key K / V tile K-major per warpgroup and its 64-row
 # Q / dO tiles both K-major and N-major.
-def bwd_desc_start(operand: str, t: int, *, wg: int = 0, cb: int = 0) -> int:
+def bwd_desc_start(operand: str, t: int, *, wg: int = 0, cb: int = 0,
+                   tk: int = fa.DKV_BLOCK_K) -> int:
     """Start offset of B4's descriptor for k-step ``t``: ``"k"`` / ``"v"``
-    (warpgroup ``wg``'s 64 keys, hd columns 16t …), ``"q"`` / ``"do"``
-    (the tile's 64 query rows, hd columns 16t …) or ``"q_n"`` / ``"do_n"``
-    (query rows 16t …, columns 64cb …, N-major)."""
+    (warpgroup ``wg``'s 64 keys, hd columns 16t …; with blocks of
+    ``tk`` = 64 keys, above head dim 128, both warpgroups read the block's
+    64), ``"q"`` / ``"do"`` (the tile's 64 query rows, hd columns 16t …)
+    or ``"q_n"`` / ``"do_n"`` (query rows 16t …, columns 64cb …,
+    N-major)."""
     if operand in ("k", "v"):
-        return wg * 64 * 128 + (t // 4) * fa.DKV_BLOCK_K * 128 + (t % 4) * 32
+        first = 0 if tk == 64 else wg * 64
+        return first * 128 + (t // 4) * tk * 128 + (t % 4) * 32
     if operand in ("q", "do"):
         return (t // 4) * fa.DKV_BLOCK_Q * 128 + (t % 4) * 32
     return cb * fa.DKV_BLOCK_Q * 128 + t * 16 * 128
@@ -507,51 +611,60 @@ def _pack_a(acc, n_k):
     return A
 
 
-@pytest.mark.parametrize("ncb", [1, 2])
+@pytest.mark.parametrize("ncb", [1, 2, 4])
 def test_backward_tensor_core_maps_reproduce_the_tile_products(ncb):
     """One tile of each bf16 backward kernel, hd padded to 64·ncb, operands
-    placed as TMA leaves them.  B3: dS from the m64n128 accumulator packed
-    as A fragments, times K read N-major, gives dS·K; each thread's lse
-    rows are its accumulator rows.  B4: Sᵀ = K·Qᵀ through ``wgmma_ss_n64``'s
-    K-major descriptors and accumulator map; Pᵀ and dSᵀ from that map
-    packed as A fragments, times dO and Q read N-major from the same
-    tiles, give Pᵀ·dO and dSᵀ·Q; each accumulator element's lse column is
-    the column that its register was loaded from."""
+    placed as TMA leaves them.  B3: dS from the m64n128 accumulator (m64n64
+    at ncb 4: 64-key tiles) packed as A fragments, times K read N-major,
+    gives dS·K; each thread's lse rows are its accumulator rows.  B4: Sᵀ =
+    K·Qᵀ through ``wgmma_ss_n64``'s K-major descriptors and accumulator
+    map (at ncb 4 a block holds 64 keys and both warpgroups read them);
+    Pᵀ and dSᵀ from that map packed as A fragments, times dO and Q read
+    N-major from the same tiles, give Pᵀ·dO and dSᵀ·Q; each accumulator
+    element's lse column is the column that its register was loaded
+    from."""
     rng = np.random.default_rng(10 + ncb)
     hdp = 64 * ncb
-    tid, reg = np.meshgrid(np.arange(128), np.arange(64), indexing="ij")
-    rows128, cols128 = np.vectorize(wgmma_acc_coord)(tid, reg)
+    dq_bk = fa.tc_blocks("dq", hdp)[1]
+    dkv_bq, tk = fa.tc_blocks("dkv", hdp)
+    assert (dq_bk, dkv_bq, tk) == ((64, 64, 64) if ncb == 4
+                                   else (128, 64, 128))
+    tid, reg = np.meshgrid(np.arange(128), np.arange(dq_bk // 2),
+                           indexing="ij")
+    rows_dq, cols_dq = np.vectorize(wgmma_acc_coord)(tid, reg)
     tid32, reg32 = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
     rows64, cols64 = np.vectorize(wgmma_acc_coord)(tid32, reg32)
     assert len(set(zip(rows64.ravel(), cols64.ravel()))) == 64 * 64
 
-    # B3: dQ += dS·K over one 128-key tile (K N-major, B2's V path)
-    K = _bf16_values(rng, (fa.DQ_BLOCK_K, hdp))
-    sk = _tma_tile(K, fa.DQ_BLOCK_K)
-    dS = _bf16_values(rng, (64, fa.DQ_BLOCK_K))
-    A = _pack_a(dS[rows128, cols128], fa.DQ_BLOCK_K)
+    # B3: dQ += dS·K over one K tile (K N-major, B2's V path)
+    K = _bf16_values(rng, (dq_bk, hdp))
+    sk = _tma_tile(K, dq_bk)
+    dS = _bf16_values(rng, (64, dq_bk))
+    A = _pack_a(dS[rows_dq, cols_dq], dq_bk)
     np.testing.assert_array_equal(A, dS)
     dQ = np.zeros((64, hdp))
-    for t in range(fa.DQ_BLOCK_K // 16):
+    for t in range(dq_bk // 16):
         for cb in range(ncb):
-            Bk = _desc_read(sk, desc_start("v", t, cb=cb), 64, False)
+            Bk = _desc_read(sk, desc_start("v", t, cb=cb, bk=dq_bk), 64,
+                            False)
             dQ[:, 64 * cb:64 * cb + 64] += A[:, 16 * t:16 * t + 16] @ Bk.T
     np.testing.assert_array_equal(dQ, dS @ K)
     # the kernel reads lse2[(j >> 1) & 1] for accumulator element j
     np.testing.assert_array_equal(
-        np.vectorize(dq_lse_row)(tid, (reg // 2) % 2), rows128)
+        np.vectorize(dq_lse_row)(tid, (reg // 2) % 2), rows_dq)
 
-    # B4: one 128-key K / V tile against one 64-row Q / dO tile
-    K, V = (_bf16_values(rng, (fa.DKV_BLOCK_K, hdp)) for _ in range(2))
-    Q, dO = (_bf16_values(rng, (fa.DKV_BLOCK_Q, hdp)) for _ in range(2))
-    sk, sv = _tma_tile(K, fa.DKV_BLOCK_K), _tma_tile(V, fa.DKV_BLOCK_K)
-    sq, sdo = _tma_tile(Q, fa.DKV_BLOCK_Q), _tma_tile(dO, fa.DKV_BLOCK_Q)
+    # B4: one K / V block of tk keys against one 64-row Q / dO tile
+    K, V = (_bf16_values(rng, (tk, hdp)) for _ in range(2))
+    Q, dO = (_bf16_values(rng, (dkv_bq, hdp)) for _ in range(2))
+    sk, sv = _tma_tile(K, tk), _tma_tile(V, tk)
+    sq, sdo = _tma_tile(Q, dkv_bq), _tma_tile(dO, dkv_bq)
     for wg in (0, 1):
-        keys = slice(64 * wg, 64 * wg + 64)
+        keys = slice(0, 64) if tk == 64 else slice(64 * wg, 64 * wg + 64)
         for a_s, b_s, a_op, b_op, want in (
                 (sk, sq, "k", "q", K[keys] @ Q.T),
                 (sv, sdo, "v", "do", V[keys] @ dO.T)):
-            ST = sum(_desc_read(a_s, bwd_desc_start(a_op, t, wg=wg), 64, True)
+            ST = sum(_desc_read(a_s, bwd_desc_start(a_op, t, wg=wg, tk=tk),
+                                64, True)
                      @ _desc_read(b_s, bwd_desc_start(b_op, t), 64, True).T
                      for t in range(4 * ncb))
             np.testing.assert_array_equal(ST, want)

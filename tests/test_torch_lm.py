@@ -127,31 +127,29 @@ def test_init_tree_matches_jax_structure():
     ("grok-1-314b", None), ("qwen2-moe-a2.7b", None),
     ("qwen2-vl-7b", "slice 11"), ("hubert-xlarge", "slice 11")])
 def test_unported_families_register_but_do_not_build(arch, slice_no):
+    """Every family the registry holds now builds (``slice_no``: the ROADMAP
+    queue A slice that ported it last — 12 RG-LRU, 11 the frontends): the
+    tree is the JAX package's, key for key and shape for shape, and counts
+    ``param_count()`` parameters."""
     cfg = get_config(arch).reduced()
-    if slice_no is None and cfg.n_experts:
-        # ported with decode (queue A slice 10 and the MoE half of slice
-        # 11): the tree is the JAX package's, key for key and shape for
-        # shape, and counts param_count() parameters
-        jshapes = jax.eval_shape(lambda: JaxLM(jax_get_config(
-            arch).reduced()).init(jax.random.PRNGKey(0)))
-        mine = LM(cfg).init(0)
-        assert jax.tree.structure(jshapes) == jax.tree.structure(
-            jax.tree.map(lambda _: 0, tree_to_numpy(mine)))
-        assert [tuple(a.shape) for a in flat(mine)] == \
-            [b.shape for b in jax.tree.leaves(jshapes)]
-        assert sum(x.numel() for x in tree_leaves(mine)) == \
-            cfg.param_count()
+    jshapes = jax.eval_shape(lambda: JaxLM(jax_get_config(
+        arch).reduced()).init(jax.random.PRNGKey(0)))
+    mine = LM(cfg).init(0)
+    assert jax.tree.structure(jshapes) == jax.tree.structure(
+        jax.tree.map(lambda _: 0, tree_to_numpy(mine)))
+    assert [tuple(a.shape) for a in flat(mine)] == \
+        [b.shape for b in jax.tree.leaves(jshapes)]
+    assert sum(x.numel() for x in tree_leaves(mine)) == cfg.param_count()
+    if cfg.n_experts:
         assert mine["cycles"][0]["ffn"]["router"].dtype == torch.float32
-        return
-    if slice_no is None:
-        # ported with the SSD kernels (queue A slice 4): it builds, and the
-        # RG-LRU family, left to a slice of its own, still raises
+    if slice_no is None and not cfg.n_experts:
         assert LM(cfg).pattern == ("ssm",)
-        with pytest.raises(NotImplementedError, match="slice 12"):
-            LM(get_config("recurrentgemma-2b").reduced())
-        return
-    with pytest.raises(NotImplementedError, match=slice_no):
-        LM(cfg)
+    if slice_no == "slice 12":
+        assert LM(cfg).pattern == ("rglru", "rglru", "local")
+        assert mine["cycles"][0]["rglru"]["lam"].dtype == torch.float32
+    if slice_no == "slice 11":
+        assert tuple(mine["frontend_proj"].shape) == (cfg.frontend_dim,
+                                                      cfg.d_model)
 
 
 # ---------------------------------------------------------------- layers

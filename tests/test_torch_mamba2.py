@@ -150,9 +150,10 @@ def test_ssm_forward_matches_jax(use_kernel):
 
 def test_decode_raises_naming_its_slice():
     """SSM decode is ported (slice 10): the cache has the reference's
-    shapes and one step updates it in place; the RG-LRU family's decode,
-    not ported, still raises naming its slice (12).  The decode itself is
-    held against the JAX package in ``tests/test_torch_decode.py``."""
+    shapes and one step updates it in place; so is the RG-LRU family's
+    (slice 12), whose cache tree is the reference's too.  The decodes
+    themselves are held against the JAX package in
+    ``tests/test_torch_decode.py`` and ``tests/test_torch_rglru.py``."""
     cache = ssm.init_ssm_cache(CFG, 1, torch.float32)
     want = jax_ssm.init_ssm_cache(JCFG, 1, jnp.float32)
     assert [tuple(a.shape) for a in flat(cache)] == \
@@ -163,8 +164,12 @@ def test_decode_raises_naming_its_slice():
                                cache)
     assert same is cache and out.shape == (1, 1, CFG.d_model)
     assert float(cache["state"].abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        LM(get_config("recurrentgemma-2b").reduced()).init_cache(1, 8)
+    rg = "recurrentgemma-2b"
+    rcache = LM(get_config(rg).reduced()).init_cache(1, 8)
+    rwant = jax.eval_shape(lambda: JaxLM(jax_get_config(rg).reduced())
+                           .init_cache(1, 8))
+    assert [tuple(a.shape) for a in flat(rcache)] == \
+        [b.shape for b in jax.tree.leaves(rwant)]
 
 
 # ------------------------------------------------------ config and tree

@@ -159,31 +159,27 @@ def test_batch_specs_equal_the_reference(arch, shape_name, multi_pod):
 def test_cache_specs_equal_the_reference(arch, shape_name):
     """Decode caches: the port's own ``LM.init_cache`` tree (meta tensors)
     and the cache of ``input_specs``'s decode inputs have the reference's
-    keys, nesting and shapes, and their specs equal the reference's.  The
-    RG-LRU family, not built by the port (ROADMAP queue A, slice 12), is
-    held on the reference's shapes, and its decode inputs raise."""
+    keys, nesting and shapes, and their specs equal the reference's (the
+    RG-LRU family's stacked ``h`` / ``conv`` states and its local layer's
+    KV ring too, since slice 12)."""
     shape = R_SHAPES[shape_name]
     cfg = r_config_for_shape(r_get_config(arch), shape)
     cache = jax.eval_shape(
         lambda: RLM(cfg).init_cache(shape.global_batch, shape.seq_len))
     tcfg = config_for_shape(get_config(arch), SHAPES[shape_name])
-    if arch == "recurrentgemma-2b":
-        ours = to_meta(cache)
-        with pytest.raises(NotImplementedError, match="slice 12"):
-            input_specs(tcfg, SHAPES[shape_name])
-    else:
-        ours = LM(tcfg).init_cache(shape.global_batch, shape.seq_len,
-                                   device="meta")
-        kind, kwargs = input_specs(tcfg, SHAPES[shape_name])
-        assert kind == "decode"
-        assert jax.tree.structure(cache) == jax.tree.structure(
-            jax.tree.map(lambda _: 0, kwargs["cache"])) == \
-            jax.tree.structure(jax.tree.map(lambda _: 0, ours))
-        for a, b, c in zip(jax.tree.leaves(cache),
-                           jax.tree.leaves(kwargs["cache"]),
-                           jax.tree.leaves(ours)):
-            assert a.shape == tuple(b.shape) == tuple(c.shape)
-            assert b.device.type == c.device.type == "meta"
+    ours = LM(tcfg).init_cache(shape.global_batch, shape.seq_len,
+                               device="meta")
+    kind, kwargs = input_specs(tcfg, SHAPES[shape_name])
+    assert kind == "decode"
+    assert jax.tree.structure(cache) == jax.tree.structure(
+        jax.tree.map(lambda _: 0, kwargs["cache"])) == \
+        jax.tree.structure(jax.tree.map(lambda _: 0, ours))
+    for a, b, c in zip(jax.tree.leaves(cache),
+                       jax.tree.leaves(kwargs["cache"]),
+                       jax.tree.leaves(ours)):
+        assert a.shape == tuple(b.shape) == tuple(c.shape)
+        assert str(a.dtype) == str(c.dtype).split(".")[-1]
+        assert b.device.type == c.device.type == "meta"
     for multi_pod in (False, True):
         assert assert_specs_equal(
             RS.cache_specs(cfg, cache, RS.ShardingRules.for_mesh(multi_pod),
