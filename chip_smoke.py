@@ -17,7 +17,9 @@ its study at 1), recurrentgemma-2b (d_model 2560, RG-LRU width 2560, 10 /
 studied and served at 5 of its 26 layers), hubert-xlarge (48 layers,
 audio frames) and qwen2-vl-7b (patches and text, M-RoPE; 2 of its 28
 layers), random weights from a seed, and holds every kernel of
-those paths against its plain PyTorch version on the card.  Needs one CUDA device and
+those paths against its plain PyTorch version on the card; then the dry
+run: every architecture's reduced step on the card, and qwen2-0.5b's
+production cases over fake tensors on a fake 256-rank mesh.  Needs one CUDA device and
 no network; fails (non-zero exit, no result line) without a GPU or outside
 a checkout of the repository.
 Imports nothing of JAX and nothing of the JAX package.  Each phase is a
@@ -269,8 +271,9 @@ Phases, each printing one JSON line:
    members' metrics bit-equal to the fault-free run's, the retried one's
    within 2e-2; B1–B4 launches exact.
 27. ``serve`` (last but two) — decode through
-   ``repro_torch.train.step.build_serve_step``: qwen2-0.5b at all 24
-   layers, bf16, random weights from a seed: batch 8, a 256-token prompt
+   ``repro_torch.train.step.build_serve_step``: qwen2-0.5b at full width
+   and ``SERVE["layers"]`` (12) of its 24 layers, bf16, random weights
+   from a seed: batch 8, a 256-token prompt
    fed token by token, then 64 greedy tokens, the position a 0-d device
    tensor and CUDA's sync debug mode set to raise (no step reads the card
    back); every step's logits held against the port's forward over the
@@ -278,9 +281,11 @@ Phases, each printing one JSON line:
    forward − f32 forward| (the plain path on the same weights in f32),
    greedy tokens equal to the forward's arg-max wherever its top-1 /
    top-2 margin passes twice that bound; again with ``sliding_window=128``
-   (the ring buffer wraps); B2 = 24 per forward, nothing else launched.
-   Then the ``decode_32k`` shape at its full size (batch 128, 32,768 slots
-   as ``init_cache`` makes them, the position from 32,767 on): 20 steps,
+   (the ring buffer wraps); B2 = one per layer per forward, nothing else
+   launched.
+   Then the ``decode_32k`` shape at its full size, all 24 layers (batch
+   128, 32,768 slots as ``init_cache`` makes them, the position from
+   32,767 on): 20 steps,
    ms / step and tokens/s beside the bytes bound (the KV cache and the
    parameters read once at 3.35 TB/s), launches per token and the idle
    share (profiler), peak memory and one step's transient memory (whether
@@ -319,15 +324,34 @@ Phases, each printing one JSON line:
    grid), ``FRONTEND_STEPS`` steps with the kernels and the first 3 again
    on the plain versions, each loss within 2^-8 of the plain one; s/step,
    tokens/s, peak memory.
-33. last lines  — the script's run time and each phase's seconds, the card
+34. ``dryrun`` (last) — ``repro_torch.launch.dryrun``: every
+   architecture's reduced variant (f32, 4 × 64 tokens) × every shape for
+   real on the card, 38 cases (hubert-xlarge's two decode shapes skipped
+   by design): the kernels' step against the plain step on the same
+   parameters (the train loss within 1e-5, every gradient within 1e-4,
+   prefill / decode logits within 1e-4), each kernel launched exactly
+   where the step runs it (B1 on every train case; B2 on the train and
+   prefill cases of a model with attention, local too, B3–B4 on its train
+   cases; B5 on mamba2's train and prefill cases, B6 on its train case; a
+   decode step none), a train step's B1 update (new parameters and AdamW
+   moments) within 1e-4 of the plain update on the same gradients, the
+   card's memory and the plain step's flops per case; and, from a child
+   process started with this phase (``chip_smoke.py --dryrun-child``: it
+   needs no card, runs beside the reduced cases and after every timed
+   phase, and keeps its fake 256-rank process group out of this
+   process), qwen2-0.5b's production single-pod cases ``decode_32k``,
+   ``prefill_32k`` and ``train_4k`` over fake tensors, per-device memory
+   against the card's, collectives, roofline terms (H100 data-sheet
+   peaks).
+35. last lines  — the script's run time and each phase's seconds, the card
    and its power limit, the
    ``kernels`` line (B1's tree kernel, B2–B6, and B2–B4's rows at head
    dims 256 (recurrentgemma-2b's shape and study) and 80 (hubert-xlarge's
    shape and train steps); with the grouped runs',
    the fault plane's, the sessions', the gateway's, the mesh plane's,
    the launcher's, the retry's, the degraded runs', the serve phases',
-   the MoE study's, the RG-LRU study's and the frontends' launches and
-   the fold's checks) and ``{"ok": true, "device": {...}}``.
+   the MoE study's, the RG-LRU study's, the frontends' and the dry run's
+   launches and the fold's checks) and ``{"ok": true, "device": {...}}``.
 
 The solo studies of phases 4, 7, 10, 17, 19, 20, 22 and 24 pass
 ``batch_siblings=False``: their launch counts are those of PRs 11–17.
@@ -438,8 +462,10 @@ FOLD_M = 2                          # members of the fold phase's groups
 GROUP_MS = (2, 4)                   # group sizes of group_step
 QWEN_GROUP_MS = (2, 4)
 # the serve phases: batch, prompt tokens fed token by token, new greedy
-# tokens; qwen2-0.5b's second pass with a 128-slot ring buffer
-SERVE = dict(batch=8, prompt=256, new=64, window=128)
+# tokens; qwen2-0.5b's second pass with a 128-slot ring buffer; its
+# token-by-token passes at 12 of its 24 layers (cut for the script's
+# budget), decode_32k at all 24
+SERVE = dict(batch=8, prompt=256, new=64, window=128, layers=12)
 # mamba2-2.7b served at the studies' depth: a 64-layer host draw (2.7 B
 # parameters) would take about half the three new phases' budget
 MAMBA_SERVE = dict(batch=8, prompt=128, new=32, layers=8)
@@ -4627,14 +4653,18 @@ def lm_params(cfg, seed=0):
 
 
 def serve_phase():
-    """qwen2-0.5b at all 24 layers, bf16: batch 8, a 256-token prompt fed
-    token by token, 64 greedy tokens, held against the B2 forward; again
-    with ``sliding_window=128`` so the ring buffer wraps; then the
-    ``decode_32k`` shape at its full size.  Returns the launch counts."""
+    """qwen2-0.5b at full width and ``SERVE["layers"]`` of its 24 layers,
+    bf16: batch 8, a 256-token prompt fed token by token, 64 greedy
+    tokens, held against the B2 forward; again with ``sliding_window=128``
+    so the ring buffer wraps; then the ``decode_32k`` shape at its full
+    size and all 24 layers (weights drawn anew).  Returns the launch
+    counts."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import LM
-    cfg = get_config("qwen2-0.5b")
-    assert (cfg.num_layers, cfg.d_model, cfg.dtype) == (24, 896, "bfloat16")
+    full = get_config("qwen2-0.5b")
+    assert (full.num_layers, full.d_model, full.dtype) == \
+        (24, 896, "bfloat16")
+    cfg = dataclasses.replace(full, num_layers=SERVE["layers"])
     read = decode_counters()
     params, params_f32, draw_s = lm_params(cfg)
     gen = torch.Generator().manual_seed(21)
@@ -4655,10 +4685,12 @@ def serve_phase():
     expected = {name: 0 for name in launches}
     expected["flash_attention_fwd"] = 2 * cfg.num_layers
     assert launches == expected, launches
-    del params_f32
+    del params, params_f32
     free()
-    d32 = decode_32k(LM(cfg), params, DECODE_32K_STEPS)
+    d32 = decode_32k(LM(full), LM(full).init(0, device=DEV),
+                     DECODE_32K_STEPS)
     emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
+          "decode_32k_layers": full.num_layers,
           "dtype": cfg.dtype, "entry": "repro_torch.train.step."
           "build_serve_step", "init_draw_seconds": draw_s,
           "bound_rule": "per row, 4 x max |bf16 forward - f32 forward|",
@@ -5041,12 +5073,156 @@ def frontends_phase():
     return {name: r["launches"] for name, r in rows.items()}
 
 
+# ------------------------------------------------------------ 34. dry run
+#: the production cases the dry run's child process runs: qwen2-0.5b on
+#: the single-pod (16 x 16) mesh, one of each step kind
+DRYRUN_PRODUCTION = ("qwen2-0.5b", ("decode_32k", "prefill_32k", "train_4k"))
+DRYRUN_SHAPES = ("decode_32k", "long_500k", "prefill_32k", "train_4k")
+DRYRUN_LOSS_ATOL = 1e-5             # lm_small's: the loss
+DRYRUN_ATOL = 1e-4                  # lm_small's: gradients and logits;
+                                    # B1's new parameters and moments
+
+
+def dryrun_expected(cfg, kind):
+    """Which kernels a reduced case's step launches: B1 on a train step,
+    B2 on a train or prefill step of a model with attention (local
+    attention too), B3–B4 on its train step; B5 / B6 likewise for SSD
+    blocks; a decode step none (neither package has a decode kernel)."""
+    attn = cfg.uses_attention
+    ssd = "ssm" in cfg.layer_kinds()
+    fwd = kind in ("train", "prefill")
+    train = kind == "train"
+    return {"B1": train, "B2": attn and fwd, "B3": attn and train,
+            "B4": attn and train, "B5": ssd and fwd, "B6": ssd and train}
+
+
+def dryrun_child(spec):
+    """A fresh process (its fake process group of 256 ranks stays out of
+    the main process): the production cases of ``DRYRUN_PRODUCTION``,
+    each with its roofline terms, written to ``spec["out"]``.  Prints no
+    result line."""
+    from repro_torch.analysis.roofline import roofline_terms
+    from repro_torch.launch.dryrun import run_case
+    arch, shapes = DRYRUN_PRODUCTION
+    recs = []
+    for shape in shapes:
+        t0 = time.perf_counter()
+        rec = run_case(arch, shape, verbose=False)
+        rec["roofline"] = roofline_terms(rec, 256)
+        rec["seconds"] = time.perf_counter() - t0
+        recs.append(rec)
+    with open(spec["out"], "w") as f:
+        json.dump(recs, f)
+    return 0
+
+
+def dryrun_phase(root):
+    """``repro_torch.launch.dryrun``: every architecture's reduced variant
+    × every shape for real on the card (``run_case(reduced=True)``, f32,
+    4 x 64 tokens; hubert-xlarge's two decode shapes skipped by design),
+    each the kernels' step against the plain step on the same parameters
+    (the train loss within 1e-5, every gradient and the B1 update's new
+    parameters and moments within 1e-4, the prefill / decode logits within
+    1e-4), each kernel launched where the step runs it and nowhere else
+    (``dryrun_expected``), the card's memory and the plain step's flops;
+    meanwhile, in a child process (``--dryrun-child``, its output under
+    ``root``): qwen2-0.5b's production single-pod cases
+    (``DRYRUN_PRODUCTION``) over fake tensors, per-device memory against
+    the card's, collectives, roofline terms.  The child starts with this
+    phase, after every timed phase, and is stopped if the phase fails.
+    Returns each kernel's launches summed over the reduced cases."""
+    out = os.path.join(root, "dryrun_child.json")
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--dryrun-child", json.dumps({"out": out})])
+    try:
+        return dryrun_cases(child, out)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def dryrun_cases(child, out):
+    """The body of :func:`dryrun_phase`: the reduced cases, then
+    ``child``'s production records from ``out``."""
+    from repro_torch.configs import SHAPES, get_config, list_archs
+    from repro_torch.launch import dryrun
+    total = {k: 0 for k in dryrun.LAUNCH_COUNTERS}
+    ok = skipped = 0
+    for shape in DRYRUN_SHAPES:
+        for arch in list_archs():
+            rec = dryrun.run_case(arch, shape, reduced=True,
+                                  device=DEV, verbose=False)
+            if rec["status"] == "skipped":
+                assert arch == "hubert-xlarge" and shape.startswith(
+                    ("decode", "long")), rec
+                skipped += 1
+                emit({"phase": "dryrun", "case": f"{arch} x {shape}",
+                      "status": "skipped", "reason": rec["reason"]})
+                continue
+            assert rec["status"] == "ok", rec
+            kind = SHAPES[shape].kind
+            err = rec["kernel_vs_plain"]
+            if kind == "train":
+                assert err["loss"] <= DRYRUN_LOSS_ATOL and \
+                    err["grads"] <= DRYRUN_ATOL and \
+                    err["update"] <= DRYRUN_ATOL, (arch, shape, err)
+            else:
+                assert err["logits"] <= DRYRUN_ATOL, (arch, shape, err)
+            want = dryrun_expected(get_config(arch).reduced(), kind)
+            got = rec["launches"]
+            assert {k: n > 0 for k, n in got.items()} == want, (
+                arch, shape, got)
+            for k, n in got.items():
+                total[k] += n
+            ok += 1
+            mem = rec["memory"]
+            emit({"phase": "dryrun", "case": f"{arch} x {shape}",
+                  "status": "ok", "kind": kind,
+                  "memory_bytes": mem, "device_peak_bytes":
+                  mem["argument_size_in_bytes"]
+                  + mem["temp_size_in_bytes"],
+                  "flops": rec["cost"]["flops"],
+                  "bytes_accessed": rec["cost"]["bytes accessed"],
+                  "launches": got, "kernel_vs_plain": err,
+                  "tolerance": {"loss": DRYRUN_LOSS_ATOL,
+                                "grads_update_and_logits": DRYRUN_ATOL}})
+    assert child.wait(timeout=600) == 0, "the dry run's child failed"
+    with open(out) as f:
+        prod = json.load(f)
+    card = torch.cuda.get_device_properties(0).total_memory
+    for rec in prod:
+        assert rec["status"] == "ok", rec
+        mem, coll = rec["memory"], rec["collectives"]
+        per_device = sum(mem.values())
+        assert coll["total"] == sum(coll[k] for k in dryrun.COLLECTIVES)
+        emit({"phase": "dryrun_production",
+              "case": f"{rec['arch']} x {rec['shape']} x 16x16",
+              "memory_bytes": mem, "per_device_bytes": per_device,
+              "card_memory_bytes": card,
+              "per_device_over_card": per_device / card,
+              "fits_the_card": per_device <= card,
+              "cost": rec["cost"], "collectives": coll,
+              "roofline": rec["roofline"], "replicated":
+              rec.get("replicated", {}), "lower_s": rec["lower_s"],
+              "compile_s": rec["compile_s"], "seconds": rec["seconds"],
+              "note": "fake tensors on a fake 256-rank process group: "
+                      "rank 0's counts; the roofline terms use H100 "
+                      "data-sheet peaks"})
+    emit({"phase": "dryrun", "ok": ok, "skipped": skipped,
+          "errors": 0, "cases": ok + skipped,
+          "production_cases": len(prod), "launches": total})
+    assert ok == 38 and skipped == 2, (ok, skipped)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    children = {"--session-child": session_child,      # the session and
-                "--gateway-child": gateway_child}      # gateway phases'
+    children = {"--session-child": session_child,      # the session,
+                "--gateway-child": gateway_child,      # gateway and dry
+                "--dryrun-child": dryrun_child}        # run phases'
     if sys.argv[1:2] and sys.argv[1] in children:
         sys.path[:0] = [os.path.join(ROOT, "src"),
                         os.path.join(ROOT, "examples")]
@@ -5209,6 +5385,13 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
             model: r[name] for model, r in fe_launches.items()}
         assert fa_rows[f"{key}_hd256"]["launches"] > 0
         assert fa_rows[f"{key}_hd80"]["launches"] > 0
+    # 34: the dry run, every architecture x shape reduced on the card
+    dry = timed("dryrun", dryrun_phase, store_dir)
+    b1_row["launches_dryrun"] = dry["B1"]
+    for key in ("B2", "B3", "B4"):
+        fa_rows[key]["launches_dryrun"] = dry[key]
+    for key in ("B5", "B6"):
+        ssd_rows[key]["launches_dryrun"] = dry[key]
 
     # ------------------------------------------------------------ last lines
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

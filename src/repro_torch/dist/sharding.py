@@ -50,7 +50,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["MESH_SIZES", "P", "ShardingRules", "param_specs",
            "batch_specs", "cache_specs", "seq_constrainer", "mesh_sizes_of",
            "generic_param_specs", "map_specs", "spec_axes", "spec_leaves",
-           "SHARDED_EXECUTION"]
+           "placements", "distribute_tree", "SHARDED_EXECUTION"]
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -132,20 +132,72 @@ class ShardingRules:
 
 
 def seq_constrainer(rules: ShardingRules,
-                    sizes: Optional[Mapping[str, int]] = None):
+                    sizes: Optional[Mapping[str, int]] = None, mesh=None):
     """The residual-stream (B, S, D) sequence-parallel constraint, or
     ``None`` when ``rules.seq`` is off.  Passed to a model as its
-    ``constrain``.  On a mesh where the sequence axis has one device it is
-    the identity; a sequence split over several devices is
-    :data:`SHARDED_EXECUTION` and raises."""
+    ``constrain``.
+
+    Without ``mesh``: on a mesh where the sequence axis has one device it
+    is the identity; a sequence split over several devices is
+    :data:`SHARDED_EXECUTION` and raises.  With a ``torch.distributed``
+    ``DeviceMesh`` (the dry run's): a DTensor residual stream is
+    redistributed to ``Shard(1)`` over ``rules.seq``, its other mesh
+    dimensions unchanged; a plain tensor raises as above when that axis
+    has more than one device."""
     if rules.seq is None:
         return None
-    sizes = MESH_SIZES if sizes is None else sizes
-    if _axis_size(rules.seq, sizes) > 1:
-        raise NotImplementedError(
-            f"sequence parallelism over {sizes[rules.seq]} devices needs "
-            f"{SHARDED_EXECUTION}")
-    return lambda x: x
+    if mesh is None:
+        sizes = MESH_SIZES if sizes is None else sizes
+        if _axis_size(rules.seq, sizes) > 1:
+            raise NotImplementedError(
+                f"sequence parallelism over {sizes[rules.seq]} devices "
+                f"needs {SHARDED_EXECUTION}")
+        return lambda x: x
+    from torch.distributed.tensor import DTensor, Shard
+    names = mesh.mesh_dim_names
+    seq_dims = [names.index(a) for a in spec_axes(rules.seq)]
+
+    def constrain(x):
+        if not isinstance(x, DTensor):
+            if math.prod(mesh.size(d) for d in seq_dims) > 1:
+                raise NotImplementedError(
+                    f"sequence parallelism of a plain tensor needs "
+                    f"{SHARDED_EXECUTION}")
+            return x
+        target = list(x.placements)
+        for d in seq_dims:
+            target[d] = Shard(1)
+        return x.redistribute(mesh, target)
+
+    return constrain
+
+
+def placements(spec: "P", mesh) -> List[Any]:
+    """A spec's DTensor placements on a ``torch.distributed`` mesh:
+    ``Shard(d)`` on each mesh dimension that entry ``d`` names,
+    ``Replicate()`` on the others.  A tuple entry such as ``("pod",
+    "data")`` shards one tensor dimension over several mesh dimensions,
+    which must come in mesh order (the first outermost)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    out: List[Any] = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        dims = [names.index(a) for a in spec_axes(entry)]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec!r}: entry {entry!r} is not in the "
+                             f"mesh's axis order {names}")
+        for m in dims:
+            out[m] = Shard(d)
+    return out
+
+
+def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every tensor leaf of ``tree`` as a DTensor on ``mesh``, placed by
+    its :class:`P` in ``specs`` (the same tree)."""
+    from torch.distributed.tensor import distribute_tensor
+    leaves = iter(spec_leaves(specs))
+    return _map_with_names(lambda _names, x: distribute_tensor(
+        x, mesh, placements(next(leaves), mesh)), tree)
 
 
 # ---------------------------------------------------------------------------

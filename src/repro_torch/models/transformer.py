@@ -22,8 +22,24 @@ frontend_proj`` before the embedded text tokens and takes
 text's logits after the patch prefix.  Features and patches come in the
 config's dtype; another dtype raises (the reference would promote).
 
-The JAX layer ``scan`` becomes a Python loop.  Each stacked leaf is split
-once per forward with ``torch.unbind`` (whose backward is one ``stack``),
+The JAX layer ``scan`` becomes a Python loop: eager PyTorch has no layer
+scan, so the port always runs unrolled (the reference's ``unroll=False``
+scan counts a scanned body's flops once in XLA's cost analysis; every
+count of the port is per layer).  Under ``cfg.remat`` each cycle's blocks
+run inside ``torch.utils.checkpoint`` (non-reentrant), as the reference
+wraps its cycle body in ``jax.checkpoint``; the trailing ``rest`` blocks
+stay outside, and recomputation gives the gradients of a run without it
+bit for bit.  ``constrain`` (the reference's activation constraint, the
+identity by default) is applied to the residual stream after every block
+of a cycle, not after the ``rest`` blocks.  ``gather`` (the identity by
+default) maps each weight tree just before the arithmetic reads it: one
+block's tree, the embedding table, the head, the final norm and the
+frontend projection; the dry run (:mod:`repro_torch.launch.dryrun`) passes
+one that gathers a weight's FSDP shards.  The embedding table is asked for
+``whole=True`` before the lookup: there the dry run gathers its vocab
+shards too, since DTensor cannot reduce a vocab-sharded lookup's masked
+partial sums.  Each stacked leaf is split once per forward with
+``torch.unbind`` (whose backward is one ``stack``),
 not indexed per layer (whose backward would allocate a full-size zero
 tensor per layer per leaf).  The embedding lookup is ``F.embedding`` and
 the loss ``log_softmax`` + ``gather``: neither backward needs float
@@ -36,10 +52,11 @@ allocates no cache and returns the one it was given.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (attention_decode,
                                           attention_forward, init_attention,
@@ -141,6 +158,10 @@ def _block_decode(cfg: ModelConfig, kind: str, p, x, cache, index
     return x
 
 
+def _identity(x, whole: bool = False):
+    return x
+
+
 def _stack(trees: List[Any]) -> Any:
     it = [iter(tree_leaves(t)) for t in trees]
     return tree_map(lambda _: torch.stack([next(i) for i in it]), trees[0])
@@ -162,13 +183,18 @@ class LM:
     ``attn`` / ``local`` / ``rglru`` / ``ssm`` blocks, dense or MoE, with
     an optional vision or audio frontend."""
 
-    def __init__(self, cfg: ModelConfig, use_kernel: bool = False):
+    def __init__(self, cfg: ModelConfig, use_kernel: bool = False,
+                 constrain: Optional[Callable[[torch.Tensor],
+                                              torch.Tensor]] = None,
+                 gather: Optional[Callable[[Any], Any]] = None):
         kinds = set(cfg.layer_kinds()) - {"attn", "local", "rglru", "ssm"}
         if kinds:
             raise ValueError(f"{cfg.name}: unknown block kinds "
                              f"{sorted(kinds)}")
         self.cfg = cfg
         self.use_kernel = use_kernel
+        self.constrain = constrain or _identity
+        self.gather = gather or _identity
         self.pattern = cfg.layer_pattern
         self.n_cycle = len(self.pattern)
         self.n_full = cfg.num_layers // self.n_cycle
@@ -215,10 +241,10 @@ class LM:
         return out + list(zip(self.rest_kinds, tree["rest"]))
 
     def _head(self, params, x) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        x = rms_norm(x, self.gather(params["final_norm"]), self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            return F.linear(x, params["embed"]).float()
-        return (x @ params["lm_head"]).float()
+            return F.linear(x, self.gather(params["embed"])).float()
+        return (x @ self.gather(params["lm_head"])).float()
 
     def _frontend_input(self, batch, key: str) -> torch.Tensor:
         """``batch[key]`` (features or patches), which must come in the
@@ -238,12 +264,13 @@ class LM:
         cfg = self.cfg
         if cfg.frontend == "audio":
             x = self._frontend_input(batch, "features") @ \
-                params["frontend_proj"]
+                self.gather(params["frontend_proj"])
         else:
-            x = F.embedding(batch["tokens"], params["embed"])
+            x = F.embedding(batch["tokens"],
+                            self.gather(params["embed"], whole=True))
             if cfg.frontend == "vision":
                 patches = self._frontend_input(batch, "patches") @ \
-                    params["frontend_proj"]
+                    self.gather(params["frontend_proj"])
                 return torch.cat([patches, x], dim=1), batch["positions"]
         B, S = x.shape[:2]
         return x, torch.arange(S, device=x.device)[None].expand(B, S)
@@ -255,15 +282,33 @@ class LM:
         and ``positions`` (3, B, P + S)) → f32 logits (B, S, V) and
         ``{"moe_aux"}``, the MoE loss summed over layers (0 without
         experts)."""
-        cfg = self.cfg
         x, positions = self._embed(params, batch)
         aux = torch.zeros((), device=x.device)
-        for kind, p in self._layers(params):
-            x, a = _block_forward(cfg, kind, p, x, positions,
-                                  self.use_kernel)
-            if a is not None:
-                aux = aux + a
+        layers = self._layers(params)
+        n = self.n_full * self.n_cycle
+        for i in range(0, n, self.n_cycle):
+            cycle = layers[i:i + self.n_cycle]
+            if self.cfg.remat and torch.is_grad_enabled():
+                x, aux = checkpoint(self._cycle, cycle, x, aux, positions,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._cycle(cycle, x, aux, positions)
+        for kind, p in layers[n:]:
+            x, aux = self._block(kind, p, x, aux, positions)
         return self._head(params, x), {"moe_aux": aux}
+
+    def _block(self, kind, p, x, aux, positions):
+        x, a = _block_forward(self.cfg, kind, self.gather(p), x, positions,
+                              self.use_kernel)
+        return x, aux if a is None else aux + a
+
+    def _cycle(self, cycle, x, aux, positions):
+        """One cycle's blocks, the residual stream constrained after
+        each."""
+        for kind, p in cycle:
+            x, aux = self._block(kind, p, x, aux, positions)
+            x = self.constrain(x)
+        return x, aux
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch) -> Tuple[torch.Tensor,
@@ -283,14 +328,19 @@ class LM:
             lg, lb = logits[:, P:P + n_text - 1], batch["tokens"][:, 1:]
         else:
             lg, lb = logits[:, :-1], batch["tokens"][:, 1:]
-        logp = F.log_softmax(lg, dim=-1)
-        nll = torch.mean(-torch.gather(logp, -1, lb[..., None])[..., 0])
+        nll = self._nll(lg, lb)
         loss = nll
         if cfg.n_experts:
             loss = loss + cfg.router_aux_weight * aux["moe_aux"] / max(
                 1, cfg.num_layers)
         return loss, {"nll": nll.detach(),
                       "moe_aux": aux["moe_aux"].detach()}
+
+    @staticmethod
+    def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Mean negative log-likelihood of ``labels`` under ``logits``."""
+        logp = F.log_softmax(logits, dim=-1)
+        return torch.mean(-torch.gather(logp, -1, labels[..., None])[..., 0])
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int,
@@ -321,8 +371,8 @@ class LM:
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name}: an encoder-only model has no "
                              f"decode")
-        x = F.embedding(tokens, params["embed"])
+        x = F.embedding(tokens, self.gather(params["embed"], whole=True))
         for (kind, p), (_, c) in zip(self._layers(params),
                                      self._layers(cache)):
-            x = _block_decode(cfg, kind, p, x, c, index)
+            x = _block_decode(cfg, kind, self.gather(p), x, c, index)
         return self._head(params, x), cache

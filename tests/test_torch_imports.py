@@ -86,11 +86,17 @@ def test_ssd_modules_import_alone_without_jax_or_the_jax_package(module):
                                     "repro_torch.dist.sharding",
                                     "repro_torch.train.step",
                                     "repro_torch.launch.specs",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.hillclimb",
+                                    "repro_torch.analysis.roofline",
+                                    "repro_torch.analysis.report"])
 def test_fault_and_session_modules_import_alone_without_jax(module):
     """The fault plane's, the session snapshots', the front door's, the
-    mesh plane's and the launcher's modules, each imported on its own in a
-    fresh interpreter, before anything else of the package."""
+    mesh plane's, the launchers' (the dry run and the hill-climb too) and
+    the analysis modules, each imported on its own in a fresh interpreter,
+    before anything else of the package."""
     lines = run_walk(module, script=ALONE)
     assert lines["BAD"] == "[]"
     assert lines["TRITON"] == "False"
