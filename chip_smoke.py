@@ -257,6 +257,11 @@ Phases, each printing one JSON line:
    launches equal (B1 = the device's steps solo); resumes served device
    to device on the mesh fleet (``d2d_handoffs`` > 0), the store's reads
    fewer by exactly the handoffs; the d2d cache's peak device bytes.
+   First, an engine over the same CUDA trainer with a mesh wider than
+   the visible cards (``WorkerMesh.build([0, 1, 2, 3])`` on one card) is
+   refused when it is built, before any work, with the visible-device
+   ``ValueError`` (no fallback to the card it has); the row prints the
+   visible device count and ``nvidia-smi``'s name and power limit.
 25. ``launch_train`` (run after ``lm_study``) —
    ``repro_torch.launch.train.main`` for qwen2-0.5b at full width, batch
    4 × 1024: ``LAUNCH_STEPS`` (20) steps with the kernels, B1 = 20, B2 =
@@ -4126,7 +4131,33 @@ def mesh_study(example, backend, computed, meshes, store, space_fn,
     return rec
 
 
-def mesh_plane_phase(root):
+def wide_mesh_refusal(backend, smi):
+    """An engine over the CUDA ``backend`` with a mesh of more cards than
+    are visible (``WorkerMesh.build([0, 1, 2, 3])`` on one card) raises
+    the visible-device ``ValueError`` when it is built: no chunk ran, the
+    trainer is bound to no mesh.  Returns the row."""
+    from repro_torch.core import SearchPlanDB, Study
+    from repro_torch.dist.meshes import WorkerMesh
+    n_cards = torch.cuda.device_count()
+    wide = WorkerMesh.build(range(max(4, n_cards + 1)))
+    calls0 = backend.exec_calls
+    study = Study.create(SearchPlanDB(), "resnet56", "synthetic-cifar",
+                         ("lr", "bs"))
+    try:
+        study.engine(backend, n_workers=1, worker_meshes=[wide])
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError(f"a {wide.n_devices}-card mesh was taken with "
+                             f"{n_cards} visible")
+    assert "visible CUDA devices" in refusal, refusal
+    assert backend.exec_calls == calls0 and backend._wmesh is None
+    return {"device_ids": list(wide.device_ids), "visible_devices": n_cards,
+            "nvidia_smi": smi, "error": refusal,
+            "refused_before_any_work": True}
+
+
+def mesh_plane_phase(root, smi):
     """Phase 4's study on one worker, a thread fleet against a one-device
     mesh fleet (``worker_meshes=[WorkerMesh.build([0])]``), on the memory
     tier and on a directory store, then grouped (``group_space``,
@@ -4135,13 +4166,15 @@ def mesh_plane_phase(root):
     checkpoints, metrics, best trial, B1 launches (= device steps solo) —
     with resumes served device to device on the mesh fleet
     (``d2d_handoffs`` > 0) and the store's reads fewer by exactly the
-    handoffs; prints the d2d cache's peak device bytes.  Returns B1's
-    launches."""
+    handoffs; prints the d2d cache's peak device bytes.  First, a mesh
+    wider than the visible cards is refused (:func:`wide_mesh_refusal`).
+    Returns B1's launches."""
     import torch_hpo_resnet as example
     from repro_torch.dist.meshes import WorkerMesh
     from repro_torch.train.checkpoint import CheckpointStore
     d = os.path.join(root, "mesh_plane")
     backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    refusal = wide_mesh_refusal(backend, smi)
     computed = device_steps(backend)
     fleets = {"thread": None, "mesh": [WorkerMesh.build(MESH)]}
     rows, launches = {}, {}
@@ -4188,6 +4221,7 @@ def mesh_plane_phase(root):
     emit({"phase": "mesh_plane", "model": "ResNet(n=9, width=16)",
           "batch": RESNET_FULL["batch"], "workers": 1,
           "mesh": {"device_ids": MESH, "axes": [["data", 1]]},
+          "wide_mesh_refusal": refusal,
           "tiers": rows, "bit_equal_to_thread_fleet": True,
           "b1_launches_equal_device_steps": True,
           "store_reads_fall_by_handoffs": True})
@@ -5277,7 +5311,8 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     fault_launches = timed("fault_plane", fault_plane_phase)     # 19
     session_launches = timed("session", session_phase, store_dir)  # 20
     gateway_launches = timed("gateway", gateway_phase, store_dir)  # 22
-    mesh_launches = timed("mesh_plane", mesh_plane_phase, store_dir)  # 24
+    mesh_launches = timed("mesh_plane", mesh_plane_phase, store_dir,
+                          smi)                                   # 24
     fa_rows = timed("attention_kernels", attention_phase, join_build)  # 6
     timed("lm_small", lm_small_phase, "lm_small", "qwen2-0.5b", (2, 200),
           4, True)

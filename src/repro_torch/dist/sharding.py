@@ -24,7 +24,9 @@ Stacked per-cycle parameters (anything under a ``"cycles"`` entry, see
 :class:`repro_torch.models.transformer.LM`) carry one extra leading layer
 axis, which is never sharded.  Pure tree logic over any leaves with a
 ``shape`` (tensors, ``torch.device("meta")`` tensors, shape structs):
-nothing here allocates or touches a device.
+nothing here allocates or touches a device, but the two functions that
+put a tree at rest on a worker mesh and take it back
+(:func:`split_tree`, :func:`join_tree`).
 
 A spec never names one mesh axis twice: :class:`P` refuses it, and every
 spec built here drops a repeated axis (the later dimension replicates).
@@ -45,23 +47,21 @@ import math
 from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
                     Union)
 
+import torch
+
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["MESH_SIZES", "P", "ShardingRules", "param_specs",
            "batch_specs", "cache_specs", "seq_constrainer", "mesh_sizes_of",
            "generic_param_specs", "map_specs", "spec_axes", "spec_leaves",
-           "placements", "distribute_tree", "SHARDED_EXECUTION"]
+           "placements", "distribute_tree", "Shards", "split_leaf",
+           "join_leaf", "split_tree", "join_tree"]
 
 Axis = Union[None, str, Tuple[str, ...]]
 
 # Production mesh axis sizes: single pod (data=16, model=16) = 256
 # devices, multi-pod adds (pod=2).
 MESH_SIZES: Dict[str, int] = {"pod": 2, "data": 16, "model": 16}
-
-#: The ROADMAP item that executing a stage over several devices waits for.
-SHARDED_EXECUTION = ("sharded stage execution over several cards "
-                     "(ROADMAP queue A)")
-
 
 def spec_axes(entry: Axis) -> Tuple[str, ...]:
     """The mesh axis names one spec entry names (none for ``None``)."""
@@ -138,9 +138,9 @@ def seq_constrainer(rules: ShardingRules,
     ``constrain``.
 
     Without ``mesh``: on a mesh where the sequence axis has one device it
-    is the identity; a sequence split over several devices is
-    :data:`SHARDED_EXECUTION` and raises.  With a ``torch.distributed``
-    ``DeviceMesh`` (the dry run's): a DTensor residual stream is
+    is the identity; a sequence split over several devices needs the
+    ``torch.distributed`` mesh and raises.  With a ``DeviceMesh`` (the
+    dry run's, a launcher rank's): a DTensor residual stream is
     redistributed to ``Shard(1)`` over ``rules.seq``, its other mesh
     dimensions unchanged; a plain tensor raises as above when that axis
     has more than one device."""
@@ -150,8 +150,9 @@ def seq_constrainer(rules: ShardingRules,
         sizes = MESH_SIZES if sizes is None else sizes
         if _axis_size(rules.seq, sizes) > 1:
             raise NotImplementedError(
-                f"sequence parallelism over {sizes[rules.seq]} devices "
-                f"needs {SHARDED_EXECUTION}")
+                f"sequence parallelism over {_axis_size(rules.seq, sizes)} "
+                "devices splits a DTensor residual stream: pass the "
+                "torch.distributed DeviceMesh as mesh=")
         return lambda x: x
     from torch.distributed.tensor import DTensor, Shard
     names = mesh.mesh_dim_names
@@ -161,8 +162,9 @@ def seq_constrainer(rules: ShardingRules,
         if not isinstance(x, DTensor):
             if math.prod(mesh.size(d) for d in seq_dims) > 1:
                 raise NotImplementedError(
-                    f"sequence parallelism of a plain tensor needs "
-                    f"{SHARDED_EXECUTION}")
+                    "sequence parallelism splits a DTensor residual "
+                    "stream; a plain tensor has no mesh to split over: "
+                    "place the model's inputs on the DeviceMesh")
             return x
         target = list(x.placements)
         for d in seq_dims:
@@ -198,6 +200,112 @@ def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
     leaves = iter(spec_leaves(specs))
     return _map_with_names(lambda _names, x: distribute_tensor(
         x, mesh, placements(next(leaves), mesh)), tree)
+
+
+# ---------------------------------------------------------------------------
+# a tree at rest on a worker mesh: one process, a shard on each device
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Shards:
+    """One tensor at rest on a worker mesh: ``pieces[i]`` is the shard
+    that mesh device ``i`` (row-major over ``axes``) holds, a tensor of
+    its own on that device.  A dimension whose :class:`P` entry names
+    mesh axes is split into equal, contiguous chunks over them (several
+    axes combine row-major, the first outermost); a device whose
+    coordinates differ only on axes the spec does not name holds a copy
+    of the same chunk.  ``shape`` is the whole tensor's."""
+
+    pieces: Tuple[Any, ...]
+    spec: P
+    axes: Tuple[Tuple[str, int], ...]
+    shape: Tuple[int, ...]
+
+
+def _coords(i: int, axes: Sequence[Tuple[str, int]]) -> Dict[str, int]:
+    """Mesh device ``i``'s coordinate on each axis (row-major)."""
+    out: Dict[str, int] = {}
+    for name, n in reversed(tuple(axes)):
+        i, out[name] = divmod(i, n)
+    return out
+
+
+def _chunk(entry: Axis, coords: Mapping[str, int],
+           sizes: Mapping[str, int]) -> int:
+    """Which chunk of a dimension split by ``entry`` a device holds."""
+    k = 0
+    for a in spec_axes(entry):
+        k = k * sizes[a] + coords[a]
+    return k
+
+
+def split_leaf(x, spec: P, axes: Sequence[Tuple[str, int]],
+               devices: Sequence[Any]):
+    """``x`` at rest on the mesh of ``devices`` (one per mesh position,
+    row-major over ``axes``): a :class:`Shards` of its chunks by
+    ``spec``, each a copy on its device; a leaf whose spec shards nothing
+    stays whole, on ``devices[0]``."""
+    axes = tuple((str(a), int(n)) for a, n in axes)
+    sizes = dict(axes)
+    if len(devices) != math.prod(sizes.values()):
+        raise ValueError(f"{len(devices)} devices for a mesh of axes "
+                         f"{sizes}")
+    if all(e is None for e in spec):
+        return x.to(devices[0])
+    shape = tuple(x.shape)
+    pieces = []
+    for i, dev in enumerate(devices):
+        c = _coords(i, axes)
+        piece = x
+        for d, entry in enumerate(spec):
+            if entry is None:
+                continue
+            n = _axis_size(entry, sizes)
+            if shape[d] % n:
+                raise ValueError(f"{spec!r} splits dimension {d} of "
+                                 f"{shape} into {n}")
+            step = shape[d] // n
+            piece = piece.narrow(d, _chunk(entry, c, sizes) * step, step)
+        pieces.append(piece.to(dev, copy=True))
+    return Shards(tuple(pieces), P(*spec), axes, shape)
+
+
+def join_leaf(x, device):
+    """A leaf of :func:`split_leaf` whole on ``device``: the shards
+    concatenated in order (pure data movement; the values are the
+    leaf's bits).  A whole leaf is moved there (itself if it is there)."""
+    if not isinstance(x, Shards):
+        return x.to(device)
+    sizes = dict(x.axes)
+    dims = [d for d, e in enumerate(x.spec) if e is not None]
+    first: Dict[Tuple[int, ...], int] = {}
+    for i in range(len(x.pieces)):
+        c = _coords(i, x.axes)
+        first.setdefault(tuple(_chunk(x.spec[d], c, sizes) for d in dims), i)
+
+    def assemble(level: int, prefix: Tuple[int, ...]):
+        if level == len(dims):
+            return x.pieces[first[prefix]].to(device)
+        d = dims[level]
+        return torch.cat([assemble(level + 1, prefix + (j,))
+                          for j in range(_axis_size(x.spec[d], sizes))], d)
+
+    return assemble(0, ())
+
+
+def split_tree(tree: Any, specs: Any, axes: Sequence[Tuple[str, int]],
+               devices: Sequence[Any]) -> Any:
+    """Every tensor leaf of ``tree`` at rest by its :class:`P` in
+    ``specs`` (:func:`split_leaf`)."""
+    leaves = iter(spec_leaves(specs))
+    return _map_with_names(lambda _names, x: split_leaf(
+        x, next(leaves), axes, devices), tree)
+
+
+def join_tree(tree: Any, device) -> Any:
+    """Every leaf of a :func:`split_tree` tree whole on ``device``."""
+    return _map_with_names(lambda _names, x: join_leaf(x, device), tree)
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,23 @@ _is_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
 
 __all__ = ["KernelFallbackWarning", "KernelStats", "KERNEL_STATS",
            "reset_kernel_stats", "note_call", "note_fallback",
-           "flash_attention", "ssd_intra"]
+           "flash_attention", "ssd_intra", "LOCAL_HEAD_SHARDS"]
+
+#: The ROADMAP item that B2–B6 inside a step over several ranks wait for.
+LOCAL_HEAD_SHARDS = "kernels on local head shards (ROADMAP queue A item 6)"
+
+
+def _refuse_dtensor(name: str, *tensors) -> None:
+    """B2–B6 take whole tensors on one device: a DTensor (a step sharded
+    over several ranks) is refused by name, never run on the plain
+    version instead."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise NotImplementedError(
+            f"{name} on a DTensor (a step over several ranks) needs "
+            f"{LOCAL_HEAD_SHARDS}; train the ranks with --no-use-kernel")
 
 
 class KernelFallbackWarning(UserWarning):
@@ -208,7 +224,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backward kernels and vmap-aware (a sibling group's member axis folds
     into the kernels' batch axis: one launch per group).  CPU tensors take
     the plain versions, counted as a fallback ``flash_attention:device:cpu``
-    and warned once."""
+    and warned once.  A DTensor is refused (:data:`LOCAL_HEAD_SHARDS`)."""
+    _refuse_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         note_fallback("flash_attention", "device:cpu")
     else:
@@ -282,7 +299,9 @@ def ssd_intra(xr: torch.Tensor, dtr: torch.Tensor, ltT: torch.Tensor,
     ``ltT (B,nc,H,Q)``, ``Br / Cr (B,nc,Q,N)`` → ``y (B,nc,Q,H,P)``),
     differentiable through the backward kernel and vmap-aware (one launch
     per group).  CPU tensors take the plain versions, counted as a
-    fallback ``ssd_intra:device:cpu`` and warned once."""
+    fallback ``ssd_intra:device:cpu`` and warned once.  A DTensor is
+    refused (:data:`LOCAL_HEAD_SHARDS`)."""
+    _refuse_dtensor("ssd_intra", xr, dtr, ltT, Br, Cr)
     if xr.device.type == "cpu":
         note_fallback("ssd_intra", "device:cpu")
     else:

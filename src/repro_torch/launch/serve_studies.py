@@ -30,10 +30,10 @@ snapshot via ``StudyGateway.restore``.  Uses the simulator backend, so it
 touches no device; a caller serves real training by passing
 ``main(argv, backend=...)`` a factory of ``TorchTrainer`` s.
 ``--devices-per-worker N`` gives every slot an ``N``-device
-:class:`~repro_torch.dist.meshes.WorkerMesh` (``plan_worker_meshes``); a
-backend that cannot run such a mesh (a ``TorchTrainer`` for ``N > 1``:
-sharded stage execution over several cards) refuses it before any work
-starts.
+:class:`~repro_torch.dist.meshes.WorkerMesh` (``plan_worker_meshes``),
+over which a ``TorchTrainer`` runs each stage sharded; a backend that
+cannot run such a mesh (a CUDA ``TorchTrainer`` whose process sees fewer
+cards) refuses it before any work starts.
 
 The port of the JAX package's ``repro.launch.serve_studies``: the same
 flags and output lines.

@@ -1,27 +1,49 @@
 """Launcher: plain training of one assigned architecture on the local mesh.
 
-On the card it trains the full-width model (the driver's machine has one
-H100: a ``(data=1, model=1)`` mesh); ``--device cpu`` with ``--reduced``
-trains the smoke-scale variant on the CPU.  Parameters and optimizer
-state are placed per :mod:`repro_torch.dist.sharding`; a local mesh of
-several cards is refused (sharded stage execution over several cards is
-not in this package).
+On the card it trains the full-width model on a ``(data=1, model=1)``
+mesh; ``--device cpu`` with ``--reduced`` trains the smoke-scale variant
+on the CPU.  Parameters and optimizer state are placed per
+:mod:`repro_torch.dist.sharding`.
+
+Over several ranks (``WORLD_SIZE`` > 1, as ``torchrun`` sets it), each
+rank joins the process group (``gloo`` on the CPU, ``nccl`` on cards, one
+card a rank), builds a ``(data, model)`` ``DeviceMesh`` over the ranks —
+the model axis the largest of 16, 8, 4, 2, 1 dividing their number —
+and places the parameters, the AdamW state and each batch as DTensors by
+``param_specs`` / ``batch_specs``
+(:func:`~repro_torch.dist.sharding.distribute_tree`), as the JAX
+launcher shards its step with GSPMD over its local mesh.  The step is the
+dry run's formulation (:class:`~repro_torch.launch.dryrun.ShardedLM`:
+weights gathered over ``data`` before the arithmetic reads them, the
+vocabulary-parallel cross-entropy; its local rules under
+:class:`~repro_torch.launch.dryrun.OpRecorder`) and the plain update.
+The kernels take whole tensors on one device, so ``--use-kernel`` (the
+default on cards) is refused over several ranks before anything is
+started, by name (:data:`repro_torch.kernels.ops.LOCAL_HEAD_SHARDS`):
+pass ``--no-use-kernel``.  Several cards visible to a process started
+without ``torchrun`` are refused with how to launch.
 
     python -m repro_torch.launch.train --arch qwen2-0.5b --steps 20 \\
         --batch 4 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --reduced --steps 5 --batch 4 --seq 32 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen2-0.5b --reduced --steps 3 --batch 4 --seq 32 \\
+        --device cpu
 
 ``--use-kernel`` defaults to on for a CUDA device (the LM's attention runs
 B2–B4 and the update B1) and off on the CPU, as ``TorchTrainer`` does.
 The launcher prints the loss, per-step seconds, tokens/s and the kernel
 counters (launches of B1–B4, calls and fallbacks of the kernel plane);
-:func:`main` returns them.
+:func:`main` returns them (on several ranks, every rank returns its own,
+with its parameters' local shard shapes in tree order; rank 0 prints).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import statistics
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -32,8 +54,8 @@ import torch
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import DataPipeline, synthetic_lm_dataset
 from repro_torch.dist.meshes import WorkerMesh
-from repro_torch.dist.sharding import (SHARDED_EXECUTION, ShardingRules,
-                                       batch_specs, param_specs)
+from repro_torch.dist.sharding import (ShardingRules, batch_specs,
+                                       distribute_tree, param_specs)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_dkv,
                                                  flash_attention_bwd_dq,
@@ -41,10 +63,11 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_dkv,
 from repro_torch.kernels.optim import stacked_tree_update
 from repro_torch.launch.specs import batch_struct
 from repro_torch.models import LM
-from repro_torch.train.optimizer import init_opt_state
+from repro_torch.train.optimizer import apply_update, init_opt_state
 from repro_torch.train.step import build_train_step, place, shardings_for
+from repro_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["local_mesh", "main"]
+__all__ = ["local_mesh", "model_axis", "rank_mesh", "main"]
 
 # the launch counters of the kernels a training step of an attention LM
 # runs: B1 (the update), B2 (attention forward), B3 / B4 (its backward)
@@ -52,29 +75,62 @@ _LAUNCH_COUNTERS = {"B1": stacked_tree_update, "B2": flash_attention_fwd,
                     "B3": flash_attention_bwd_dq,
                     "B4": flash_attention_bwd_dkv}
 
+RULES = ShardingRules(fsdp="data", tp="model", dp=("data",))
+
+
+def model_axis(n: int) -> int:
+    """The model axis of ``n`` devices: the largest of 16, 8, 4, 2, 1
+    dividing ``n`` (the JAX launcher's rule)."""
+    return next(m for m in (16, 8, 4, 2, 1) if n % m == 0)
+
 
 def local_mesh(device: torch.device) -> Tuple[WorkerMesh, List[torch.device]]:
-    """The local ``(data, model)`` mesh and its devices: every visible CUDA
-    device, the model axis the largest of 16, 8, 4, 2, 1 dividing their
-    count (one card: ``(1, 1)``); the CPU is one device.  A mesh of more
-    than one device is refused."""
+    """The one-process mesh and its device: one visible card (``(1, 1)``)
+    or the CPU.  Several visible cards are refused with how to train over
+    them: one rank a card, under ``torchrun``."""
     n = torch.cuda.device_count() if device.type == "cuda" else 1
     if n < 1:
         raise RuntimeError("no CUDA device is visible; pass --device cpu "
                            "to train on the CPU")
-    model = next(m for m in (16, 8, 4, 2, 1) if n % m == 0)
-    mesh = WorkerMesh.build(range(n), axes=(("data", n // model),
-                                            ("model", model)))
     if n > 1:
-        raise NotImplementedError(
-            f"the local mesh has {n} devices; training over them needs "
-            f"{SHARDED_EXECUTION}")
+        raise RuntimeError(
+            f"{n} CUDA devices are visible to one process: train over them "
+            f"with a rank a card, `torchrun --nproc-per-node {n} -m "
+            "repro_torch.launch.train ...` (a (data, model) mesh of "
+            f"{n // model_axis(n)} x {model_axis(n)}), or make one visible "
+            "(CUDA_VISIBLE_DEVICES=0)")
+    mesh = WorkerMesh.build([0], axes=(("data", 1), ("model", 1)))
     devices = mesh.torch_devices() if device.type == "cuda" else [device]
     return mesh, devices
 
 
+def rank_mesh(device: torch.device, world: int):
+    """The ``(data, model)`` ``DeviceMesh`` over ``world`` ranks of an
+    initialised process group, the model axis by :func:`model_axis`."""
+    from torch.distributed.device_mesh import init_device_mesh
+    model = model_axis(world)
+    return init_device_mesh(device.type, (world // model, model),
+                            mesh_dim_names=("data", "model"))
+
+
 def _launches() -> Dict[str, int]:
     return {k: fn.launches for k, fn in _LAUNCH_COUNTERS.items()}
+
+
+def _sharded_update(name, params, grads, opt, hp, step):
+    """``apply_update`` over DTensor trees, each gradient first placed as
+    its parameter: the backward may leave it otherwise (``Replicate``
+    where a spec shards over a one-device axis), and the parameters'
+    placements should not hang on how a DTensor release propagates a
+    mixed pair."""
+
+    def like(x, ref):
+        if tuple(x.placements) == tuple(ref.placements):
+            return x
+        return x.redistribute(ref.device_mesh, ref.placements)
+
+    grads = tree_map(like, grads, params)
+    return apply_update(name, params, grads, opt, hp, step)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -106,9 +162,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     device = torch.device(args.device)
     use_kernel = (device.type == "cuda") if args.use_kernel is None \
         else args.use_kernel
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        return _train_ranks(args, cfg, device, use_kernel, world)
 
     mesh, devices = local_mesh(device)
-    rules = ShardingRules(fsdp="data", tp="model", dp=("data",))
     model = LM(cfg, use_kernel=use_kernel)
     print(f"training {cfg.name} ({cfg.param_count()/1e6:.1f}M params) on "
           f"mesh {mesh.sizes} ({devices[0]})")
@@ -119,48 +177,122 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         synthetic_lm_dataset(4096, args.seq, cfg.vocab_size), args.batch)
 
     sizes = mesh.sizes          # gate divisibility on the live mesh
-    params = place(params, shardings_for(devices, param_specs(params, rules,
+    params = place(params, shardings_for(devices, param_specs(params, RULES,
                                                               sizes)))
-    opt = place(opt, shardings_for(devices, param_specs(opt, rules, sizes)))
+    opt = place(opt, shardings_for(devices, param_specs(opt, RULES, sizes)))
     bshard = shardings_for(devices, batch_specs(
-        cfg, batch_struct(cfg, args.batch, args.seq), rules, sizes))
-
+        cfg, batch_struct(cfg, args.batch, args.seq), RULES, sizes))
+    place_batch = lambda b: place(b, bshard)
     step_fn = build_train_step(model, use_kernel=use_kernel)
-    lr = torch.tensor(args.lr, dtype=torch.float32, device=devices[0])
+    return _loop(args, cfg, device, devices[0], step_fn, params, opt, data,
+                 place_batch, contextlib.nullcontext, float)[0]
+
+
+def _loop(args, cfg, device, home, step_fn, params, opt, data, place_batch,
+          context, read_loss, verbose=True):
+    """The training loop and its report, on one device or one rank:
+    ``(report, the last parameters)``."""
+    lr = torch.tensor(args.lr, dtype=torch.float32, device=home)
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
+    say = print if verbose else (lambda *a: None)
     launches0, stats0 = _launches(), kops.KERNEL_STATS.snapshot()
     losses, seconds = [], []
     t0 = time.perf_counter()
     for i in range(args.steps):
         t = time.perf_counter()
-        batch = place({k: torch.from_numpy(v.astype(np.int64))
-                       for k, v in data.next_batch().items()}, bshard)
-        params, opt, loss = step_fn(params, opt, batch, lr, i)
+        batch = place_batch({k: torch.from_numpy(v.astype(np.int64))
+                             for k, v in data.next_batch().items()})
+        with context():
+            params, opt, loss = step_fn(params, opt, batch, lr, i)
+        loss = read_loss(loss)                   # waits for the step
         losses.append(loss)
         sync()
         seconds.append(time.perf_counter() - t)
         if i % 10 == 0 or i == args.steps - 1:
-            print(f"step {i:4d}  loss {float(loss):.4f}  "
-                  f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)")
+            say(f"step {i:4d}  loss {loss:.4f}  "
+                f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)")
     total = time.perf_counter() - t0
     # the first step builds the kernels and warms the caches: the steady
     # rate is the median of the others
     steady = statistics.median(seconds[1:] or seconds)
-    losses = [float(x) for x in losses]
     launches = {k: v - launches0[k] for k, v in _launches().items()}
     calls = kops.KERNEL_STATS.calls - stats0[0]
     fallbacks = kops.KERNEL_STATS.fallbacks - stats0[1]
     tokens_per_s = args.batch * args.seq / steady
-    print(f"done: {args.steps} steps in {total:.1f}s; "
-          f"final loss {losses[-1]:.4f}")
-    print(f"steady: {steady:.4f} s/step, {tokens_per_s:.0f} tokens/s")
-    print(f"kernel plane: {calls} calls, {fallbacks} fallbacks; launches "
-          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    say(f"done: {args.steps} steps in {total:.1f}s; "
+        f"final loss {losses[-1]:.4f}")
+    say(f"steady: {steady:.4f} s/step, {tokens_per_s:.0f} tokens/s")
+    say(f"kernel plane: {calls} calls, {fallbacks} fallbacks; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
     return {"arch": cfg.name, "losses": losses, "step_seconds": seconds,
             "seconds_per_step": steady, "tokens_per_s": tokens_per_s,
             "launches": launches, "kernel_calls": calls,
-            "kernel_fallbacks": fallbacks, "device": str(devices[0])}
+            "kernel_fallbacks": fallbacks, "device": str(home)}, params
+
+
+def _train_ranks(args, cfg, device, use_kernel, world) -> Dict[str, Any]:
+    """One rank of a launch over ``world`` ranks (see the module
+    docstring); the process group is left as it was found."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.dryrun import (OpRecorder, ShardedLM, _quiet,
+                                           fsdp_gather)
+
+    if use_kernel:
+        raise NotImplementedError(
+            f"--use-kernel over {world} ranks needs {kops.LOCAL_HEAD_SHARDS}"
+            ": the kernels take whole tensors on one device; train the "
+            "ranks with --no-use-kernel")
+    rank = int(os.environ.get("RANK", "0"))
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank} wants card {local} of "
+                               f"{torch.cuda.device_count()} visible")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                rank=rank, world_size=world)
+    try:
+        mesh = rank_mesh(device, world)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        model = ShardedLM(cfg, mesh, gather=fsdp_gather(mesh, RULES))
+        verbose = rank == 0
+        if verbose:
+            print(f"training {cfg.name} ({cfg.param_count()/1e6:.1f}M "
+                  f"params) on {world} ranks, mesh {sizes} ({device.type})")
+        params = model.init(0, device=device)
+        opt = init_opt_state("adamw", params)
+        params = distribute_tree(params, param_specs(params, RULES, sizes),
+                                 mesh)
+        opt = distribute_tree(opt, param_specs(opt, RULES, sizes), mesh)
+        data = DataPipeline(
+            synthetic_lm_dataset(4096, args.seq, cfg.vocab_size), args.batch)
+        bspecs = batch_specs(cfg, batch_struct(cfg, args.batch, args.seq),
+                             RULES, sizes)
+        place_batch = lambda b: distribute_tree(
+            {k: v.to(device) for k, v in b.items()}, bspecs, mesh)
+        step_fn = build_train_step(model, update=_sharded_update)
+
+        @contextlib.contextmanager
+        def context():
+            with _quiet(), implicit_replication(), OpRecorder():
+                yield
+
+        out, params = _loop(args, cfg, device, device, step_fn, params,
+                            opt, data, place_batch, context,
+                            lambda x: float(x.full_tensor()), verbose)
+        out.update(rank=rank, world=world, mesh=sizes,
+                   local_shapes=[tuple(x.to_local().shape)
+                                 for x in tree_leaves(params)])
+        return out
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -92,14 +92,34 @@ costs one device copy of the state per boundary.
 Mesh plane: a one-device :class:`~repro_torch.dist.meshes.WorkerMesh`
 takes the default path (the trainer's device), as the JAX trainer's does,
 so a one-device-mesh fleet computes a thread fleet's bits.  A wider mesh
-is sharded stage execution over several cards, which this package does
-not have: :meth:`check_mesh` refuses it when a worker with it joins an
-engine, a gateway or ``serve_studies``.  :meth:`mesh_compatible` is the
-divisibility gate over the task's parameter shapes (nothing is placed
-on the card for it), cached per mesh.  :meth:`device_transfer`, the
-dispatcher's device-to-device handoff, hands out a clone on the mesh's
-device (the trainer's own device for a CPU trainer): the dispatcher's
-cached copy and each consumer's copy are tensors no one else holds.
+runs a stage sharded over its devices, as the JAX trainer's
+``set_mesh`` / ``_carry_shardings`` / ``_meshed_build`` do: between
+chunks the carry ``(params, opt)`` rests split per leaf by
+``generic_param_specs`` (``n_lead`` 1 for a member-stacked group: the
+member axis never splits), a shard on each mesh device in mesh order
+(:func:`~repro_torch.dist.sharding.split_tree`; a leaf nothing divides
+stays whole on the first device).  Before each chunk the carry is
+gathered whole on the mesh's first device — a concatenation of the
+shards, pure data movement — and the chunk runs there unchanged; after
+it the carry is split again, outside the arithmetic; an optimizer switch
+puts its fresh slots at rest too; boundary snapshots leave the trainer
+whole on the first device, so the store, evaluation and the handoff see
+one-device trees.  The JAX trainer runs the chunk's arithmetic
+replicated on every device of the mesh; this one runs it once, with the
+same results, so a mesh fleet is bit-equal to a thread fleet.  The
+devices are the mesh's cards on a CUDA trainer
+(:meth:`WorkerMesh.torch_devices`: a mesh naming a card this process
+cannot see is refused by :meth:`check_mesh` when the engine, gateway or
+``serve_studies`` is built, before any work) and, on a CPU trainer, the
+CPU once per mesh position, each shard a tensor of its own.  The
+workers are threads of one process, so this is a single-controller
+layout, not DTensor's one rank per device.  :meth:`mesh_compatible` is
+the divisibility gate over the task's parameter shapes (nothing is
+placed on the card for it), cached per mesh.  :meth:`device_transfer`,
+the dispatcher's device-to-device handoff, hands out a clone on the
+mesh's first device (the trainer's own device for a CPU trainer): the
+dispatcher's cached copy and each consumer's copy are tensors no one
+else holds.
 """
 
 from __future__ import annotations
@@ -113,8 +133,8 @@ from repro_torch.core.trainer import (ChainNotFusable, StageContext,
                                       TrainerBackend)
 from repro_torch.core.values import desc_static, desc_values
 from repro_torch.data.pipeline import DataPipeline
-from repro_torch.dist.sharding import (SHARDED_EXECUTION, generic_param_specs,
-                                       spec_leaves)
+from repro_torch.dist.sharding import (generic_param_specs, join_tree,
+                                       spec_leaves, split_tree)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.optim import fused_apply_update, stacked_apply_update
 from repro_torch.train.optimizer import (apply_update, apply_update_stacked,
@@ -198,6 +218,7 @@ class TorchTrainer(TrainerBackend):
                     "available; pass device='cpu' to ask for the CPU")
             device = "cuda"
         self.device = torch.device(device)
+        self._home = self.device     # where chunks run: a mesh's first
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -228,6 +249,8 @@ class TorchTrainer(TrainerBackend):
         self.evaluations = 0         # evaluate() calls
         self._params0 = None         # initial parameters, drawn at first use
         self._mesh_ok: Dict[Tuple, bool] = {}   # mesh_compatible verdicts
+        self._wmesh = None           # the bound WorkerMesh (> 1 device)
+        self._mesh_devices: Optional[List[torch.device]] = None
 
     # ------------------------------------------------- kernel-plane counters
     @property
@@ -262,19 +285,54 @@ class TorchTrainer(TrainerBackend):
         return tree_map(lambda x: x, state)
 
     # ------------------------------------------------------------ mesh plane
+    def _devices(self, mesh) -> List[torch.device]:
+        """A mesh's devices: its cards on a CUDA trainer (``ValueError``
+        for an id that is not visible), the CPU once per mesh position on
+        a CPU trainer."""
+        if self.device.type == "cuda":
+            return mesh.torch_devices()
+        return [self.device] * mesh.n_devices
+
     def check_mesh(self, mesh) -> None:
-        """Refuse a mesh wider than one device: executing a stage over
-        several cards is not in this package."""
+        """Refuse, before any work, a mesh wider than one device whose
+        cards this process cannot see (a CUDA trainer)."""
         if mesh.n_devices > 1:
-            raise NotImplementedError(
-                f"a {mesh.n_devices}-device worker mesh needs "
-                f"{SHARDED_EXECUTION}; this trainer runs one-device meshes")
+            self._devices(mesh)
 
     def set_mesh(self, mesh) -> None:
         """Bind to the dispatching worker's mesh: a one-device mesh (or a
-        thread worker) takes the default path, on the trainer's device."""
-        if mesh is not None:
-            self.check_mesh(mesh)
+        thread worker) takes the default path, on the trainer's device; a
+        wider one binds its devices, and chunks run on its first."""
+        if mesh is None or mesh.n_devices == 1:
+            self._wmesh, self._mesh_devices = None, None
+            self._home = self.device
+            return
+        if self._wmesh is None or self._wmesh.key != mesh.key:
+            self._mesh_devices = self._devices(mesh)
+        self._wmesh, self._home = mesh, self._mesh_devices[0]
+
+    def _at_rest(self, carry, n_lead: int):
+        """The carry as it rests between chunks on the bound mesh: each
+        leaf split by ``generic_param_specs`` (the first ``n_lead`` dims,
+        a group's member axis, never), a shard on each mesh device; a
+        leaf nothing divides whole on the first.  Without a mesh, the
+        carry itself."""
+        if self._wmesh is None:
+            return carry
+        specs = generic_param_specs(carry, self._wmesh.rules,
+                                    sizes=self._wmesh.sizes, n_lead=n_lead)
+        return split_tree(carry, specs, self._wmesh.axes,
+                          self._mesh_devices)
+
+    def _whole(self, carry):
+        """The carry gathered whole on the mesh's first device: the shards
+        concatenated in order, pure data movement, so the chunk that runs
+        on it computes what it computes on a thread worker.  (The JAX
+        trainer runs the arithmetic replicated on every device of the
+        mesh; here it runs once, on the first, with the same results.)"""
+        if self._wmesh is None:
+            return carry
+        return join_tree(carry, self._home)
 
     def mesh_compatible(self, mesh, ctxs) -> bool:
         """The divisibility gate as a placement gate: a mesh wider than
@@ -373,18 +431,18 @@ class TorchTrainer(TrainerBackend):
             v = np.asarray(v)
             if np.issubdtype(v.dtype, np.integer):
                 v = v.astype(np.int64)
-            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self._home)
         return out
 
     def _scalars(self, values: Dict[str, float]) -> Dict[str, torch.Tensor]:
-        return {k: torch.tensor(v, dtype=torch.float32, device=self.device)
+        return {k: torch.tensor(v, dtype=torch.float32, device=self._home)
                 for k, v in values.items()}
 
     def _foreign(self, x: Any) -> bool:
         """Is ``x`` a tensor off this trainer's device?"""
         if not isinstance(x, torch.Tensor):
             return False
-        dev = self.device
+        dev = self._home
         return x.device.type != dev.type or (
             dev.index is not None and x.device.index != dev.index)
 
@@ -401,7 +459,7 @@ class TorchTrainer(TrainerBackend):
                 return x
             y = memo.get(id(x))
             if y is None:
-                y = memo[id(x)] = x.to(self.device,
+                y = memo[id(x)] = x.to(self._home,
                                        non_blocking=x.is_pinned())
             return y
 
@@ -485,7 +543,8 @@ class TorchTrainer(TrainerBackend):
         state, = self.on_device(state)
 
         opt_name = plans[0][2]
-        carry = (state["params"], self._init_opt(state, opt_name))
+        carry = self._at_rest(
+            (state["params"], self._init_opt(state, opt_name)), 0)
         pipe = self.pipeline_factory()
         pipe.restore(state["data"])
         boundaries: List[Dict[str, Any]] = []
@@ -493,8 +552,11 @@ class TorchTrainer(TrainerBackend):
         for ctx, (vals, static_hp, stage_opt, names) in zip(chain, plans):
             if stage_opt != opt_name:
                 # optimizer switch at the boundary: fresh slots, exactly as
-                # run_stage would re-init on the restored state
-                carry = (carry[0], init_opt_state(stage_opt, carry[0]))
+                # run_stage would re-init on the restored state (and back
+                # to the mesh's at-rest layout)
+                params = self._whole(carry[0])
+                carry = self._at_rest(
+                    (params, init_opt_state(stage_opt, params)), 0)
                 opt_name = stage_opt
             static_dev = self._scalars(static_hp)
             for i0, i1, bs in self._bs_runs(vals, ctx.stop - ctx.start):
@@ -506,15 +568,21 @@ class TorchTrainer(TrainerBackend):
                     slab = self._upload(pipe.next_batches(k_len))
                     steps = torch.arange(ctx.start + w0, ctx.start + w1,
                                          dtype=torch.int32,
-                                         device=self.device)
+                                         device=self._home)
                     hp_xs = {k: torch.tensor(
                         np.asarray(vals[k][w0:w1], np.float32),
-                        device=self.device) for k in names}
-                    carry = self._run_chunk(opt_name, carry, static_dev,
-                                            hp_xs, slab, steps)
+                        device=self._home) for k in names}
+                    work = self._whole(carry)
+                    carry = None         # the shards are not pinned
+                    carry = self._at_rest(self._run_chunk(
+                        opt_name, work, static_dev, hp_xs, slab, steps), 0)
+                    del work
                     w0 = w1
+            # a snapshot leaves the trainer whole, on the mesh's first
+            # device: the store, evaluation and the handoff see one device
+            params, opt = self._whole(carry)
             boundaries.append(
-                {"params": carry[0], "opt": carry[1], "opt_name": opt_name,
+                {"params": params, "opt": opt, "opt_name": opt_name,
                  "data": pipe.state(), "step": ctx.stop})
         return boundaries
 
@@ -580,24 +648,33 @@ class TorchTrainer(TrainerBackend):
                    for s in states]
         vec = self.vectorize_groups
         if vec:
-            # a list, updated in place step by step (see _run_group_chunk)
-            carry = [_stack([c[i] for c in carries]) for i in (0, 1)]
+            # at rest on a mesh with the member axis whole (n_lead 1); a
+            # list in a chunk, updated in place step by step (see
+            # _run_group_chunk)
+            carry = self._at_rest(tuple(
+                _stack([c[i] for c in carries]) for i in (0, 1)), 1)
+        else:
+            carries = [self._at_rest(c, 0) for c in carries]
         boundaries: List[List[Dict[str, Any]]] = [[] for _ in range(group)]
 
         for j, ctx0 in enumerate(chains[0]):
             vals0, static_hp, stage_opt, names = plans[0][j]
             if stage_opt != opt_name:
                 # optimizer switch at the boundary: fresh slots, exactly as
-                # run_stage would re-init on the restored state
+                # run_stage would re-init on the restored state (and back
+                # to the mesh's at-rest layout)
                 opt_name = stage_opt
                 if vec:
-                    carry[1] = init_opt_state(opt_name, carry[0])
+                    params = self._whole(carry[0])
+                    carry = self._at_rest(
+                        (params, init_opt_state(opt_name, params)), 1)
                 else:
-                    carries = [(p, init_opt_state(opt_name, p))
-                               for p, _ in carries]
+                    carries = [self._at_rest(
+                        (p, init_opt_state(opt_name, p)), 0) for p in
+                        (self._whole(c[0]) for c in carries)]
             if vec:
                 static_dev = {k: torch.full((group,), v, dtype=torch.float32,
-                                            device=self.device)
+                                            device=self._home)
                               for k, v in static_hp.items()}
             else:
                 static_dev = self._scalars(static_hp)
@@ -611,37 +688,48 @@ class TorchTrainer(TrainerBackend):
                     slabs = [pipe.next_batches(k_len) for pipe in pipes]
                     steps = torch.arange(ctx0.start + w0, ctx0.start + w1,
                                          dtype=torch.int32,
-                                         device=self.device)
+                                         device=self._home)
                     if vec:
                         # step-major (n, M): row i is one contiguous (M,)
                         # vector, the kernel's per-member operand
                         hp_xs = {k: torch.from_numpy(np.ascontiguousarray(
                             np.asarray([pl[j][0][k][w0:w1] for pl in plans],
-                                       np.float32).T)).to(self.device)
+                                       np.float32).T)).to(self._home)
                             for k in names}
                         slab = self._upload(slabs[0] if shared else {
                             k: np.stack([sl[k] for sl in slabs], axis=1)
                             for k in slabs[0]})
-                        self._run_group_chunk(opt_name, carry, static_dev,
+                        work = list(self._whole(carry))
+                        carry = None     # pins neither input nor shards
+                        self._run_group_chunk(opt_name, work, static_dev,
                                               hp_xs, slab, steps, shared)
+                        carry = self._at_rest(tuple(work), 1)
                     else:
                         up = [self._upload(sl) for sl in slabs]
                         for m, pl in enumerate(plans):
                             hp_m = {k: torch.tensor(
                                 np.asarray(pl[j][0][k][w0:w1], np.float32),
-                                device=self.device) for k in names}
-                            carries[m] = self._run_chunk(
-                                opt_name, carries[m], static_dev, hp_m,
-                                up[0 if shared else m], steps)
+                                device=self._home) for k in names}
+                            work = self._whole(carries[m])
+                            carries[m] = None    # nor are member m's
+                            carries[m] = self._at_rest(self._run_chunk(
+                                opt_name, work, static_dev, hp_m,
+                                up[0 if shared else m], steps), 0)
+                            del work
                     w0 = w1
+            # snapshots leave the trainer whole, on the mesh's first device
             if vec:
-                carries = [tuple(tree_map(lambda x, m=m: x[m].clone(), c)
-                                 for c in carry) for m in range(group)]
+                whole = self._whole(carry)
+                snaps = [tuple(tree_map(lambda x, m=m: x[m].clone(), c)
+                               for c in whole) for m in range(group)]
+                del whole
+            else:
+                snaps = [self._whole(c) for c in carries]
             datas = [pipes[0].state()] * group if shared \
                 else [p.state() for p in pipes]
             for m in range(group):
                 boundaries[m].append(
-                    {"params": carries[m][0], "opt": carries[m][1],
+                    {"params": snaps[m][0], "opt": snaps[m][1],
                      "opt_name": opt_name, "data": datas[m],
                      "step": ctx0.stop})
         return boundaries
@@ -685,9 +773,9 @@ class TorchTrainer(TrainerBackend):
             batch = pipe.next_batch()
             slab = self._upload({k: v[None] for k, v in batch.items()})
             hp_xs = {k: torch.tensor([vals[k][i]], dtype=torch.float32,
-                                     device=self.device) for k in names}
+                                     device=self._home) for k in names}
             steps = torch.tensor([step], dtype=torch.int32,
-                                 device=self.device)
+                                 device=self._home)
             carry = self._run_chunk(opt_name, carry, static_dev, hp_xs,
                                     slab, steps)
 
@@ -698,8 +786,11 @@ class TorchTrainer(TrainerBackend):
     def evaluate(self, state: Dict[str, Any], ctx: StageContext
                  ) -> Dict[str, float]:
         state, = self.on_device(state)
+        batch = self.eval_batch
+        if self._home != self.device:            # a mesh's first card
+            batch = {k: v.to(self._home) for k, v in batch.items()}
         with torch.no_grad():
-            loss, metrics = self.task.loss(state["params"], self.eval_batch)
+            loss, metrics = self.task.loss(state["params"], batch)
         self.evaluations += 1
         out = {"loss": float(loss)}
         out["val_acc"] = float(metrics.get(self.objective_from, -loss))

@@ -591,24 +591,32 @@ def test_on_device_moves_restored_leaves_once(backend, monkeypatch):
 @pytest.mark.parametrize("kw", [{"worker_meshes": [None]}],
                          ids=["worker_meshes"])
 def test_engine_refuses_options_of_unported_planes(kw, backend):
-    """The plane still missing is sharded stage execution over several
-    cards: a ``TorchTrainer`` engine refuses a worker mesh wider than one
-    device when it is built (and a study's run before any work), naming
-    the ROADMAP item; a one-device mesh and the simulator's wide meshes
-    are accepted."""
+    """No plane is left unported: a ``TorchTrainer`` engine takes a worker
+    mesh wider than one device when it is built (on a CPU trainer every
+    shard is a tensor on the CPU), a study runs on it with its stages
+    placed on the mesh, and ``add_worker`` takes another; the placement
+    gate rejects a mesh that shards nothing (7 devices divide no dimension
+    of the ResNet); a one-device mesh and the simulator's wide meshes are
+    accepted as before."""
     wide = {k: [WorkerMesh.build([0, 1])] for k in kw}
     plan = T.SearchPlan("gate")
-    with pytest.raises(NotImplementedError,
-                       match="sharded stage execution.*ROADMAP"):
-        T.ExecutionEngine(plan, backend, **wide)
-    st = T.Study.create(T.SearchPlanDB(), "m", "d", ("lr",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.run(TT.GridTuner([]), backend, **wide)
+    try:
+        eng = T.ExecutionEngine(plan, backend, **wide)
+        assert eng.workers[0].devices == 2
+        st = T.Study.create(T.SearchPlanDB(), "m", "d", ("lr",))
+        stats = st.run(TT.GridTuner([T.Trial(T.HpConfig(
+            {"lr": T.Constant(0.05)}), 4)]), backend, **wide)
+        assert stats.mesh_placements > 0 and stats.steps_run == 4
+        assert backend._wmesh == WorkerMesh.build([0, 1])
+        eng.add_worker(mesh=WorkerMesh.build([2, 3]))
+        assert eng.workers[-1].mesh == WorkerMesh.build([2, 3])
+        assert backend.mesh_compatible(WorkerMesh.build([0, 1]), [])
+        assert not backend.mesh_compatible(WorkerMesh.build(range(7)), [])
+    finally:
+        backend.set_mesh(None)           # the fixture is the module's
     eng = T.ExecutionEngine(plan, backend,
                             **{k: [WorkerMesh.build([0])] for k in kw})
     assert eng.workers[0].mesh == WorkerMesh.build([0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.add_worker(mesh=WorkerMesh.build([0, 1]))
     eng = T.ExecutionEngine(plan, SimulatedTrainer(), **wide)
     assert eng.workers[0].devices == 2
 

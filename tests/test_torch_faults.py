@@ -345,15 +345,23 @@ def test_engine_wraps_backend_and_store_and_still_refuses_meshes():
     assert isinstance(eng.store, T.FaultyStore)
     assert eng.dispatcher._injector is inj and raw_store(eng.store) \
         is eng.store.inner
-    # a worker mesh the trainer cannot run is refused with the fault plane
-    # on as without it (sharded stage execution over several cards)
-    with pytest.raises(NotImplementedError, match="sharded stage execution"):
-        T.ExecutionEngine(T.SearchPlan("x"), tiny_backend(),
-                          worker_meshes=[WorkerMesh.build([0, 1])],
-                          fault_injector=inj)
+    # a wide worker mesh over the trainer is taken with the fault plane
+    # on as without it, and a study runs on it (every shard a CPU
+    # tensor); through the wrapper, the placement gate still rejects a
+    # mesh that shards nothing (3 divides neither 16 x 4 nor 4)
+    wide = [WorkerMesh.build([0, 1])]
+    study = T.Study.create(SearchPlanDB(), "m", "d", ("lr",))
+    eng = study.engine(tiny_backend(), n_workers=1, worker_meshes=wide,
+                       fault_injector=inj)
+    assert isinstance(eng.backend, T.FaultyBackend)
+    assert eng.workers[0].devices == 2 and eng.dispatcher._d2d_enabled
+    stats = eng.run([GridTuner([Trial(HpConfig({"lr": Constant(0.1)}),
+                                      8)])])
+    assert stats.mesh_placements > 0 and stats.steps_run == 8
+    assert eng.backend.mesh_compatible(wide[0], [])
+    assert not eng.backend.mesh_compatible(WorkerMesh.build([0, 1, 2]), [])
     eng = T.ExecutionEngine(T.SearchPlan("x"), SimulatedTrainer(),
-                            worker_meshes=[WorkerMesh.build([0, 1])],
-                            fault_injector=inj)
+                            worker_meshes=wide, fault_injector=inj)
     assert eng.workers[0].devices == 2 and eng.dispatcher._d2d_enabled
 
 
@@ -999,9 +1007,10 @@ def test_serve_studies_inject_faults(monkeypatch, capsys):
 
 
 def test_serve_studies_refuses_devices_per_worker(monkeypatch):
-    """Two devices a worker over the PyTorch trainer are sharded stage
-    execution over several cards: refused when the gateway is built,
-    before any work starts, never ignored."""
+    """Two devices a worker over the PyTorch trainer: the gateway is built
+    with every slot a 2-device mesh and serves real training on them
+    (every shard a CPU tensor); the trainer's placement gate rejects a
+    mesh that shards nothing."""
     from repro_torch.launch import serve_studies
 
     built = []
@@ -1010,9 +1019,16 @@ def test_serve_studies_refuses_devices_per_worker(monkeypatch):
         built.append(tiny_backend())
         return built[-1]
 
-    monkeypatch.setattr(serve_studies, "_submit_all", None)
-    with pytest.raises(NotImplementedError,
-                       match="sharded stage execution.*ROADMAP"):
-        serve_studies.main(["--studies", "1", "--workers", "2",
-                            "--devices-per-worker", "2"], backend=backend)
-    assert len(built) == 1 and built[0].exec_calls == 0
+    def submit_one(gw, args, tenants):
+        gw.submit(serve_studies.StudySpec("tiny", "d", ("lr",)),
+                  GridTuner([Trial(HpConfig({"lr": Constant(0.1)}), 8)]),
+                  tenant=tenants[0])
+
+    monkeypatch.setattr(serve_studies, "_submit_all", submit_one)
+    (_, stats), = serve_studies.main(
+        ["--studies", "1", "--workers", "2", "--devices-per-worker", "2"],
+        backend=backend)
+    assert stats.mesh_placements > 0 and stats.steps_run == 8
+    assert len(built) == 1 and built[0].exec_calls > 0
+    assert built[0]._wmesh.n_devices == 2
+    assert not built[0].mesh_compatible(WorkerMesh.build([0, 1, 2]), [])

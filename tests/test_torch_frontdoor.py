@@ -270,14 +270,17 @@ def _capacity_meshes(P):
 
 def test_capacity_gate_refuses_unplaceable_work():
     """The gate on plain slots and on mesh slots in both packages; over
-    the PyTorch trainer a 2-device slot is sharded stage execution over
-    several cards, refused when the gateway is built."""
+    the PyTorch trainer 2-device slots are built (a CPU trainer's shards
+    are CPU tensors), and its placement gate rejects a mesh that shards
+    nothing."""
     both(_capacity)
     assert both(_capacity_meshes)["widths"] == [2, 2]
     trainer = TorchTrainer(_TinyTask(), lambda: None, {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded stage execution"):
-        StudyGateway(SearchPlanDB(), trainer,
-                     slot_meshes=plan_worker_meshes(2, 2))
+    gw = StudyGateway(SearchPlanDB(), trainer,
+                      slot_meshes=plan_worker_meshes(2, 2))
+    assert gw.leases.slot_widths() == [2, 2]
+    assert trainer.mesh_compatible(plan_worker_meshes(1, 2)[0], [])
+    assert not trainer.mesh_compatible(plan_worker_meshes(1, 7)[0], [])
     gw = StudyGateway(SearchPlanDB(), trainer,
                       slot_meshes=plan_worker_meshes(2, 1))
     assert gw.leases.slot_widths() == [1, 1]

@@ -126,9 +126,23 @@ def test_shardings_place_whole_leaves_on_one_device():
     assert devs == {"embed": torch.device("cpu"),
                     "rest": [{"w": torch.device("cpu")}]}
     assert place(tree, devs)["rest"][0]["w"].device.type == "cpu"
-    with pytest.raises(NotImplementedError,
-                       match="sharded stage execution over several cards"):
+    # over several devices: the trainer's at-rest layout, the embedding
+    # split over the data axis (its fsdp dimension), the rest whole
+    from repro_torch.dist.sharding import Shards, join_leaf
+    sizes = {"data": 2, "model": 1}
+    specs = param_specs(tree, ShardingRules.for_mesh(False), sizes)
+    with pytest.raises(ValueError, match="axes"):
         shardings_for([torch.device("cpu")] * 2, specs)
+    wide = shardings_for([torch.device("cpu")] * 2, specs,
+                         axes=tuple(sizes.items()))
+    tree = {"embed": torch.arange(32.0).reshape(8, 4),
+            "rest": [{"w": torch.ones(2)}]}
+    placed = place(tree, wide)
+    emb = placed["embed"]
+    assert isinstance(emb, Shards) and emb.spec == ("model", "data")
+    assert [p.shape for p in emb.pieces] == [(8, 2), (8, 2)]
+    assert torch.equal(join_leaf(emb, torch.device("cpu")), tree["embed"])
+    assert placed["rest"][0]["w"] is tree["rest"][0]["w"]
 
 
 def test_launcher_trains_on_the_cpu(capsys):

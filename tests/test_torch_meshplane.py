@@ -10,9 +10,9 @@ and returns a record — ``EngineStats`` field for field, the plan's
 metrics and checkpoints, the fleet — that must be equal.  The
 ``TorchTrainer`` cases (the divisibility gate, the d2d copy that no
 producer aliases, a one-device-mesh fleet bit-equal to a thread fleet)
-run the port on the CPU.  A stage sharded over several devices is not in
-the port (sharded stage execution over several cards): the reference's
-4-device subprocess case has no counterpart.
+run the port on the CPU.  The reference's 4-device subprocess case (a
+stage sharded over several devices) is ported in
+``tests/test_torch_sharded_exec.py``.
 """
 
 import dataclasses

@@ -465,10 +465,12 @@ def test_snapshot_holds_host_tensors_and_no_tensor_metrics(tmp_path):
 
 def test_restore_two_workers_and_refuse_meshes_and_leases():
     """A two-worker session restores (the rows' meshes are all None, so
-    the engine gets ``worker_meshes=None``); rows with meshes restore with
-    them, and a trainer that cannot run a mesh (a 2-device one: sharded
-    stage execution over several cards) refuses it; a draining lease (the
-    front door's) restores as draining, under its captured id."""
+    the engine gets ``worker_meshes=None``); rows with 2-device meshes
+    restore with them, over the simulator and over a CPU ``TorchTrainer``
+    (whose placement gate rejects a mesh that shards nothing), and a
+    CUDA trainer whose process does not see the mesh's cards refuses them
+    before any work; a draining lease (the front door's) restores as
+    draining, under its captured id."""
     svc, state = _small_session()
     eng = restore_engine(state, SimulatedTrainer(horizon=80))
     assert len(eng.workers) == 2
@@ -478,9 +480,16 @@ def test_restore_two_workers_and_refuse_meshes_and_leases():
                       for row, m in zip(meshed.workers, meshes)]
     eng = restore_engine(meshed, SimulatedTrainer(horizon=80))
     assert [w.mesh for w in eng.workers] == list(meshes)
-    with pytest.raises(NotImplementedError, match="sharded stage execution"):
-        restore_engine(meshed, TorchTrainer(
-            ResNet(n=1, width=4), lambda: None, {}, device="cpu"))
+    trainer = TorchTrainer(ResNet(n=1, width=4), lambda: None, {},
+                           device="cpu")
+    eng = restore_engine(meshed, trainer)
+    assert [w.mesh for w in eng.workers] == list(meshes)
+    assert trainer.mesh_compatible(meshes[0], [])
+    assert not trainer.mesh_compatible(plan_worker_meshes(1, 7)[0], [])
+    if torch.cuda.device_count() < 4:    # the meshes name cards 0-3
+        trainer.device = torch.device("cuda")
+        with pytest.raises(ValueError, match="visible CUDA devices"):
+            restore_engine(meshed, trainer)
     _, leased = _small_session()
     leased.workers = [row[:7] + (True,) for row in leased.workers]
     eng = restore_engine(leased, SimulatedTrainer(horizon=80))

@@ -262,6 +262,8 @@ def test_presets_and_seq_constrainer():
                            seq="model")
     x = torch.ones(2, 3, 4)
     assert seq_constrainer(seqpar, {"data": 1, "model": 1})(x) is x
+    # a sequence split over 16 devices needs the DTensor mesh to split on
     with pytest.raises(NotImplementedError,
-                       match="sharded stage execution over several cards"):
+                       match="16 devices.*pass the torch.distributed "
+                             "DeviceMesh"):
         seq_constrainer(seqpar)              # model = 16 devices
