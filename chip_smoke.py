@@ -17,7 +17,10 @@ its study at 1), recurrentgemma-2b (d_model 2560, RG-LRU width 2560, 10 /
 studied and served at 5 of its 26 layers), hubert-xlarge (48 layers,
 audio frames) and qwen2-vl-7b (patches and text, M-RoPE; 2 of its 28
 layers), random weights from a seed, and holds every kernel of
-those paths against its plain PyTorch version on the card; then the dry
+those paths against its plain PyTorch version on the card; the
+launcher's rank step (what each ``torchrun`` rank runs) with the kernels
+on its local heads, on a one-rank NCCL group, and the kernel bindings on
+two head shards against the whole call; then the dry
 run: every architecture's reduced step on the card, and qwen2-0.5b's
 production cases over fake tensors on a fake 256-rank mesh.  Needs one CUDA device and
 no network; fails (non-zero exit, no result line) without a GPU or outside
@@ -174,8 +177,10 @@ Phases, each printing one JSON line:
    steps + evaluations), B3 = B4 = 24 × launch steps, all on the tensor
    cores; metrics bit-equal or within 2e-2.
 15. ``group_step`` — one member-stacked chunk (the vectorised tier) against
-   solo chunks: ResNet56 and qwen2-0.5b at M = 2 and 4, mamba2-2.7b at full
-   width and 4 layers at M = 2 (B5 and B6 folded); per member-step the
+   solo chunks at ``GROUP_STEP``'s depths (cut for the script's budget):
+   ResNet20 (``ResNet(n=3, width=16)``, batch 128) and qwen2-0.5b
+   at full width and 12 layers at M = 2 and 4, mamba2-2.7b at full width
+   and 2 layers at M = 2 (B5 and B6 folded); per member-step the
    host-clock ms, device busy ms, idle share and CUDA launches, the peak
    memory, and a group chunk's launches held exact (each kernel once a
    step whatever M).
@@ -249,7 +254,8 @@ Phases, each printing one JSON line:
    mesh slot (``--devices-per-worker 1``): the count fields equal, B1 =
    the device's steps in both (``gateway_serve_studies``).
 24. ``mesh_plane`` (run after ``gateway``) — phase 4's study on one
-   worker, a thread fleet against a one-device mesh fleet
+   worker at ResNet20's depth (``MESH_RESNET``, cut for the script's
+   budget), a thread fleet against a one-device mesh fleet
    (``worker_meshes=[WorkerMesh.build([0])]``), on the memory tier and on
    a directory store, then over ``group_space`` with ``batch_siblings``
    (the vectorised tier) on the memory tier: each pair's count fields
@@ -268,6 +274,28 @@ Phases, each printing one JSON line:
    B3 = B4 = 480, all on the tensor cores, no fallback; its first 3 steps
    again on the plain versions, each loss within ``LAUNCH_LOSS_RTOL``
    (2^-8, one bf16 rounding) of the plain one; s/step and tokens/s.
+36. ``local_heads`` (run after ``launch_train``) — the kernel bindings on
+   two head shards, as two model ranks hold them (``ops.attention_plan``
+   / ``ops.ssd_plan``), reassembled (heads concatenated; case 2's dk /
+   dv and B6's dB / dC summed) against the whole-tensor call on the same
+   inputs: qwen2-0.5b's attention (B 4, S 1024, 14 / 2, hd 64, causal:
+   each shard whole kv groups, plan case 1), recurrentgemma-2b's (B 1, S
+   4096, 10 / 1, hd 256, window 2048: inside one kv group, case 2) and
+   mamba2-2.7b's SSD (H 80, x / dt / decays split, B and C whole), bf16
+   (the tensor cores, asserted by the ``launches_tc`` deltas) and f32;
+   bf16 by ``rounding_rule`` against the whole call (env = Σ |partial
+   sums| where a head sum is split, else 0), f32 within 1e-5 × scale;
+   prints whether each output came out bit-equal.
+37. ``launch_ranks`` — in a child process (``--launch-ranks-child``: a
+   one-rank NCCL process group), ``launch.train._train_ranks`` (what each
+   ``torchrun`` rank runs) with ``--use-kernel`` on a (1, 1)
+   ``DeviceMesh``: qwen2-0.5b at full width, 4 × 1024, ``LAUNCH_STEPS``
+   steps (B2 = B3 = B4 = 24 a step on the tensor cores) and mamba2-2.7b
+   at full width and ``RANKS_MAMBA["layers"]`` (4) of 64 layers, 1 ×
+   2048 (B5 = B6 = 4 a step), the plain update (B1 0, as the JAX
+   launcher's step), no fallback, no head gathered; each loss within
+   ``LAUNCH_LOSS_RTOL`` of the one-process launcher's kernels from the
+   same seed (qwen2's: ``launch_train``'s run; mamba2's: the child's).
 26. ``group_retry`` (run after ``lm_group_degraded``) — a retry that
    crosses the group tiers on qwen2-0.5b, vectorised: a member of a
    depth-2 group chain fails its second boundary's put after its first
@@ -277,7 +305,7 @@ Phases, each printing one JSON line:
    within 2e-2; B1–B4 launches exact.
 27. ``serve`` (last but two) — decode through
    ``repro_torch.train.step.build_serve_step``: qwen2-0.5b at full width
-   and ``SERVE["layers"]`` (12) of its 24 layers, bf16, random weights
+   and ``SERVE["layers"]`` (6) of its 24 layers, bf16, random weights
    from a seed: batch 8, a 256-token prompt
    fed token by token, then 64 greedy tokens, the position a 0-d device
    tensor and CUDA's sync debug mode set to raise (no step reads the card
@@ -354,7 +382,8 @@ Phases, each printing one JSON line:
    dims 256 (recurrentgemma-2b's shape and study) and 80 (hubert-xlarge's
    shape and train steps); with the grouped runs',
    the fault plane's, the sessions', the gateway's, the mesh plane's,
-   the launcher's, the retry's, the degraded runs', the serve phases',
+   the launcher's (one process and, ``launches_launch_ranks``, a rank),
+   the retry's, the degraded runs', the serve phases',
    the MoE study's, the RG-LRU study's, the frontends' and the dry run's
    launches and the fold's checks) and ``{"ok": true, "device": {...}}``.
 
@@ -454,9 +483,13 @@ GROUP_STUDY_COMMITS = 8
 # the group study's depth: 32 layers fit (a 2-member step 43.1 GiB,
 # tools/group_probe.py memory mamba2-2.7b 32; the grouped study 51.0 GiB)
 # but took 145 s of a 1,004 s run (16 layers 83 s of 939 s), so it is
-# cut for the run's time; 8 layers took 98.4 s of a 976.6 s run, so 4
-MAMBA_GROUP_LAYERS = 4
+# cut for the run's time; 8 layers took 98.4 s of a 976.6 s run, so 4;
+# at 4, 36.2 s of an 822.1 s run that launch_ranks had grown, so 2
+MAMBA_GROUP_LAYERS = 2
 RESNET_FULL = dict(n=9, width=16, n_train=8192, n_eval=512, batch=128)
+# mesh_plane's six studies at ResNet20's depth: at ResNet56 they took
+# 48.8 s of that 822.1 s run (the fleets' bit-equality does not hang on it)
+MESH_RESNET = dict(RESNET_FULL, n=3)
 RESNET_LEAVES = 114
 
 SHAPES = [(3, 3, 64, 64), (64,), (64, 10), (3, 3, 5, 7)]   # last one ragged
@@ -466,11 +499,16 @@ ADAM_HPS = dict(HPS, lr=1e-3)
 FOLD_M = 2                          # members of the fold phase's groups
 GROUP_MS = (2, 4)                   # group sizes of group_step
 QWEN_GROUP_MS = (2, 4)
+# group_step's depths: ResNet20 and qwen2-0.5b at 12 of 24 layers (the
+# studies keep ResNet56 and 24), mamba2-2.7b at 2 of 64; at ResNet56, 24
+# and 4 the phase took 96.4 s of an 822.1 s run that launch_ranks had
+# grown by 79.3 s (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 4)
+GROUP_STEP = {"resnet_n": 3, "qwen2_layers": 12, "mamba2_layers": 2}
 # the serve phases: batch, prompt tokens fed token by token, new greedy
 # tokens; qwen2-0.5b's second pass with a 128-slot ring buffer; its
-# token-by-token passes at 12 of its 24 layers (cut for the script's
-# budget), decode_32k at all 24
-SERVE = dict(batch=8, prompt=256, new=64, window=128, layers=12)
+# token-by-token passes at 6 of its 24 layers (cut for the script's
+# budget: 24, then 12, then 6 when launch_ranks came), decode_32k at all 24
+SERVE = dict(batch=8, prompt=256, new=64, window=128, layers=6)
 # mamba2-2.7b served at the studies' depth: a 64-layer host draw (2.7 B
 # parameters) would take about half the three new phases' budget
 MAMBA_SERVE = dict(batch=8, prompt=128, new=32, layers=8)
@@ -3771,29 +3809,36 @@ def group_step(label, backend, opt, lr, n, Ms, per_step):
     return launches
 
 
-def group_step_phase(lm_backend):
-    """``group_step`` for ResNet56 and qwen2-0.5b (``lm_backend``, drawn
-    already) at M = 2 and 4, and for mamba2-2.7b at full width, 4 layers,
-    M = 2: B5 and B6 folded; returns mamba2's launches of one chunk."""
+def group_step_phase():
+    """``group_step`` at ``GROUP_STEP``'s depths: ResNet20 and qwen2-0.5b
+    (full width, 12 layers) at M = 2 and 4, and mamba2-2.7b at full width,
+    2 layers, M = 2: B5 and B6 folded; returns mamba2's launches of one
+    chunk."""
     import torch_hpo_lm as lm_example
     import torch_hpo_resnet as example
-    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
-    group_step("ResNet(n=9, width=16), batch 128", backend, "momentum",
+    n = GROUP_STEP["resnet_n"]
+    backend = example.make_backend(use_kernel=True,
+                                   **dict(RESNET_FULL, n=n))
+    group_step(f"ResNet(n={n}, width=16), batch 128", backend, "momentum",
                0.05, 8, GROUP_MS, {})
     del backend
     free()
-    L = lm_backend.task.cfg.num_layers
-    group_step("qwen2-0.5b, 4 x 1024 tokens", lm_backend, "adamw", 3e-4, 4,
-               QWEN_GROUP_MS, {"flash_attention_fwd": L,
-                          "flash_attention_bwd_dq": L,
-                          "flash_attention_bwd_dkv": L})
+    L = GROUP_STEP["qwen2_layers"]
+    backend = lm_example.make_backend(arch="qwen2-0.5b", use_kernel=True,
+                                      layers=L, **LM_FULL)
+    group_step(f"qwen2-0.5b, {L} layers, 4 x 1024 tokens", backend, "adamw",
+               3e-4, 4, QWEN_GROUP_MS, {"flash_attention_fwd": L,
+                                        "flash_attention_bwd_dq": L,
+                                        "flash_attention_bwd_dkv": L})
+    del backend
     free()
+    L = GROUP_STEP["mamba2_layers"]
     backend = lm_example.make_backend(arch="mamba2-2.7b", use_kernel=True,
                                       batch=1, seq_len=2048, n_train=8,
-                                      n_eval=1, layers=4)
-    return group_step("mamba2-2.7b, 4 layers, 1 x 2048 tokens", backend,
+                                      n_eval=1, layers=L)
+    return group_step(f"mamba2-2.7b, {L} layers, 1 x 2048 tokens", backend,
                       "adamw", 3e-4, 4, (2,),
-                      {"ssd_intra_fwd": 4, "ssd_intra_bwd": 4})
+                      {"ssd_intra_fwd": L, "ssd_intra_bwd": L})
 
 
 # ------------------------------------------- 16-18. the serialized tiers
@@ -4158,9 +4203,10 @@ def wide_mesh_refusal(backend, smi):
 
 
 def mesh_plane_phase(root, smi):
-    """Phase 4's study on one worker, a thread fleet against a one-device
-    mesh fleet (``worker_meshes=[WorkerMesh.build([0])]``), on the memory
-    tier and on a directory store, then grouped (``group_space``,
+    """Phase 4's study at ``MESH_RESNET``'s depth on one worker, a thread
+    fleet against a one-device mesh fleet (``worker_meshes=
+    [WorkerMesh.build([0])]``), on the memory tier and on a directory
+    store, then grouped (``group_space``,
     ``batch_siblings=True``, the vectorised tier) on the memory tier:
     each pair bit-equal — count fields (``ckpt_loads`` included), held
     checkpoints, metrics, best trial, B1 launches (= device steps solo) —
@@ -4173,7 +4219,7 @@ def mesh_plane_phase(root, smi):
     from repro_torch.dist.meshes import WorkerMesh
     from repro_torch.train.checkpoint import CheckpointStore
     d = os.path.join(root, "mesh_plane")
-    backend = example.make_backend(use_kernel=True, **RESNET_FULL)
+    backend = example.make_backend(use_kernel=True, **MESH_RESNET)
     refusal = wide_mesh_refusal(backend, smi)
     computed = device_steps(backend)
     fleets = {"thread": None, "mesh": [WorkerMesh.build(MESH)]}
@@ -4218,8 +4264,9 @@ def mesh_plane_phase(root, smi):
             "wall_seconds": {"thread": t["wall"], "mesh": m["wall"]}}
         launches[tier] = m["launches"]
     shutil.rmtree(d, ignore_errors=True)
-    emit({"phase": "mesh_plane", "model": "ResNet(n=9, width=16)",
-          "batch": RESNET_FULL["batch"], "workers": 1,
+    emit({"phase": "mesh_plane",
+          "model": f"ResNet(n={MESH_RESNET['n']}, width=16)",
+          "batch": MESH_RESNET["batch"], "workers": 1,
           "mesh": {"device_ids": MESH, "axes": [["data", 1]]},
           "wide_mesh_refusal": refusal,
           "tiers": rows, "bit_equal_to_thread_fleet": True,
@@ -4235,7 +4282,7 @@ def launch_train_phase():
     fallback), then its first ``LAUNCH_PLAIN_STEPS`` steps again on the
     plain versions (no launch): each step's loss within
     ``LAUNCH_LOSS_RTOL`` of the plain one.  Returns the kernels' run's
-    launches."""
+    launches, and its losses and s/step."""
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train as launcher
     counters = lm_counters()
@@ -4262,7 +4309,7 @@ def launch_train_phase():
     k, p = runs["kernels"], runs["plain"]
     L, n = 24, LAUNCH_STEPS
     assert k["launches"] == {"B1": n, "B2": L * n, "B3": L * n,
-                             "B4": L * n}, k["launches"]
+                             "B4": L * n, "B5": 0, "B6": 0}, k["launches"]
     assert k["all_launches"] == {
         "stacked_tree_update": n, "stacked_leaf_update": 0,
         "flash_attention_fwd": L * n, "flash_attention_bwd_dq": L * n,
@@ -4270,7 +4317,7 @@ def launch_train_phase():
         "ssd_intra_bwd": 0}, k["all_launches"]
     assert k["launches_tc"] == [L * n] * 3, k["launches_tc"]
     assert k["kernel_fallbacks"] == 0 and k["kernel_calls"] == n * (1 + L)
-    assert p["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    assert set(p["launches"].values()) == {0}
     assert set(p["all_launches"].values()) == {0}
     assert p["kernel_calls"] == p["kernel_fallbacks"] == 0
     losses = np.array(k["losses"])
@@ -4293,7 +4340,549 @@ def launch_train_phase():
           "losses": k["losses"], "plain_losses": p["losses"],
           "loss_rtol": LAUNCH_LOSS_RTOL,
           "loss_difference_over_tolerance": ratios})
-    return k["launches"]
+    return k["launches"], {"losses": k["losses"],
+                           "seconds_per_step": k["seconds_per_step"]}
+
+
+# --------------------- 36-37. the kernels on local heads, the launcher on ranks
+LOCAL_HEADS_M = 2               # head shards, as two model ranks hold them
+# the shapes local_heads splits: the main paths' attention (qwen2-0.5b's
+# GQA 14 / 2 splits on whole kv groups, plan case 1; recurrentgemma-2b's
+# MQA 10 / 1 inside its one group, case 2) and mamba2-2.7b's SSD heads
+LOCAL_HEADS_ATTENTION = {
+    "qwen2-0.5b": dict(QWEN, causal=True, window=0),
+    "recurrentgemma-2b": WIDE_ATTENTION["recurrentgemma-2b"]}
+# launch_ranks' mamba2-2.7b run: mamba2_study's depth and tokens
+RANKS_MAMBA = dict(layers=MAMBA_STUDY["layers"], batch=MAMBA_STUDY["batch"],
+                   seq=MAMBA_STUDY["seq_len"], steps=5)
+
+
+def shard_rule(a, whole, parts):
+    """A reassembled output ``a`` of the binding's calls on head shards
+    against the whole-tensor call's ``whole`` on the same inputs.  bf16 by
+    :func:`rounding_rule` with the whole call as the reference: where the
+    shards split a sum over heads (case 2's dk / dv, B6's dB / dC), each
+    partial sum in ``parts`` was rounded to bf16 once before they were
+    added, moving by at most 2^-8 of itself, so ``env = Σ |part|``;
+    elsewhere ``env = 0`` (one bf16 ulp + 2^-16 x scale).  f32 within
+    1e-5 x scale (the SSD phase's f32 rule).  Returns (row, ok), the row
+    saying whether the output came out bit-equal."""
+    bits = torch.equal(a, whole)
+    if a.dtype == torch.bfloat16:
+        env = torch.zeros_like(whole, dtype=torch.float32)
+        for part in parts:
+            env += part.float().abs()
+        row, ok = rounding_rule(a, whole.float(), env,
+                                "the whole-tensor call",
+                                "sum |partial sums|" if parts else "0")
+    else:
+        diff = float((a - whole).abs().max())
+        scale = float(whole.abs().max())
+        row = {"max_abs_err": diff, "scale": scale,
+               "err_over_scale": diff / scale, "tolerance": "1e-5 x scale"}
+        ok = diff <= 1e-5 * scale
+    row["bit_equal"] = bits
+    return row, ok
+
+
+def binding_call(fn, inputs, cotangent, **kw):
+    """``fn`` (a kernel binding) on fresh leaves of ``inputs``: its output
+    and each input's gradient under ``cotangent``."""
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    out = fn(*leaves, **kw)
+    return [out.detach()] + list(torch.autograd.grad(out, leaves,
+                                                     cotangent))
+
+
+def local_heads_operands(arch, dtype, seed):
+    """One ``local_heads`` case on the card, made from ``seed``: ``(plan,
+    binding, inputs, cotangent, keywords, placements)``.  The placements
+    are the operands' on a (data 1, model ``LOCAL_HEADS_M``) mesh: q split
+    on heads, k / v split where the kv heads divide, else whole, as the
+    launcher's rank step hands them over; SSD's x, dt and the decays split
+    on heads, B and C whole.  (The rank step hands dt over whole; the
+    backward of its ``Replicate → Shard`` is DTensor's all-gather, which
+    crashes on gloo with CUDA tensors, so the ranks on the one card take
+    it split.)  The plan is the one they make."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels import ops as kops
+    m = LOCAL_HEADS_M
+    if arch == "mamba2-2.7b":
+        x, dt, lt, Bm, Cm, g = ssd_inputs(*(MAMBA[k] for k in (
+            "B", "nc", "Q", "H", "P", "N")), dtype, True, seed)
+        placements = ((Shard(0), Shard(3)), (Shard(0), Shard(3)),
+                      (Shard(0), Shard(2))) + ((Shard(0), Replicate()),) * 2
+        plan = kops.ssd_plan(placements, MAMBA["H"], (1, m))
+        return plan, kops.ssd_intra, (x, dt, lt, Bm, Cm), g, {}, placements
+    shape = LOCAL_HEADS_ATTENTION[arch]
+    B, S, Hq, Hkv, hd = (shape[k] for k in ("B", "S", "Hq", "Hkv", "hd"))
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(B, S, Hq, hd, generator=gen).to(DEV, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, hd, generator=gen).to(DEV, dtype)
+            for _ in range(2))
+    kv = (Shard(0), Shard(2) if Hkv % m == 0 else Replicate())
+    placements = ((Shard(0), Shard(2)), kv, kv)
+    plan = kops.attention_plan(placements, Hq, Hkv, (1, m))
+    return plan, kops.flash_attention, (q, k, v), do, dict(
+        causal=shape["causal"], window=shape["window"]), placements
+
+
+def local_heads_attention(arch, dtype, seed):
+    """One attention shape on one route, by hand: ``LOCAL_HEADS_M`` head
+    shards by the plan (q split on heads; k / v split where the kv heads
+    divide, else each shard's kv head), the binding on each, reassembled
+    (q heads concatenated; dk / dv concatenated in case 1, summed in bf16
+    or f32 as an all-reduce sums them in case 2).  Returns (plan, the
+    whole call's output and gradients, the reassembled ones, each one's
+    partial sums, empty where none)."""
+    plan, fn, (q, k, v), do, mk, _ = local_heads_operands(arch, dtype,
+                                                          seed)
+    m, Hq, Hkv = LOCAL_HEADS_M, q.shape[2], k.shape[2]
+    whole = binding_call(fn, (q, k, v), do, **mk)
+    hl = Hq // m
+    got = [torch.empty_like(x) for x in whole]
+    parts = [[], [], [], []]
+    for c in range(m):
+        qs = slice(c * hl, (c + 1) * hl)
+        if plan.kv_heads is None:
+            ks = slice(c * Hkv // m, (c + 1) * Hkv // m)
+        else:
+            h = plan.kv_heads[1][c]
+            ks = slice(h, h + 1)
+        out, dq, dk, dv = binding_call(
+            fn, (q[:, :, qs], k[:, :, ks], v[:, :, ks]),
+            do[:, :, qs].contiguous(), **mk)
+        got[0][:, :, qs], got[1][:, :, qs] = out, dq
+        if plan.kv_heads is None:
+            got[2][:, :, ks], got[3][:, :, ks] = dk, dv
+        else:
+            parts[2].append(dk)
+            parts[3].append(dv)
+            if c == 0:
+                got[2].zero_()
+                got[3].zero_()
+            got[2][:, :, ks] += dk
+            got[3][:, :, ks] += dv
+    return plan, whole, got, parts
+
+
+def local_heads_ssd(arch, dtype, seed):
+    """mamba2-2.7b's SSD shape on one route, by hand: ``LOCAL_HEADS_M``
+    head shards by the plan (x, dt and the decays split on heads, B and C
+    whole), the binding on each, reassembled (y, dx, ddt, dlt
+    concatenated on heads, dB / dC summed).  Returns as
+    :func:`local_heads_attention`."""
+    plan, fn, (x, dt, lt, Bm, Cm), g, _, _ = local_heads_operands(
+        arch, dtype, seed)
+    m, H = LOCAL_HEADS_M, x.shape[3]
+    whole = binding_call(fn, (x, dt, lt, Bm, Cm), g)
+    got = [torch.empty_like(t) for t in whole]
+    parts = [[], [], [], [], [], []]
+    hl = H // m
+    for c in range(m):
+        hs = slice(c * hl, (c + 1) * hl)
+        y, dx, ddt, dlt, dB, dC = binding_call(
+            fn, (x[:, :, :, hs], dt[..., hs], lt[:, :, hs], Bm, Cm),
+            g[:, :, :, hs].contiguous())
+        got[0][:, :, :, hs], got[1][:, :, :, hs] = y, dx
+        got[2][..., hs], got[3][:, :, hs] = ddt, dlt
+        parts[4].append(dB)
+        parts[5].append(dC)
+    got[4] = parts[4][0] + parts[4][1]
+    got[5] = parts[5][0] + parts[5][1]
+    return plan, whole, got, parts
+
+
+def misaligned_call(arch, seed):
+    """``arch``'s attention in bf16 with q handed over contiguous but 2
+    bytes past a 16-byte boundary, as a rank's batch slice of a replica
+    can lie: the binding copies it to an aligned buffer for the TMA maps
+    (``ops._aligned``).  Returns whether its output and gradients came out
+    bit-equal to the call on aligned q."""
+    _, fn, (q, k, v), do, mk, _ = local_heads_operands(
+        arch, torch.bfloat16, seed)
+    whole = binding_call(fn, (q, k, v), do, **mk)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    qm = buf[1:].view(q.shape)
+    qm.copy_(q)
+    assert qm.is_contiguous() and qm.data_ptr() % 16, qm.data_ptr()
+    leaves = [qm.requires_grad_()] + [x.detach().clone().requires_grad_()
+                                      for x in (k, v)]
+    out = fn(*leaves, **mk)
+    got = [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+    return all(torch.equal(a, b) for a, b in zip(got, whole))
+
+
+def local_heads_ranks_child(spec):
+    """One of ``LOCAL_HEADS_M`` gloo ranks on the one card (NCCL takes one
+    rank a card): each ``local_heads`` case of ``spec["cases"]``, remade
+    from its seed, as DTensors on a (data 1, model ``LOCAL_HEADS_M``) mesh
+    placed by :func:`local_heads_operands`; the binding on them and its
+    backward, the output and every input's gradient placed as the plan
+    says (asserted).  Saved to ``spec["out"].<rank>``: each one's local
+    tensor and its placement on ``model`` (the shard's tensor dimension,
+    ``"partial"`` or ``"replicate"``), the launch deltas and the kernel
+    plane's.  Nothing is gathered here: DTensor's collectives crash on
+    gloo with CUDA tensors, so :func:`hold_ranks` assembles the pieces.
+    Prints no result line."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels import ops as kops
+    rank, fns, stats = spec["rank"], lm_counters()[2:], kops.KERNEL_STATS
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=LOCAL_HEADS_M)
+    got = {}
+    try:
+        mesh = init_device_mesh(DEV.type, (1, LOCAL_HEADS_M),
+                                mesh_dim_names=("data", "model"))
+        for arch, dtype, seed in spec["cases"]:
+            plan, fn, inputs, cot, kw, placements = local_heads_operands(
+                arch, getattr(torch, dtype), seed)
+            dts = [distribute_tensor(x, mesh, p, src_data_rank=None)
+                   .requires_grad_() for x, p in zip(inputs, placements)]
+            before = [(f.launches, f.launches_tc) for f in fns]
+            stats0 = (stats.calls, stats.fallbacks, stats.heads_gathered)
+            out = fn(*dts, **kw)
+            outs = (out,) + torch.autograd.grad(out, dts, distribute_tensor(
+                cot, mesh, out.placements, src_data_rank=None))
+            torch.cuda.synchronize()
+            want = (plan.output,) + tuple(
+                g if p == i else p for p, i, g in zip(
+                    placements, plan.inputs, plan.grads))
+            placed = tuple(tuple(t.placements) for t in outs)
+            assert placed == want, (arch, dtype, placed, want)
+            got[f"{arch}:{dtype}"] = {
+                "local": [t.to_local().cpu() for t in outs],
+                "model": ["partial" if p[1].is_partial() else "replicate"
+                          if p[1].is_replicate() else p[1].dim
+                          for p in placed],
+                "placements": [[str(p) for p in ps] for ps in placed],
+                "launches": [[f.launches - a, f.launches_tc - b]
+                             for f, (a, b) in zip(fns, before)],
+                "kernel_plane": [stats.calls - stats0[0],
+                                 stats.fallbacks - stats0[1],
+                                 stats.heads_gathered - stats0[2]]}
+    finally:
+        dist.destroy_process_group()
+    torch.save(got, f"{spec['out']}.{rank}")
+    return 0
+
+
+def local_heads_ranks(root, cases):
+    """Start the ``LOCAL_HEADS_M`` ranks of
+    :func:`local_heads_ranks_child` on ``cases``; returns ``join()`` →
+    each rank's results, raising if a rank failed."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(root, "local_heads_ranks")
+    children = [subprocess.Popen([
+        sys.executable, os.path.abspath(__file__),
+        "--local-heads-ranks-child", json.dumps(
+            {"rank": r, "port": port, "out": out, "cases": cases})])
+        for r in range(LOCAL_HEADS_M)]
+
+    def join():
+        try:
+            codes = [child.wait(timeout=300) for child in children]
+            assert codes == [0] * LOCAL_HEADS_M, (
+                "a local_heads rank failed", codes)
+        finally:
+            for child in children:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        got = []
+        for r in range(LOCAL_HEADS_M):
+            got.append(torch.load(f"{out}.{r}"))
+            os.remove(f"{out}.{r}")
+        return got
+    return join
+
+
+LOCAL_HEADS_NAMES = {"attention": ("out", "dq", "dk", "dv"),
+                     "ssd": ("y", "dx", "ddt", "dlt", "dB", "dC")}
+
+
+def hold_ranks(ranks, key, names, whole, hand, tc):
+    """One case's DTensor results (every rank's, by
+    :func:`local_heads_ranks_child`) against the whole call.  Each output
+    is assembled from the ranks' local tensors by its placement on
+    ``model``: shards concatenated in rank order, a ``Partial`` sum added
+    in rank order (its local tensors the partial sums of
+    :func:`shard_rule`), a replica the same on every rank; then held by
+    :func:`shard_rule`.  Each rank made one call, no fallback, no head
+    gathered, and one launch of each of the binding's kernels (on the
+    tensor cores where ``tc``).  Returns (rows, ok), each row saying
+    whether the output came out bit-equal to the reassembled hand
+    shards."""
+    attention = names == LOCAL_HEADS_NAMES["attention"]
+    want = [[1, int(tc)] if (i < 3) == attention else [0, 0]
+            for i in range(5)]
+    r0 = ranks[0][key]
+    for r in ranks:
+        assert r[key]["launches"] == want, (key, r[key]["launches"])
+        assert r[key]["kernel_plane"] == [1, 0, 0], r[key]["kernel_plane"]
+        assert r[key]["placements"] == r0["placements"], key
+    rows, ok_all = {}, True
+    for i, name in enumerate(names):
+        pieces = [r[key]["local"][i].to(DEV) for r in ranks]
+        placed, parts = r0["model"][i], []
+        if placed == "partial":
+            a, parts = pieces[0], pieces
+            for piece in pieces[1:]:
+                a = a + piece
+        elif placed == "replicate":
+            a = pieces[0]
+            assert all(torch.equal(a, p) for p in pieces), (key, name)
+        else:
+            a = torch.cat(pieces, placed)
+        rows[name], ok = shard_rule(a, whole[i].to(DEV), parts)
+        rows[name]["bit_equal_to_hand_shards"] = torch.equal(a.cpu(),
+                                                             hand[i])
+        rows[name]["placements"] = r0["placements"][i]
+        ok_all = ok_all and ok
+    return rows, ok_all
+
+
+def local_heads_phase(join_build, root):
+    """The bindings on ``LOCAL_HEADS_M`` head shards at the main paths'
+    shapes (qwen2-0.5b's attention, plan case 1; recurrentgemma-2b's, case
+    2; mamba2-2.7b's SSD), bf16 on the tensor cores and f32, two ways.  In
+    this process, by hand, as two model ranks hold them: each reassembled
+    output by :func:`shard_rule` against the whole-tensor call on the same
+    inputs, and whether it came out bit-equal; the tensor-core route
+    asserted by the ``launches_tc`` deltas (each shard and the whole call
+    one forward and one backward).  On DTensors, over ``LOCAL_HEADS_M``
+    gloo ranks in child processes on the one card
+    (:func:`local_heads_ranks_child`, started first): the same rule
+    against the same whole call, assembled by :func:`hold_ranks`.
+    Besides, q handed over misaligned (:func:`misaligned_call`)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssk
+    join_build("flash_attention")
+    join_build("ssd_scan")
+    archs = (*LOCAL_HEADS_ATTENTION, "mamba2-2.7b")
+    dtypes = ((torch.bfloat16, True), (torch.float32, False))
+    join_ranks = local_heads_ranks(root, [
+        [arch, str(dt).replace("torch.", ""), 300 + i]
+        for i, arch in enumerate(archs) for dt, _ in dtypes])
+    calls = LOCAL_HEADS_M + 1
+    fa_fns = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+              fa.flash_attention_bwd_dkv)
+    ssd_fns = (ssk.ssd_intra_fwd, ssk.ssd_intra_bwd)
+    shapes, kept = {}, {}
+    for seed, arch in enumerate(archs, 300):
+        ssd = arch == "mamba2-2.7b"
+        fns, run = (ssd_fns, local_heads_ssd) if ssd else (
+            fa_fns, local_heads_attention)
+        names = LOCAL_HEADS_NAMES["ssd" if ssd else "attention"]
+        routes = {}
+        for dtype, tc in dtypes:
+            before = [(f.launches, f.launches_tc) for f in fns]
+            plan, whole, got, parts = run(arch, dtype, seed)
+            rows, ok_all = {}, True
+            for i, name in enumerate(names):
+                rows[name], ok = shard_rule(got[i], whole[i], parts[i])
+                ok_all = ok_all and ok
+            torch.cuda.synchronize()
+            assert ok_all, ("a shard result disagrees with the whole call",
+                            arch, str(dtype), rows)
+            deltas = [(f.launches - a, f.launches_tc - b)
+                      for f, (a, b) in zip(fns, before)]
+            assert deltas == [(calls, calls if tc else 0)] * len(fns), (
+                arch, str(dtype), deltas)
+            route = str(dtype).replace("torch.", "")
+            routes[route] = {
+                "outputs": rows, "launches": [d[0] for d in deltas],
+                "launches_tc": [d[1] for d in deltas]}
+            kept[f"{arch}:{route}"] = (names, [t.cpu() for t in whole],
+                                       [t.cpu() for t in got], tc)
+            del whole, got, parts
+            free()
+        shapes[arch] = {"plan_cases": list(plan.cases),
+                        "kv_heads": plan.kv_heads, "routes": routes}
+    aligned = misaligned_call("qwen2-0.5b", 300)
+    assert aligned, "misaligned q did not come out bit-equal"
+    ranks = join_ranks()
+    on_ranks = {}
+    for key, (names, whole, hand, tc) in kept.items():
+        rows, ok = hold_ranks(ranks, key, names, whole, hand, tc)
+        assert ok, ("a DTensor result disagrees with the whole call", key,
+                    rows)
+        on_ranks[key] = rows
+    emit({"phase": "local_heads", "head_shards": LOCAL_HEADS_M,
+          "shapes": shapes,
+          "shape_args": {"qwen2-0.5b": QWEN,
+                         "recurrentgemma-2b": LOCAL_HEADS_ATTENTION[
+                             "recurrentgemma-2b"], "mamba2-2.7b": MAMBA},
+          "rule": "bf16 rounding_rule against the whole call (env = sum "
+                  "|partial sums| where a head sum is split, else 0); f32 "
+                  "1e-5 x scale",
+          "dtensor_ranks": {
+              "process_group": f"gloo, world {LOCAL_HEADS_M}, one card",
+              "mesh": {"data": 1, "model": LOCAL_HEADS_M},
+              "entry": "kops.flash_attention / kops.ssd_intra on DTensors",
+              "assembled": "from each rank's local tensors by their "
+                           "placements (DTensor's collectives crash on "
+                           "gloo with CUDA tensors)",
+              "cases": on_ranks},
+          "misaligned_q_bit_equal": aligned})
+
+
+def launch_ranks_child(spec):
+    """A fresh process with a one-rank NCCL process group (this process's
+    stays without one): the function each rank of ``torchrun`` runs,
+    ``launch.train._train_ranks``, with ``--use-kernel`` on a (1, 1)
+    ``DeviceMesh`` for each run of ``spec["runs"]`` (its launches and
+    kernel counters set to 0 just before), and the one-process launcher
+    for each of ``spec["one_process"]``, each run ``(argv, layers)``: the
+    launcher's config cut to ``layers`` layers where that is not None
+    (the widths kept); the reports written to ``spec["out"]``.  Prints no
+    result line."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as launcher
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    counters = lm_counters()
+    reports = {}
+
+    get_config = launcher.get_config
+
+    def run(label, fn, layers):
+        launcher.get_config = get_config if layers is None else (
+            lambda arch: dataclasses.replace(get_config(arch),
+                                             num_layers=layers))
+        for c in counters:                       # counts to 0 just before
+            c.launches = 0
+            if hasattr(c, "launches_tc"):
+                c.launches_tc = 0
+        kops.reset_kernel_stats()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                rep = fn()
+        finally:
+            launcher.get_config = get_config
+        torch.cuda.synchronize()
+        rep["wall"] = time.perf_counter() - t0
+        rep["all_launches"] = {c.__name__: c.launches for c in counters}
+        rep.pop("local_shapes", None)
+        reports[label] = rep
+        free()
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        for label, (argv, layers) in spec["runs"].items():
+            run(label, lambda: launcher._train_ranks(
+                *launcher.parse(argv), world=1), layers)
+    finally:
+        dist.destroy_process_group()
+    for label, (argv, layers) in spec["one_process"].items():
+        run(f"one_process:{label}", lambda: launcher.main(argv), layers)
+    with open(spec["out"], "w") as f:
+        json.dump(reports, f)
+    return 0
+
+
+def launch_ranks_phase(root, one_qwen):
+    """In a child process (``--launch-ranks-child``: a one-rank NCCL
+    process group), the launcher's rank function with ``--use-kernel`` on
+    a (1, 1) mesh: qwen2-0.5b at full width, batch 4 × 1024,
+    ``LAUNCH_STEPS`` steps (B2–B4 24 a step on the tensor cores), and
+    mamba2-2.7b at full width and ``RANKS_MAMBA["layers"]`` of its 64
+    layers, batch 1 × 2048 (B5 / B6 4 a step on the tensor cores), then
+    mamba2's one-process launcher with the kernels; no fallback, no head
+    gathered, the update the plain one (B1 0, as the JAX launcher's step);
+    each step's loss within ``LAUNCH_LOSS_RTOL`` of the one-process
+    launcher's kernels run from the same seed (qwen2's: ``launch_train``'s
+    ``one_qwen``).  Returns the rank runs' launches, qwen2's B2–B4 and
+    mamba2's B5 / B6."""
+    out = os.path.join(root, "launch_ranks.json")
+    qwen = ["--arch", "qwen2-0.5b", "--batch", str(LM_FULL["batch"]),
+            "--seq", str(LM_FULL["seq_len"]), "--steps", str(LAUNCH_STEPS),
+            "--use-kernel"]
+    mamba = ["--arch", "mamba2-2.7b", "--batch", str(RANKS_MAMBA["batch"]),
+             "--seq", str(RANKS_MAMBA["seq"]), "--steps",
+             str(RANKS_MAMBA["steps"]), "--use-kernel"]
+    cut = (mamba, RANKS_MAMBA["layers"])
+    spec = {"out": out, "runs": {"qwen2-0.5b": (qwen, None),
+                                 "mamba2-2.7b": cut},
+            "one_process": {"mamba2-2.7b": cut}}
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--launch-ranks-child", json.dumps(spec)])
+    try:
+        assert child.wait(timeout=900) == 0, "the launch_ranks child failed"
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    with open(out) as f:
+        reports = json.load(f)
+    os.remove(out)
+    one = reports["one_process:mamba2-2.7b"]
+    n, layers = RANKS_MAMBA["steps"], RANKS_MAMBA["layers"]
+    assert one["launches"] == {"B1": n, "B2": 0, "B3": 0, "B4": 0,
+                               "B5": layers * n, "B6": layers * n}, \
+        one["launches"]
+    assert one["kernel_fallbacks"] == 0
+    rows = {}
+    for arch, one, layers, n, keys in (
+            ("qwen2-0.5b", {"losses": one_qwen["losses"],
+                            "seconds_per_step": one_qwen[
+                                "seconds_per_step"]},
+             24, LAUNCH_STEPS, ("B2", "B3", "B4")),
+            ("mamba2-2.7b", one, layers, n, ("B5", "B6"))):
+        r = reports[arch]
+        want = {k: (layers * n if k in keys else 0)
+                for k in ("B1", "B2", "B3", "B4", "B5", "B6")}
+        assert r["launches"] == want, (arch, r["launches"])
+        assert r["launches_tc"] == {k: v for k, v in want.items()
+                                    if k != "B1"}, (arch, r["launches_tc"])
+        assert r["kernel_fallbacks"] == 0 and r["heads_gathered"] == 0, r
+        assert r["kernel_calls"] == layers * n, (arch, r["kernel_calls"])
+        assert r["mesh"] == {"data": 1, "model": 1} and r["world"] == 1
+        losses = np.array(r["losses"])
+        assert np.isfinite(losses).all() and len(losses) == n
+        ratios = [abs(a - b) / (LAUNCH_LOSS_RTOL * abs(b))
+                  for a, b in zip(r["losses"], one["losses"])]
+        assert max(ratios) <= 1.0, (arch, r["losses"], one["losses"])
+        rows[arch] = {
+            "argv": spec["runs"][arch][0], "layers": layers, "steps": n,
+            "device": r["device"], "seconds_per_step": r["seconds_per_step"],
+            "tokens_per_s": r["tokens_per_s"],
+            "first_step_seconds": r["step_seconds"][0],
+            "wall_seconds": r["wall"],
+            "one_process_seconds_per_step": one["seconds_per_step"],
+            "launches": r["launches"], "launches_tc": r["launches_tc"],
+            "all_launches": r["all_launches"],
+            "kernel_calls": r["kernel_calls"],
+            "kernel_fallbacks": r["kernel_fallbacks"],
+            "heads_gathered": r["heads_gathered"], "losses": r["losses"],
+            "one_process_losses": one["losses"],
+            "loss_rtol": LAUNCH_LOSS_RTOL,
+            "loss_difference_over_tolerance": ratios}
+    emit({"phase": "launch_ranks", "entry":
+          "repro_torch.launch.train._train_ranks (one rank of torchrun)",
+          "process_group": "nccl, world 1", "mesh": {"data": 1, "model": 1},
+          "dtype": "bfloat16", "runs": rows,
+          "note": "one card: no collective crosses cards, no multi-card "
+                  "figure"})
+    return {**{k: rows["qwen2-0.5b"]["launches"][k]
+               for k in ("B1", "B2", "B3", "B4")},
+            **{k: rows["mamba2-2.7b"]["launches"][k] for k in ("B5", "B6")}}
 
 
 def boundary_outage(step):
@@ -5254,16 +5843,21 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    children = {"--session-child": session_child,      # the session,
-                "--gateway-child": gateway_child,      # gateway and dry
-                "--dryrun-child": dryrun_child}        # run phases'
+    # the session, gateway, dry run, local_heads and launch_ranks phases'
+    # child processes
+    children = {"--session-child": session_child,
+                "--gateway-child": gateway_child,
+                "--dryrun-child": dryrun_child,
+                "--local-heads-ranks-child": local_heads_ranks_child,
+                "--launch-ranks-child": launch_ranks_child}
     if sys.argv[1:2] and sys.argv[1] in children:
         sys.path[:0] = [os.path.join(ROOT, "src"),
                         os.path.join(ROOT, "examples")]
         return children[sys.argv[1]](json.loads(sys.argv[2]))
     # before the first allocation: without expandable segments, the qwen2
-    # M 4 chunk of group_step (62.3 GiB) can fail to find a 9.27 GiB block
-    # beside 16 GiB of free fragments that earlier phases left
+    # M 4 chunk of group_step (62.3 GiB at 24 layers, its depth before)
+    # failed to find a 9.27 GiB block beside 16 GiB of free fragments that
+    # earlier phases left
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "examples")]
@@ -5320,10 +5914,14 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
                                 b1_resnet)                       # 7, 8
     for key in ("B2", "B3", "B4"):
         fa_rows[key]["launches"] = lm_launches[fa_rows[key]["name"]]
-    train_launches = timed("launch_train", launch_train_phase)   # 25
+    train_launches, one_qwen = timed("launch_train",
+                                     launch_train_phase)         # 25
     b1_row["launches_launch_train"] = train_launches["B1"]
     for key in ("B2", "B3", "B4"):
         fa_rows[key]["launches_launch_train"] = train_launches[key]
+    timed("local_heads", local_heads_phase, join_build, store_dir)  # 36
+    rank_launches = timed("launch_ranks", launch_ranks_phase, store_dir,
+                          one_qwen)                              # 37
     emit({"phase": "free", "device_memory_allocated_bytes":
           torch.cuda.memory_allocated()})
     ssd_rows = timed("ssd_kernels", ssd_phase, join_build)       # 9
@@ -5374,9 +5972,9 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     for key in ("B2", "B3", "B4"):
         fa_rows[key]["launches_lm_group_degraded"] = {
             tier: r[fa_rows[key]["name"]] for tier, r in d_launches.items()}
-    m_group = timed("group_step", group_step_phase, lm_backend)
     del lm_backend
     free()
+    m_group = timed("group_step", group_step_phase)
     for key in ("B5", "B6"):
         ssd_rows[key]["launches_group_step"] = m_group[ssd_rows[key]["name"]]
     m_study = timed("mamba2_group_study", mamba2_group_study_phase,
@@ -5427,6 +6025,19 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
         fa_rows[key]["launches_dryrun"] = dry[key]
     for key in ("B5", "B6"):
         ssd_rows[key]["launches_dryrun"] = dry[key]
+    # the launcher's rank step updates through the plain apply_update, as
+    # the JAX launcher's does; no rank run has head dim 256 or 80, and the
+    # counters do not tell head dims apart, so those rows hold null
+    b1_row["launches_launch_ranks"] = rank_launches["B1"]
+    for key in ("B2", "B3", "B4"):
+        fa_rows[key]["launches_launch_ranks"] = rank_launches[key]
+        for hd in (256, 80):
+            fa_rows[f"{key}_hd{hd}"]["launches_launch_ranks"] = None
+            fa_rows[f"{key}_hd{hd}"]["launches_launch_ranks_note"] = (
+                f"not measured: launch_ranks runs no model at head dim "
+                f"{hd}")
+    for key in ("B5", "B6"):
+        ssd_rows[key]["launches_launch_ranks"] = rank_launches[key]
 
     # ------------------------------------------------------------ last lines
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

@@ -35,6 +35,18 @@ forward and backward run under vmap and reach the launchers' rules — the
 backward has its own, since it runs while vmap is still active.  A kernel
 wrapper handed a functorch wrapper raises; it never launches on one.  One
 group call is one ``note_call`` and one launch per kernel.
+
+Handed DTensors (a step over several ranks), :func:`flash_attention` and
+:func:`ssd_intra` run the same bindings on each rank's local tensors, by
+a :class:`LocalPlan` made from the operands' placements
+(:func:`attention_plan`, :func:`ssd_plan`): the batch stays split where
+it is split; heads stay split where each rank's q heads are whole GQA
+groups, or lie inside one kv group (the rank then takes that kv head, a
+local slice, and its ``dk`` / ``dv`` come back as a ``Partial`` sum);
+SSD heads stay split with B and C whole, their gradients ``Partial``;
+anything else is gathered whole first, counted in
+``KERNEL_STATS.heads_gathered``.  The outputs come back as DTensors.
+Sibling groups never meet DTensors, so the member fold is unchanged.
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ from __future__ import annotations
 import warnings
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -54,23 +66,8 @@ _is_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
 
 __all__ = ["KernelFallbackWarning", "KernelStats", "KERNEL_STATS",
            "reset_kernel_stats", "note_call", "note_fallback",
-           "flash_attention", "ssd_intra", "LOCAL_HEAD_SHARDS"]
-
-#: The ROADMAP item that B2–B6 inside a step over several ranks wait for.
-LOCAL_HEAD_SHARDS = "kernels on local head shards (ROADMAP queue A item 6)"
-
-
-def _refuse_dtensor(name: str, *tensors) -> None:
-    """B2–B6 take whole tensors on one device: a DTensor (a step sharded
-    over several ranks) is refused by name, never run on the plain
-    version instead."""
-    if not torch.distributed.is_available():
-        return
-    from torch.distributed.tensor import DTensor
-    if any(isinstance(t, DTensor) for t in tensors):
-        raise NotImplementedError(
-            f"{name} on a DTensor (a step over several ranks) needs "
-            f"{LOCAL_HEAD_SHARDS}; train the ranks with --no-use-kernel")
+           "flash_attention", "ssd_intra", "LocalPlan", "attention_plan",
+           "ssd_plan"]
 
 
 class KernelFallbackWarning(UserWarning):
@@ -82,6 +79,9 @@ class KernelStats:
     """Module-global kernel-plane accounting."""
     calls: int = 0
     fallbacks: int = 0
+    #: DTensor calls that ran every head on some mesh dimension of more
+    #: than one rank (:func:`attention_plan`'s case 3)
+    heads_gathered: int = 0
     reasons: Counter = field(default_factory=Counter)
 
     def snapshot(self) -> Tuple[int, int]:
@@ -95,6 +95,7 @@ _WARNED: set = set()
 def reset_kernel_stats() -> None:
     KERNEL_STATS.calls = 0
     KERNEL_STATS.fallbacks = 0
+    KERNEL_STATS.heads_gathered = 0
     KERNEL_STATS.reasons.clear()
     _WARNED.clear()
 
@@ -224,14 +225,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backward kernels and vmap-aware (a sibling group's member axis folds
     into the kernels' batch axis: one launch per group).  CPU tensors take
     the plain versions, counted as a fallback ``flash_attention:device:cpu``
-    and warned once.  A DTensor is refused (:data:`LOCAL_HEAD_SHARDS`)."""
-    _refuse_dtensor("flash_attention", q, k, v)
+    and warned once.  DTensors (a step over several ranks) run on each
+    rank's local batch and heads by :func:`attention_plan`."""
+    if _dtensors(q, k, v):
+        plan = attention_plan(_placements(q, k, v), q.shape[2], k.shape[2],
+                              _mesh_shape(q))
+        mesh, (q_, k_, v_) = _to_local(plan, q, k, v)
+        if plan.kv_heads is not None:             # case 2: the group's head
+            d, heads = plan.kv_heads
+            h = heads[mesh.get_local_rank(d)]
+            k_, v_ = k_.narrow(2, h, 1), v_.narrow(2, h, 1)
+        out = flash_attention(q_, k_, v_, causal=causal, window=window)
+        return _from_local(out, mesh, plan.output, q.shape)
     if q.device.type == "cpu":
         note_fallback("flash_attention", "device:cpu")
     else:
         note_call("flash_attention")
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal, int(window))[0]
+    return _FlashAttention.apply(_aligned(q), _aligned(k), _aligned(v),
+                                 causal, int(window))[0]
 
 
 # ------------------------------------------------------------ ssd intra
@@ -299,12 +310,188 @@ def ssd_intra(xr: torch.Tensor, dtr: torch.Tensor, ltT: torch.Tensor,
     ``ltT (B,nc,H,Q)``, ``Br / Cr (B,nc,Q,N)`` → ``y (B,nc,Q,H,P)``),
     differentiable through the backward kernel and vmap-aware (one launch
     per group).  CPU tensors take the plain versions, counted as a
-    fallback ``ssd_intra:device:cpu`` and warned once.  A DTensor is
-    refused (:data:`LOCAL_HEAD_SHARDS`)."""
-    _refuse_dtensor("ssd_intra", xr, dtr, ltT, Br, Cr)
+    fallback ``ssd_intra:device:cpu`` and warned once.  DTensors run on
+    each rank's local batch and heads by :func:`ssd_plan`."""
+    if _dtensors(xr, dtr, ltT, Br, Cr):
+        plan = ssd_plan(_placements(xr, dtr, ltT, Br, Cr), xr.shape[3],
+                        _mesh_shape(xr))
+        mesh, local = _to_local(plan, xr, dtr, ltT, Br, Cr)
+        return _from_local(ssd_intra(*local), mesh, plan.output, xr.shape)
     if xr.device.type == "cpu":
         note_fallback("ssd_intra", "device:cpu")
     else:
         note_call("ssd_intra")
-    return _SSDIntra.apply(*(t.contiguous() for t in (xr, dtr, ltT, Br,
-                                                      Cr)))
+    return _SSDIntra.apply(*(_aligned(t) for t in (xr, dtr, ltT, Br, Cr)))
+
+
+# ------------------------------------------------- DTensors: local heads
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernels' TMA maps read
+    it (a rank's batch slice of a replica is contiguous, but need not
+    start on 16 bytes)."""
+    t = t.contiguous()
+    if t.device.type != "cuda" or _is_wrapped(t):   # vmap: ``_fold`` aligns
+        return t
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+@dataclass(frozen=True)
+class LocalPlan:
+    """How one :func:`flash_attention` / :func:`ssd_intra` call runs on
+    DTensors.  Operand ``i`` is redistributed to ``inputs[i]`` (where a
+    mesh dimension only narrows it, ``Replicate → Shard``, that is the
+    rank's own slice: no communication), its local tensor goes to the
+    whole-tensor binding with its gradient declared ``grads[i]``, and the
+    output is wrapped with ``output``.  ``cases`` names what each mesh
+    dimension does: ``"batch"``, ``"heads"`` (case 1), ``"kv_group"``
+    (case 2), ``"gathered"`` (case 3); ``kv_heads`` is case 2's ``(mesh
+    dimension, the kv head each coordinate on it reads)``; ``gathered``
+    is whether some dimension of more than one rank ran every head."""
+    inputs: Tuple[tuple, ...]
+    grads: Tuple[tuple, ...]
+    output: tuple
+    cases: Tuple[str, ...]
+    kv_heads: Optional[Tuple[int, Tuple[int, ...]]] = None
+    gathered: bool = False
+
+
+def _split(p) -> Optional[int]:
+    """The tensor dimension a ``Shard`` splits; None for a replica; -1 for
+    anything else (a partial sum, a strided shard)."""
+    from torch.distributed.tensor import Shard
+    if p.is_replicate():
+        return None
+    return p.dim if type(p) is Shard else -1
+
+
+def attention_plan(placements, hq: int, hkv: int, mesh_shape) -> LocalPlan:
+    """The plan of a :func:`flash_attention` call on DTensors: q
+    ``(B, S, hq, hd)``, k / v ``(B, S, hkv, hd)`` placed ``placements``
+    (q's, k's, v's, one entry per mesh dimension) on a mesh of
+    ``mesh_shape``.  On each mesh dimension of m ranks:
+
+    * an operand split on the batch: every operand, the output and every
+      gradient keep the batch split (``"batch"``);
+    * case 1, q split on heads, k / v split on heads or whole, each
+      rank's q heads whole GQA groups (``hq / m`` a multiple of
+      ``hq / hkv``): the kernel runs on the local q and kv heads, and the
+      output and the gradients are split alike (``"heads"``);
+    * case 2, q split on heads, k / v whole, each rank's q heads inside
+      one kv group (``hq / hkv`` a multiple of ``hq / m``): the kernel
+      takes the local q heads and the kv head they read, a local slice;
+      the local ``dk`` / ``dv`` are the rank's share of a sum over the
+      ranks, so their gradients are ``Partial`` (``"kv_group"``; on one
+      dimension only);
+    * case 3, anything else (q heads straddling kv groups, q whole): every
+      operand gathered whole there, the kernel on all heads of the local
+      batch, the output a replica, as GSPMD places the operands around
+      the reference's kernel call (``"gathered"``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    group = hq // hkv
+    ins, grads = [[], [], []], [[], [], []]
+    out, cases, kv_heads, split, gathered = [], [], None, 1, False
+    for d, m in enumerate(mesh_shape):
+        sq, sk, sv = (_split(p[d]) for p in placements)
+        local = hq // (split * m) if hq % (split * m) == 0 else 0
+        if 0 in (sq, sk, sv):
+            case, want = "batch", (Shard(0),) * 3
+        elif sq == 2 and local and kv_heads is None and \
+                local % group == 0 and {sk, sv} <= {2, None}:
+            case, want = "heads", (Shard(2),) * 3
+        elif sq == 2 and local and kv_heads is None and split == 1 and \
+                group % local == 0 and sk is None and sv is None:
+            case, want = "kv_group", (Shard(2), Replicate(), Replicate())
+            kv_heads = (d, tuple(c * local // group for c in range(m)))
+        else:
+            case, want = "gathered", (Replicate(),) * 3
+            gathered = gathered or m > 1
+        if case in ("heads", "kv_group"):
+            split *= m
+        for i in range(3):
+            ins[i].append(want[i])
+            grads[i].append(Partial() if case == "kv_group" and i else
+                            want[i])
+        out.append(want[0])
+        cases.append(case)
+    return LocalPlan(tuple(map(tuple, ins)), tuple(map(tuple, grads)),
+                     tuple(out), tuple(cases), kv_heads, gathered)
+
+
+#: the head axis of each :func:`ssd_intra` operand (B and C have none)
+_SSD_HEAD_AXES = (3, 3, 2, None, None)
+
+
+def ssd_plan(placements, heads: int, mesh_shape) -> LocalPlan:
+    """The plan of an :func:`ssd_intra` call on DTensors (``placements``:
+    xr's, dtr's, ltT's, Br's, Cr's) of ``heads`` SSD heads on a mesh of
+    ``mesh_shape``.  On each mesh dimension: an operand split on the batch
+    keeps every operand split on it (``"batch"``); xr split on heads takes
+    dtr and ltT on the same heads (a local slice where they are whole)
+    while B and C stay whole, every head reading them, so their gradients
+    are partial sums over the head shards, ``Partial`` (``"heads"``);
+    anything else gathers every operand whole (``"gathered"``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    n = len(_SSD_HEAD_AXES)
+    ins, grads = [[] for _ in range(n)], [[] for _ in range(n)]
+    out, cases, split, gathered = [], [], 1, False
+    for d, m in enumerate(mesh_shape):
+        s = [_split(p[d]) for p in placements]
+        if 0 in s:
+            case, want = "batch", (Shard(0),) * n
+        elif s[0] == 3 and heads % (split * m) == 0 and all(
+                x in (a, None) for x, a in zip(s, _SSD_HEAD_AXES)):
+            case = "heads"
+            want = tuple(Replicate() if a is None else Shard(a)
+                         for a in _SSD_HEAD_AXES)
+            split *= m
+        else:
+            case, want = "gathered", (Replicate(),) * n
+            gathered = gathered or m > 1
+        for i, a in enumerate(_SSD_HEAD_AXES):
+            ins[i].append(want[i])
+            grads[i].append(Partial() if case == "heads" and a is None
+                            else want[i])
+        out.append(want[0])
+        cases.append(case)
+    return LocalPlan(tuple(map(tuple, ins)), tuple(map(tuple, grads)),
+                     tuple(out), tuple(cases), None, gathered)
+
+
+def _dtensors(*args) -> bool:
+    """Whether the operands are DTensors (all of them, on one mesh)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    n = sum(isinstance(a, DTensor) for a in args)
+    if n and (n < len(args) or len({a.device_mesh for a in args}) > 1):
+        raise TypeError("the kernels take DTensors only all on one mesh")
+    return n > 0
+
+
+def _placements(*args):
+    return tuple(tuple(a.placements) for a in args)
+
+
+def _mesh_shape(x) -> Tuple[int, ...]:
+    return tuple(x.device_mesh.mesh.shape)
+
+
+def _to_local(plan: LocalPlan, *args):
+    """``(mesh, local tensors)`` of ``args`` by ``plan``, differentiable:
+    each gradient comes back as the plan declares it."""
+    mesh = args[0].device_mesh
+    local = []
+    for x, want, grad in zip(args, plan.inputs, plan.grads):
+        if tuple(x.placements) != want:
+            x = x.redistribute(mesh, want)
+        local.append(x.to_local(grad_placements=grad))
+    if plan.gathered:
+        KERNEL_STATS.heads_gathered += 1
+    return mesh, local
+
+
+def _from_local(t, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)

@@ -16,12 +16,18 @@ launcher shards its step with GSPMD over its local mesh.  The step is the
 dry run's formulation (:class:`~repro_torch.launch.dryrun.ShardedLM`:
 weights gathered over ``data`` before the arithmetic reads them, the
 vocabulary-parallel cross-entropy; its local rules under
-:class:`~repro_torch.launch.dryrun.OpRecorder`) and the plain update.
-The kernels take whole tensors on one device, so ``--use-kernel`` (the
-default on cards) is refused over several ranks before anything is
-started, by name (:data:`repro_torch.kernels.ops.LOCAL_HEAD_SHARDS`):
-pass ``--no-use-kernel``.  Several cards visible to a process started
-without ``torchrun`` are refused with how to launch.
+:class:`~repro_torch.launch.dryrun.OpRecorder`) and the plain update, as
+the JAX launcher's step updates through ``apply_update``.  With
+``--use-kernel`` (the default on cards) attention (B2–B4) and the SSD
+term (B5–B6) run on each rank's local batch and heads
+(:func:`repro_torch.kernels.ops.attention_plan` /
+:func:`~repro_torch.kernels.ops.ssd_plan`): where a rank's q heads are
+whole kv groups, or lie inside one, the kernel takes its own heads and
+the kv head they read; elsewhere the heads are gathered first, as GSPMD
+places the operands around the reference's kernel call, and such calls
+are counted (``heads_gathered``).  On cards every call launches its
+kernel or raises.  Several cards visible to a process started without
+``torchrun`` are refused with how to launch.
 
     python -m repro_torch.launch.train --arch qwen2-0.5b --steps 20 \\
         --batch 4 --seq 1024
@@ -29,12 +35,16 @@ without ``torchrun`` are refused with how to launch.
         --reduced --steps 5 --batch 4 --seq 32 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch qwen2-0.5b --reduced --steps 3 --batch 4 --seq 32 \\
-        --device cpu
+        --device cpu --use-kernel
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen2-0.5b --steps 20 --batch 8 --seq 1024 --use-kernel
 
 ``--use-kernel`` defaults to on for a CUDA device (the LM's attention runs
-B2–B4 and the update B1) and off on the CPU, as ``TorchTrainer`` does.
-The launcher prints the loss, per-step seconds, tokens/s and the kernel
-counters (launches of B1–B4, calls and fallbacks of the kernel plane);
+B2–B4, its SSD B5–B6, and the one-process update B1) and off on the CPU,
+where the kernels' calls take their plain versions, counted as fallbacks,
+as ``TorchTrainer`` does.  The launcher prints the loss, per-step
+seconds, tokens/s and the kernel counters (launches of B1–B6, those on
+the tensor cores, calls, fallbacks and calls that gathered heads);
 :func:`main` returns them (on several ranks, every rank returns its own,
 with its parameters' local shard shapes in tree order; rank 0 prints).
 """
@@ -57,23 +67,14 @@ from repro_torch.dist.meshes import WorkerMesh
 from repro_torch.dist.sharding import (ShardingRules, batch_specs,
                                        distribute_tree, param_specs)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.flash_attention import (flash_attention_bwd_dkv,
-                                                 flash_attention_bwd_dq,
-                                                 flash_attention_fwd)
-from repro_torch.kernels.optim import stacked_tree_update
+from repro_torch.launch.dryrun import LAUNCH_COUNTERS, _launches
 from repro_torch.launch.specs import batch_struct
 from repro_torch.models import LM
 from repro_torch.train.optimizer import apply_update, init_opt_state
 from repro_torch.train.step import build_train_step, place, shardings_for
 from repro_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["local_mesh", "model_axis", "rank_mesh", "main"]
-
-# the launch counters of the kernels a training step of an attention LM
-# runs: B1 (the update), B2 (attention forward), B3 / B4 (its backward)
-_LAUNCH_COUNTERS = {"B1": stacked_tree_update, "B2": flash_attention_fwd,
-                    "B3": flash_attention_bwd_dq,
-                    "B4": flash_attention_bwd_dkv}
+__all__ = ["local_mesh", "model_axis", "rank_mesh", "parse", "main"]
 
 RULES = ShardingRules(fsdp="data", tp="model", dp=("data",))
 
@@ -113,8 +114,10 @@ def rank_mesh(device: torch.device, world: int):
                             mesh_dim_names=("data", "model"))
 
 
-def _launches() -> Dict[str, int]:
-    return {k: fn.launches for k, fn in _LAUNCH_COUNTERS.items()}
+def _launches_tc() -> Dict[str, int]:
+    """B2–B6's launches on the tensor cores."""
+    return {k: fn.launches_tc for k, fn in LAUNCH_COUNTERS.items()
+            if k != "B1"}
 
 
 def _sharded_update(name, params, grads, opt, hp, step):
@@ -133,7 +136,8 @@ def _sharded_update(name, params, grads, opt, hp, step):
     return apply_update(name, params, grads, opt, hp, step)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+def parse(argv: Optional[Sequence[str]] = None):
+    """The launcher's arguments: ``(args, cfg, device, use_kernel)``."""
     ap = argparse.ArgumentParser(
         description="plain training of one architecture on the local mesh")
     ap.add_argument("--arch", default="qwen2-0.5b", choices=list_archs())
@@ -145,9 +149,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--use-kernel", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="route attention (B2-B4) and the update (B1) "
-                         "through the kernels (default: on for a CUDA "
-                         "device, off on the CPU)")
+                    help="route attention (B2-B4), SSD (B5-B6) and, in "
+                         "one process, the update (B1) through the kernels "
+                         "(default: on for a CUDA device, off on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a visible card) or "
                          "cpu")
@@ -162,6 +166,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     device = torch.device(args.device)
     use_kernel = (device.type == "cuda") if args.use_kernel is None \
         else args.use_kernel
+    return args, cfg, device, use_kernel
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    args, cfg, device, use_kernel = parse(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1:
         return _train_ranks(args, cfg, device, use_kernel, world)
@@ -196,7 +205,9 @@ def _loop(args, cfg, device, home, step_fn, params, opt, data, place_batch,
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
     say = print if verbose else (lambda *a: None)
-    launches0, stats0 = _launches(), kops.KERNEL_STATS.snapshot()
+    launches0, tc0 = _launches(), _launches_tc()
+    stats0 = kops.KERNEL_STATS.snapshot()
+    gathered0 = kops.KERNEL_STATS.heads_gathered
     losses, seconds = [], []
     t0 = time.perf_counter()
     for i in range(args.steps):
@@ -217,18 +228,24 @@ def _loop(args, cfg, device, home, step_fn, params, opt, data, place_batch,
     # rate is the median of the others
     steady = statistics.median(seconds[1:] or seconds)
     launches = {k: v - launches0[k] for k, v in _launches().items()}
+    launches_tc = {k: v - tc0[k] for k, v in _launches_tc().items()}
     calls = kops.KERNEL_STATS.calls - stats0[0]
     fallbacks = kops.KERNEL_STATS.fallbacks - stats0[1]
+    gathered = kops.KERNEL_STATS.heads_gathered - gathered0
     tokens_per_s = args.batch * args.seq / steady
     say(f"done: {args.steps} steps in {total:.1f}s; "
         f"final loss {losses[-1]:.4f}")
     say(f"steady: {steady:.4f} s/step, {tokens_per_s:.0f} tokens/s")
-    say(f"kernel plane: {calls} calls, {fallbacks} fallbacks; launches "
-        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    say(f"kernel plane: {calls} calls, {fallbacks} fallbacks, {gathered} "
+        "with heads gathered; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + " (tensor cores " + ", ".join(f"{k} {v}" for k, v in
+                                        launches_tc.items()) + ")")
     return {"arch": cfg.name, "losses": losses, "step_seconds": seconds,
             "seconds_per_step": steady, "tokens_per_s": tokens_per_s,
-            "launches": launches, "kernel_calls": calls,
-            "kernel_fallbacks": fallbacks, "device": str(home)}, params
+            "launches": launches, "launches_tc": launches_tc,
+            "kernel_calls": calls, "kernel_fallbacks": fallbacks,
+            "heads_gathered": gathered, "device": str(home)}, params
 
 
 def _train_ranks(args, cfg, device, use_kernel, world) -> Dict[str, Any]:
@@ -240,11 +257,6 @@ def _train_ranks(args, cfg, device, use_kernel, world) -> Dict[str, Any]:
     from repro_torch.launch.dryrun import (OpRecorder, ShardedLM, _quiet,
                                            fsdp_gather)
 
-    if use_kernel:
-        raise NotImplementedError(
-            f"--use-kernel over {world} ranks needs {kops.LOCAL_HEAD_SHARDS}"
-            ": the kernels take whole tensors on one device; train the "
-            "ranks with --no-use-kernel")
     rank = int(os.environ.get("RANK", "0"))
     if device.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", "0"))
@@ -260,7 +272,8 @@ def _train_ranks(args, cfg, device, use_kernel, world) -> Dict[str, Any]:
     try:
         mesh = rank_mesh(device, world)
         sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-        model = ShardedLM(cfg, mesh, gather=fsdp_gather(mesh, RULES))
+        model = ShardedLM(cfg, mesh, use_kernel=use_kernel,
+                          gather=fsdp_gather(mesh, RULES))
         verbose = rank == 0
         if verbose:
             print(f"training {cfg.name} ({cfg.param_count()/1e6:.1f}M "

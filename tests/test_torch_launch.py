@@ -156,7 +156,7 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert "training qwen2-0.5b-smoke" in text and "done: 3 steps" in text
     assert "tokens/s" in text and "kernel plane: 0 calls, 0 fallbacks" \
         in text
-    assert out["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    assert out["launches"] == {f"B{i}": 0 for i in range(1, 7)}
     assert out["kernel_fallbacks"] == 0 and len(out["losses"]) == 3
     assert all(np.isfinite(out["losses"])) and out["tokens_per_s"] > 0
     assert out["device"] == "cpu"
@@ -182,7 +182,7 @@ def test_launcher_with_kernels_on_the_cpu_counts_fallbacks():
     kops.reset_kernel_stats()
     cfg = get_config(ARCH).reduced(d_model=256)
     assert out["kernel_fallbacks"] == 2 * (1 + cfg.num_layers)
-    assert out["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    assert out["launches"] == {f"B{i}": 0 for i in range(1, 7)}
 
 
 def test_launcher_refusals():

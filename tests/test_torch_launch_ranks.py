@@ -14,9 +14,11 @@ final parameters within 1e-4 of it: the tolerance of
 ``tests/test_torch_launch.py``'s three AdamW steps, since Adam normalises
 a gradient entry that is float noise in both packages, so such an entry
 moves by up to lr a step either way (the port's one-process launcher
-lands 3e-5 from the reference's mesh run, its ranks as far).  Every parameter's local
-shard has the shape its ``param_specs`` entry gives; ``--use-kernel``
-over ranks and B2 / B5 handed DTensors refuse by name.
+lands 3e-5 from the reference's mesh run, its ranks as far).  Every
+parameter's local shard has the shape its ``param_specs`` entry gives;
+``--use-kernel`` over ranks goes on to the process group, and B2 / B5
+handed DTensors return DTensors placed by their plans (the launcher with
+``--use-kernel`` over ranks: ``tests/test_torch_local_heads.py``).
 """
 
 import os
@@ -24,6 +26,7 @@ import pickle
 import socket
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -86,7 +89,7 @@ bshard = ns(batch_specs(cfg, batch_struct(cfg, {batch}, {seq}), rules,
                         sizes))
 data = DataPipeline(synthetic_lm_dataset(4096, {seq}, cfg.vocab_size),
                     {batch})
-step = jax.jit(build_train_step(LM(cfg)))
+step = jax.jit(build_train_step(LM(cfg, use_kernel={use_kernel})))
 losses = []
 for i in range({steps}):
     b = jax.device_put({{k: jnp.asarray(v)
@@ -119,28 +122,40 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _refusals(mesh):
-    """On a rank, beside the launch: B2 / B5 handed DTensors refuse,
-    naming the ROADMAP item."""
-    from torch.distributed.tensor import Replicate, distribute_tensor
+def _on_dtensors(mesh):
+    """On a rank, beside the launch: B2 / B5 handed DTensors return
+    DTensors placed as their plans say (q split on the batch and heads,
+    the SSD's x on the batch and its heads)."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
     gen = torch.Generator().manual_seed(7)
-    q = distribute_tensor(torch.randn(1, 8, 2, 4, generator=gen), mesh,
-                          [Replicate(), Replicate()])
-    refused = []
-    for call in (lambda: kops.flash_attention(q, q, q),
-                 lambda: kops.ssd_intra(q, q, q, q, q)):
-        try:
-            call()
-        except NotImplementedError as e:
-            refused.append(kops.LOCAL_HEAD_SHARDS in str(e))
-    return refused
+    place = lambda shape, p: distribute_tensor(
+        torch.randn(shape, generator=gen), mesh, p)
+    q = place((2, 8, 2, 4), [Shard(0), Shard(2)])
+    x = place((2, 1, 8, 2, 4), [Shard(0), Shard(3)])
+    dt, lt = place((2, 1, 8, 2), [Shard(0), Shard(3)]), \
+        place((2, 1, 2, 8), [Shard(0), Shard(2)])
+    bc = place((2, 1, 8, 4), [Shard(0), Replicate()])
+    shape = tuple(mesh.mesh.shape)
+    got = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", kops.KernelFallbackWarning)
+        for out, plan in (
+                (kops.flash_attention(q, q, q), kops.attention_plan(
+                    (q.placements,) * 3, 2, 2, shape)),
+                (kops.ssd_intra(x, dt, lt, bc, bc), kops.ssd_plan(
+                    tuple(t.placements for t in (x, dt, lt, bc, bc)), 2,
+                    shape))):
+            got.append(isinstance(out, DTensor) and tuple(out.placements)
+                       == plan.output == (Shard(0), Shard(plan.output[1].dim)))
+    return got
 
 
 def _rank(rank, port, weights, out_dir):
     """One rank: the launcher's ``main`` from ``weights`` on a (2, 2)
     mesh (the model axis fixed at 2: four ranks would take 4 by the
-    launcher's rule), its report, its gathered final parameters and the
-    refusals pickled to ``out_dir``."""
+    launcher's rule), its report, its gathered final parameters and
+    :func:`_on_dtensors` pickled to ``out_dir``."""
     torch.set_num_threads(1)
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(WORLD),
@@ -168,7 +183,7 @@ def _rank(rank, port, weights, out_dir):
         got = dict(losses=out["losses"], local_shapes=out["local_shapes"],
                    mesh=out["mesh"], launches=out["launches"],
                    params=flat(tree_to_numpy(kept["params"])),
-                   refused=_refusals(kept["mesh"]))
+                   on_dtensors=_on_dtensors(kept["mesh"]))
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(got, f)
     finally:
@@ -182,7 +197,7 @@ def test_four_gloo_ranks_train_as_one_process(tmp_path, monkeypatch):
     own shardings) and of the port's one-process launcher, the gathered
     final parameters within 1e-4 of the reference's; every parameter's local
     shape the one ``param_specs`` gives on that mesh, no kernel launch;
-    B2 and B5 refuse a DTensor, naming the ROADMAP item."""
+    B2 and B5 on DTensors return DTensors placed by their plans."""
     import jax
     from repro.configs import get_config as jax_get_config
     from repro.models import LM as JaxLM
@@ -198,7 +213,7 @@ def test_four_gloo_ranks_train_as_one_process(tmp_path, monkeypatch):
     script.write_text(_JAX_SCRIPT.format(
         src=os.path.join(REPO, "src"), arch=ARCH, data=WORLD // MODEL_AXIS,
         model=MODEL_AXIS, weights=str(wfile), batch=BATCH, seq=SEQ,
-        steps=STEPS, lr=LR, out=str(jout)))
+        steps=STEPS, lr=LR, out=str(jout), use_kernel=False))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                + os.environ.get("XLA_FLAGS", ""))
@@ -241,16 +256,26 @@ def test_four_gloo_ranks_train_as_one_process(tmp_path, monkeypatch):
         for a, b in zip(got["params"], ref["params"]):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
         assert got["local_shapes"] == want, rank
-        assert got["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
-        assert got["refused"] == [True, True]
+        assert got["launches"] == {f"B{i}": 0 for i in range(1, 7)}
+        assert got["on_dtensors"] == [True, True]
 
 
 def test_kernels_over_ranks_refuse_before_anything_starts(monkeypatch):
-    """``--use-kernel`` over several ranks is refused by name before the
-    process group, the mesh or the parameters are built."""
+    """``--use-kernel`` over several ranks is not refused: the rank goes on
+    to join the process group (stopped there).  The name is the one the
+    test had while the launcher refused such a run, kept so that its
+    history stays one test."""
     import torch.distributed as dist
+
+    class Joined(Exception):
+        pass
+
+    def join(*args, **kw):
+        raise Joined(kw)
+
     monkeypatch.setenv("WORLD_SIZE", str(WORLD))
-    with pytest.raises(NotImplementedError, match="local head shards"):
+    monkeypatch.setattr(dist, "init_process_group", join)
+    with pytest.raises(Joined, match="'world_size': 4"):
         launcher.main(ARGV + ["--use-kernel"])
     assert not dist.is_initialized()
 
