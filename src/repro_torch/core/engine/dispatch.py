@@ -23,8 +23,14 @@ on arrival.
 
 Checkpoint-plane accounting: ``ckpt_save_seconds`` / ``ckpt_load_seconds``
 time every store interaction, and the synchronous slice of in-window saves
-is subtracted from measured stage walls exactly like ``compile_seconds`` —
-profiles and the virtual clock stay execution-only.
+is subtracted from measured stage walls — profiles and the virtual clock
+stay execution-only.
+
+Spans (:mod:`repro_torch.utils.tracing`): ``ckpt.get`` around the store
+read of a resume checkpoint, ``ckpt.put`` around each boundary deposit;
+every work unit — a chain, a group, a degraded group's member — runs
+inside ``tracing.unit`` of its :meth:`Dispatcher._unit_key`, so all of
+its spans, the trainer's included, carry that key.
 
 Recompute-on-miss: a resume checkpoint the plan still lists but the store
 has dropped (external eviction) does not raise — the dispatcher counts a
@@ -107,6 +113,7 @@ from repro_torch.core.faults import (TransientStageError, WorkerCrashed,
 from repro_torch.core.trainer import (ChainNotFusable, StageContext,
                                       TrainerBackend)
 from repro_torch.train.checkpoint import CheckpointStore
+from repro_torch.utils import tracing
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["Worker", "Dispatcher"]
@@ -333,7 +340,8 @@ class Dispatcher:
                 self.scheduler.on_stages_unassigned(self.plan, path)
             else:
                 pool.remove(worker)
-                status = self._execute_chain(path, worker, produced)
+                with tracing.unit(self._unit_key(path)):
+                    status = self._execute_chain(path, worker, produced)
                 if status == "miss":
                     missed = True
                 elif status in ("deferred", "failed"):
@@ -375,7 +383,9 @@ class Dispatcher:
                 # no compatible idle worker: the stages were never claimed
                 # and fall through to the chain pass / a later round
                 continue
-            ran, miss = self._execute_group(group, worker, produced, taken)
+            with tracing.unit(self._unit_key(group[0])):
+                ran, miss = self._execute_group(group, worker, produced,
+                                                taken)
             missed |= miss
             if ran:
                 idle.remove(worker)
@@ -463,7 +473,8 @@ class Dispatcher:
                     return moved, cid
         t0 = _time.perf_counter()
         try:
-            return self.store.get(cid), cid
+            with tracing.span("ckpt.get"):
+                return self.store.get(cid), cid
         except KeyError:
             pass
         finally:
@@ -500,6 +511,7 @@ class Dispatcher:
             self.store.evict(cid)
             self._d2d.pop(cid, None)
 
+    @tracing.traced("ckpt.put")
     def _put_boundary(self, path_key: str, stop: int, state: Any,
                       parent_cid: Optional[str] = None) -> str:
         """Deposit one stage-boundary checkpoint — write-behind under chain
@@ -674,20 +686,14 @@ class Dispatcher:
             start=st.start, stop=st.stop,
             path_key=self.plan.path_key(st.node_id))
 
-    def _adjusted_wall(self, wall0: float, comp0: float,
-                       save0: float) -> float:
-        """Measured wall minus the backend's compile-time delta and the
-        synchronous slice of in-window checkpoint saves: one-time
-        compilation amortizes across the study and write-behind saves
-        overlap the next stage, so neither may pollute seconds/step
-        profiles or the virtual clock."""
+    def _adjusted_wall(self, wall0: float, save0: float) -> float:
+        """Measured wall minus the synchronous slice of in-window
+        checkpoint saves: write-behind saves overlap the next stage, so
+        they may not pollute seconds/step profiles or the virtual
+        clock."""
         wall = _time.perf_counter() - wall0
-        comp = getattr(self.backend, "compile_seconds", 0.0) - comp0
         save = self.stats.ckpt_save_seconds - save0
-        return max(0.0, wall - comp - save)
-
-    def _compile_adjusted_wall(self, wall0: float, comp0: float) -> float:
-        return self._adjusted_wall(wall0, comp0, self.stats.ckpt_save_seconds)
+        return max(0.0, wall - save)
 
     # ------------------------------------------------------- chain execution
     def _execute_chain(self, path: List[Stage], worker: Worker,
@@ -755,14 +761,14 @@ class Dispatcher:
             ctx = self._ctx_for(st)
             self.plan.mark_running([Request(st.node_id, st.stop)])
 
-            comp0 = getattr(self.backend, "compile_seconds", 0.0)
             wall0 = _time.perf_counter()
             try:
                 if st.steps > 0:
                     state = self.backend.run_stage(state, ctx)
                 metrics = (self.backend.evaluate(state, ctx) if st.report
                            else None)
-                wall = self._compile_adjusted_wall(wall0, comp0)
+                wall = self._adjusted_wall(wall0,
+                                           self.stats.ckpt_save_seconds)
                 sim = self.backend.stage_seconds(ctx)
                 # commit the boundary BEFORE any accounting: a failed put
                 # leaves this stage entirely un-happened (no stats, no
@@ -833,7 +839,6 @@ class Dispatcher:
         ctxs = [self._ctx_for(st) for st in path]
         self.plan.mark_running([Request(st.node_id, st.stop) for st in path])
 
-        comp0 = getattr(self.backend, "compile_seconds", 0.0)
         save0 = self.stats.ckpt_save_seconds
         wall0 = _time.perf_counter()
         cids: List[str] = []
@@ -860,7 +865,7 @@ class Dispatcher:
             self._fail_unit(worker, path, exc, t, waste,
                             release_worker=True)
             return
-        wall = self._adjusted_wall(wall0, comp0, save0)
+        wall = self._adjusted_wall(wall0, save0)
 
         sims = [self.backend.stage_seconds(c) for c in ctxs]
         total_steps = sum(st.steps for st in path)
@@ -973,7 +978,6 @@ class Dispatcher:
                                 for chain in members for st in chain])
         self._bind(worker)
 
-        comp0 = getattr(self.backend, "compile_seconds", 0.0)
         save0 = self.stats.ckpt_save_seconds
         wall0 = _time.perf_counter()
         crash_rejoin: Optional[float] = None
@@ -1061,7 +1065,7 @@ class Dispatcher:
                 worker.busy_until = back_at
                 self.events.push(back_at, "idle", worker.wid)
                 return True, missed
-        wall = self._adjusted_wall(wall0, comp0, save0)
+        wall = self._adjusted_wall(wall0, save0)
 
         sims = [[self.backend.stage_seconds(c) for c in ctxs]
                 for ctxs in ctx_chains]
@@ -1147,8 +1151,9 @@ class Dispatcher:
                 continue
             wall0 = _time.perf_counter()
             try:
-                out, _ = self._stages_of(chain, ctxs,
-                                         self.backend.clone_state(s))
+                with tracing.unit(self._unit_key(chain)):
+                    out, _ = self._stages_of(chain, ctxs,
+                                             self.backend.clone_state(s))
             except Exception as exc:
                 back = self._fail_unit(
                     worker, chain, exc, t,

@@ -87,6 +87,7 @@ from repro_torch.core.faults import FaultyBackend, FaultyStore
 from repro_torch.core.trainer import TrainerBackend
 from repro_torch.core.trial import Trial
 from repro_torch.train.checkpoint import CheckpointStore
+from repro_torch.utils import tracing
 
 __all__ = ["ExecutionEngine", "Tuner", "StudyHandle", "EngineStats",
            "check_fleet",
@@ -468,6 +469,7 @@ class ExecutionEngine:
                 self.aggregator.kill(tid)
 
     # ------------------------------------------------------------ main loop
+    @tracing.traced("engine.step")
     def step(self) -> bool:
         """Process exactly one event, then re-run the dispatcher.  The
         re-entrant unit of the session loop — returns False at quiescence
@@ -521,7 +523,8 @@ class ExecutionEngine:
 
     def drain(self) -> None:
         """Run to quiescence (the legacy ``_drain`` loop, re-entrant)."""
-        self.dispatcher.assign()
+        with tracing.span("engine.step"):
+            self.dispatcher.assign()
         while self.step():
             pass
 

@@ -11,9 +11,16 @@ of the step").  No step of a chunk reads a value back to the host, so the
 host queues a whole chunk without waiting for the device.  Stage lengths
 split into descending power-of-two chunks (:func:`chunk_lengths`).
 
-The package runs eagerly: there is nothing to compile per chunk, so
-``compile_seconds`` stays 0.0 (the dispatcher reads it) and ``exec_calls``
-counts chunks issued.
+The package runs eagerly: there is nothing to compile per chunk, and
+``exec_calls`` counts chunks issued.
+
+Spans (:mod:`repro_torch.utils.tracing`, recorded only while a profiler
+or a ``recording()`` block is on): ``train.chain`` around a chain or a
+stage, ``train.group`` around a sibling group, ``train.evaluate`` around
+an evaluation; inside them, per chunk, ``data.slab`` (the slab drawn),
+``data.upload`` (slab, hp rows, step indices and static scalars sent to
+the device) and ``train.chunk`` (the chunk's steps, device-timed by CUDA
+events, with its member-steps and group width).
 
 Chain fusion: :meth:`run_chain` executes an entire scheduler-extracted
 chain with the ``(params, opt)`` carry and the data pipeline held live
@@ -139,6 +146,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.optim import fused_apply_update, stacked_apply_update
 from repro_torch.train.optimizer import (apply_update, apply_update_stacked,
                                          init_opt_state)
+from repro_torch.utils import tracing
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["TorchTrainer", "chunk_lengths", "value_and_grad",
@@ -244,7 +252,6 @@ class TorchTrainer(TrainerBackend):
         self.vectorize_groups = (self.device.type == "cuda") \
             if vectorize_groups is None else bool(vectorize_groups)
         self._kernel_stats0 = kernel_ops.KERNEL_STATS.snapshot()
-        self.compile_seconds = 0.0   # eager: nothing is compiled per chunk
         self.exec_calls = 0          # chunks (or single steps) issued
         self.evaluations = 0         # evaluate() calls
         self._params0 = None         # initial parameters, drawn at first use
@@ -525,6 +532,7 @@ class TorchTrainer(TrainerBackend):
             return [self.run_chain(s, c) for s, c in zip(states, chains)]
         return self._run_group(list(states), [list(c) for c in chains])
 
+    @tracing.traced("train.chain")
     def _run_fused_chain(self, state: Dict[str, Any],
                          chain: List[StageContext]) -> List[Dict[str, Any]]:
         """Run one chain, returning the boundary state of every stage.  The
@@ -558,24 +566,31 @@ class TorchTrainer(TrainerBackend):
                 carry = self._at_rest(
                     (params, init_opt_state(stage_opt, params)), 0)
                 opt_name = stage_opt
-            static_dev = self._scalars(static_hp)
+            with tracing.span("data.upload"):
+                static_dev = self._scalars(static_hp)
             for i0, i1, bs in self._bs_runs(vals, ctx.stop - ctx.start):
                 if bs is not None:
                     pipe.set_batch_size(bs)
                 w0 = i0
                 for k_len in chunk_lengths(i1 - i0, self.chunk_steps):
                     w1 = w0 + k_len
-                    slab = self._upload(pipe.next_batches(k_len))
-                    steps = torch.arange(ctx.start + w0, ctx.start + w1,
-                                         dtype=torch.int32,
-                                         device=self._home)
-                    hp_xs = {k: torch.tensor(
-                        np.asarray(vals[k][w0:w1], np.float32),
-                        device=self._home) for k in names}
+                    with tracing.span("data.slab"):
+                        batches = pipe.next_batches(k_len)
+                    with tracing.span("data.upload"):
+                        slab = self._upload(batches)
+                        steps = torch.arange(ctx.start + w0, ctx.start + w1,
+                                             dtype=torch.int32,
+                                             device=self._home)
+                        hp_xs = {k: torch.tensor(
+                            np.asarray(vals[k][w0:w1], np.float32),
+                            device=self._home) for k in names}
                     work = self._whole(carry)
                     carry = None         # the shards are not pinned
-                    carry = self._at_rest(self._run_chunk(
-                        opt_name, work, static_dev, hp_xs, slab, steps), 0)
+                    with tracing.span("train.chunk", device=self._home,
+                                      steps=k_len, members=1):
+                        work = self._run_chunk(opt_name, work, static_dev,
+                                               hp_xs, slab, steps)
+                    carry = self._at_rest(work, 0)
                     del work
                     w0 = w1
             # a snapshot leaves the trainer whole, on the mesh's first
@@ -619,6 +634,7 @@ class TorchTrainer(TrainerBackend):
                     raise ValueError(
                         "batched stages must share the bs schedule")
 
+    @tracing.traced("train.group")
     def _run_group(self, states: List[Dict[str, Any]],
                    chains: List[List[StageContext]]
                    ) -> List[List[Dict[str, Any]]]:
@@ -672,12 +688,13 @@ class TorchTrainer(TrainerBackend):
                     carries = [self._at_rest(
                         (p, init_opt_state(opt_name, p)), 0) for p in
                         (self._whole(c[0]) for c in carries)]
-            if vec:
-                static_dev = {k: torch.full((group,), v, dtype=torch.float32,
-                                            device=self._home)
-                              for k, v in static_hp.items()}
-            else:
-                static_dev = self._scalars(static_hp)
+            with tracing.span("data.upload"):
+                if vec:
+                    static_dev = {k: torch.full(
+                        (group,), v, dtype=torch.float32, device=self._home)
+                        for k, v in static_hp.items()}
+                else:
+                    static_dev = self._scalars(static_hp)
             for i0, i1, bs in self._bs_runs(vals0, ctx0.stop - ctx0.start):
                 if bs is not None:
                     for pipe in pipes:
@@ -685,37 +702,47 @@ class TorchTrainer(TrainerBackend):
                 w0 = i0
                 for k_len in chunk_lengths(i1 - i0, self.chunk_steps):
                     w1 = w0 + k_len
-                    slabs = [pipe.next_batches(k_len) for pipe in pipes]
-                    steps = torch.arange(ctx0.start + w0, ctx0.start + w1,
-                                         dtype=torch.int32,
-                                         device=self._home)
-                    if vec:
-                        # step-major (n, M): row i is one contiguous (M,)
-                        # vector, the kernel's per-member operand
-                        hp_xs = {k: torch.from_numpy(np.ascontiguousarray(
-                            np.asarray([pl[j][0][k][w0:w1] for pl in plans],
-                                       np.float32).T)).to(self._home)
-                            for k in names}
-                        slab = self._upload(slabs[0] if shared else {
-                            k: np.stack([sl[k] for sl in slabs], axis=1)
-                            for k in slabs[0]})
-                        work = list(self._whole(carry))
-                        carry = None     # pins neither input nor shards
-                        self._run_group_chunk(opt_name, work, static_dev,
-                                              hp_xs, slab, steps, shared)
-                        carry = self._at_rest(tuple(work), 1)
-                    else:
-                        up = [self._upload(sl) for sl in slabs]
-                        for m, pl in enumerate(plans):
-                            hp_m = {k: torch.tensor(
+                    with tracing.span("data.slab"):
+                        slabs = [pipe.next_batches(k_len) for pipe in pipes]
+                    with tracing.span("data.upload"):
+                        steps = torch.arange(ctx0.start + w0, ctx0.start + w1,
+                                             dtype=torch.int32,
+                                             device=self._home)
+                        if vec:
+                            # step-major (n, M): row i is one contiguous
+                            # (M,) vector, the kernel's per-member operand
+                            hp_xs = {k: torch.from_numpy(
+                                np.ascontiguousarray(np.asarray(
+                                    [pl[j][0][k][w0:w1] for pl in plans],
+                                    np.float32).T)).to(self._home)
+                                for k in names}
+                            slab = self._upload(slabs[0] if shared else {
+                                k: np.stack([sl[k] for sl in slabs], axis=1)
+                                for k in slabs[0]})
+                        else:
+                            up = [self._upload(sl) for sl in slabs]
+                            hps = [{k: torch.tensor(
                                 np.asarray(pl[j][0][k][w0:w1], np.float32),
                                 device=self._home) for k in names}
-                            work = self._whole(carries[m])
-                            carries[m] = None    # nor are member m's
-                            carries[m] = self._at_rest(self._run_chunk(
-                                opt_name, work, static_dev, hp_m,
-                                up[0 if shared else m], steps), 0)
-                            del work
+                                for pl in plans]
+                    chunk = tracing.span("train.chunk", device=self._home,
+                                         steps=k_len * group, members=group)
+                    if vec:
+                        work = list(self._whole(carry))
+                        carry = None     # pins neither input nor shards
+                        with chunk:
+                            self._run_group_chunk(opt_name, work, static_dev,
+                                                  hp_xs, slab, steps, shared)
+                        carry = self._at_rest(tuple(work), 1)
+                    else:
+                        with chunk:
+                            for m, hp_m in enumerate(hps):
+                                work = self._whole(carries[m])
+                                carries[m] = None    # nor are member m's
+                                carries[m] = self._at_rest(self._run_chunk(
+                                    opt_name, work, static_dev, hp_m,
+                                    up[0 if shared else m], steps), 0)
+                                del work
                     w0 = w1
             # snapshots leave the trainer whole, on the mesh's first device
             if vec:
@@ -754,6 +781,7 @@ class TorchTrainer(TrainerBackend):
         self.exec_calls += 1
 
     # ---------------------------------------------------- per-step reference
+    @tracing.traced("train.chain")
     def run_stage_stepwise(self, state: Dict[str, Any], ctx: StageContext
                            ) -> Dict[str, Any]:
         """The plain data plane: one batch materialised on the host and
@@ -765,24 +793,30 @@ class TorchTrainer(TrainerBackend):
         carry = (state["params"], self._init_opt(state, opt_name))
         pipe = self.pipeline_factory()
         pipe.restore(state["data"])
-        static_dev = self._scalars(static_hp)
+        with tracing.span("data.upload"):
+            static_dev = self._scalars(static_hp)
 
         for i, step in enumerate(range(ctx.start, ctx.stop)):
             if "bs" in vals:
                 pipe.set_batch_size(int(round(vals["bs"][i])))
-            batch = pipe.next_batch()
-            slab = self._upload({k: v[None] for k, v in batch.items()})
-            hp_xs = {k: torch.tensor([vals[k][i]], dtype=torch.float32,
-                                     device=self._home) for k in names}
-            steps = torch.tensor([step], dtype=torch.int32,
-                                 device=self._home)
-            carry = self._run_chunk(opt_name, carry, static_dev, hp_xs,
-                                    slab, steps)
+            with tracing.span("data.slab"):
+                batch = pipe.next_batch()
+            with tracing.span("data.upload"):
+                slab = self._upload({k: v[None] for k, v in batch.items()})
+                hp_xs = {k: torch.tensor([vals[k][i]], dtype=torch.float32,
+                                         device=self._home) for k in names}
+                steps = torch.tensor([step], dtype=torch.int32,
+                                     device=self._home)
+            with tracing.span("train.chunk", device=self._home, steps=1,
+                              members=1):
+                carry = self._run_chunk(opt_name, carry, static_dev, hp_xs,
+                                        slab, steps)
 
         return {"params": carry[0], "opt": carry[1], "opt_name": opt_name,
                 "data": pipe.state(), "step": ctx.stop}
 
     # ------------------------------------------------------------- evaluate
+    @tracing.traced("train.evaluate")
     def evaluate(self, state: Dict[str, Any], ctx: StageContext
                  ) -> Dict[str, float]:
         state, = self.on_device(state)

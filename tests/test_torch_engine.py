@@ -431,7 +431,7 @@ def test_sha_on_real_training_stage_vs_trial(backend):
         assert stats.ckpt_async_writes == stats.ckpt_saves > 0
         assert store.pending_writes == 0          # close() flushed
         assert stats.kernel_calls == 0 and stats.kernel_fallbacks == 0
-        assert backend.exec_calls > calls0 and backend.compile_seconds == 0.0
+        assert backend.exec_calls > calls0
         for cid in store.committed_ids():
             for leaf in tree_leaves(store.get(cid)["params"]):
                 assert bool(leaf.isfinite().all())
