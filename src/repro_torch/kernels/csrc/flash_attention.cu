@@ -91,34 +91,63 @@
 // overlap them.  Split in two, the pair does 3.5x the forward's flops
 // (s and dp formed in each) against the backward's 2.5x.
 //
-// B3, B4 and B2 in f32: one block of 256 threads (a 16 x 16 grid) per
-// (q-tile, head, batch) for fa_fwd / fa_bwd_dq and per (kv-tile, head,
-// batch) for fa_bwd_dkv; tiles are 64 x 64 (fa_bwd_dkv's query tiles 32
-// rows above hd 128, and fa_bwd_dq's K and V share one buffer there: f32
-// tiles of 256 columns would pass 227 KB); hd is padded to 32, 64, 128 or
-// 256 columns.  The block loops over the live
-// tiles of the other axis: the TPU's pl.when(_tile_live) skip becomes the
-// loop's bounds (lo / hi below, mirrored by _live_range in
-// flash_attention.py and checked there against the predicate).  Operand
-// tiles are staged in shared memory as f32 (row stride hd_pad + 1, so a
-// column walk hits 16 distinct banks); each thread owns a 4 x 4 piece of
-// the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and the same 4
-// rows of the accumulators (columns tx + 16 c), so a row's statistics (m,
-// l) live in the registers of the 16 threads of one half-warp and are
-// reduced with xor shuffles.  Inputs are read in place through the (B, S,
-// H, hd) layout; the ragged edges are masked in the kernel.  These f32
-// kernels do not use the tensor cores (no wgmma, no TMA, not even
-// mma.sync): every product is an f32 FMA on the CUDA cores, whose peak is
-// 67 TFLOP/s, and the 4 x 4 register tiles read two shared memory words
-// per FMA pair, so they run far from the bound.  Split in two kernels as
-// on the TPU, the backward must form s and dp in each: fa_bwd_dq alone
-// does three products (1.5x the forward), fa_bwd_dkv four (2x), so the
-// pair is held to 3.5x and the split costs 40 % over the backward's 2.5x.
-// chip_smoke.py reports each kernel against its own count and the pair
-// against 2.5x.  What every design here does about the bound: skip dead
-// tiles entirely (causal halves the work), never materialise the S x S
-// matrices, read each K / V tile once per q-tile (and each Q / dO tile
-// once per kv-tile), and keep every accumulator in registers.
+// B2, B3 and B4 in f32, fa_fwd_kernel / fa_bwd_dq_kernel /
+// fa_bwd_dkv_kernel: every product is an IEEE f32 FFMA on the CUDA cores
+// (no TF32, no split-TF32, no mma / wgmma, no fast-math), so the bound is
+// the SMs' FFMA peak, 67 TFLOP/s; the bytes bound is a tenth of it at the
+// main path's shape.  Reaching that peak means an FFMA in nearly every
+// issue slot, so the design is that of a CUDA-core GEMM:
+//   - register blocking: one block of 128 threads, a 16 x 8 grid (ty =
+//     tid / 8, tx = tid % 8).  Each block keeps a resident tile of f_out =
+//     64 rows (32 at hd 256) - query rows for fa_fwd / fa_bwd_dq, keys for
+//     fa_bwd_dkv - and streams tiles of f_in = 64 rows of the other side
+//     (32 above hd 64).  A thread owns rows ty + 16 i of the resident tile
+//     (R = 4 of them), rows tx + 8 j of the streamed one (8) and head-dim
+//     columns 32 g + 4 tx + e, so at hd 64 every product it takes part in
+//     is a 4 x 8 piece, and one row's softmax statistics live in the 8
+//     lanes of a quarter-warp (xor shuffles 1, 2, 4);
+//   - vector shared reads: the operand tiles sit in shared memory in their
+//     global (row, hd) layout with each 16-byte chunk's index XORed with
+//     the row % 8, so that a quarter-warp reading 8 rows at one chunk, or
+//     one row at 8 chunks, meets 8 distinct bank groups; every operand is
+//     read as float4.  The score products (S = Q K^T, dP = dO V^T and their
+//     transposes) read 4 head-dim columns of 4 + 8 rows a step, 128 FFMAs
+//     for 48 words; the accumulating products (P V, dS K, P^T dO, dS^T Q)
+//     read 4 probabilities and 8 values a key or query, 32 FFMAs for 12
+//     words: 2.7 FFMAs a word against the 2 of the 4 x 4 scalar design
+//     this replaced.  (128-row resident tiles, with 8 x 4 and 8 x 8
+//     pieces, measured slower: at S 1024 the causal grid has too few
+//     blocks, and its heaviest set the time.)  P and dS go
+//     through a padded buffer in the order the next product reads (one row
+//     per key or query, each thread's R rows side by side), written and
+//     read by the 8 lanes that own them, so a __syncwarp orders them, not
+//     a block barrier;
+//   - asynchronous, double-buffered loads: the streamed tiles (K / V for
+//     fa_fwd and fa_bwd_dq, Q / dO for fa_bwd_dkv) move by 16-byte cp.async
+//     (4-byte where hd % 4 or the alignment forbids it) into a ring of two
+//     stages; the next tile is in flight while the current one is computed,
+//     one block barrier a tile.  Rows past S and columns past hd are
+//     zero-filled by the copies (src-size 0);
+//   - tile shapes from the head dim (template on HDP, hd padded to 32, 64,
+//     128 or 256): each accumulator stays at 64 registers or fewer, and at
+//     hd <= 64 the shared memory (97 KB fa_fwd, 113 KB the backward) lets
+//     two blocks share an SM; at hd 128 two of fa_fwd and one of the
+//     backward fit, at hd 256 one;
+//   - heaviest tiles first: the grid is (Hq, B, tiles), so the query heads
+//     of one KV head are neighbours (their K / V tiles meet in L2), and
+//     under causal masking fa_fwd / fa_bwd_dq take their q-tiles last to
+//     first and fa_bwd_dkv its kv-tiles first to last: the blocks with the
+//     most live partners start first and the short ones fill the tail.
+// The block loops over the live tiles of the other axis only: the TPU's
+// pl.when(_tile_live) skip becomes the loop's bounds (lo / hi below,
+// mirrored by _live_range in flash_attention.py and checked there against
+// the predicate); masks are applied per element only on tiles that cross
+// the causal diagonal, the window's edge or S.  Split in two kernels as on
+// the TPU, the backward forms s and dp in each: fa_bwd_dq does three
+// products (1.5x the forward), fa_bwd_dkv four (2x).  A fused backward
+// would do 2.5x but must sum dq across blocks (atomics, or a second pass);
+// TF32 would raise the peak sevenfold but keep 10 bits of mantissa, and
+// the training's reference is f32 with TF32 off: neither is taken.
 //
 // Determinism: no atomics; every sum is taken in a fixed order, so two
 // identical launches give identical bits (the engine's losslessness check
@@ -133,36 +162,13 @@
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per tile
-constexpr int BK = 64;       // key rows per tile
-constexpr int NT = 256;      // threads per block, a 16 x 16 grid
 constexpr float NEG = -1e30f;
 constexpr float LSE_EMPTY = 1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
 
 // Row `s` of head `h` of a contiguous (B, S, H, hd) tensor.
 __device__ __forceinline__ int64_t row_off(int b, int s, int h, int S, int H,
                                            int hd) {
   return ((int64_t)b * S + s) * H * (int64_t)hd + (int64_t)h * hd;
-}
-
-// ROWS rows [row0, row0 + ROWS) of head h into dst[ROWS][HDP + 1] as f32;
-// rows at or past S and columns at or past hd read as 0.
-template <typename T, int HDP, int ROWS = 64>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
-                                          int row0, int S, int H, int h,
-                                          int hd) {
-  for (int idx = threadIdx.x; idx < ROWS * HDP; idx += NT) {
-    const int r = idx / HDP, c = idx % HDP, s = row0 + r;
-    float x = 0.f;
-    if (s < S && c < hd) x = to_f(src[row_off(b, s, h, S, H, hd) + c]);
-    dst[r * (HDP + 1) + c] = x;
-  }
 }
 
 __device__ __forceinline__ bool visible(int q_pos, int k_pos, int Sk,
@@ -173,23 +179,9 @@ __device__ __forceinline__ bool visible(int q_pos, int k_pos, int Sk,
   return ok;
 }
 
-// Sum / max over the 16 threads of a half-warp (fixed order).
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 // Live kv tiles [lo, hi] of q-tile qi for TQ x TK tiles (fa_fwd,
-// fa_bwd_dq: 64 x 64; fa_fwd_tc: 128 x 128).
-template <int TQ = BQ, int TK = BK>
+// fa_bwd_dq: f_out x f_in; fa_fwd_tc: 128 x 128).
+template <int TQ, int TK>
 __device__ __forceinline__ void kv_range(int qi, int nk, int causal,
                                          int window, int* lo, int* hi) {
   const int first_q = qi * TQ, last_q = first_q + TQ - 1;
@@ -203,8 +195,8 @@ __device__ __forceinline__ void kv_range(int qi, int nk, int causal,
 }
 
 // Live q tiles [lo, hi] of kv-tile ki for TQ x TK tiles (fa_bwd_dkv:
-// 64 x 64; fa_bwd_dkv_tc: 64 x 128).
-template <int TQ = BQ, int TK = BK>
+// f_in x f_out; fa_bwd_dkv_tc: 64 x 128).
+template <int TQ, int TK>
 __device__ __forceinline__ void q_range(int ki, int nq, int causal,
                                         int window, int* lo, int* hi) {
   const int first_k = ki * TK, last_k = first_k + TK - 1;
@@ -215,122 +207,6 @@ __device__ __forceinline__ void q_range(int ki, int nq, int causal,
   }
   *hi = nq - 1;
   if (window > 0) *hi = min(*hi, (last_k + window - 1) / TQ);
-}
-
-// ------------------------------------------------------------------ B2
-template <typename T, int HDP>
-__global__ void __launch_bounds__(NT)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
-              float* __restrict__ lse, int* __restrict__ tiles, int Sq,
-              int Sk, int Hq, int Hkv, int hd, int causal, int window,
-              float scale) {
-  constexpr int LD = HDP + 1, LDP = BK + 1, DC = HDP / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int first_q = qi * BQ;
-  int lo, hi;
-  kv_range(qi, (Sk + BK - 1) / BK, causal, window, &lo, &hi);
-
-  load_tile<T, HDP>(Qs, q, b, first_q, Sq, Hq, h, hd);
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int ki = lo; ki <= hi; ++ki) {
-    __syncthreads();  // Qs written; last tile's Ks / Vs / Ps no longer read
-    load_tile<T, HDP>(Ks, k, b, ki * BK, Sk, Hkv, hk, hd);
-    load_tile<T, HDP>(Vs, v, b, ki * BK, Sk, Hkv, hk, hd);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < HDP; ++d) {
-      float a[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kb[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = first_q + ty + 16 * i;
-      bool ok[4];
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = visible(q_pos, ki * BK + tx + 16 * j, Sk, causal, window);
-        s[i][j] *= scale;
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
-      }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-      }
-      rs = half_warp_sum(rs);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * LDP + c];
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc) vv[cc] = Vs[c * LD + tx + 16 * cc];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int cc = 0; cc < DC; ++cc)
-          acc[i][cc] = fmaf(pv[i], vv[cc], acc[i][cc]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = first_q + ty + 16 * i;
-    if (row >= Sq) continue;
-    const bool empty = l[i] == 0.f;
-    T* o = out + row_off(b, row, h, Sq, Hq, hd);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < hd) o[d] = from_f<T>(empty ? 0.f : acc[i][c] / l[i]);
-    }
-    if (tx == 0)
-      lse[((int64_t)b * Hq + h) * Sq + row] =
-          empty ? LSE_EMPTY : m[i] + logf(l[i]);
-  }
-  if (threadIdx.x == 0 && tiles != nullptr)
-    tiles[((int64_t)b * Hq + h) * gridDim.x + qi] = hi >= lo ? hi - lo + 1 : 0;
 }
 
 // ------------------------------------------------- B2, bf16, tensor cores
@@ -1013,346 +889,620 @@ fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ------------------------------------------------------------------ B3
-template <typename T, int HDP>
-__global__ void __launch_bounds__(NT)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq, int Sq,
-                 int Sk, int Hq, int Hkv, int hd, int causal, int window,
-                 float scale) {
-  constexpr int LD = HDP + 1, LDP = BK + 1, DC = HDP / 16;
-  // hd > 128: K and V take turns in one buffer (V for dP, then K for S and
-  // dQ), or the five tiles would pass the 227 KB a block may hold
-  constexpr bool SHARE = HDP > 128;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = SHARE ? Ks : Ks + BK * LD;
-  float* DSs = Vs + BK * LD;
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int first_q = qi * BQ;
-  int lo, hi;
-  kv_range(qi, (Sk + BK - 1) / BK, causal, window, &lo, &hi);
+// ------------------------------------------ B2-B4, f32, on the CUDA cores
+constexpr int F_NT = 128;       // threads a block: ty = tid / 8, tx = tid % 8
 
-  load_tile<T, HDP>(Qs, q, b, first_q, Sq, Hq, h, hd);
-  load_tile<T, HDP>(dOs, dout, b, first_q, Sq, Hq, h, hd);
-  float lse_r[4], delta_r[4], acc[4][DC];
+// Rows of the resident tile at padded head dim hdp: query rows (B2, B3) or
+// keys (B4), 64 (32 at hd 256); a thread holds R = f_out / 16 of them (ty +
+// 16 i).  Rows of a streamed tile: keys (B2, B3) or queries (B4), 64 up to
+// hd 64 and 32 above (the ring must fit); a thread holds f_in / 8 of them
+// (tx + 8 j).  At hd 64 every product a thread takes part in is a 4 x 8
+// piece; its accumulators hold R x hdp / 8 floats.
+__host__ __device__ constexpr int f_out(int hdp) {
+  return hdp <= 128 ? 64 : 32;
+}
+__host__ __device__ constexpr int f_in(int hdp) { return hdp <= 64 ? 64 : 32; }
+// Row stride of the P / dS buffer (f_in rows of f_out floats): + 4 so that
+// the 4 row groups of a warp meet distinct bank groups.
+__host__ __device__ constexpr int f_ldp(int hdp) { return f_out(hdp) + 4; }
+// Shared memory: B2 Q + a ring of 2 x (K, V) + the P buffer; B3 Q + dO +
+// the ring + the dS buffer; B4 K + V + a ring of 2 x (Q, dO) + the buffer.
+__host__ __device__ constexpr size_t f_smem(int hdp, int resident) {
+  return sizeof(float) * ((size_t)resident * f_out(hdp) * hdp +
+                          4 * f_in(hdp) * hdp + f_in(hdp) * f_ldp(hdp));
+}
+
+// Offset of element (r, c) in a tile of W floats a row whose 16-byte chunk
+// c / 4 is stored at chunk (c / 4) XOR (r % 8): a quarter-warp reading 8
+// rows at one chunk, or one row at 8 chunks, meets 8 bank groups.
+template <int W>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * W + (((c >> 2) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// Asynchronous copies into shared memory (sm_80+): 16 or 4 bytes, the
+// rest of the destination zero-filled when `in` is false (nothing read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ROWS rows [row0, row0 + ROWS) of head h of a (B, S, H, hd) f32 tensor
+// into a swizzled tile of HDP columns, issued by all F_NT threads; rows at
+// or past S and columns at or past hd are zero-filled.  `vec`: 16-byte
+// copies (hd % 4 == 0, 16-byte-aligned tensors), else 4-byte ones.
+template <int ROWS, int HDP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int b, int row0, int S, int H,
+                                          int h, int hd, bool vec) {
+  const uint32_t d0 = smem_u32(dst);
+  if (vec) {
+    constexpr int CH = HDP / 4;
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < ROWS * CH; idx += F_NT) {
+      const int r = idx / CH, c = 4 * (idx % CH), s = row0 + r;
+      const bool in = s < S && c < hd;
+      cp_async16(d0 + 4 * swz<HDP>(r, c),
+                 in ? src + row_off(b, s, h, S, H, hd) + c : src, in);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * HDP; idx += F_NT) {
+      const int r = idx / HDP, c = idx % HDP, s = row0 + r;
+      const bool in = s < S && c < hd;
+      cp_async4(d0 + 4 * swz<HDP>(r, c),
+                in ? src + row_off(b, s, h, S, H, hd) + c : src, in);
+    }
+  }
+}
+
+// acc[i][j] += A row (ty + 16 i) . B row (tx + 8 j) over the HDP columns,
+// in column order; A and B are swizzled tiles.  A quarter-warp reads one
+// A row (a broadcast) and 8 B rows at 8 distinct bank groups; the warp's
+// 4 A rows fall on 4 bank groups.
+template <int R, int J, int HDP>
+__device__ __forceinline__ void nt_product(float (&acc)[R][J],
+                                           const float* __restrict__ A,
+                                           const float* __restrict__ B,
+                                           int ty, int tx) {
+  const float* a0 = A + ty * HDP;
+  const float* b0 = B + tx * HDP;
+  const int ya = ty & 7;          // A rows' chunk swizzle; B rows' is tx
+#pragma unroll 2
+  for (int k = 0; k < HDP / 4; ++k) {
+    float a[R][4], bv[J][4];
+    const int ka = 4 * ((k & ~7) | ((k ^ ya) & 7));
+    const int kb = 4 * ((k & ~7) | ((k ^ tx) & 7));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = first_q + ty + 16 * i;
+    for (int i = 0; i < R; ++i) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(a0 + 16 * i * HDP + ka);
+      a[i][0] = t.x, a[i][1] = t.y, a[i][2] = t.z, a[i][3] = t.w;
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(b0 + 8 * j * HDP + kb);
+      bv[j][0] = t.x, bv[j][1] = t.y, bv[j][2] = t.z, bv[j][3] = t.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          acc[i][j] = fmaf(a[i][e], bv[j][e], acc[i][j]);
+  }
+}
+
+// The thread's R values of buffer row r (its rows ty + 16 i, side by side).
+template <int R, int LDP>
+__device__ __forceinline__ void buf_row(float (&p)[R], const float* buf,
+                                        int r, int ty) {
+  const float* src = buf + r * LDP + R * ty;
+  if constexpr (R == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    p[0] = t.x, p[1] = t.y;
+  } else {
+#pragma unroll
+    for (int x = 0; x < R / 4; ++x) {
+      const float4 t = *reinterpret_cast<const float4*>(src + 4 * x);
+      p[4 * x] = t.x, p[4 * x + 1] = t.y, p[4 * x + 2] = t.z,
+      p[4 * x + 3] = t.w;
+    }
+  }
+}
+
+// The thread's piece x[i][j] (resident row ty + 16 i, streamed row tx +
+// 8 j) into the buffer at row tx + 8 j, column R ty + i; x_from_buf reads
+// it back.  Only the 8 lanes of a quarter-warp read what one of them
+// wrote, so a __syncwarp orders writes and reads.
+template <int R, int J, int LDP>
+__device__ __forceinline__ void x_to_buf(float* buf, const float (&x)[R][J],
+                                         int ty, int tx) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    float* dst = buf + (tx + 8 * j) * LDP + R * ty;
+    if constexpr (R == 2) {
+      *reinterpret_cast<float2*>(dst) = make_float2(x[0][j], x[1][j]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < R / 4; ++c)
+        *reinterpret_cast<float4*>(dst + 4 * c) =
+            make_float4(x[4 * c][j], x[4 * c + 1][j], x[4 * c + 2][j],
+                        x[4 * c + 3][j]);
+    }
+  }
+}
+template <int R, int J, int LDP>
+__device__ __forceinline__ void x_from_buf(float (&x)[R][J],
+                                           const float* buf, int ty,
+                                           int tx) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    float p[R];
+    buf_row<R, LDP>(p, buf, tx + 8 * j, ty);
+#pragma unroll
+    for (int i = 0; i < R; ++i) x[i][j] = p[i];
+  }
+}
+
+// acc[i][4 g + e] += sum over the f_in buffer rows k of buf[k][R ty + i]
+// times B[k][32 g + 4 tx + e], B a swizzled tile of HDP columns.
+template <int R, int HDP, int LDP>
+__device__ __forceinline__ void nn_product(float (&acc)[R][HDP / 8],
+                                           const float* __restrict__ buf,
+                                           const float* __restrict__ B,
+                                           int ty, int tx) {
+  constexpr int G = HDP / 32;
+#pragma unroll 4
+  for (int k = 0; k < f_in(HDP); ++k) {
+    float p[R], v[G][4];
+    buf_row<R, LDP>(p, buf, k, ty);
+    const float* row = B + k * HDP + 4 * (tx ^ (k & 7));
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float4 t = *reinterpret_cast<const float4*>(row + 32 * g);
+      v[g][0] = t.x, v[g][1] = t.y, v[g][2] = t.z, v[g][3] = t.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          acc[i][4 * g + e] = fmaf(p[i], v[g][e], acc[i][4 * g + e]);
+  }
+}
+
+// Accumulator row acc (columns 32 g + 4 tx + e) into `dst`, the row of a
+// (B, S, H, hd) tensor; columns at or past hd are not stored.
+template <int HDP>
+__device__ __forceinline__ void store_row(float* dst,
+                                          const float (&acc)[HDP / 8], int tx,
+                                          int hd, bool vec) {
+#pragma unroll
+  for (int g = 0; g < HDP / 32; ++g) {
+    const int col = 32 * g + 4 * tx;
+    if (vec) {
+      if (col < hd)
+        *reinterpret_cast<float4*>(dst + col) = make_float4(
+            acc[4 * g], acc[4 * g + 1], acc[4 * g + 2], acc[4 * g + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col + e < hd) dst[col + e] = acc[4 * g + e];
+    }
+  }
+}
+
+// B2: one block per (head, batch, q-tile of f_out rows), q-tiles last to
+// first under causal masking.  Q once, K / V tiles of f_in keys through the
+// ring; S = Q K^T, the online softmax on the thread's R x J piece (m, and
+// l summed per thread and reduced over the quarter-warp at the end), P
+// through the buffer, O += P V.
+template <int HDP>
+__global__ void __launch_bounds__(F_NT)
+fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out,
+              float* __restrict__ lse, int* __restrict__ tiles, int Sq,
+              int Sk, int Hq, int Hkv, int hd, int causal, int window,
+              float scale, int vec) {
+  constexpr int BQ = f_out(HDP), R = BQ / 16, DC = HDP / 8;
+  constexpr int F_IN = f_in(HDP), J = F_IN / 8;
+  constexpr int LDP = f_ldp(HDP), T = F_IN * HDP;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* ring = Qs + BQ * HDP;     // stage st: K at ring + 2 st T, V after
+  float* Ps = ring + 4 * T;
+  const int h = blockIdx.x, b = blockIdx.y, nq = gridDim.z;
+  const int qi = causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+  const int q0 = qi * BQ;
+  int lo, hi;
+  kv_range<BQ, F_IN>(qi, (Sk + F_IN - 1) / F_IN, causal, window, &lo, &hi);
+  const int n = hi >= lo ? hi - lo + 1 : 0;
+  auto load_kv = [&](int it) {    // tile lo + it into stage it % 2
+    float* dst = ring + 2 * (it & 1) * T;
+    load_tile<F_IN, HDP>(dst, k, b, (lo + it) * F_IN, Sk, Hkv, hk, hd, vec);
+    load_tile<F_IN, HDP>(dst + T, v, b, (lo + it) * F_IN, Sk, Hkv, hk, hd,
+                         vec);
+  };
+
+  load_tile<BQ, HDP>(Qs, q, b, q0, Sq, Hq, h, hd, vec);
+  if (n > 0) load_kv(0);
+  cp_async_commit();
+  float m[R], l[R], o[R][DC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) o[i][c] = 0.f;
+  }
+
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait_all();
+    __syncthreads();    // tile it in place; every thread is past tile it - 1
+    if (it + 1 < n) load_kv(it + 1);
+    cp_async_commit();
+    const float* Ks = ring + 2 * (it & 1) * T;
+    const int k0 = (lo + it) * F_IN;
+
+    float s[R][J];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) s[i][j] = 0.f;
+    nt_product<R, J, HDP>(s, Qs, Ks, ty, tx);
+
+    const bool edge = k0 + F_IN > Sk || (causal && k0 + F_IN - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        s[i][j] *= scale;
+        if (edge && !visible(q0 + ty + 16 * i, k0 + tx + 8 * j, Sk, causal,
+                             window))
+          s[i][j] = __uint_as_float(0xff800000u);   // -inf: exp 0
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        rs += s[i][j];
+      }
+      l[i] = alpha * l[i] + rs;   // this thread's keys; summed at the end
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) o[i][c] *= alpha;
+    }
+    x_to_buf<R, J, LDP>(Ps, s, ty, tx);
+    __syncwarp();
+    nn_product<R, HDP, LDP>(o, Ps, Ks + T, ty, tx);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+    const int row = q0 + ty + 16 * i;
+    if (row >= Sq) continue;
+    const bool empty = l[i] == 0.f;
+    float inv[DC];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) inv[c] = empty ? 0.f : o[i][c] / l[i];
+    store_row<HDP>(out + row_off(b, row, h, Sq, Hq, hd), inv, tx, hd,
+                   vec);
+    if (tx == 0)
+      lse[((int64_t)b * Hq + h) * Sq + row] =
+          empty ? LSE_EMPTY : m[i] + logf(l[i]);
+  }
+  if (threadIdx.x == 0 && tiles != nullptr)
+    tiles[((int64_t)b * Hq + h) * nq + qi] = n;
+}
+
+// B3: one block per (head, batch, q-tile of f_out rows), q-tiles last to
+// first under causal masking.  Q and dO once, K / V tiles of f_in keys
+// through the ring; S = Q K^T and dP = dO V^T, dS = P (dP - delta) scale
+// with P = exp(S scale - lse), dS through the buffer, dQ += dS K.
+template <int HDP>
+__global__ void __launch_bounds__(F_NT)
+fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int Sq, int Sk, int Hq, int Hkv, int hd, int causal,
+                 int window, float scale, int vec) {
+  constexpr int BQ = f_out(HDP), R = BQ / 16, DC = HDP / 8;
+  constexpr int F_IN = f_in(HDP), J = F_IN / 8;
+  constexpr int LDP = f_ldp(HDP), T = F_IN * HDP;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BQ * HDP;
+  float* ring = dOs + BQ * HDP;    // stage st: K at ring + 2 st T, V after
+  float* DSs = ring + 4 * T;
+  const int h = blockIdx.x, b = blockIdx.y, nq = gridDim.z;
+  const int qi = causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+  const int q0 = qi * BQ;
+  int lo, hi;
+  kv_range<BQ, F_IN>(qi, (Sk + F_IN - 1) / F_IN, causal, window, &lo, &hi);
+  const int n = hi >= lo ? hi - lo + 1 : 0;
+  auto load_kv = [&](int it) {
+    float* dst = ring + 2 * (it & 1) * T;
+    load_tile<F_IN, HDP>(dst, k, b, (lo + it) * F_IN, Sk, Hkv, hk, hd, vec);
+    load_tile<F_IN, HDP>(dst + T, v, b, (lo + it) * F_IN, Sk, Hkv, hk, hd,
+                         vec);
+  };
+
+  load_tile<BQ, HDP>(Qs, q, b, q0, Sq, Hq, h, hd, vec);
+  load_tile<BQ, HDP>(dOs, dout, b, q0, Sq, Hq, h, hd, vec);
+  if (n > 0) load_kv(0);
+  cp_async_commit();
+  // the rows' lse and delta; a row past Sq reads as one that saw no key
+  float lse_r[R], dl_r[R], acc[R][DC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
     const int64_t o = ((int64_t)b * Hq + h) * Sq + row;
     lse_r[i] = row < Sq ? lse[o] : LSE_EMPTY;
-    delta_r[i] = row < Sq ? delta[o] : 0.f;
+    dl_r[i] = row < Sq ? delta[o] : 0.f;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int ki = lo; ki <= hi; ++ki) {
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait_all();
     __syncthreads();
-    if (!SHARE) load_tile<T, HDP>(Ks, k, b, ki * BK, Sk, Hkv, hk, hd);
-    load_tile<T, HDP>(Vs, v, b, ki * BK, Sk, Hkv, hk, hd);
-    __syncthreads();
+    if (it + 1 < n) load_kv(it + 1);
+    cp_async_commit();
+    const float* Ks = ring + 2 * (it & 1) * T;
+    const int k0 = (lo + it) * F_IN;
 
-    float s[4][4], dp[4][4];
+    float s[R][J], dp[R][J];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    if (SHARE) {
-      // dP = dO V^T, then K replaces V, then S = Q K^T: each sum in the
-      // order of the shared loop below
-      for (int d = 0; d < HDP; ++d) {
-        float o[4], vb[4];
+      for (int j = 0; j < J; ++j) s[i][j] = dp[i][j] = 0.f;
+    nt_product<R, J, HDP>(s, Qs, Ks, ty, tx);
+    nt_product<R, J, HDP>(dp, dOs, Ks + T, ty, tx);
+
+    const bool edge = k0 + F_IN > Sk || (causal && k0 + F_IN - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o[i] = dOs[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) vb[j] = Vs[(tx + 16 * j) * LD + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(o[i], vb[j], dp[i][j]);
-      }
-      __syncthreads();
-      load_tile<T, HDP>(Ks, k, b, ki * BK, Sk, Hkv, hk, hd);
-      __syncthreads();
-      for (int d = 0; d < HDP; ++d) {
-        float a[4], kb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kb[j], s[i][j]);
-      }
-    } else {
-      for (int d = 0; d < HDP; ++d) {
-        float a[4], o[4], kb[4], vb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = Qs[(ty + 16 * i) * LD + d];
-          o[i] = dOs[(ty + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          kb[j] = Ks[(tx + 16 * j) * LD + d];
-          vb[j] = Vs[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(a[i], kb[j], s[i][j]);
-            dp[i][j] = fmaf(o[i], vb[j], dp[i][j]);
-          }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = first_q + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = ki * BK + tx + 16 * j;
-        const bool ok = q_pos < Sq && visible(q_pos, k_pos, Sk, causal, window);
+      for (int j = 0; j < J; ++j) {
+        const bool ok = !edge || visible(q0 + ty + 16 * i, k0 + tx + 8 * j,
+                                         Sk, causal, window);
         const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        DSs[(ty + 16 * i) * LDP + tx + 16 * j] =
-            p * (dp[i][j] - delta_r[i]) * scale;
+        s[i][j] = p * (dp[i][j] - dl_r[i]) * scale;
       }
-    }
-    __syncthreads();
-
-    for (int c = 0; c < BK; ++c) {
-      float dsv[4], kv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = DSs[(ty + 16 * i) * LDP + c];
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc) kv[cc] = Ks[c * LD + tx + 16 * cc];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int cc = 0; cc < DC; ++cc)
-          acc[i][cc] = fmaf(dsv[i], kv[cc], acc[i][cc]);
-    }
+    x_to_buf<R, J, LDP>(DSs, s, ty, tx);
+    __syncwarp();
+    nn_product<R, HDP, LDP>(acc, DSs, Ks, ty, tx);
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = first_q + ty + 16 * i;
-    if (row >= Sq) continue;
-    T* o = dq + row_off(b, row, h, Sq, Hq, hd);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < hd) o[d] = from_f<T>(acc[i][c]);
-    }
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < Sq)
+      store_row<HDP>(dq + row_off(b, row, h, Sq, Hq, hd), acc[i], tx,
+                     hd, vec);
   }
 }
 
-// ------------------------------------------------------------------ B4
-// Query tiles of TQ rows: 64, and 32 at hd > 128, where four 64-row tiles
-// of 256 f32 columns would pass the 227 KB a block may hold.
+// B4: one block per (query head, batch, kv-tile of f_out keys), kv-tiles
+// first to last (under causal masking the first are the heaviest).  K and
+// V once, Q / dO tiles of f_in rows through the ring.  Transposed: S^T =
+// K Q^T, P^T = exp(S^T scale - lse_col) through the buffer, dV += P^T dO;
+// dP^T = V dO^T, dS^T = P^T (dP^T - delta_col) scale through the same
+// buffer, dK += dS^T Q.  Per query head; the GQA group sum stays outside.
 template <int HDP>
-__host__ __device__ constexpr int dkv_tq() { return HDP > 128 ? 32 : BQ; }
-
-template <typename T, int HDP>
-__global__ void __launch_bounds__(NT)
-fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+__global__ void __launch_bounds__(F_NT)
+fa_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk_h,
-                  T* __restrict__ dv_h, int Sq, int Sk, int Hq, int Hkv,
-                  int hd, int causal, int window, float scale) {
-  constexpr int TQ = dkv_tq<HDP>(), NJ = TQ / 16;
-  constexpr int LD = HDP + 1, LDT = TQ + 1, DC = HDP / 16;
-  extern __shared__ float smem[];
+                  const float* __restrict__ delta, float* __restrict__ dk_h,
+                  float* __restrict__ dv_h, int Sq, int Sk, int Hq, int Hkv,
+                  int hd, int causal, int window, float scale, int vec) {
+  constexpr int BKV = f_out(HDP), R = BKV / 16, DC = HDP / 8;
+  constexpr int F_IN = f_in(HDP), J = F_IN / 8;
+  constexpr int LDP = f_ldp(HDP), T = F_IN * HDP;
+  extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + TQ * LD;
-  float* Pt = dOs + TQ * LD;
-  float* DSt = Pt + BK * LDT;
-  float* lse_s = DSt + BK * LDT;
-  float* delta_s = lse_s + TQ;
-  const int ki = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  float* Vs = Ks + BKV * HDP;
+  float* ring = Vs + BKV * HDP;    // stage st: Q at ring + 2 st T, dO after
+  float* Buf = ring + 4 * T;
+  const int h = blockIdx.x, b = blockIdx.y, ki = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int first_k = ki * BK;
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+  const int k0 = ki * BKV;
   int lo, hi;
-  q_range<TQ, BK>(ki, (Sq + TQ - 1) / TQ, causal, window, &lo, &hi);
+  q_range<F_IN, BKV>(ki, (Sq + F_IN - 1) / F_IN, causal, window, &lo, &hi);
+  const int n = hi >= lo ? hi - lo + 1 : 0;
+  auto load_qdo = [&](int it) {
+    float* dst = ring + 2 * (it & 1) * T;
+    load_tile<F_IN, HDP>(dst, q, b, (lo + it) * F_IN, Sq, Hq, h, hd, vec);
+    load_tile<F_IN, HDP>(dst + T, dout, b, (lo + it) * F_IN, Sq, Hq, h, hd,
+                         vec);
+  };
 
-  load_tile<T, HDP>(Ks, k, b, first_k, Sk, Hkv, hk, hd);
-  load_tile<T, HDP>(Vs, v, b, first_k, Sk, Hkv, hk, hd);
-  float dk[4][DC], dv[4][DC];
+  load_tile<BKV, HDP>(Ks, k, b, k0, Sk, Hkv, hk, hd, vec);
+  load_tile<BKV, HDP>(Vs, v, b, k0, Sk, Hkv, hk, hd, vec);
+  if (n > 0) load_qdo(0);
+  cp_async_commit();
+  const float* lse_bh = lse + ((int64_t)b * Hq + h) * Sq;
+  const float* delta_bh = delta + ((int64_t)b * Hq + h) * Sq;
+  float dk[R][DC], dv[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  for (int qi = lo; qi <= hi; ++qi) {
-    __syncthreads();
-    load_tile<T, HDP, TQ>(Qs, q, b, qi * TQ, Sq, Hq, h, hd);
-    load_tile<T, HDP, TQ>(dOs, dout, b, qi * TQ, Sq, Hq, h, hd);
-    if (threadIdx.x < TQ) {
-      const int row = qi * TQ + threadIdx.x;
-      const int64_t o = ((int64_t)b * Hq + h) * Sq + row;
-      lse_s[threadIdx.x] = row < Sq ? lse[o] : LSE_EMPTY;
-      delta_s[threadIdx.x] = row < Sq ? delta[o] : 0.f;
+  for (int it = 0; it < n; ++it) {
+    const int q0 = (lo + it) * F_IN;
+    // the columns' lse and delta; a query past Sq reads as one that saw no
+    // key
+    float lse_c[J], dl_c[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int col = q0 + tx + 8 * j;
+      lse_c[j] = col < Sq ? lse_bh[col] : LSE_EMPTY;
+      dl_c[j] = col < Sq ? delta_bh[col] : 0.f;
     }
+    cp_async_wait_all();
     __syncthreads();
+    if (it + 1 < n) load_qdo(it + 1);
+    cp_async_commit();
+    const float* Qt = ring + 2 * (it & 1) * T;
+    const float* dOt = Qt + T;
 
-    // transposed tile: rows are keys (ty + 16 i), columns queries (tx + 16 j)
-    float st[4][NJ], dpt[4][NJ];
+    float s[R][J];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) st[i][j] = dpt[i][j] = 0.f;
-    for (int d = 0; d < HDP; ++d) {
-      float kb[4], vb[4], a[NJ], o[NJ];
+      for (int j = 0; j < J; ++j) s[i][j] = 0.f;
+    nt_product<R, J, HDP>(s, Ks, Qt, ty, tx);
+    const bool edge = k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + F_IN - 1 - window);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kb[i] = Ks[(ty + 16 * i) * LD + d];
-        vb[i] = Vs[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const bool ok = !edge || visible(q0 + tx + 8 * j, k0 + ty + 16 * i,
+                                         Sk, causal, window);
+        s[i][j] = ok ? expf(s[i][j] * scale - lse_c[j]) : 0.f;
       }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        a[j] = Qs[(tx + 16 * j) * LD + d];
-        o[j] = dOs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          st[i][j] = fmaf(a[j], kb[i], st[i][j]);
-          dpt[i][j] = fmaf(o[j], vb[i], dpt[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k_pos = first_k + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int qc = tx + 16 * j, q_pos = qi * TQ + qc;
-        const bool ok = q_pos < Sq && visible(q_pos, k_pos, Sk, causal, window);
-        const float p = ok ? expf(st[i][j] * scale - lse_s[qc]) : 0.f;
-        Pt[(ty + 16 * i) * LDT + qc] = p;
-        DSt[(ty + 16 * i) * LDT + qc] = p * (dpt[i][j] - delta_s[qc]) * scale;
-      }
-    }
-    __syncthreads();
+    x_to_buf<R, J, LDP>(Buf, s, ty, tx);
+    __syncwarp();
+    nn_product<R, HDP, LDP>(dv, Buf, dOt, ty, tx);     // dV += P^T dO
 
-    for (int c = 0; c < TQ; ++c) {
-      float pv[4], dsv[4], ov[DC], qv[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Pt[(ty + 16 * i) * LDT + c];
-        dsv[i] = DSt[(ty + 16 * i) * LDT + c];
-      }
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        ov[cc] = dOs[c * LD + tx + 16 * cc];
-        qv[cc] = Qs[c * LD + tx + 16 * cc];
-      }
+      for (int j = 0; j < J; ++j) s[i][j] = 0.f;
+    nt_product<R, J, HDP>(s, Vs, dOt, ty, tx);            // dP^T
+    float p[R][J];
+    x_from_buf<R, J, LDP>(p, Buf, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          dv[i][cc] = fmaf(pv[i], ov[cc], dv[i][cc]);
-          dk[i][cc] = fmaf(dsv[i], qv[cc], dk[i][cc]);
-        }
-    }
+      for (int j = 0; j < J; ++j)
+        s[i][j] = p[i][j] * (s[i][j] - dl_c[j]) * scale;
+    __syncwarp();       // the quarter-warp is done reading P
+    x_to_buf<R, J, LDP>(Buf, s, ty, tx);
+    __syncwarp();
+    nn_product<R, HDP, LDP>(dk, Buf, Qt, ty, tx);      // dK += dS^T Q
   }
+  cp_async_wait_all();
 
   // per-query-head outputs, laid out (B, Sk, Hq, hd)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = first_k + ty + 16 * i;
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + ty + 16 * i;
     if (row >= Sk) continue;
-    T* ok_ = dk_h + row_off(b, row, h, Sk, Hq, hd);
-    T* ov_ = dv_h + row_off(b, row, h, Sk, Hq, hd);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < hd) {
-        ok_[d] = from_f<T>(dk[i][c]);
-        ov_[d] = from_f<T>(dv[i][c]);
-      }
-    }
+    store_row<HDP>(dk_h + row_off(b, row, h, Sk, Hq, hd), dk[i], tx,
+                   hd, vec);
+    store_row<HDP>(dv_h + row_off(b, row, h, Sk, Hq, hd), dv[i], tx,
+                   hd, vec);
   }
 }
 
 // ------------------------------------------------------------- launchers
-template <int HDP>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * ((BQ + 2 * BK) * (HDP + 1) + BQ * (BK + 1));
-}
-template <int HDP>
-constexpr size_t dq_smem() {   // hd > 128: K and V share one buffer
-  return sizeof(float) * ((2 * BQ + (HDP > 128 ? 1 : 2) * BK) * (HDP + 1) +
-                          BQ * (BK + 1));
-}
-template <int HDP>
-constexpr size_t dkv_smem() {
-  constexpr int TQ = dkv_tq<HDP>();
-  return sizeof(float) *
-         ((2 * BK + 2 * TQ) * (HDP + 1) + 2 * BK * (TQ + 1) + 2 * TQ);
+// 16-byte copies need hd % 4 == 0 and 16-byte-aligned operands
+static int f_vec(int hd, const void* a, const void* b, const void* c,
+                 const void* d = nullptr) {
+  auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  return hd % 4 == 0 && al(a) && al(b) && al(c) && (d == nullptr || al(d));
 }
 
-template <typename T, int HDP>
+// The kernel's dynamic shared memory, with the carveout set to shared
+// memory so that two blocks of the backward fit an SM at hd <= 64.
+template <typename K>
+static cudaError_t f_attrs(K kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int HDP>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, void* tiles, int B, int Sq, int Sk, int Hq,
                int Hkv, int hd, int causal, int window, float scale,
                cudaStream_t stream) {
-  const size_t smem = fwd_smem<HDP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const size_t smem = f_smem(HDP, 1);
+  cudaError_t err = f_attrs(fa_fwd_kernel<HDP>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  fa_fwd_kernel<T, HDP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse,
-      (int*)tiles, Sq, Sk, Hq, Hkv, hd, causal, window, scale);
+  dim3 grid(Hq, B, (Sq + f_out(HDP) - 1) / f_out(HDP));   // q-tiles slowest
+  fa_fwd_kernel<HDP><<<grid, F_NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, (int*)tiles, Sq, Sk, Hq, Hkv, hd, causal, window, scale,
+      f_vec(hd, q, k, v, out));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HDP>
+template <int HDP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int Sq,
               int Sk, int Hq, int Hkv, int hd, int causal, int window,
               float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem<HDP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const size_t smem = f_smem(HDP, 2);
+  cudaError_t err = f_attrs(fa_bwd_dq_kernel<HDP>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  fa_bwd_dq_kernel<T, HDP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, Sq, Sk, Hq, Hkv, hd,
-      causal, window, scale);
+  dim3 grid(Hq, B, (Sq + f_out(HDP) - 1) / f_out(HDP));   // q-tiles slowest
+  fa_bwd_dq_kernel<HDP><<<grid, F_NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, Sq, Sk, Hq, Hkv,
+      hd, causal, window, scale,
+      f_vec(hd, q, k, v, dout) && f_vec(hd, dq, dq, dq));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HDP>
+template <int HDP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk_h, void* dv_h,
                int B, int Sq, int Sk, int Hq, int Hkv, int hd, int causal,
                int window, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem<HDP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_kernel<T, HDP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = f_smem(HDP, 2);
+  cudaError_t err = f_attrs(fa_bwd_dkv_kernel<HDP>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + BK - 1) / BK, Hq, B);
-  fa_bwd_dkv_kernel<T, HDP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk_h, (T*)dv_h, Sq, Sk, Hq,
-      Hkv, hd, causal, window, scale);
+  dim3 grid(Hq, B, (Sk + f_out(HDP) - 1) / f_out(HDP));   // kv-tiles slowest
+  fa_bwd_dkv_kernel<HDP><<<grid, F_NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk_h, (float*)dv_h, Sq,
+      Sk, Hq, Hkv, hd, causal, window, scale,
+      f_vec(hd, q, k, v, dout) && f_vec(hd, dk_h, dv_h, dv_h));
   return (int)cudaGetLastError();
 }
 
@@ -1439,10 +1589,10 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
   do {                                                                   \
     if (hd <= 0 || hd > 256 || dtype != 0)                               \
       return (int)cudaErrorInvalidValue;                                 \
-    if (hd <= 32) return LAUNCH<float, 32>(__VA_ARGS__);                 \
-    if (hd <= 64) return LAUNCH<float, 64>(__VA_ARGS__);                 \
-    if (hd <= 128) return LAUNCH<float, 128>(__VA_ARGS__);               \
-    return LAUNCH<float, 256>(__VA_ARGS__);                              \
+    if (hd <= 32) return LAUNCH<32>(__VA_ARGS__);                        \
+    if (hd <= 64) return LAUNCH<64>(__VA_ARGS__);                        \
+    if (hd <= 128) return LAUNCH<128>(__VA_ARGS__);                      \
+    return LAUNCH<256>(__VA_ARGS__);                                     \
   } while (0)
 
 // bf16 only (dtype 1), on the tensor cores: hd a multiple of 8 (TMA needs
@@ -1464,13 +1614,14 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Tile sizes at head dim hd, for the wrapper's tile accounting: fa_fwd,
-// fa_bwd_dq (f32) 64 x 64; fa_bwd_dkv (f32) 64 (hd <= 128) or 32 query
-// rows x 64 keys; fa_fwd_tc and fa_bwd_dq_tc (bf16) 128 query rows x 128
-// keys (hd <= 128) or 64; fa_bwd_dkv_tc (bf16) 64 query rows x 128 keys
-// (hd <= 128) or 64.
+// fa_bwd_dq (f32) f_out query rows (64; 32 at hd 256) x f_in keys (64 up
+// to hd 64, 32 above), fa_bwd_dkv (f32) f_in query rows x f_out keys;
+// fa_fwd_tc and fa_bwd_dq_tc (bf16) 128 query rows x 128 keys (hd <= 128)
+// or 64; fa_bwd_dkv_tc (bf16) 64 query rows x 128 keys (hd <= 128) or 64.
 static int ncb_of(int hd) { return hd <= 64 ? 1 : hd <= 128 ? 2 : 4; }
-int fa_block_q(int hd) { return BQ; }
-int fa_block_k(int hd) { return BK; }
+static int hdp_of(int hd) { return hd <= 32 ? 32 : 64 * ncb_of(hd); }
+int fa_block_q(int hd) { return f_out(hdp_of(hd)); }
+int fa_block_k(int hd) { return f_in(hdp_of(hd)); }
 int fa_fwd_block_q(int hd) { return TC_BQ; }
 int fa_fwd_block_k(int hd) { return tc_bk(ncb_of(hd)); }
 int fa_dq_tc_block_q(int hd) { return TC_BQ; }
@@ -1479,7 +1630,7 @@ int fa_dkv_tc_block_q(int hd) { return DKV_BQ; }
 int fa_dkv_tc_block_k(int hd) { return dkv_keys(ncb_of(hd)); }
 
 // f32 only (dtype 0): out (B,Sq,Hq,hd) f32, lse (B,Hq,Sq) f32, tiles
-// (B,Hq,ceil(Sq/64)) int32 or null (not counted).  Returns
+// (B,Hq,ceil(Sq/fa_block_q(hd))) int32 or null (not counted).  Returns
 // cudaGetLastError() after the launch.
 int fa_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
            void* tiles, int dtype, int B, int Sq, int Sk, int Hq, int Hkv,

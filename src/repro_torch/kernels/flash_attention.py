@@ -8,6 +8,17 @@ what bounds them on an H100 and what the design does about it), built with
 ``nvcc`` at first use and called through ``ctypes``
 (:mod:`repro_torch.kernels._cuda`).
 
+In f32 every product is an f32 FFMA on the CUDA cores (no TF32, no tensor
+cores), so the bound is the 67 TFLOP/s FFMA peak, and the kernels are
+built as a CUDA-core GEMM is: 128 threads a block, each holding a 4 × 8
+piece of every product at head dim 64, operands read as ``float4`` from
+XOR-swizzled shared tiles (2.7 FFMAs a word), the streamed tiles fed by
+``cp.async`` through a ring of two stages, tile shapes from the head dim
+(:func:`simt_blocks`) and the heaviest blocks launched first
+(:func:`launch_order`).  TF32 would keep 10 bits of mantissa against a
+float32 reference, and a fused backward would sum dq across blocks, so
+neither is used; B3 and B4 stay two kernels.
+
 Three wrappers, one per TPU kernel, each with the JAX package's layouts
 (``q (B,Sq,Hq,hd)``, ``k/v (B,Sk,Hkv,hd)``, ``lse``/``delta`` ``(B,Hq,Sq)``
 f32) and a plain integer ``launches`` counter:
@@ -17,7 +28,7 @@ f32) and a plain integer ``launches`` counter:
   to ``fa_fwd_tc``, the tensor-core kernel (``wgmma`` over TMA-fed tiles of
   128 query rows × 128 keys, 64 keys above head dim 128, counted also in
   ``flash_attention_fwd.launches_tc``), f32 to ``fa_fwd``, the CUDA-core
-  kernel of 64 × 64 tiles;
+  kernel (:func:`simt_blocks`);
 * :func:`flash_attention_bwd_dq` (B3) — ``dq``;
 * :func:`flash_attention_bwd_dkv` (B4) — per-query-head ``dk_h, dv_h``
   ``(B,Sk,Hq,hd)`` in the k / v dtype.
@@ -40,11 +51,14 @@ each kernel is its plain PyTorch version on whole matrices
 takes the plain version only for tensors that lie on the CPU; on a CUDA
 tensor it launches its kernel or raises.
 
-Tiles are 64 × 64 (``BLOCK_Q``, ``BLOCK_K``) on the CUDA cores (B4's
-query tiles 32 rows above head dim 128); the bf16 kernels' are
-``FWD_BLOCK_*`` (:func:`fwd_blocks`), ``DQ_BLOCK_*`` (B3) and
+On the CUDA cores a block keeps 64 resident rows (query rows for B2 / B3,
+keys for B4; 32 at head dim 256) and streams tiles of 64 rows of the other
+side (32 above head dim 64; :func:`simt_blocks`); the bf16 kernels' tiles
+are ``FWD_BLOCK_*`` (:func:`fwd_blocks`), ``DQ_BLOCK_*`` (B3) and
 ``DKV_BLOCK_*`` (B4) up to head dim 128, and ``WIDE_BLOCK_K`` keys above
-it (:func:`tc_blocks`).  The TPU kernel's
+it (:func:`tc_blocks`).  Every kernel's grid is (head, batch, tile) with
+the heaviest tiles first under causal masking; :func:`launch_order`
+mirrors that order.  The TPU kernel's
 ``pl.when(_tile_live)`` skip becomes loop bounds in the CUDA kernels;
 :func:`_live_range` mirrors those bounds here, and the tests hold
 them against :func:`_tile_live`.  The executed-tile count is one int32 per
@@ -67,17 +81,15 @@ from repro_torch.kernels.ref import attention_mask
 __all__ = ["flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "fwd_plain", "bwd_dq_plain", "bwd_dkv_plain", "fa_tile_counts",
-           "fwd_route", "fwd_blocks", "tc_blocks", "bwd_route", "BLOCK_Q",
-           "BLOCK_K", "FWD_BLOCK_Q", "FWD_BLOCK_K", "DQ_BLOCK_Q",
-           "DQ_BLOCK_K", "DKV_BLOCK_Q", "DKV_BLOCK_K", "WIDE_BLOCK_K",
-           "MAX_HEAD_DIM", "NEG_INF", "LSE_EMPTY"]
+           "fwd_route", "fwd_blocks", "tc_blocks", "simt_blocks",
+           "launch_order", "bwd_route", "FWD_BLOCK_Q", "FWD_BLOCK_K",
+           "DQ_BLOCK_Q", "DQ_BLOCK_K", "DKV_BLOCK_Q", "DKV_BLOCK_K",
+           "WIDE_BLOCK_K", "MAX_HEAD_DIM", "NEG_INF", "LSE_EMPTY"]
 
 NEG_INF = -1e30
 # LSE filler for rows that saw no valid key (and for padded Q rows in the
 # backward): exp(s - BIG) == 0 for any finite tile score s.
 LSE_EMPTY = 1e30
-BLOCK_Q = 64          # must equal BQ / BK in csrc/flash_attention.cu
-BLOCK_K = 64
 FWD_BLOCK_Q = 128     # bf16 forward: must equal TC_BQ / TC_BK there
 FWD_BLOCK_K = 128
 DQ_BLOCK_Q = 128      # bf16 B3 (fa_bwd_dq_tc): query rows x keys
@@ -119,8 +131,7 @@ def fa_tile_counts(Sq: int, Sk: int, bq: int, bk: int, causal: bool,
 
 
 def _live_range(tile: int, n_other: int, *, kv_loop: bool, causal: bool,
-                window: int, bq: int = BLOCK_Q, bk: int = BLOCK_K
-                ) -> Tuple[int, int]:
+                window: int, bq: int, bk: int) -> Tuple[int, int]:
     """Loop bounds ``[lo, hi]`` of the CUDA kernels: the live kv tiles of
     q-tile ``tile`` (``kv_loop``: forward, dq) or the live q tiles of
     kv-tile ``tile`` (dk/dv).  Mirrors ``kv_range`` / ``q_range`` in
@@ -187,12 +198,40 @@ def tc_blocks(kernel: str, hd: int) -> Tuple[int, int]:
     return q, (WIDE_BLOCK_K if hd > 128 else k)
 
 
+def simt_blocks(kernel: str, hd: int) -> Tuple[int, int]:
+    """(query rows, keys) of a tile of the f32 kernel ``kernel`` —
+    ``"fwd"`` (B2), ``"dq"`` (B3) or ``"dkv"`` (B4) — at head dim ``hd``.
+    A block holds 64 resident rows (32 at head dim 256, so that a thread's
+    accumulator stays at 64 registers): query rows for B2 / B3, keys for
+    B4; it streams tiles of 64 rows of the other side up to head dim 64 and
+    32 above, so that the ring of two stages fits its shared memory
+    (``f_out`` / ``f_in`` in ``csrc/flash_attention.cu``)."""
+    resident, streamed = (64 if hd <= 128 else 32), (64 if hd <= 64 else 32)
+    if kernel == "dkv":
+        return streamed, resident
+    return resident, streamed
+
+
+def launch_order(kernel: str, B: int, Hq: int, n_tiles: int,
+                 causal: bool) -> list:
+    """The blocks of a B2 (``"fwd"``), B3 (``"dq"``) or B4 (``"dkv"``)
+    launch as ``(tile, head, batch)`` in the order the grid issues them,
+    mirroring ``blockIdx`` in ``csrc/flash_attention.cu`` (both routes):
+    heads fastest, so the query heads of one KV head are neighbours, then
+    batch, then tiles; under causal masking B2 / B3 take their q-tiles last
+    to first and B4 its kv-tiles first to last, the heaviest first."""
+    tiles = range(n_tiles)
+    if causal and kernel != "dkv":
+        tiles = reversed(tiles)
+    return [(t, h, b) for t in tiles for b in range(B) for h in range(Hq)]
+
+
 def fwd_blocks(dtype: torch.dtype, hd: int) -> Tuple[int, int]:
     """(query, key) tile sizes of the B2 kernel that ``dtype`` routes to at
     head dim ``hd``."""
     if dtype == torch.bfloat16:
         return tc_blocks("fwd", hd)
-    return BLOCK_Q, BLOCK_K
+    return simt_blocks("fwd", hd)
 
 
 # ----------------------------------------------------------- plain versions
@@ -280,7 +319,7 @@ def _lib():
     lib.fa_bwd_dq_tc.argtypes = [P] * 7 + shape
     lib.fa_bwd_dkv.argtypes = [P] * 8 + shape
     lib.fa_bwd_dkv_tc.argtypes = [P] * 8 + shape
-    tiles = {("fa_block_q", "fa_block_k"): lambda hd: (BLOCK_Q, BLOCK_K),
+    tiles = {("fa_block_q", "fa_block_k"): lambda hd: simt_blocks("fwd", hd),
              ("fa_fwd_block_q", "fa_fwd_block_k"):
                  lambda hd: tc_blocks("fwd", hd),
              ("fa_dq_tc_block_q", "fa_dq_tc_block_k"):
@@ -293,7 +332,7 @@ def _lib():
     for names, want in tiles.items():
         for n in names:
             getattr(lib, n).argtypes, getattr(lib, n).restype = [I], I
-        for hd in (64, 128, MAX_HEAD_DIM):      # each NCB's tiles
+        for hd in (32, 64, 128, MAX_HEAD_DIM):  # each padded head dim's
             got = tuple(getattr(lib, n)(hd) for n in names)
             if got != want(hd):
                 raise RuntimeError(

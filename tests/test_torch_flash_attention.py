@@ -8,16 +8,20 @@ packages:
 * the plain forward (``out``, ``lse``, executed-tile count) against
   ``flash_attention_fwd(..., interpret=True, return_lse=True,
   count_tiles=True)`` with the tiles of the port's kernel for the dtype
-  (f32 64 × 64, bf16 128 × 128), and the plain forward's rounding of the
+  and head dim (f32 ``simt_blocks``: 64 query rows × 64 keys at head dim
+  64; bf16 128 × 128), and the plain forward's rounding of the
   probabilities to bf16 for a bf16 ``v`` (only then);
 * the plain backward (dq, dk, dv) against ``flash_attention_bwd(...,
   interpret=True)``;
 * the ``torch.autograd.Function`` binding's gradients against
   ``torch.autograd`` through ``attention_ref``;
 * ``fa_tile_counts`` against the JAX package's, and the CUDA kernels' loop
-  bounds (``_live_range``) against the tile predicate, at 64 × 64, at the
-  bf16 forward's 128 × 128 and at the bf16 backward's tiles (B3 128 × 128,
-  B4 64 query rows × 128 keys);
+  bounds (``_live_range``) against the tile predicate, at the f32 kernels'
+  tiles of every padded head dim, at the bf16 forward's 128 × 128 and at
+  the bf16 backward's tiles (B3 128 × 128, B4 64 query rows × 128 keys);
+* the grid's block order (``launch_order``): every live tile walked once,
+  the heaviest blocks first under causal masking, a KV head's query heads
+  side by side;
 * the forward's and the backward's routes by dtype and head dim
   (``fwd_route``, ``bwd_route``);
 * the tensor-core kernels' register and shared-memory maps (``wgmma``
@@ -203,13 +207,16 @@ def test_plain_backward_at_head_dims_80_and_256_matches_jax_kernel(
 def test_wide_head_dim_loop_bounds_are_the_live_tiles(S, causal, window):
     """Above head dim 128 the kernels' loop bounds at their tiles — B2 /
     B3 ``kv_range<128, 64>``, B4 ``q_range<64, 64>`` (bf16) and the f32
-    B4's ``q_range<32, 64>`` — cover exactly the live tiles, and the
-    counts are the JAX package's at the same tiles."""
+    B2 / B3's ``kv_range<32, 32>`` and B4's ``q_range<32, 32>`` — cover
+    exactly the live tiles, and the counts are the JAX package's at the
+    same tiles."""
     tiles = [fa.tc_blocks("fwd", 256) + (True,),
              fa.tc_blocks("dq", 256) + (True,),
-             fa.tc_blocks("dkv", 256) + (False,), (32, 64, False)]
+             fa.tc_blocks("dkv", 256) + (False,),
+             fa.simt_blocks("fwd", 256) + (True,),
+             fa.simt_blocks("dkv", 256) + (False,)]
     assert [t[:2] for t in tiles] == [(128, 64), (128, 64), (64, 64),
-                                      (32, 64)]
+                                      (32, 32), (32, 32)]
     for bq, bk, kv_loop in tiles:
         nq, nk = -(-S // bq), -(-S // bk)
         live = {(qi, ki) for qi in range(nq) for ki in range(nk)
@@ -263,30 +270,76 @@ def test_tile_counts_match_jax(Sq, Sk, blocks, causal, window):
         jax_tile_counts(Sq, Sk, *blocks, causal, window)
 
 
+@pytest.mark.parametrize("hd", [20, 64, 128, 256])
 @pytest.mark.parametrize("S", [64, 96, 130, 1024])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 1),
                                            (True, 48), (True, 64),
                                            (True, 200), (False, 100)])
-def test_kernel_loop_bounds_are_the_live_tiles(S, causal, window):
-    """The CUDA kernels' loop bounds (mirrored by ``_live_range``) cover
-    exactly the tiles the JAX predicate keeps, from either side."""
-    bq, bk = fa.BLOCK_Q, fa.BLOCK_K
+def test_kernel_loop_bounds_are_the_live_tiles(S, causal, window, hd):
+    """The f32 kernels' loop bounds (mirrored by ``_live_range``) cover
+    exactly the tiles the JAX predicate keeps, from either side, at the
+    tiles of each padded head dim: B2 / B3 walk the kv tiles of a q-tile,
+    B4 the q tiles of a kv-tile (``simt_blocks``)."""
+    for kernel, kv_loop in (("fwd", True), ("dkv", False)):
+        bq, bk = fa.simt_blocks(kernel, hd)
+        nq, nk = -(-S // bq), -(-S // bk)
+        live = {(qi, ki) for qi in range(nq) for ki in range(nk)
+                if fa._tile_live(qi, ki, causal=causal, window=window, bq=bq,
+                                 bk=bk, seq_k=S)}
+        walked = set()
+        for tile in range(nq if kv_loop else nk):
+            lo, hi = fa._live_range(tile, nk if kv_loop else nq,
+                                    kv_loop=kv_loop, causal=causal,
+                                    window=window, bq=bq, bk=bk)
+            walked |= {(tile, o) if kv_loop else (o, tile)
+                       for o in range(lo, hi + 1)}
+        assert walked == live, (kernel, bq, bk)
+        assert len(live) == fa.fa_tile_counts(S, S, bq, bk, causal,
+                                              window)[0]
+        assert fa.fa_tile_counts(S, S, bq, bk, causal, window) == \
+            jax_tile_counts(S, S, bq, bk, causal, window)
+
+
+@pytest.mark.parametrize("kernel,hd", [("fwd", 64), ("dq", 64), ("dkv", 64),
+                                       ("fwd", 256), ("dkv", 128),
+                                       ("tc_fwd", 64), ("tc_dkv", 128)])
+@pytest.mark.parametrize("S", [96, 130, 1024])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 48), (False, 100)])
+def test_launch_order_visits_each_live_tile_once(kernel, hd, S, causal,
+                                                 window):
+    """Walking the grid in ``launch_order`` and each block's loop bounds
+    visits every live (q-tile, kv-tile) pair of every (batch, head)
+    exactly once (held against ``_tile_live``); under causal masking each
+    block has at least the live partners of the next one (heaviest first),
+    and the query heads of one KV head are launched side by side."""
+    B, Hq, group = 2, 14, 7
+    tc = kernel.startswith("tc_")
+    name = kernel[3:] if tc else kernel
+    bq, bk = fa.tc_blocks(name, hd) if tc else fa.simt_blocks(name, hd)
+    kv_loop = name != "dkv"
     nq, nk = -(-S // bq), -(-S // bk)
-    live = {(qi, ki) for qi in range(nq) for ki in range(nk)
+    order = fa.launch_order(name, B, Hq, nq if kv_loop else nk, causal)
+    assert len(order) == len(set(order)) == B * Hq * (nq if kv_loop else nk)
+    visits, work = [], []
+    for tile, h, b in order:
+        lo, hi = fa._live_range(tile, nk if kv_loop else nq,
+                                kv_loop=kv_loop, causal=causal,
+                                window=window, bq=bq, bk=bk)
+        pairs = [(tile, o) if kv_loop else (o, tile)
+                 for o in range(lo, hi + 1)]
+        visits += [(b, h) + p for p in pairs]
+        work.append(len(pairs))
+    live = [(b, h, qi, ki) for b in range(B) for h in range(Hq)
+            for qi in range(nq) for ki in range(nk)
             if fa._tile_live(qi, ki, causal=causal, window=window, bq=bq,
-                             bk=bk, seq_k=S)}
-    by_q = set()
-    for qi in range(nq):
-        lo, hi = fa._live_range(qi, nk, kv_loop=True, causal=causal,
-                                window=window)
-        by_q |= {(qi, ki) for ki in range(lo, hi + 1)}
-    by_k = set()
-    for ki in range(nk):
-        lo, hi = fa._live_range(ki, nq, kv_loop=False, causal=causal,
-                                window=window)
-        by_k |= {(qi, ki) for qi in range(lo, hi + 1)}
-    assert by_q == live == by_k
-    assert len(live) == fa.fa_tile_counts(S, S, bq, bk, causal, window)[0]
+                             bk=bk, seq_k=S)]
+    assert sorted(visits) == sorted(live)
+    assert len(visits) == len(set(visits))
+    if causal and not window:
+        assert work == sorted(work, reverse=True)
+    for x in range(0, len(order), group):     # one KV head's query heads
+        assert len({h // group for _, h, _ in order[x:x + group]}) == 1
 
 
 @pytest.mark.parametrize("S", [64, 96, 128, 130, 1024, 2048])
@@ -325,11 +378,15 @@ def test_forward_loop_bounds_are_the_live_tiles(S, causal, window):
 def test_forward_routes_by_dtype(dtype, hd, route):
     """bf16 goes to the tensor-core kernel, whose key tiles are 128 up to
     head dim 128 and 64 above (its operands must fit a block's shared
-    memory); f32 to the CUDA-core kernel's 64 x 64 tiles."""
+    memory); f32 to the CUDA-core kernel's tiles: 64 query rows (32 at head
+    dim 256) by 64 keys up to head dim 64 and 32 above."""
     assert fa.fwd_route(dtype, hd) == route
     want = ((128, 128 if hd <= 128 else 64) if route == "wgmma"
-            else (fa.BLOCK_Q, fa.BLOCK_K))
-    assert fa.fwd_blocks(dtype, hd) == want
+            else {20: (64, 64), 64: (64, 64), 128: (64, 32),
+                  256: (32, 32)}[hd])
+    assert fa.fwd_blocks(dtype, hd) == want == (
+        fa.tc_blocks("fwd", hd) if route == "wgmma"
+        else fa.simt_blocks("fwd", hd))
 
 
 @pytest.mark.parametrize("hd,match", [(20, "multiple of 8"),
@@ -349,7 +406,15 @@ def test_forward_route_refuses_what_tma_cannot_address(hd, match):
     (torch.float32, 20, "simt"), (torch.float32, 128, "simt"),
     (torch.float32, 256, "simt")])
 def test_backward_routes_by_dtype(dtype, hd, route):
+    """B3 takes the forward's tiles on either route; B4's f32 tile holds
+    the streamed query rows and the resident keys the other way round."""
     assert fa.bwd_route(dtype, hd) == route
+    if route == "wgmma":
+        assert fa.tc_blocks("dq", hd) == (128, 128 if hd <= 128 else 64)
+    else:
+        rows, keys = fa.simt_blocks("fwd", hd)
+        assert fa.simt_blocks("dq", hd) == (rows, keys)
+        assert fa.simt_blocks("dkv", hd) == (keys, rows)
 
 
 @pytest.mark.parametrize("hd,match", [(20, "multiple of 8"),
