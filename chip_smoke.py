@@ -2363,13 +2363,14 @@ def ssd_inputs(B, nc, Q, H, P, N, dtype, model_decay, seed):
 
 def ssd_plain(x, dt, lt, Bm, Cm, g=None):
     """What the wrappers compute, through the plain versions: the same
-    cumsum in torch, the same suffix sum for dltT."""
+    cumsum in torch (float64 on the CUDA-core route, float32 on the
+    tensor cores), dltT as the route's kernel forms it."""
     from repro_torch.kernels import ssd_scan as ssk
-    cum = torch.cumsum(lt, -1).contiguous()
+    cum = ssk._cumsum(lt, ssk.fwd_route(x.dtype, x.shape[2], x.shape[4],
+                                        Bm.shape[-1]))
     if g is None:
         return ssk.fwd_plain(x, dt, cum, Bm, Cm)
-    dx, ddt, dcum, dB, dC = ssk.bwd_plain(x, dt, cum, Bm, Cm, g)
-    return dx, ddt, ssk.dlt_from_dcum(dcum, lt.dtype), dB, dC
+    return ssk.bwd_plain(x, dt, cum, Bm, Cm, g)
 
 
 def ssd_phase(join_build):
@@ -2450,13 +2451,14 @@ def ssd_phase(join_build):
             cases += 1
 
     # the main path's shape: one mamba2-2.7b layer's SSD at 1 x 2048 tokens
-    # (16 chunks x 80 heads).  bf16 with the model's decays, which the
-    # study runs and which would overflow above the diagonal; bf16 and f32
-    # with the JAX tests' small decays, under which the 64 x 64 tile below
-    # the diagonal tile carries weight to its far corner (every element of
-    # B6's cross-tile sums counts).  bf16 outputs within one bf16 ulp
-    # beyond 2^-16 of the tensor's largest value; f32 outputs within 1e-5
-    # of it
+    # (16 chunks x 80 heads).  bf16 and f32 with the model's decays, which
+    # the studies run and which would overflow above the diagonal (in f32
+    # the CUDA-core kernels against the plain version's float64 cum); bf16
+    # and f32 with the JAX tests' small decays, under which the 64 x 64
+    # tile below the diagonal tile carries weight to its far corner (every
+    # element of B6's cross-tile sums counts).  bf16 outputs within one
+    # bf16 ulp beyond 2^-16 of the tensor's largest value; f32 outputs
+    # within 1e-5 of it
     Bs, nc, Q, H, P, N = (MAMBA[k] for k in ("B", "nc", "Q", "H", "P", "N"))
     shape_s = f"B {Bs}, nc {nc}, Q {Q}, H {H}, P {P}, N {N}"
     f32_rule = ("1e-5 x scale",
@@ -2466,6 +2468,7 @@ def ssd_phase(join_build):
     for case, dtype, model_decay, seed in (
             ("bf16, model decays", torch.bfloat16, True, 99),
             ("bf16, small decays", torch.bfloat16, False, 98),
+            ("f32, model decays", torch.float32, True, 96),
             ("f32, small decays", torch.float32, False, 97)):
         x, dt, lt, Bm, Cm, g = inputs(Bs, nc, Q, H, P, N, dtype,
                                       model_decay, seed)
@@ -2486,7 +2489,8 @@ def ssd_phase(join_build):
             main_vs_replaced[case] = vs_replaced(outs, old, 2e-2)
             scratch[case] = run.scratch_bytes
         del outs, want, old
-    assert cum_min["bf16, model decays"] < -500.0, cum_min  # overflow in reach
+    assert min(cum_min["bf16, model decays"],              # overflow in reach
+               cum_min["f32, model decays"]) < -500.0, cum_min
     assert far_decay["f32, small decays"]["median"] > 2 ** -16, far_decay
 
     # timed on the study's own inputs: bf16, the model's decays
@@ -2576,6 +2580,94 @@ def ssd_phase(join_build):
                                              "flops", "bytes")}
                      for key, r in rows.items()}})
     return rows
+
+
+def ssd_f32_phase():
+    """The float32 SSD path at the shape of the benchmark's mamba2-2.7b-f32
+    configuration (B 2, S 1,024, Q 128, H 80, P 64, N 128), on inputs
+    under which a chunk's cumulative log-decay reaches about -1,000: the
+    scan (``ssd_chunked``) by the kernel route (B5 / B6 on the CUDA cores)
+    and by the plain route, y and every gradient within 2e-6 (relative L2)
+    of the plain route in float64, where the plain route with TF32
+    products, the precision below, reads above 2e-5 on each; then one
+    training step of a float32 layer at the published widths with every
+    B5 / B6 launch on the CUDA-core kernels and no fallback."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan as ssk
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.torch_trainer import value_and_grad
+    B, S, Q, H, P, N = 2, 1024, 128, 80, 64, 128
+    tol = 2e-6
+    names = ("y", "dx", "ddt", "dA_log", "dB", "dC")
+    gen = torch.Generator().manual_seed(20261018)
+    leaves = [F.silu(torch.randn((B, S, H, P), generator=gen)),
+              F.softplus(torch.randn((B, S, H), generator=gen)),
+              torch.log(torch.linspace(1.0, 16.0, H)),
+              F.silu(torch.randn((B, S, N), generator=gen)),
+              F.silu(torch.randn((B, S, N), generator=gen))]
+    g = torch.randn((B, S, H, P), generator=gen).to(DEV)
+    leaves = [t.to(DEV) for t in leaves]
+
+    def scan(use_kernel, dtype):
+        ins = [t.to(dtype).requires_grad_(True) for t in leaves]
+        x, dt, A_log, Bm, Cm = ins
+        y = ssd_chunked(x, dt, -torch.exp(A_log), Bm, Cm, Q,
+                        use_kernel=use_kernel)[0]
+        return [y.detach()] + list(torch.autograd.grad(y, ins, g.to(dtype)))
+
+    def rel(got, want):
+        return {n: float((a.double() - b).norm() / b.norm())
+                for n, a, b in zip(names, got, want)}
+
+    launches = lambda: [(w.launches, w.launches_tc)
+                        for w in (ssk.ssd_intra_fwd, ssk.ssd_intra_bwd)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = scan(False, torch.float64)
+        n0, fb0 = launches(), kops.KERNEL_STATS.fallbacks
+        errs = {"kernel": rel(scan(True, torch.float32), want)}
+        n1 = launches()
+        errs["plain"] = rel(scan(False, torch.float32), want)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        errs["plain_tf32"] = rel(scan(False, torch.float32), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for route in ("kernel", "plain"):
+        assert all(e <= tol for e in errs[route].values()), (route, errs)
+    assert all(e > 10 * tol for e in errs["plain_tf32"].values()), errs
+    assert [(a1 - a0, t1 - t0) for (a0, t0), (a1, t1) in zip(n0, n1)] == \
+        [(1, 0), (1, 0)], (n0, n1)
+    del want, leaves, g
+    free()
+
+    # one step of a float32 layer at the published widths
+    cfg = dataclasses.replace(mamba2_cut(1), dtype="float32")
+    params = LM(cfg).init(0, device=DEV)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S),
+        generator=torch.Generator().manual_seed(7)).to(DEV)}
+    n0 = launches()
+    (loss, _), grads = value_and_grad(LM(cfg, use_kernel=True).loss, params,
+                                      batch)
+    (fwd, fwd_tc), (bwd, bwd_tc) = [(a1 - a0, t1 - t0) for (a0, t0), (a1, t1)
+                                    in zip(n0, launches())]
+    assert bool(torch.isfinite(loss)), float(loss)
+    assert fwd >= 1 and bwd >= 1 and fwd_tc == bwd_tc == 0, n0
+    assert kops.KERNEL_STATS.fallbacks == fb0, kops.KERNEL_STATS.reasons
+    emit({"phase": "ssd_f32", "shape": f"B {B}, S {S}, Q {Q}, H {H}, P {P}, "
+          f"N {N}, float32", "rel_l2_vs_float64": errs, "tolerance": tol,
+          "tf32_above": 10 * tol, "step_launches": {
+              "ssd_intra_fwd": fwd, "ssd_intra_bwd": bwd,
+              "tensor_core": fwd_tc + bwd_tc,
+              "fallbacks": kops.KERNEL_STATS.fallbacks - fb0},
+          "step_loss": float(loss)})
+    del params, grads
 
 
 # -------------------------------------------- 10-11. mamba2-2.7b: the SSD path
@@ -5925,6 +6017,7 @@ def run_phases(t_start, smi, kind, join_build, store_dir):
     emit({"phase": "free", "device_memory_allocated_bytes":
           torch.cuda.memory_allocated()})
     ssd_rows = timed("ssd_kernels", ssd_phase, join_build)       # 9
+    timed("ssd_f32", ssd_f32_phase)
     fold_rows = timed("fold", fold_phase)                        # 12
     for key, row in fold_rows.items():
         rows = fa_rows if key in fa_rows else ssd_rows

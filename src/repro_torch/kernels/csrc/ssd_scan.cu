@@ -10,19 +10,31 @@
 //   ssd_bwd     <- the same, f32 (and bf16 outside ssd_bwd_tc's shapes)
 //
 // What they compute, per (batch * chunk, head) cell, x (B,nc,Q,H,P), dt
-// (B,nc,Q,H) f32, cum = cumsum(ltT) (B,nc,H,Q) f32 (taken outside, in
-// torch), B / C (B,nc,Q,N) shared across heads; x, B, C and the cotangent g
-// in one dtype (f32 or bf16), f32 math:
+// (B,nc,Q,H) f32, cum = cumsum(ltT) (B,nc,H,Q) (taken outside, in torch:
+// f64 for ssd_fwd / ssd_bwd, f32 for the _tc kernels), B / C (B,nc,Q,N)
+// shared across heads; x, B, C and the cotangent g in one dtype (f32 or
+// bf16), f32 math:
 //   cb[i,j]   = C_i . B_j
 //   decay     = exp(cum_i - cum_j) for j <= i, else 0
 //   att       = cb * decay * dt_j
 //   ssd_fwd   y = att x                                   (y in x's dtype)
 //   ssd_bwd   datt = g x^T, dx = att^T g, dad = datt * decay,
 //             ddt_j = sum_i dad * cb, dseg = dad * cb * dt_j,
-//             dcum = rowsum(dseg) - colsum(dseg),
+//             dlt_t = sum of dseg over the pairs j < t <= i,
 //             dcb = sum over heads of dad * dt_j, dB = dcb^T C, dC = dcb B
-//             (dx in x's dtype, ddt and dcum f32, dB / dC in B's / C's).
-// The dltT suffix sum of dcum stays outside, in torch, as in the JAX package.
+//             (dx in x's dtype, ddt and dlt f32, dB / dC in B's / C's).
+//
+// Precision of the f32 route.  A chunk's cumulative log-decay reaches about
+// -1,000 at mamba2-2.7b's shape, where one f32 ulp is 6e-5: an exponent
+// cum_i - cum_j formed in f32 carries that much absolute error, and so
+// does every decay.  ssd_fwd and ssd_bwd read cum in f64 and round only
+// the difference to f32.  In the backward, the gradient of lt_t is the sum
+// of dseg over the pairs that span t (seg_ij = lt_{j+1} + ... + lt_i);
+// taken as the suffix sum of rowsum - colsum it adds and takes away every
+// pair on one side of t, the diagonal's large terms with them, and keeps
+// the difference of sums far larger than itself.  ssd_bwd sums the
+// spanning pairs alone: down each column from the bottom, then along each
+// row over the columns j < t.
 //
 // The exponent is taken only where j <= i.  A chunk's cumulative log-decay
 // reaches about -1,000 at mamba2-2.7b's shape, so above the diagonal
@@ -43,9 +55,11 @@
 //   ssd_bwd: the TPU kernel sums dcb over heads in a VMEM scratch along its
 //     sequential head axis; blocks here run in no order.  So B6 is two
 //     kernels: ssd_bwd_head_kernel, one block per (head, cell), loops over
-//     column tiles j and, inside, row tiles i >= j, with dx_j and the
-//     column sums in registers and the row sums of dseg in shared memory,
-//     and writes its head's dcb to a (B*nc, H, Q, Q) f32 scratch;
+//     column tiles j and, inside, row tiles i >= j from the last up, with
+//     dx_j and the column sums in registers, each tile's dseg in shared
+//     memory (summed down its columns by one thread a column, carrying the
+//     tiles below, then along its rows into dlt), and writes its head's dcb
+//     to a (B*nc, H, Q, Q) f32 scratch;
 //     ssd_bwd_bc_kernel, one block per (64-row tile, dB or dC, cell), sums
 //     dcb over the heads in head order and forms dB or dC.
 //
@@ -171,8 +185,9 @@ __host__ __device__ constexpr int fwd_ld_p() { return (16 * PC) | 1; }
 
 template <int PC>
 size_t fwd_smem(int N) {
-  return sizeof(float) * (2 * TL * odd(N) + TL * fwd_ld_p<PC>() +
-                          TL * (TL + 1) + 3 * TL);
+  return sizeof(double) * 2 * TL +
+         sizeof(float) * (2 * TL * odd(N) + TL * fwd_ld_p<PC>() +
+                          TL * (TL + 1) + TL);
 }
 
 // ---------------------------------------------------------------- B5
@@ -180,29 +195,29 @@ size_t fwd_smem(int N) {
 template <typename E, int PC>
 __global__ void __launch_bounds__(NT)
 ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ cum, const E* __restrict__ Bm,
+               const double* __restrict__ cum, const E* __restrict__ Bm,
                const E* __restrict__ Cm, E* __restrict__ y, int Q, int H,
                int P, int N) {
   extern __shared__ float sm[];
   constexpr int PW = 16 * PC, LDP = fwd_ld_p<PC>();
   const int ldn = odd(N);
-  float* sC = sm;                    // [TL][ldn]  C, rows of tile i
+  double* sCi = reinterpret_cast<double*>(sm);  // [TL]  cum, rows of tile i
+  double* sCj = sCi + TL;                       // [TL]  cum, rows of tile j
+  float* sC = reinterpret_cast<float*>(sCj + TL);  // [TL][ldn]  C, tile i
   float* sB = sC + TL * ldn;         // [TL][ldn]  B, rows of tile j
   float* sX = sB + TL * ldn;         // [TL][LDP]  x, rows of tile j
   float* sA = sX + TL * LDP;         // [TL][TL + 1]  att tile
-  float* sCi = sA + TL * (TL + 1);   // [TL]  cum, rows of tile i
-  float* sCj = sCi + TL;             // [TL]  cum, rows of tile j
-  float* sDt = sCj + TL;             // [TL]  dt, rows of tile j
+  float* sDt = sA + TL * (TL + 1);   // [TL]  dt, rows of tile j
 
   const int it = blockIdx.x, h = blockIdx.y;
   const int64_t bc = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int i0 = it * TL;
-  const float* cum_h = cum + (bc * H + h) * Q;
+  const double* cum_h = cum + (bc * H + h) * Q;
 
   load_bc_rows(sC, ldn, Cm, bc, i0, Q, N);
   for (int r = threadIdx.x; r < TL; r += NT)
-    sCi[r] = i0 + r < Q ? cum_h[i0 + r] : 0.f;
+    sCi[r] = i0 + r < Q ? cum_h[i0 + r] : 0.0;
 
   float acc[4][PC];
 #pragma unroll
@@ -217,7 +232,7 @@ ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
     load_head_rows(sX, LDP, PW, x, bc, j0, Q, H, h, P);
     for (int r = threadIdx.x; r < TL; r += NT) {
       const int j = j0 + r;
-      sCj[r] = j < Q ? cum_h[j] : 0.f;
+      sCj[r] = j < Q ? cum_h[j] : 0.0;
       sDt[r] = j < Q ? dt[(bc * Q + j) * H + h] : 0.f;
     }
     __syncthreads();
@@ -232,7 +247,7 @@ ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
         const int jl = tx + 16 * b, j = j0 + jl;
         float v = 0.f;
         if (j <= i && i < Q)
-          v = s[a][b] * expf(sCi[il] - sCj[jl]) * sDt[jl];
+          v = s[a][b] * expf((float)(sCi[il] - sCj[jl])) * sDt[jl];
         sA[il * (TL + 1) + jl] = v;
       }
     }
@@ -267,43 +282,45 @@ ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
 template <int PC>
 size_t bwd_head_smem(int Q, int N) {
   const int qp = (Q + TL - 1) / TL * TL;
-  return sizeof(float) * (2 * TL * odd(N) + 2 * TL * fwd_ld_p<PC>() +
-                          TL * (TL + 1) + 3 * TL + 2 * qp);
+  return sizeof(double) * 2 * TL +
+         sizeof(float) * (2 * TL * odd(N) + 2 * TL * fwd_ld_p<PC>() +
+                          2 * TL * (TL + 1) + TL + qp);
 }
 
 // ---------------------------------------------------------------- B6, 1
-// grid (H, B * nc).  Writes dx, ddt, dcum and this head's dcb.
+// grid (H, B * nc).  Writes dx, ddt, dlt and this head's dcb.
 template <typename E, int PC>
 __global__ void __launch_bounds__(NT)
 ssd_bwd_head_kernel(const E* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ cum, const E* __restrict__ Bm,
+                    const double* __restrict__ cum, const E* __restrict__ Bm,
                     const E* __restrict__ Cm, const E* __restrict__ g,
                     E* __restrict__ dx, float* __restrict__ ddt,
-                    float* __restrict__ dcum, float* __restrict__ dcb,
+                    float* __restrict__ dlt, float* __restrict__ dcb,
                     int Q, int H, int P, int N) {
   extern __shared__ float sm[];
   constexpr int PW = 16 * PC, LDP = fwd_ld_p<PC>();
   const int ldn = odd(N);
   const int nt = (Q + TL - 1) / TL;
-  float* sC = sm;                    // [TL][ldn]  C, rows of tile i
+  double* sCi = reinterpret_cast<double*>(sm);  // [TL]  cum, rows of tile i
+  double* sCj = sCi + TL;                       // [TL]  cum, rows of tile j
+  float* sC = reinterpret_cast<float*>(sCj + TL);  // [TL][ldn]  C, tile i
   float* sB = sC + TL * ldn;         // [TL][ldn]  B, rows of tile j
   float* sG = sB + TL * ldn;         // [TL][LDP]  g, rows of tile i
   float* sX = sG + TL * LDP;         // [TL][LDP]  x, rows of tile j
   float* sA = sX + TL * LDP;         // [TL][TL + 1]  att tile; then the
                                      // column reductions' scratch
-  float* sCi = sA + TL * (TL + 1);   // [TL]  cum, rows of tile i
-  float* sCj = sCi + TL;             // [TL]  cum, rows of tile j
-  float* sDt = sCj + TL;             // [TL]  dt, rows of tile j
-  float* sRow = sDt + TL;            // [nt * TL]  row sums of dseg
-  float* sCol = sRow + nt * TL;      // [nt * TL]  column sums of dseg
+  float* sS = sA + TL * (TL + 1);    // [TL][TL + 1]  dseg tile, then its
+                                     // sums down each column
+  float* sDt = sS + TL * (TL + 1);   // [TL]  dt, rows of tile j
+  float* sDl = sDt + TL;             // [nt * TL]  dlt
 
   const int h = blockIdx.x;
   const int64_t bc = blockIdx.y;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* cum_h = cum + (bc * H + h) * Q;
+  const double* cum_h = cum + (bc * H + h) * Q;
   float* dcb_h = dcb + (bc * H + h) * (int64_t)Q * Q;
 
-  for (int r = threadIdx.x; r < nt * TL; r += NT) sRow[r] = 0.f;
+  for (int r = threadIdx.x; r < nt * TL; r += NT) sDl[r] = 0.f;
 
   for (int jt = 0; jt < nt; ++jt) {
     const int j0 = jt * TL;
@@ -312,62 +329,64 @@ ssd_bwd_head_kernel(const E* __restrict__ x, const float* __restrict__ dt,
     load_head_rows(sX, LDP, PW, x, bc, j0, Q, H, h, P);
     for (int r = threadIdx.x; r < TL; r += NT) {
       const int j = j0 + r;
-      sCj[r] = j < Q ? cum_h[j] : 0.f;
+      sCj[r] = j < Q ? cum_h[j] : 0.0;
       sDt[r] = j < Q ? dt[(bc * Q + j) * H + h] : 0.f;
     }
 
-    float dxa[4][PC], dpart[4], cpart[4];
+    float dxa[4][PC], dpart[4];
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      dpart[a] = cpart[a] = 0.f;
+      dpart[a] = 0.f;
 #pragma unroll
       for (int c = 0; c < PC; ++c) dxa[a][c] = 0.f;
     }
+    // thread jl < TL: dseg of column j0 + jl summed over the rows below
+    float down = 0.f;
 
-    for (int it = jt; it < nt; ++it) {
+    for (int it = nt - 1; it >= jt; --it) {
       const int i0 = it * TL;
-      __syncthreads();               // sA / sC / sG readers are done
+      __syncthreads();               // sA / sS / sC / sG readers are done
       load_bc_rows(sC, ldn, Cm, bc, i0, Q, N);
       load_head_rows(sG, LDP, PW, g, bc, i0, Q, H, h, P);
       for (int r = threadIdx.x; r < TL; r += NT)
-        sCi[r] = i0 + r < Q ? cum_h[i0 + r] : 0.f;
+        sCi[r] = i0 + r < Q ? cum_h[i0 + r] : 0.0;
       __syncthreads();
 
       float s[4][4], d[4][4];
       tile_product(s, sC, sB, ldn, N, tx, ty);     // cb
       tile_product(d, sG, sX, LDP, P, tx, ty);     // datt = g x^T
-      float rpart[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int il = ty + 16 * a, i = i0 + il;
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           const int jl = tx + 16 * b, j = j0 + jl;
-          float att = 0.f, dcbv = 0.f;
+          float att = 0.f, dcbv = 0.f, dseg = 0.f;
           if (j <= i && i < Q) {
-            const float dec = expf(sCi[il] - sCj[jl]);
+            const float dec = expf((float)(sCi[il] - sCj[jl]));
             const float dtj = sDt[jl];
             att = s[a][b] * dec * dtj;
             const float dad = d[a][b] * dec;
             dpart[b] += dad * s[a][b];
-            const float dseg = dad * s[a][b] * dtj;
-            rpart[a] += dseg;
-            cpart[b] += dseg;
+            dseg = dad * s[a][b] * dtj;
             dcbv = dad * dtj;
           }
           sA[il * (TL + 1) + jl] = att;
+          sS[il * (TL + 1) + jl] = dseg;
           if (i < Q && j < Q) dcb_h[(int64_t)i * Q + j] = dcbv;
         }
       }
-      // row sums: over the half-warp's 16 threads, then across column
-      // tiles in order (one thread per row per tile)
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float v = half_warp_sum(rpart[a]);
-        if (tx == 0) sRow[i0 + ty + 16 * a] += v;
-      }
       __syncthreads();
 
+      // down each column from the bottom: sS[r][jl] becomes the sum of
+      // dseg over the rows i >= i0 + r
+      if (threadIdx.x < TL) {
+        const int jl = threadIdx.x;
+        for (int r = TL - 1; r >= 0; --r) {
+          down += sS[r * (TL + 1) + jl];
+          sS[r * (TL + 1) + jl] = down;
+        }
+      }
       // dx_j += att^T g: rows j = ty + 16 a of the column tile
       const int in = min(TL, Q - i0);
       for (int il = 0; il < in; ++il) {
@@ -381,28 +400,29 @@ ssd_bwd_head_kernel(const E* __restrict__ x, const float* __restrict__ dt,
           for (int a = 0; a < 4; ++a) dxa[a][c] = fmaf(av[a], gv, dxa[a][c]);
         }
       }
+      __syncthreads();
+
+      // dlt_t over the columns j < t of this tile: one thread a row t
+      if (threadIdx.x < TL) {
+        const int r = threadIdx.x, t = i0 + r;
+        float acc = 0.f;
+        for (int jl = 0; jl < TL; ++jl)
+          if (j0 + jl < t) acc += sS[r * (TL + 1) + jl];
+        if (t < Q) sDl[t] += acc;
+      }
     }
 
-    // column sums (ddt, colsum of dseg): over the 16 thread rows in order
+    // column sums (ddt): over the 16 thread rows in order
     __syncthreads();
-    float* red = sA;                 // [2][16][TL]
+    float* red = sA;                 // [16][TL]
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      red[ty * TL + tx + 16 * b] = dpart[b];
-      red[16 * TL + ty * TL + tx + 16 * b] = cpart[b];
-    }
+    for (int b = 0; b < 4; ++b) red[ty * TL + tx + 16 * b] = dpart[b];
     __syncthreads();
     if (threadIdx.x < TL) {
       const int jl = threadIdx.x, j = j0 + jl;
-      float sd = 0.f, sc = 0.f;
-      for (int t = 0; t < 16; ++t) {
-        sd += red[t * TL + jl];
-        sc += red[16 * TL + t * TL + jl];
-      }
-      if (j < Q) {
-        ddt[(bc * Q + j) * H + h] = sd;
-        sCol[j] = sc;
-      }
+      float sd = 0.f;
+      for (int t = 0; t < 16; ++t) sd += red[t * TL + jl];
+      if (j < Q) ddt[(bc * Q + j) * H + h] = sd;
     }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -417,7 +437,7 @@ ssd_bwd_head_kernel(const E* __restrict__ x, const float* __restrict__ dt,
   }
   __syncthreads();
   for (int k = threadIdx.x; k < Q; k += NT)
-    dcum[(bc * H + h) * Q + k] = sRow[k] - sCol[k];
+    dlt[(bc * H + h) * Q + k] = sDl[k];
 }
 
 size_t bwd_bc_smem(int Q, int N) {
@@ -534,22 +554,22 @@ int launch_fwd(const void* x, const void* dt, const void* cum, const void* B,
   if (err != 0) return err;
   dim3 grid((Q + TL - 1) / TL, H, BC);
   ssd_fwd_kernel<E, PC><<<grid, NT, smem, stream>>>(
-      (const E*)x, (const float*)dt, (const float*)cum, (const E*)B,
+      (const E*)x, (const float*)dt, (const double*)cum, (const E*)B,
       (const E*)C, (E*)y, Q, H, P, N);
   return (int)cudaGetLastError();
 }
 
 template <typename E, int PC>
 int launch_bwd(const void* x, const void* dt, const void* cum, const void* B,
-               const void* C, const void* g, void* dx, void* ddt, void* dcum,
+               const void* C, const void* g, void* dx, void* ddt, void* dlt,
                void* dB, void* dC, void* dcb, int BC, int Q, int H, int P,
                int N, cudaStream_t stream) {
   const size_t smem = bwd_head_smem<PC>(Q, N);
   int err = set_smem(ssd_bwd_head_kernel<E, PC>, smem);
   if (err != 0) return err;
   ssd_bwd_head_kernel<E, PC><<<dim3(H, BC), NT, smem, stream>>>(
-      (const E*)x, (const float*)dt, (const float*)cum, (const E*)B,
-      (const E*)C, (const E*)g, (E*)dx, (float*)ddt, (float*)dcum,
+      (const E*)x, (const float*)dt, (const double*)cum, (const E*)B,
+      (const E*)C, (const E*)g, (E*)dx, (float*)ddt, (float*)dlt,
       (float*)dcb, Q, H, P, N);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -580,7 +600,8 @@ int launch_bwd(const void* x, const void* dt, const void* cum, const void* B,
 //     dad cb (a row of T: quad shuffles), dseg = dad cb dt_j, dcum = column
 //     sums of T (xor-shuffle reduce-scatter, then 8 warps in order) minus
 //     its row sums, and dltT, dcum's suffix sum, at once (the CUDA-core
-//     route leaves that sum to torch), dcb^T += dad dt_j in registers;
+//     route sums the spanning pairs instead), dcb^T += dad dt_j in
+//     registers;
 //   dx = att^T g     wgmma m64n64k16, A = att^T from registers as bf16 hi +
 //                    lo (att - hi, rounded again: att to 2^-17 relative, the
 //                    f32 products' accuracy), B = the same g tile N-major
@@ -1367,7 +1388,8 @@ extern "C" {
 // Tile size, checked by the wrapper.
 int ssd_tile() { return TL; }
 
-// y (B,nc,Q,H,P) in x's dtype.  Returns cudaGetLastError() after the launch.
+// y (B,nc,Q,H,P) in x's dtype, cum (B,nc,H,Q) f64.  Returns
+// cudaGetLastError() after the launch.
 int ssd_fwd(const void* x, const void* dt, const void* cum, const void* B,
             const void* C, void* y, int dtype, int BC, int Q, int H, int P,
             int N, void* stream) {
@@ -1375,20 +1397,21 @@ int ssd_fwd(const void* x, const void* dt, const void* cum, const void* B,
                (cudaStream_t)stream);
 }
 
-// dx (B,nc,Q,H,P) in x's dtype, ddt (B,nc,Q,H) f32, dcum (B,nc,H,Q) f32,
-// dB / dC (B,nc,Q,N) in their dtype; dcb is a (B*nc, H, Q, Q) f32 scratch.
+// cum (B,nc,H,Q) f64; dx (B,nc,Q,H,P) in x's dtype, ddt (B,nc,Q,H) f32,
+// dlt (B,nc,H,Q) f32, dB / dC (B,nc,Q,N) in their dtype; dcb is a
+// (B*nc, H, Q, Q) f32 scratch.
 int ssd_bwd(const void* x, const void* dt, const void* cum, const void* B,
-            const void* C, const void* g, void* dx, void* ddt, void* dcum,
+            const void* C, const void* g, void* dx, void* ddt, void* dlt,
             void* dB, void* dC, void* dcb, int dtype, int BC, int Q, int H,
             int P, int N, void* stream) {
-  SSD_DISPATCH(launch_bwd, x, dt, cum, B, C, g, dx, ddt, dcum, dB, dC, dcb,
+  SSD_DISPATCH(launch_bwd, x, dt, cum, B, C, g, dx, ddt, dlt, dB, dC, dcb,
                BC, Q, H, P, N, (cudaStream_t)stream);
 }
 
 // bf16 only (dtype 1), on the tensor cores: Q <= 128, P a multiple of 8 and
 // at most 64, N <= 128, 1 <= G <= 16 heads per block; x and g 16-byte
-// aligned.  Outputs as ssd_bwd's, but dltT (B,nc,H,Q) f32 — the suffix sum
-// of dcum — in place of dcum; part is a (B*nc, ceil(H / G), Q, Q) f32
+// aligned; cum f32.  Outputs as ssd_bwd's, dltT (B,nc,H,Q) f32 being the
+// suffix sum of rowsum - colsum of dseg; part is a (B*nc, ceil(H / G), Q, Q) f32
 // scratch.  Returns cudaGetLastError() after the launches.
 int ssd_bwd_tc(const void* x, const void* dt, const void* cum, const void* B,
                const void* C, const void* g, void* dx, void* ddt, void* dlt,

@@ -53,11 +53,14 @@ def ssd_intra_ref(xr: torch.Tensor, dtr: torch.Tensor, ltT: torch.Tensor,
     after as in the JAX oracle: with a chunk's cumulative log-decay near
     −1,000, ``exp(cum_i − cum_j)`` above the diagonal overflows to ``inf``,
     which the forward's ``where`` hides but whose autograd backward turns
-    into ``inf · 0 = NaN``.  The forward values are the same.
+    into ``inf · 0 = NaN``.  The forward values are the same.  The cumsum
+    and the exponents are taken in float64 and rounded once, as the port's
+    float32 route does (near −1,000 one float32 ulp of ``cum`` moves
+    ``exp`` by 6e-5 relative).
     """
     Q = xr.shape[2]
-    cum = torch.cumsum(ltT.float(), dim=-1)                  # (B,nc,H,Q)
-    seg = cum[..., :, None] - cum[..., None, :]              # (B,nc,H,Q,Q)
+    cum = torch.cumsum(ltT.double(), dim=-1)                 # (B,nc,H,Q)
+    seg = (cum[..., :, None] - cum[..., None, :]).float()    # (B,nc,H,Q,Q)
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xr.device))
     decay = torch.exp(torch.where(tril, seg, float("-inf")))
     cb = torch.einsum("bcin,bcjn->bcij", Cr.float(), Br.float())

@@ -32,11 +32,18 @@ cores.  ``route="simt"`` forces the CUDA-core kernels (to hold one route
 against the other).
 
 ``cum = cumsum(ltT)`` is computed here, in torch, as the JAX functions do,
-and handed to the kernel or to its plain version, so both see the same f32
-``cum`` (near −1,000 at the end of a mamba2-2.7b chunk, where another
-summation order would move ``exp`` by ~1e-4 relative).  The backward's
-``dltT`` — the suffix sum of the kernel's ``dcum``, the transpose of the
-cumsum — is taken here too (:func:`dlt_from_dcum`).
+and handed to the kernel or to its plain version, so both see the same
+``cum``.  A chunk's sum reaches about −1,000 at mamba2-2.7b's shape, where
+one float32 ulp moves ``exp(cum_i − cum_j)`` by ~6e-5 relative, so the
+CUDA-core kernels (the float32 route) take ``cum`` in float64 and form each
+exponent ``cum_i − cum_j`` in float64 before rounding it to float32; the
+tensor-core kernels keep the float32 ``cum`` they were built on.  The
+backward's ``dltT``, the gradient through ``seg_ij = Σ_{j<t≤i} lt_t``, is
+formed in both kernels: the CUDA-core kernel sums ``dseg_ij`` over the
+pairs ``j < t ≤ i`` alone (:func:`span_sums`); the tensor-core kernel
+takes the suffix sum of ``rowsum − colsum`` of ``dseg`` (the JAX
+package's way, :func:`dlt_from_dcum`), which adds and cancels in float32
+every pair on one side of ``t``.
 
 Beside each kernel is its plain PyTorch version, the kernel's formulas on
 whole ``(Q, Q)`` tiles in f32 (:func:`fwd_plain`, :func:`bwd_plain`).  Both
@@ -58,7 +65,8 @@ import torch
 from repro_torch.kernels import _cuda
 
 __all__ = ["ssd_intra_fwd", "ssd_intra_bwd", "fwd_plain", "bwd_plain",
-           "dlt_from_dcum", "fwd_route", "bwd_route", "head_groups"]
+           "dlt_from_dcum", "span_sums", "fwd_route", "bwd_route",
+           "head_groups"]
 
 TILE = 64             # must equal TL in csrc/ssd_scan.cu
 MAX_HEAD_DIM = 128    # P: the widest register tile the kernels are built for
@@ -106,20 +114,22 @@ def fwd_route(dtype: torch.dtype, Q: int, P: int, N: int) -> str:
 # ----------------------------------------------------------- plain versions
 def _tile_terms(dtr, cum, Br, Cr):
     """f32 ``cb (B,nc,1,Q,Q)``, ``decay (B,nc,H,Q,Q)`` — ``exp(cum_i −
-    cum_j)`` where ``j ≤ i``, 0 elsewhere, the exponent never taken above
-    the diagonal — and ``dt`` as a row ``(B,nc,H,1,Q)``."""
+    cum_j)`` where ``j ≤ i``, 0 elsewhere, the exponent formed in ``cum``'s
+    dtype and never taken above the diagonal — and ``dt`` as a row
+    ``(B,nc,H,1,Q)``."""
     Q = cum.shape[-1]
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                  device=cum.device))
-    seg = cum[..., :, None] - cum[..., None, :]                # cum_i - cum_j
+    seg = (cum[..., :, None] - cum[..., None, :]).float()      # cum_i - cum_j
     decay = torch.where(tril, torch.exp(torch.where(tril, seg, 0.0)), 0.0)
     cb = torch.matmul(Cr.float(), Br.float().transpose(-1, -2))
     return cb[:, :, None], decay, dtr.float().movedim(-1, -2)[..., None, :]
 
 
 def fwd_plain(xr, dtr, cum, Br, Cr):
-    """B5's plain version: ``y (B,nc,Q,H,P)`` in x's dtype from the f32
-    ``cum = cumsum(ltT)`` ``(B,nc,H,Q)``."""
+    """B5's plain version: ``y (B,nc,Q,H,P)`` in x's dtype from ``cum =
+    cumsum(ltT)`` ``(B,nc,H,Q)`` (float64 for the CUDA-core kernel's
+    formula, float32 for the tensor-core kernel's)."""
     cb, decay, dt = _tile_terms(dtr, cum, Br, Cr)
     att = cb * decay * dt                                      # (B,nc,H,Q,Q)
     y = torch.matmul(att, xr.float().movedim(3, 2))            # (B,nc,H,Q,P)
@@ -128,8 +138,11 @@ def fwd_plain(xr, dtr, cum, Br, Cr):
 
 def bwd_plain(xr, dtr, cum, Br, Cr, g):
     """B6's plain version for the cotangent ``g`` (shaped like ``y``):
-    ``(dx, ddt, dcum, dB, dC)`` with ``dx`` in x's layout and dtype, ``ddt``
-    in dt's, ``dcum (B,nc,H,Q)`` f32 and ``dB / dC`` in B's / C's."""
+    ``(dx, ddt, dltT, dB, dC)`` with ``dx`` in x's layout and dtype, ``ddt``
+    in dt's, ``dltT (B,nc,H,Q)`` f32 and ``dB / dC`` in B's / C's.  dltT
+    is formed as the kernel of ``cum``'s route forms it: from a float64
+    ``cum`` (the CUDA-core kernel) by :func:`span_sums`, from a float32 one
+    (the tensor-core kernel) by :func:`dlt_from_dcum`."""
     cb, decay, dt = _tile_terms(dtr, cum, Br, Cr)
     att = cb * decay * dt
     xh, gh = xr.float().movedim(3, 2), g.float().movedim(3, 2)
@@ -138,20 +151,35 @@ def bwd_plain(xr, dtr, cum, Br, Cr, g):
     dad = datt * decay
     ddt = (dad * cb).sum(-2)                                   # over i
     dseg = dad * cb * dt                                       # through exp
-    dcum = dseg.sum(-1) - dseg.sum(-2)                         # row - column
+    dlt = span_sums(dseg) if cum.dtype == torch.float64 else \
+        dlt_from_dcum(dseg.sum(-1) - dseg.sum(-2), torch.float32)
     dcb = (dad * dt).sum(2)                                    # over heads
     dB = torch.matmul(dcb.transpose(-1, -2), Cr.float())
     dC = torch.matmul(dcb, Br.float())
     return (dx.movedim(2, 3).to(xr.dtype).contiguous(),
-            ddt.movedim(-1, -2).to(dtr.dtype).contiguous(), dcum,
+            ddt.movedim(-1, -2).to(dtr.dtype).contiguous(), dlt,
             dB.to(Br.dtype), dC.to(Cr.dtype))
 
 
 def dlt_from_dcum(dcum: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``cum = cumsum(ltT)`` ⇒ ``dltT`` is the suffix sum (the reversed
-    cumsum) of ``dcum``."""
+    cumsum) of ``dcum`` (``dseg``'s row sums less its column sums)."""
     return torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1),
                       [-1]).to(dtype)
+
+
+def span_sums(dseg: torch.Tensor) -> torch.Tensor:
+    """``dltT (..., Q)`` from ``dseg (..., Q, Q)``, the gradient of each
+    ``seg_ij = Σ_{j<t≤i} lt_t`` (``i ≥ j``; 0 above the diagonal): ``dlt_t
+    = Σ_{j<t≤i} dseg_ij``, per column the suffix sums down the rows, then
+    per row ``t`` the columns ``j < t``.  The pairs that do not span ``t``
+    never enter, so nothing cancels (``rowsum − colsum`` of ``dseg``, summed
+    from the end, adds and takes away the same pairs)."""
+    Q = dseg.shape[-1]
+    below = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                  device=dseg.device), -1)     # j < t
+    down = torch.flip(torch.cumsum(torch.flip(dseg, [-2]), -2), [-2])
+    return torch.where(below, down, 0.0).sum(-1)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -178,15 +206,15 @@ def _lib():
     return lib
 
 
-def _check(name, xr, dtr, cum, Br, Cr, g=None):
+def _check(name, xr, dtr, ltT, Br, Cr, g=None):
     """Validate CUDA operands: one device, x / B / C (/ g) of one dtype in
-    f32 or bf16, dt and cum f32, the JAX layouts, contiguous, P <= 128."""
+    f32 or bf16, dt and ltT f32, the JAX layouts, contiguous, P <= 128."""
     if xr.dim() != 5:
         raise ValueError(f"{name}: xr must be (B,nc,Q,H,P), got "
                          f"{tuple(xr.shape)}")
     B, nc, Q, H, P = xr.shape
     N = Br.shape[-1]
-    want = {"dtr": (dtr, (B, nc, Q, H)), "ltT": (cum, (B, nc, H, Q)),
+    want = {"dtr": (dtr, (B, nc, Q, H)), "ltT": (ltT, (B, nc, H, Q)),
             "Br": (Br, (B, nc, Q, N)), "Cr": (Cr, (B, nc, Q, N))}
     if g is not None:
         want["g"] = (g, (B, nc, Q, H, P))
@@ -201,14 +229,14 @@ def _check(name, xr, dtr, cum, Br, Cr, g=None):
         raise ValueError(f"{name}: x, B, C (and g) must share a dtype in "
                          f"{sorted(map(str, _DTYPES))}, got "
                          f"{[str(t.dtype) for t in model]}")
-    if dtr.dtype != torch.float32 or cum.dtype != torch.float32:
+    if dtr.dtype != torch.float32 or ltT.dtype != torch.float32:
         raise ValueError(f"{name}: dt and ltT must be float32, got "
-                         f"{dtr.dtype}, {cum.dtype}")
-    for t in model + [dtr, cum]:
+                         f"{dtr.dtype}, {ltT.dtype}")
+    for t in model + [dtr, ltT]:
         if t.device != xr.device:
             raise ValueError(f"{name}: operands on {t.device} and "
                              f"{xr.device}")
-        if not t.is_contiguous():
+        if t is not ltT and not t.is_contiguous():   # cum is made so
             raise ValueError(f"{name}: operands must be contiguous")
     if xr.device.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {xr.device}")
@@ -220,8 +248,11 @@ def _shape_args(xr, Br):
             torch.cuda.current_stream(xr.device).cuda_stream)
 
 
-def _cumsum(ltT: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(ltT, dim=-1).contiguous()
+def _cumsum(ltT: torch.Tensor, route: str) -> torch.Tensor:
+    """``cum = cumsum(ltT)``: float64 for the CUDA-core kernels (``route``
+    ``"simt"``), float32 for the tensor-core ones."""
+    return torch.cumsum(ltT.double() if route == "simt" else ltT,
+                        dim=-1).contiguous()
 
 
 def _route(name, route_of, xr, Br, route):
@@ -263,11 +294,13 @@ def ssd_intra_fwd(xr, dtr, ltT, Br, Cr, route=None, members: int = 1):
     kernel groups heads as one member's launch would (see
     :func:`_cells`)."""
     _cuda.plain("ssd_intra_fwd", xr, dtr, ltT, Br, Cr)
-    cum = _cumsum(ltT)
     if xr.device.type == "cpu":
-        return fwd_plain(xr, dtr, cum, Br, Cr)
-    _check("ssd_intra_fwd", xr, dtr, cum, Br, Cr)
-    tc = _route("ssd_intra_fwd", fwd_route, xr, Br, route) == "wgmma"
+        route = _route("ssd_intra_fwd", fwd_route, xr, Br, route)
+        return fwd_plain(xr, dtr, _cumsum(ltT, route), Br, Cr)
+    _check("ssd_intra_fwd", xr, dtr, ltT, Br, Cr)
+    route = _route("ssd_intra_fwd", fwd_route, xr, Br, route)
+    cum = _cumsum(ltT, route)
+    tc = route == "wgmma"
     if tc and xr.data_ptr() % 16:
         raise ValueError("ssd_intra_fwd: the bf16 kernel reads x by TMA, "
                          "which needs a 16-byte-aligned tensor")
@@ -303,22 +336,22 @@ def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None, members: int = 1
     :func:`bwd_route` picks (or ``route``, ``"wgmma"`` / ``"simt"``, to hold
     one against the other), ``ssd_bwd_tc`` (per group of heads, with
     dltT, the suffix sum of dcum, formed in the kernel; then the
-    partitioned head sum into dB / dC) or ``ssd_bwd`` (per head, then the
-    head sum; dltT taken here by :func:`dlt_from_dcum`).  ``members`` as
-    for :func:`ssd_intra_fwd`."""
+    partitioned head sum into dB / dC) or ``ssd_bwd`` (per head, with
+    dltT summed over the spanning pairs in the kernel, :func:`span_sums`;
+    then the head sum).  ``members`` as for :func:`ssd_intra_fwd`."""
     _cuda.plain("ssd_intra_bwd", xr, dtr, ltT, Br, Cr, g)
-    cum = _cumsum(ltT)
     if xr.device.type == "cpu":
-        dx, ddt, dcum, dB, dC = bwd_plain(xr, dtr, cum, Br, Cr, g)
-        return dx, ddt, dlt_from_dcum(dcum, ltT.dtype), dB, dC
-    _check("ssd_intra_bwd", xr, dtr, cum, Br, Cr, g)
+        route = _route("ssd_intra_bwd", bwd_route, xr, Br, route)
+        return bwd_plain(xr, dtr, _cumsum(ltT, route), Br, Cr, g)
+    _check("ssd_intra_bwd", xr, dtr, ltT, Br, Cr, g)
     B, nc, Q, H, P = xr.shape
-    tc = _route("ssd_intra_bwd", bwd_route, xr, Br, route) == "wgmma"
+    route = _route("ssd_intra_bwd", bwd_route, xr, Br, route)
+    cum = _cumsum(ltT, route)
+    tc = route == "wgmma"
     if tc and (xr.data_ptr() % 16 or g.data_ptr() % 16):
         raise ValueError("ssd_intra_bwd: the bf16 kernel reads x and g by "
                          "TMA, which needs 16-byte-aligned tensors")
     dx, ddt = torch.empty_like(xr), torch.empty_like(dtr)
-    # dcum on the CUDA cores, dltT itself on the tensor cores
     dl = torch.empty((B, nc, H, Q), dtype=torch.float32, device=xr.device)
     dB, dC = torch.empty_like(Br), torch.empty_like(Cr)
     # the head sum's scratch, summed in a fixed order by the second kernel
@@ -342,9 +375,9 @@ def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None, members: int = 1
         ssd_intra_bwd.launches += 1
         ssd_intra_bwd.launches_tc += tc
         ssd_intra_bwd.scratch_bytes = dcb.numel() * dcb.element_size()
-    elif tc:
+    else:
         dl.zero_()
-    return dx, ddt, dl if tc else dlt_from_dcum(dl, ltT.dtype), dB, dC
+    return dx, ddt, dl, dB, dC
 
 
 ssd_intra_bwd.launches = 0        # every launch of B6

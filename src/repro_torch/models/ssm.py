@@ -10,7 +10,14 @@ scalar decay ``A_h < 0``::
 computed in chunks of ``Q`` steps: a quadratic, attention-like
 intra-chunk term (``use_kernel=True`` routes it through
 :func:`repro_torch.kernels.ops.ssd_intra`, kernels B5 and B6) and a
-rank-1 state hand-off between chunks.  The JAX ``lax.scan`` over chunks
+rank-1 state hand-off between chunks.  A float32 model's cumulative
+log-decays are summed in float64: a chunk's sum reaches about −1,000 at
+mamba2-2.7b's shapes, where a float32 ulp is 6e-5, so every exponent
+``cum_i − cum_j`` formed from float32 sums is off by that much, and the
+gradients of the log-decays, differences of such sums, lose most of their
+bits.  Each exponent is formed in float64 and rounded once; the rest
+stays in the model's dtype.  A bfloat16 model keeps its float32 sums,
+which its own rounding hides.  The JAX ``lax.scan`` over chunks
 becomes a Python loop over the ``nc`` chunks, plain torch as in the
 reference; the depthwise causal conv stays a sum of shifted products, as
 in the reference (no kernel there either).  B and C are shared across
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, init_rms, rms_norm
+from repro_torch.utils import tracing
 
 __all__ = ["init_ssm", "ssm_forward", "ssm_decode", "init_ssm_cache",
            "ssd_chunked", "ssd_sequential"]
@@ -75,7 +83,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     lt = dtr * A                                         # (B,nc,Q,H) log-decay
     ltT = lt.movedim(-1, -2)                             # (B,nc,H,Q)
-    cum = torch.cumsum(ltT, dim=-1)                      # (B,nc,H,Q)
+    wide = ltT.double() if x.dtype == torch.float32 else ltT
+    cum = torch.cumsum(wide, dim=-1)                     # (B,nc,H,Q)
     dtT = dtr.movedim(-1, -2)                            # (B,nc,H,Q)
 
     if use_kernel:
@@ -83,17 +92,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y_intra = kops.ssd_intra(xr, dtr, ltT, Br, Cr)
     else:
         # ---- intra-chunk (quadratic in Q): att[i,j] = (C_i·B_j)·exp(seg)·dt_j
-        seg = _segsum(ltT)                               # (B,nc,H,Q,Q)
+        seg = _segsum(wide).to(ltT.dtype)                # (B,nc,H,Q,Q)
         cb = torch.einsum("bcin,bcjn->bcij", Cr, Br)     # (B,nc,Q,Q)
         att = cb[:, :, None] * torch.exp(seg) * dtT[..., None, :]
         y_intra = torch.einsum("bchij,bcjhp->bcihp", att.to(x.dtype), xr)
 
     # ---- per-chunk end state: sum_j exp(cum_Q - cum_j) dt_j B_j ⊗ x_j
-    decay_to_end = torch.exp(cum[..., -1:] - cum)        # (B,nc,H,Q)
+    decay_to_end = torch.exp((cum[..., -1:] - cum).to(ltT.dtype))
     w = dtT * decay_to_end                               # (B,nc,H,Q)
     chunk_states = torch.einsum("bchq,bcqn,bcqhp->bchpn",
                                 w.to(x.dtype), Br, xr)   # (B,nc,H,P,N)
-    total_decay = torch.exp(cum[..., -1])                # (B,nc,H)
+    total_decay = torch.exp(cum[..., -1].to(ltT.dtype))  # (B,nc,H)
 
     # ---- inter-chunk recurrence over nc chunks
     s = (torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device)
@@ -106,7 +115,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     prev_states = torch.stack(prev, dim=1)               # (B,nc,H,P,N)
 
     # ---- inter-chunk output: y_inter[i] = exp(cum_i) · C_i @ S_prev
-    dec_in = torch.exp(cum)                              # (B,nc,H,Q)
+    dec_in = torch.exp(cum.to(ltT.dtype))                # (B,nc,H,Q)
     y_inter = torch.einsum("bcqn,bchpn,bchq->bcqhp", Cr, prev_states,
                            dec_in.to(x.dtype))
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)
@@ -214,8 +223,9 @@ def ssm_forward(params, cfg: ModelConfig, x: torch.Tensor,
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     xh = xs.reshape(B, S, H, P)
-    y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
-                       use_kernel=use_kernel)
+    with tracing.span("train.ssd_scan"):
+        y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
+                           use_kernel=use_kernel)
     return _ssm_post(params, cfg, y, z, xh)
 
 

@@ -28,6 +28,9 @@ The spans, from the root down:
   its read-back included;
 * ``train.chunk`` — device-timed: one chunk's steps, attributes ``steps``
   (member-steps: members × steps) and ``members`` (the group's width);
+* ``train.ssd_scan`` — one SSD layer's chunked scan in a forward
+  (``models/ssm.py``: the B5 call, the chunks' state hand-off, the
+  inter-chunk output), inside a chunk or an evaluation;
 * ``data.slab`` — the data slab drawn on the host; ``data.upload`` — the
   slab, the per-step hyper-parameter rows, the step indices and the
   static scalars sent to the device.

@@ -187,6 +187,40 @@ def test_span_tree_holds_the_engine_counts(watched, how, tier):
     assert tracing.dropped() == 0 and CountingEvent.made == 0
 
 
+def test_ssd_scan_spans_nest_in_the_chunks(watched):
+    """A recorded Mamba-2 study: one ``train.ssd_scan`` per SSD layer and
+    forward, each nested in the ``train.chunk`` (or ``train.evaluate``)
+    that ran it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_dataset
+    from repro_torch.models.transformer import LM
+    cfg = get_config("mamba2-2.7b").reduced(d_model=64, vocab_size=64)
+    data = synthetic_lm_dataset(8, 32, cfg.vocab_size, seed=0)
+    backend = TorchTrainer(
+        LM(cfg), lambda: DataPipeline(data, batch_size=2, seed=3),
+        synthetic_lm_dataset(2, 32, cfg.vocab_size, seed=5),
+        default_optimizer="adamw", device="cpu", chunk_steps=2)
+    trial = Trial(HpConfig({"lr": Constant(3e-4), "bs": Constant(2)}), 4)
+    st = Study.create(SearchPlanDB(), "ssd", "synth", ("lr", "bs"))
+    with tracing.recording():
+        stats = st.engine(backend, n_workers=1, store=CheckpointStore()).run(
+            [GridTuner([trial])])
+    recs = tracing.records()
+    by_id = {r.id: r for r in recs}
+    per = {}
+    for r in recs:
+        if r.name == "train.ssd_scan":
+            per[r.parent] = per.get(r.parent, 0) + 1
+    assert {by_id[p].name for p in per} == {"train.chunk", "train.evaluate"}
+    chunks = [r for r in recs if r.name == "train.chunk"]
+    assert sum(c.attrs["steps"] for c in chunks) == stats.steps_run == 4
+    for c in chunks:
+        assert per[c.id] == cfg.num_layers * c.attrs["steps"]
+    for r in recs:
+        if r.name == "train.evaluate":
+            assert per[r.id] == cfg.num_layers
+
+
 def test_device_span_times_by_events_after_the_fact(watched):
     with tracing.recording():
         with tracing.span("train.chunk", device=torch.device("cuda"),
