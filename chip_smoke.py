@@ -2454,9 +2454,9 @@ def ssd_phase(join_build):
     # (16 chunks x 80 heads).  bf16 and f32 with the model's decays, which
     # the studies run and which would overflow above the diagonal (in f32
     # the CUDA-core kernels against the plain version's float64 cum); bf16
-    # and f32 with the JAX tests' small decays, under which the 64 x 64
-    # tile below the diagonal tile carries weight to its far corner (every
-    # element of B6's cross-tile sums counts).  bf16 outputs within one
+    # and f32 with the JAX tests' small decays, under which the chunk's
+    # far corner (i = Q - 1, j = 0) carries weight (every element of B6's
+    # sums across strips and passes counts).  bf16 outputs within one
     # bf16 ulp beyond 2^-16 of the tensor's largest value; f32 outputs
     # within 1e-5 of it
     Bs, nc, Q, H, P, N = (MAMBA[k] for k in ("B", "nc", "Q", "H", "P", "N"))
@@ -2539,10 +2539,10 @@ def ssd_phase(join_build):
     for key, kernel, replaced, replaced_kernel in (
             ("B5", "ssd_fwd",
              lambda: ssk.ssd_intra_fwd(x, dt, lt, Bm, Cm, route="simt"),
-             "ssd_fwd_kernel"),
+             "ssd_fwd_simt_kernel"),
             ("B6", "ssd_bwd",
              lambda: ssk.ssd_intra_bwd(x, dt, lt, Bm, Cm, g, route="simt"),
-             "ssd_bwd_head_kernel")):
+             "ssd_bwd_simt_kernel")):
         kern = fns[key][1]
         rows[key].update(
             route_bf16=f"wgmma ({kernel}_tc)", route_f32=f"simt ({kernel})",

@@ -4,10 +4,12 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/ssd_scan.py:
 //   ssd_fwd_tc  <- _ssd_kernel      (ssd_intra_pallas, :46 / :87),
 //                  bf16 on the tensor cores
-//   ssd_fwd     <- the same, f32 (and bf16 outside ssd_fwd_tc's shapes)
+//   ssd_fwd     <- the same, f32 (and bf16 outside ssd_fwd_tc's shapes),
+//                  on the CUDA cores
 //   ssd_bwd_tc  <- _ssd_bwd_kernel  (ssd_intra_bwd_pallas, :111 / :189),
 //                  bf16 on the tensor cores
-//   ssd_bwd     <- the same, f32 (and bf16 outside ssd_bwd_tc's shapes)
+//   ssd_bwd     <- the same, f32 (and bf16 outside ssd_bwd_tc's shapes),
+//                  on the CUDA cores, with ssd_bwd_sum_kernel
 //
 // What they compute, per (batch * chunk, head) cell, x (B,nc,Q,H,P), dt
 // (B,nc,Q,H) f32, cum = cumsum(ltT) (B,nc,H,Q) (taken outside, in torch:
@@ -34,7 +36,7 @@
 // pair on one side of t, the diagonal's large terms with them, and keeps
 // the difference of sums far larger than itself.  ssd_bwd sums the
 // spanning pairs alone: down each column from the bottom, then along each
-// row over the columns j < t.
+// row over the columns j < t (below: in its reversed frame).
 //
 // The exponent is taken only where j <= i.  A chunk's cumulative log-decay
 // reaches about -1,000 at mamba2-2.7b's shape, so above the diagonal
@@ -42,54 +44,69 @@
 // where(tril, exp(seg), 0) selects the 0, but a product with a 0 / 1 mask
 // would give inf * 0 = NaN.
 //
-// Design.  Tiles of 64 x 64 (TL), blocks of 256 threads (a 16 x 16 grid);
-// each thread owns a 4 x 4 piece of the (i, j) tile (rows ty + 16 a, columns
-// tx + 16 b) and the same rows of a 64 x P accumulator (columns tx + 16 c,
-// P padded to 16 * PC).  Operand tiles are staged in shared memory as f32
-// with odd row strides, so a walk down a column hits distinct banks.  Tiles
-// above the diagonal (every j > i) are skipped.  Inputs are read in place
-// through the JAX layouts: no head-major copy, no padding copy; ragged edges
-// (Q not a multiple of 64, P below its padded width, any N) are masked.
-//   ssd_fwd: one block per (64-row tile of i, head, cell); it loops over the
-//     column tiles j <= i with y in registers.
-//   ssd_bwd: the TPU kernel sums dcb over heads in a VMEM scratch along its
-//     sequential head axis; blocks here run in no order.  So B6 is two
-//     kernels: ssd_bwd_head_kernel, one block per (head, cell), loops over
-//     column tiles j and, inside, row tiles i >= j from the last up, with
-//     dx_j and the column sums in registers, each tile's dseg in shared
-//     memory (summed down its columns by one thread a column, carrying the
-//     tiles below, then along its rows into dlt), and writes its head's dcb
-//     to a (B*nc, H, Q, Q) f32 scratch;
-//     ssd_bwd_bc_kernel, one block per (64-row tile, dB or dC, cell), sums
-//     dcb over the heads in head order and forms dB or dC.
-//
 // Determinism: no atomics; every sum is taken in a fixed order, so two
 // identical launches give identical bits (the stage-vs-trial check of a
-// study is bitwise).
+// study is bitwise), and a launch of members folded into the batch axis
+// gives each member its own launch's bits (the head grouping is one
+// member's).
 //
-// Bound on an H100 SXM: max(flops / 989 TFLOP/s (bf16 dense, tensor
-// cores), bytes / 3.35 TB/s).  Flops are those the function needs: its
-// products and elementwise work over the Q(Q+1)/2 pairs j <= i, with cb
-// formed once per cell (it depends on no head); bytes count each input
-// read once and each output written once (chip_smoke.py, ssd_work).  At
-// mamba2-2.7b's training shape (B 1, nc 16, Q 128, H 80, P 64, N 128, bf16)
-// the forward is 1.43 GFLOP and 44.3 MB: 13.2 us, bytes-bound; the backward
-// 2.93 GFLOP and 67.6 MB: 20.2 us, bytes-bound.  ssd_fwd and ssd_bwd (the
-// f32 route) do not use the tensor cores (no wgmma, no TMA, no mma.sync):
-// every product is an f32 FMA on the CUDA cores (67 TFLOP/s peak), fed by
-// one shared-memory word per two FMAs, so they run far from that bound;
-// the times are in PERF.md.  What their design does about the bound: it
-// skips the tiles above the diagonal (a quarter of the work at Q = 128),
-// never writes att or cb to device memory, reads each operand tile once
-// per tile pair, and keeps every accumulator in registers.  ssd_bwd's
-// per-head dcb scratch (84 MB at the shape above) is the price of a
-// deterministic head sum, and its head sum runs on 64 blocks at that shape.
+// Bound on an H100 SXM: max(flops / peak, bytes / 3.35 TB/s).  Flops are
+// those the function needs: its products and elementwise work over the
+// Q(Q+1)/2 pairs j <= i, with cb formed once per cell (it depends on no
+// head); bytes count each input read once and each output written once
+// (hippo_bench/flops.py, ssd_work).  At mamba2-2.7b-f32's training shape
+// (B 2, nc 8, Q 128, H 80, P 64, N 128, f32; the peak 67 TFLOP/s of the
+// CUDA cores) the forward is 1.43 GFLOP and 87.3 MB: 26.1 us, bytes-bound;
+// the backward 2.93 GFLOP and 132.6 MB: 43.8 us, bound by its operations.
+// In bf16 (B 1, nc 16; 989 TFLOP/s on the tensor cores) 44.3 and 67.6 MB:
+// 13.2 and 20.2 us, bytes-bound.
 //
+// ssd_fwd and ssd_bwd: the f32 route (and bf16 outside the tensor cores'
+// shapes) on the CUDA cores.  Every product is an f32 FMA: no TF32, no
+// split products, no tensor cores.  What the design does about the bound:
+//   one block of 256 threads per (cell, group of G heads), G =
+//   ssd_scan.py::simt_groups (head_groups up to Q 128: one wave of 128
+//   blocks at mamba2's shape), so cb = C B^T, which depends on no head and
+//   at Q 128 is two thirds of a head's forward products, is formed once per
+//   block;
+//   a block works through passes of a causal plane, live where column <=
+//   row: rows in groups of 8, columns in strips of 32.  Up to Q 128 one pass
+//   holds the chunk and the 8 warps take the row groups in pairs (g, ng -
+//   1 - g), so each holds the same causal work; above Q 128 (G 1) a pass is
+//   128 rows by 64 columns, cb formed anew for each;
+//   each lane holds a 2 x 4 piece of its rows and a strip's columns: cb is
+//   formed there once per pass (B and C staged 32 state columns at a time
+//   through two buffers) and kept in the lane's own shared slots; B6 forms
+//   datt = g x^T on the same pieces (float4 reads of XOR-swizzled tiles:
+//   the rows a quarter-warp reads at one chunk meet distinct banks);
+//   per head, in head order, its tiles arrive by 16-byte cp.async through a
+//   ring of 2 or 3 stages (4-byte where P or N % 4 != 0 or a pointer is
+//   not 16-byte aligned) while the last head computes;
+//   per strip, the exponent cum_i - cum_j is formed in f64 and rounded
+//   once, only where j <= i (elsewhere exp(-inf) = 0: no branch, so a
+//   lane's 16 exponentials interleave), att goes to the warp's own buffer
+//   (no block barrier), and y = att x (B5) or dx = att^T g (B6) runs on a
+//   4 x 4 NPC register piece, 4 rows of the buffer a step;
+//   B6 works in the reversed frame (row r = QR - 1 - j, column c = QR - 1 -
+//   i): the live pairs i >= j then lie at c <= r, as B5's do, and a
+//   column's sums from the bottom run left to right.  dlt sums the spanning
+//   pairs: each row's dseg from its first column up (in the lane, over the
+//   8 lanes of a strip by a shuffle scan, then the strips and passes
+//   before), then over the rows r > c (j < t): the warp's rows by shuffles,
+//   the warps in order at the next head's start.  dcb is summed over the
+//   group's heads in registers, in head order, and written once per block
+//   to a (B nc, ceil(H / G), Q, Q) scratch (8.4 MB at mamba2's shape);
+//   ssd_bwd_sum_kernel, 256 blocks, sums it in group order into dB and dC.
+// Registers are the limit (one block an SM): cb lives in shared memory, so
+// that B6 keeps dcb and dx in registers; at P > 64 dx takes them, and B6
+// runs one head a block and writes each pair's dcb as it forms it.
+// The times, beside the bound, are in PERF.md.
+
 // ssd_fwd_tc and ssd_bwd_tc (B5 and B6 in bf16; their design notes are
 // above their kernels below) are the redesigns for bf16: one wave of
 // blocks, each a cell and a group of heads (kernels/ssd_scan.py::
 // head_groups, a function of the shape alone), cb formed once per block on
-// the tensor cores instead of once per head on the CUDA cores, the x (and
+// the tensor cores, the x (and
 // g) tiles by TMA, cb and the per-head products by wgmma.  ssd_fwd_tc
 // keeps cb in registers, forms att on cb's accumulator, and spreads the
 // causal work evenly over the warps.  ssd_bwd_tc partitions the dcb head sum: summed
@@ -105,9 +122,6 @@
 
 namespace {
 
-constexpr int TL = 64;       // tile rows and columns
-constexpr int NT = 256;      // threads per block, a 16 x 16 grid
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -121,464 +135,935 @@ from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Odd row stride of at least n floats: a column walk hits distinct banks.
-__host__ __device__ __forceinline__ int odd(int n) { return n | 1; }
-
-// Sum over the 16 threads of a half-warp (fixed order).
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// 64 rows [r0, r0 + 64) of a (rows, N) matrix of cell bc into dst[64][ld];
-// rows at or past Q read as 0.
-template <typename E>
-__device__ __forceinline__ void load_bc_rows(float* dst, int ld,
-                                             const E* src, int64_t bc,
-                                             int r0, int Q, int N) {
-  for (int idx = threadIdx.x; idx < TL * N; idx += NT) {
-    const int r = idx / N, k = idx % N, q = r0 + r;
-    dst[r * ld + k] = q < Q ? to_f(src[(bc * Q + q) * N + k]) : 0.f;
-  }
-}
-
-// 64 rows [r0, r0 + 64) of head h of a (B*nc, Q, H, P) tensor into
-// dst[64][ld], ld >= PW; rows at or past Q and columns at or past P read 0.
-template <typename E>
-__device__ __forceinline__ void load_head_rows(float* dst, int ld, int PW,
-                                               const E* src, int64_t bc,
-                                               int r0, int Q, int H, int h,
-                                               int P) {
-  for (int idx = threadIdx.x; idx < TL * PW; idx += NT) {
-    const int r = idx / PW, p = idx % PW, q = r0 + r;
-    float v = 0.f;
-    if (q < Q && p < P) v = to_f(src[((bc * Q + q) * H + h) * P + p]);
-    dst[r * ld + p] = v;
-  }
-}
-
-// s[a][b] = sum_k A[ty + 16 a][k] * Bt[tx + 16 b][k], k < K.
-__device__ __forceinline__ void tile_product(float s[4][4], const float* A,
-                                             const float* Bt, int ld, int K,
-                                             int tx, int ty) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = A[(ty + 16 * a) * ld + k];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = Bt[(tx + 16 * b) * ld + k];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = fmaf(av[a], bv[b], s[a][b]);
-  }
-}
-
-template <int PC>
-__host__ __device__ constexpr int fwd_ld_p() { return (16 * PC) | 1; }
-
-template <int PC>
-size_t fwd_smem(int N) {
-  return sizeof(double) * 2 * TL +
-         sizeof(float) * (2 * TL * odd(N) + TL * fwd_ld_p<PC>() +
-                          TL * (TL + 1) + TL);
-}
-
-// ---------------------------------------------------------------- B5
-// grid (ceil(Q / 64), H, B * nc)
-template <typename E, int PC>
-__global__ void __launch_bounds__(NT)
-ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
-               const double* __restrict__ cum, const E* __restrict__ Bm,
-               const E* __restrict__ Cm, E* __restrict__ y, int Q, int H,
-               int P, int N) {
-  extern __shared__ float sm[];
-  constexpr int PW = 16 * PC, LDP = fwd_ld_p<PC>();
-  const int ldn = odd(N);
-  double* sCi = reinterpret_cast<double*>(sm);  // [TL]  cum, rows of tile i
-  double* sCj = sCi + TL;                       // [TL]  cum, rows of tile j
-  float* sC = reinterpret_cast<float*>(sCj + TL);  // [TL][ldn]  C, tile i
-  float* sB = sC + TL * ldn;         // [TL][ldn]  B, rows of tile j
-  float* sX = sB + TL * ldn;         // [TL][LDP]  x, rows of tile j
-  float* sA = sX + TL * LDP;         // [TL][TL + 1]  att tile
-  float* sDt = sA + TL * (TL + 1);   // [TL]  dt, rows of tile j
-
-  const int it = blockIdx.x, h = blockIdx.y;
-  const int64_t bc = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i0 = it * TL;
-  const double* cum_h = cum + (bc * H + h) * Q;
-
-  load_bc_rows(sC, ldn, Cm, bc, i0, Q, N);
-  for (int r = threadIdx.x; r < TL; r += NT)
-    sCi[r] = i0 + r < Q ? cum_h[i0 + r] : 0.0;
-
-  float acc[4][PC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < PC; ++c) acc[a][c] = 0.f;
-
-  for (int jt = 0; jt <= it; ++jt) {
-    const int j0 = jt * TL;
-    __syncthreads();                 // the last tile's readers are done
-    load_bc_rows(sB, ldn, Bm, bc, j0, Q, N);
-    load_head_rows(sX, LDP, PW, x, bc, j0, Q, H, h, P);
-    for (int r = threadIdx.x; r < TL; r += NT) {
-      const int j = j0 + r;
-      sCj[r] = j < Q ? cum_h[j] : 0.0;
-      sDt[r] = j < Q ? dt[(bc * Q + j) * H + h] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-    tile_product(s, sC, sB, ldn, N, tx, ty);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int il = ty + 16 * a, i = i0 + il;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int jl = tx + 16 * b, j = j0 + jl;
-        float v = 0.f;
-        if (j <= i && i < Q)
-          v = s[a][b] * expf((float)(sCi[il] - sCj[jl])) * sDt[jl];
-        sA[il * (TL + 1) + jl] = v;
-      }
-    }
-    __syncthreads();
-
-    const int jn = min(TL, Q - j0);
-    for (int jl = 0; jl < jn; ++jl) {
-      float av[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sA[(ty + 16 * a) * (TL + 1) + jl];
-#pragma unroll
-      for (int c = 0; c < PC; ++c) {
-        const float xv = sX[jl * LDP + tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(av[a], xv, acc[a][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-#pragma unroll
-    for (int c = 0; c < PC; ++c) {
-      const int p = tx + 16 * c;
-      if (i < Q && p < P)
-        y[((bc * Q + i) * H + h) * P + p] = from_f<E>(acc[a][c]);
-    }
-  }
-}
-
-template <int PC>
-size_t bwd_head_smem(int Q, int N) {
-  const int qp = (Q + TL - 1) / TL * TL;
-  return sizeof(double) * 2 * TL +
-         sizeof(float) * (2 * TL * odd(N) + 2 * TL * fwd_ld_p<PC>() +
-                          2 * TL * (TL + 1) + TL + qp);
-}
-
-// ---------------------------------------------------------------- B6, 1
-// grid (H, B * nc).  Writes dx, ddt, dlt and this head's dcb.
-template <typename E, int PC>
-__global__ void __launch_bounds__(NT)
-ssd_bwd_head_kernel(const E* __restrict__ x, const float* __restrict__ dt,
-                    const double* __restrict__ cum, const E* __restrict__ Bm,
-                    const E* __restrict__ Cm, const E* __restrict__ g,
-                    E* __restrict__ dx, float* __restrict__ ddt,
-                    float* __restrict__ dlt, float* __restrict__ dcb,
-                    int Q, int H, int P, int N) {
-  extern __shared__ float sm[];
-  constexpr int PW = 16 * PC, LDP = fwd_ld_p<PC>();
-  const int ldn = odd(N);
-  const int nt = (Q + TL - 1) / TL;
-  double* sCi = reinterpret_cast<double*>(sm);  // [TL]  cum, rows of tile i
-  double* sCj = sCi + TL;                       // [TL]  cum, rows of tile j
-  float* sC = reinterpret_cast<float*>(sCj + TL);  // [TL][ldn]  C, tile i
-  float* sB = sC + TL * ldn;         // [TL][ldn]  B, rows of tile j
-  float* sG = sB + TL * ldn;         // [TL][LDP]  g, rows of tile i
-  float* sX = sG + TL * LDP;         // [TL][LDP]  x, rows of tile j
-  float* sA = sX + TL * LDP;         // [TL][TL + 1]  att tile; then the
-                                     // column reductions' scratch
-  float* sS = sA + TL * (TL + 1);    // [TL][TL + 1]  dseg tile, then its
-                                     // sums down each column
-  float* sDt = sS + TL * (TL + 1);   // [TL]  dt, rows of tile j
-  float* sDl = sDt + TL;             // [nt * TL]  dlt
-
-  const int h = blockIdx.x;
-  const int64_t bc = blockIdx.y;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const double* cum_h = cum + (bc * H + h) * Q;
-  float* dcb_h = dcb + (bc * H + h) * (int64_t)Q * Q;
-
-  for (int r = threadIdx.x; r < nt * TL; r += NT) sDl[r] = 0.f;
-
-  for (int jt = 0; jt < nt; ++jt) {
-    const int j0 = jt * TL;
-    __syncthreads();                 // the last column's readers are done
-    load_bc_rows(sB, ldn, Bm, bc, j0, Q, N);
-    load_head_rows(sX, LDP, PW, x, bc, j0, Q, H, h, P);
-    for (int r = threadIdx.x; r < TL; r += NT) {
-      const int j = j0 + r;
-      sCj[r] = j < Q ? cum_h[j] : 0.0;
-      sDt[r] = j < Q ? dt[(bc * Q + j) * H + h] : 0.f;
-    }
-
-    float dxa[4][PC], dpart[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      dpart[a] = 0.f;
-#pragma unroll
-      for (int c = 0; c < PC; ++c) dxa[a][c] = 0.f;
-    }
-    // thread jl < TL: dseg of column j0 + jl summed over the rows below
-    float down = 0.f;
-
-    for (int it = nt - 1; it >= jt; --it) {
-      const int i0 = it * TL;
-      __syncthreads();               // sA / sS / sC / sG readers are done
-      load_bc_rows(sC, ldn, Cm, bc, i0, Q, N);
-      load_head_rows(sG, LDP, PW, g, bc, i0, Q, H, h, P);
-      for (int r = threadIdx.x; r < TL; r += NT)
-        sCi[r] = i0 + r < Q ? cum_h[i0 + r] : 0.0;
-      __syncthreads();
-
-      float s[4][4], d[4][4];
-      tile_product(s, sC, sB, ldn, N, tx, ty);     // cb
-      tile_product(d, sG, sX, LDP, P, tx, ty);     // datt = g x^T
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int il = ty + 16 * a, i = i0 + il;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int jl = tx + 16 * b, j = j0 + jl;
-          float att = 0.f, dcbv = 0.f, dseg = 0.f;
-          if (j <= i && i < Q) {
-            const float dec = expf((float)(sCi[il] - sCj[jl]));
-            const float dtj = sDt[jl];
-            att = s[a][b] * dec * dtj;
-            const float dad = d[a][b] * dec;
-            dpart[b] += dad * s[a][b];
-            dseg = dad * s[a][b] * dtj;
-            dcbv = dad * dtj;
-          }
-          sA[il * (TL + 1) + jl] = att;
-          sS[il * (TL + 1) + jl] = dseg;
-          if (i < Q && j < Q) dcb_h[(int64_t)i * Q + j] = dcbv;
-        }
-      }
-      __syncthreads();
-
-      // down each column from the bottom: sS[r][jl] becomes the sum of
-      // dseg over the rows i >= i0 + r
-      if (threadIdx.x < TL) {
-        const int jl = threadIdx.x;
-        for (int r = TL - 1; r >= 0; --r) {
-          down += sS[r * (TL + 1) + jl];
-          sS[r * (TL + 1) + jl] = down;
-        }
-      }
-      // dx_j += att^T g: rows j = ty + 16 a of the column tile
-      const int in = min(TL, Q - i0);
-      for (int il = 0; il < in; ++il) {
-        float av[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) av[a] = sA[il * (TL + 1) + ty + 16 * a];
-#pragma unroll
-        for (int c = 0; c < PC; ++c) {
-          const float gv = sG[il * LDP + tx + 16 * c];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dxa[a][c] = fmaf(av[a], gv, dxa[a][c]);
-        }
-      }
-      __syncthreads();
-
-      // dlt_t over the columns j < t of this tile: one thread a row t
-      if (threadIdx.x < TL) {
-        const int r = threadIdx.x, t = i0 + r;
-        float acc = 0.f;
-        for (int jl = 0; jl < TL; ++jl)
-          if (j0 + jl < t) acc += sS[r * (TL + 1) + jl];
-        if (t < Q) sDl[t] += acc;
-      }
-    }
-
-    // column sums (ddt): over the 16 thread rows in order
-    __syncthreads();
-    float* red = sA;                 // [16][TL]
-#pragma unroll
-    for (int b = 0; b < 4; ++b) red[ty * TL + tx + 16 * b] = dpart[b];
-    __syncthreads();
-    if (threadIdx.x < TL) {
-      const int jl = threadIdx.x, j = j0 + jl;
-      float sd = 0.f;
-      for (int t = 0; t < 16; ++t) sd += red[t * TL + jl];
-      if (j < Q) ddt[(bc * Q + j) * H + h] = sd;
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int j = j0 + ty + 16 * a;
-#pragma unroll
-      for (int c = 0; c < PC; ++c) {
-        const int p = tx + 16 * c;
-        if (j < Q && p < P)
-          dx[((bc * Q + j) * H + h) * P + p] = from_f<E>(dxa[a][c]);
-      }
-    }
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < Q; k += NT)
-    dlt[(bc * H + h) * Q + k] = sDl[k];
-}
-
-size_t bwd_bc_smem(int Q, int N) {
-  const int qp = (Q + TL - 1) / TL * TL;
-  return sizeof(float) * (TL * (qp + 1) + (size_t)qp * odd(N));
-}
-
-// ---------------------------------------------------------------- B6, 2
-// grid (ceil(Q / 64), 2, B * nc).  which 0: dC rows [r0, r0 + 64),
-// dC_i = sum_j dcb[i][j] B_j; which 1: dB rows, dB_j = sum_i dcb[i][j] C_i;
-// dcb = sum over heads, in head order, of the per-head scratch (j <= i).
-template <typename E>
-__global__ void __launch_bounds__(NT)
-ssd_bwd_bc_kernel(const float* __restrict__ dcb, const E* __restrict__ Bm,
-                  const E* __restrict__ Cm, E* __restrict__ dB,
-                  E* __restrict__ dC, int Q, int H, int N) {
-  extern __shared__ float sm[];
-  constexpr int U = 8;               // elements a thread sums at once
-  const int qp = (Q + TL - 1) / TL * TL, lds = qp + 1, ldn = odd(N);
-  float* sS = sm;                    // [TL][lds]  head-summed dcb slab
-  float* sM = sS + TL * lds;         // [qp][ldn]  B (which 0) or C (which 1)
-
-  const int which = blockIdx.y;
-  const int r0 = blockIdx.x * TL;
-  const int64_t bc = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* D = dcb + bc * H * (int64_t)Q * Q;
-
-  // slab element e -> (r, c): r a row of this block's tile, c the other
-  // index; consecutive threads walk consecutive j, the contiguous axis
-  for (int e0 = threadIdx.x; e0 < TL * qp; e0 += NT * U) {
-    float acc[U];
-    int64_t off[U];
-    bool live[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = e0 + u * NT;
-      int r, c, i, j;
-      if (which == 0) { r = e / qp; c = e % qp; i = r0 + r; j = c; }
-      else            { c = e / TL; r = e % TL; j = r0 + r; i = c; }
-      live[u] = e < TL * qp && i < Q && j <= i;
-      off[u] = (int64_t)i * Q + j;
-      acc[u] = 0.f;
-    }
-    for (int hh = 0; hh < H; ++hh) {
-      const float* Dh = D + (int64_t)hh * Q * Q;
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (live[u]) acc[u] += Dh[off[u]];
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = e0 + u * NT;
-      if (e < TL * qp) {
-        const int r = which == 0 ? e / qp : e % TL;
-        const int c = which == 0 ? e % qp : e / TL;
-        sS[r * lds + c] = acc[u];
-      }
-    }
-  }
-  const E* M = which == 0 ? Bm : Cm;
-  for (int idx = threadIdx.x; idx < qp * N; idx += NT) {
-    const int q = idx / N, k = idx % N;
-    sM[q * ldn + k] = q < Q ? to_f(M[(bc * Q + q) * N + k]) : 0.f;
-  }
-  __syncthreads();
-
-  E* out = which == 0 ? dC : dB;
-  for (int n0 = 0; n0 < N; n0 += TL) {
-    float o[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) o[a][b] = 0.f;
-    for (int c = 0; c < qp; ++c) {
-      float sv[4], mv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) sv[a] = sS[(ty + 16 * a) * lds + c];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int n = n0 + tx + 16 * b;
-        mv[b] = n < N ? sM[c * ldn + n] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) o[a][b] = fmaf(sv[a], mv[b], o[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = r0 + ty + 16 * a;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int n = n0 + tx + 16 * b;
-        if (row < Q && n < N)
-          out[(bc * Q + row) * N + n] = from_f<E>(o[a][b]);
-      }
-    }
-  }
-}
-
 template <typename K>
 int set_smem(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename E, int PC>
+// Asynchronous copies into shared memory (sm_80+) of 16, 8 or 4 bytes;
+// where `in` is false nothing is read and the destination is zero-filled.
+__device__ __forceinline__ void cpa16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cpa8(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cpa4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cpa_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cpa_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------ B5 and B6, f32, CUDA cores
+// The pass geometry (the design note at the head of the file): a pass is
+// rows [r0, r0 + R) against columns [c0, c0 + W) of a causal plane (live
+// where column <= row), in groups of 8 rows and strips of 32 columns.
+constexpr int NT = 256;          // threads a block: 8 warps
+constexpr int SLAB = 128;        // rows of one pass at most
+constexpr int QMAX = 256;        // chunk rows the route takes
+constexpr int NC = 32;           // state columns staged at once to form cb
+constexpr int BUF_LD = 20;       // floats a row of a warp's att buffer
+constexpr int BUF = 32 * BUF_LD;  // floats of one warp's att buffer
+constexpr int CB_SLOTS = 48;     // a lane's cb values: 2 x 8 (a), 4 x 8 (b)
+constexpr int KEY_ROW = 0;       // a tile read by rows 2 ty + e (+ 8 g)
+constexpr int KEY_COL = 1;       // a tile read by rows 4 tx + q (+ 32 s)
+
+// Shared memory of a block: STAGES stages of the per-head tiles (B5: x;
+// B6: x, then g) with the head's cum (f64) and dt, the staging of B and C
+// for cb over the last stage, the 8 warps' att buffers, (B6) the dlt sums
+// of two heads, and each lane's cb (its registers go to the products).
+template <int NPC, bool BWD>
+struct Simt {
+  static constexpr int PW = 32 * NPC;               // P, padded
+  static constexpr int STAGES = BWD ? (NPC > 2 ? 1 : 2) : (NPC > 2 ? 2 : 3);
+  static constexpr size_t TILE = (size_t)SLAB * PW * 4;
+  static constexpr size_t STAGE = (BWD ? 2 : 1) * TILE + 12 * QMAX;
+  static constexpr size_t STAGING = 2 * 2 * SLAB * NC * 4;
+  static constexpr size_t LAST = STAGE > STAGING ? STAGE : STAGING;
+  static constexpr size_t BUFS = 8 * BUF * 4;
+  static constexpr size_t RED = BWD ? 2 * 8 * QMAX * 4 : 0;
+  static constexpr size_t CBS = (size_t)NT * CB_SLOTS * 4;
+  static constexpr size_t SMEM =
+      (STAGES - 1) * STAGE + LAST + BUFS + RED + CBS;
+
+  __device__ static float* tile(unsigned char* s, int st, int which) {
+    return reinterpret_cast<float*>(s + st * STAGE + which * TILE);
+  }
+  __device__ static double* cum(unsigned char* s, int st) {
+    return reinterpret_cast<double*>(s + st * STAGE + (BWD ? 2 : 1) * TILE);
+  }
+  __device__ static float* dt(unsigned char* s, int st) {
+    return reinterpret_cast<float*>(cum(s, st) + QMAX);
+  }
+  __device__ static float* staging(unsigned char* s) {
+    return reinterpret_cast<float*>(s + (STAGES - 1) * STAGE);
+  }
+  __device__ static float* bufs(unsigned char* s) {
+    return reinterpret_cast<float*>(s + (STAGES - 1) * STAGE + LAST);
+  }
+  __device__ static float* red(unsigned char* s) {
+    return reinterpret_cast<float*>(s + (STAGES - 1) * STAGE + LAST + BUFS);
+  }
+  __device__ static float* cbs(unsigned char* s) {   // [8][CB_SLOTS][32]
+    return red(s) + RED / 4;
+  }
+};
+
+// A tile's row r stores its 16-byte chunk k at chunk k ^ tile_key(r): the
+// 4 rows 2 ty + e of a row-keyed tile, or the 8 rows 4 tx + q of a
+// column-keyed one, that a quarter-warp reads at one chunk meet distinct
+// bank groups, and so do the 8 chunks 8 c + tx of one row.
+template <int KEY>
+__device__ __forceinline__ int tile_key(int r) {
+  return KEY == KEY_ROW ? (r & 7) : ((r >> 2) & 7);
+}
+
+__device__ __forceinline__ float minus_inf() {   // expf(-inf) = 0
+  return __int_as_float(0xff800000);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float fma4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// 4 floats into dst (16-byte aligned), `n` of them (0..4) from src, the
+// rest 0: f32 by cp.async (one 16-byte copy where vec, n then 0 or 4, else
+// four 4-byte ones); bf16 read and widened by the thread.
+__device__ __forceinline__ void put4(float* dst, const float* src, int n,
+                                     bool vec) {
+  if (vec) {
+    cpa16(dst, src, n > 0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cpa4(dst + e, src + (e < n ? e : 0), e < n);
+  }
+}
+__device__ __forceinline__ void put4(float* dst, const __nv_bfloat16* src,
+                                     int n, bool) {
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = e < n ? __bfloat162float(src[e]) : 0.f;
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Rows t < rows of a tile of W floats a row (W a multiple of 32, keyed by
+// KEY): row t holds row q = first + dir t of a matrix whose row q starts at
+// src + q ld, its columns [0, ncol); rows with q outside [0, Q) and the
+// columns past ncol read 0.  Issued by all NT threads (cp.async for f32).
+template <int KEY, typename E>
+__device__ __forceinline__ void load_tile(float* dst, int W, int rows,
+                                          const E* src, int64_t ld, int first,
+                                          int dir, int Q, int ncol, bool vec) {
+  const int CH = W >> 2;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
+    const int t = idx / CH, k = idx - t * CH, q = first + dir * t;
+    const int n = q >= 0 && q < Q ? min(4, max(0, ncol - 4 * k)) : 0;
+    put4(dst + t * W + ((k ^ tile_key<KEY>(t)) << 2),
+         n > 0 ? src + q * ld + 4 * k : src, n, vec);
+  }
+}
+
+// Head h's cum (f64) and dt at positions [0, Q rounded up to 32), 0 past Q.
+__device__ __forceinline__ void load_vecs(double* scum, float* sdt,
+                                          const double* cum, const float* dt,
+                                          int64_t bc, int h, int Q, int H) {
+  const int QP = (Q + 31) & ~31;
+  for (int q = threadIdx.x; q < QP; q += NT) {
+    const bool in = q < Q;
+    cpa8(scum + q, in ? cum + (bc * H + h) * Q + q : cum, in);
+    cpa4(sdt + q, in ? dt + (bc * Q + q) * H + h : dt, in);
+  }
+}
+
+// p0[e][q] (p1[e][q]) += sum over the first nq 16-byte chunks k of A row
+// a0 + e (a1 + e) times B row b0 + q, in chunk order: the lane's 2 x 4
+// pieces of one or two row groups in one column strip.  A is row-keyed, B
+// column-keyed; b0 is a multiple of 4.
+template <int NG>
+__device__ __forceinline__ void nt_piece(float (&p0)[2][4], float (&p1)[2][4],
+                                         const float* __restrict__ A, int lda,
+                                         int a0, int a1,
+                                         const float* __restrict__ B, int ldb,
+                                         int b0, int nq) {
+  const int kb = tile_key<KEY_COL>(b0);
+  const float* bp = B + b0 * ldb;
+#pragma unroll 1
+  for (int k = 0; k < nq; ++k) {
+    float4 av[2][2], bv[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      av[0][e] = ld4(A + (a0 + e) * lda +
+                     ((k ^ tile_key<KEY_ROW>(a0 + e)) << 2));
+      if (NG == 2)
+        av[1][e] = ld4(A + (a1 + e) * lda +
+                       ((k ^ tile_key<KEY_ROW>(a1 + e)) << 2));
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bv[q] = ld4(bp + q * ldb + ((k ^ kb) << 2));
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        p0[e][q] = fma4(av[0][e], bv[q], p0[e][q]);
+        if (NG == 2) p1[e][q] = fma4(av[1][e], bv[q], p1[e][q]);
+      }
+  }
+}
+
+// The lane's 4 slots (4 ty .. 4 ty + 3) of row k of a warp's att buffer:
+// rows of 5 chunks, a row's chunk ty at (ty ^ (k / 8) % 4), so that the
+// 8 lanes 4 tx + q that write one chunk of 8 rows meet distinct banks.
+__device__ __forceinline__ float* slots(float* wb, int k, int ty) {
+  return wb + k * BUF_LD + ((ty ^ ((k >> 3) & 3)) << 2);
+}
+__device__ __forceinline__ const float* slots(const float* wb, int k,
+                                              int ty) {
+  return wb + k * BUF_LD + ((ty ^ ((k >> 3) & 3)) << 2);
+}
+
+// acc[n][4 c + e] += sum over the buffer's rows k < kB of the lane's slot n
+// of row k (slots 0-3 for k < kA, 2-3 after) times row rb + k of the
+// column-keyed tile B at column 32 c + 4 tx + e, in row order; U rows a
+// step, their loads issued together.
+template <int NPC, int U>
+__device__ __forceinline__ void nn_strip(float (&acc)[4][4 * NPC],
+                                         const float* __restrict__ wb,
+                                         const float* __restrict__ B, int ldb,
+                                         int rb, int kA, int kB, int ty,
+                                         int tx) {
+  static_assert(U == 1 || U == 2 || U == 4, "rows a step: one chunk key");
+  // rows k .. k + n - 1 (n <= U, one chunk key) into the lane's slots n0..
+  auto step = [&](int k, int n, int n0) {
+    const float* ap = slots(wb, k, ty) + n0;
+    const int kr = tile_key<KEY_COL>(rb + k);
+    const float* bp = B + (rb + k) * ldb;
+    float4 a[U], bv[U][NPC];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u < n) {
+        a[u] = n0 == 0 ? ld4(ap + u * BUF_LD)
+                       : make_float4(ap[u * BUF_LD], ap[u * BUF_LD + 1], 0.f,
+                                     0.f);
+#pragma unroll
+        for (int c = 0; c < NPC; ++c)
+          bv[u][c] = ld4(bp + u * ldb + (((tx + 8 * c) ^ kr) << 2));
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u < n)
+#pragma unroll
+        for (int c = 0; c < NPC; ++c) {
+          const float b4[4] = {bv[u][c].x, bv[u][c].y, bv[u][c].z,
+                               bv[u][c].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (n0 == 0) {
+              acc[0][4 * c + e] = fmaf(a[u].x, b4[e], acc[0][4 * c + e]);
+              acc[1][4 * c + e] = fmaf(a[u].y, b4[e], acc[1][4 * c + e]);
+              acc[2][4 * c + e] = fmaf(a[u].z, b4[e], acc[2][4 * c + e]);
+              acc[3][4 * c + e] = fmaf(a[u].w, b4[e], acc[3][4 * c + e]);
+            } else {
+              acc[2][4 * c + e] = fmaf(a[u].x, b4[e], acc[2][4 * c + e]);
+              acc[3][4 * c + e] = fmaf(a[u].y, b4[e], acc[3][4 * c + e]);
+            }
+          }
+        }
+  };
+  int k = 0;
+  for (; k + U <= kA; k += U) step(k, U, 0);
+  for (; k < kA; ++k) step(k, 1, 0);
+  for (; k < kB && (k & (U - 1)); ++k) step(k, 1, 2);
+  for (; k + U <= kB; k += U) step(k, U, 2);
+  for (; k < kB; ++k) step(k, 1, 2);
+}
+
+// The lane's 4 values of one buffer row (slots 4 ty .. 4 ty + 3).
+__device__ __forceinline__ void put_slots(float* wb, int k, int ty,
+                                          const float (&v)[4]) {
+  *reinterpret_cast<float4*>(slots(wb, k, ty)) =
+      make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The lane's columns 32 c + 4 tx + e (below P) of a row of y or dx.
+template <int NPC>
+__device__ __forceinline__ void store_row(float* dst,
+                                          const float (&a)[4 * NPC], int tx,
+                                          int P, bool vec) {
+#pragma unroll
+  for (int c = 0; c < NPC; ++c) {
+    const int p = 32 * c + 4 * tx;
+    if (vec) {
+      if (p < P)
+        *reinterpret_cast<float4*>(dst + p) = make_float4(
+            a[4 * c], a[4 * c + 1], a[4 * c + 2], a[4 * c + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (p + e < P) dst[p + e] = a[4 * c + e];
+    }
+  }
+}
+template <int NPC>
+__device__ __forceinline__ void store_row(__nv_bfloat16* dst,
+                                          const float (&a)[4 * NPC], int tx,
+                                          int P, bool) {
+#pragma unroll
+  for (int c = 0; c < NPC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = 32 * c + 4 * tx + e;
+      if (p < P) dst[p] = __float2bfloat16_rn(a[4 * c + e]);
+    }
+}
+
+// One warp's share of a pass: row groups ga (short) and gb (long) of 8 rows;
+// the lane's rows ra + e and rb + e (e = 0, 1); the groups' column ends.
+// One pass (Q <= 128): group g and ng - 1 - g, so every warp holds the same
+// causal work; passes of 64 columns (Q > 128): groups w and w + 8.
+struct Share {
+  int ga, gb, ra, rb, endA, endB;
+  bool va, vb;
+  __device__ Share(int w, int ty, int r0, int R, int c0, int W, bool multi) {
+    const int ng = (R + 7) >> 3;
+    ga = w;
+    gb = multi ? w + 8 : ng - 1 - w;
+    va = multi ? ga < ng : ga <= gb;
+    vb = multi ? gb < ng : gb > ga;
+    ra = r0 + 8 * ga + 2 * ty;
+    rb = r0 + 8 * gb + 2 * ty;
+    endA = va ? min(c0 + W, r0 + 8 * ga + 8) : c0;
+    endB = vb ? min(c0 + W, r0 + 8 * gb + 8) : c0;
+  }
+  // strip s (columns [c0 + 32 s, + 32)) holds live pairs of group a / b
+  __device__ bool la(int c0, int s) const {
+    return va && s < 2 && c0 + 32 * s < endA;
+  }
+  __device__ bool lb(int c0, int s) const { return vb && c0 + 32 * s < endB; }
+  __device__ int row(int n) const { return (n < 2 ? ra : rb) + (n & 1); }
+  __device__ bool valid(int n) const { return n < 2 ? va : vb; }
+};
+
+// cb over the pass's live pieces into the lane's registers (cbA: strips
+// 0-1 of group a, cbB: strips 0-3 of group b): sum over N of A row (the
+// pass's row r: matrix row rowA0 + rdir (r - r0)) times B row (column c:
+// matrix row colB0 + cdir (c - c0)), staged NC columns at a time through
+// two buffers.  B5: A = C, B = B; B6 (reversed frame): A = B, B = C.
+template <typename E>
+__device__ __forceinline__ void form_cb(float (&cbA)[2][2][4],
+                                        float (&cbB)[4][2][4], float* stg,
+                                        const E* Am, const E* Bm, int64_t bc,
+                                        int Q, int N, int r0, int R,
+                                        int rowA0, int c0, int W, int colB0,
+                                        int dir, const Share& sh, int tx,
+                                        bool vec) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) cbA[s][e][q] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) cbB[s][e][q] = 0.f;
+    }
+  const int nch = (N + NC - 1) / NC;
+  const E* Ab = Am + bc * Q * N;
+  const E* Bb = Bm + bc * Q * N;
+  auto stage = [&](int ch) {
+    float* sa = stg + (ch & 1) * 2 * SLAB * NC;
+    const int n0 = ch * NC;
+    // every row a lane reads: the row groups' and the strips' (0 past Q)
+    load_tile<KEY_ROW>(sa, NC, (R + 7) & ~7, Ab + n0, N, rowA0, dir, Q,
+                       N - n0, vec);
+    load_tile<KEY_COL>(sa + SLAB * NC, NC, (W + 31) & ~31, Bb + n0, N, colB0,
+                       dir, Q, N - n0, vec);
+    cpa_commit();
+  };
+  stage(0);
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) {
+      stage(ch + 1);
+      cpa_wait<1>();
+    } else {
+      cpa_wait<0>();
+    }
+    __syncthreads();
+    const float* sa = stg + (ch & 1) * 2 * SLAB * NC;
+    const float* sb = sa + SLAB * NC;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const bool la = sh.la(c0, s), lb = sh.lb(c0, s);
+      const int b0 = 32 * s + 4 * tx;
+      if (la && lb)
+        nt_piece<2>(cbA[s & 1], cbB[s], sa, NC, sh.ra - r0, sh.rb - r0, sb,
+                    NC, b0, NC / 4);
+      else if (la)
+        nt_piece<1>(cbA[s & 1], cbA[s & 1], sa, NC, sh.ra - r0, sh.ra - r0,
+                    sb, NC, b0, NC / 4);
+      else if (lb)
+        nt_piece<1>(cbB[s], cbB[s], sa, NC, sh.rb - r0, sh.rb - r0, sb, NC,
+                    b0, NC / 4);
+    }
+    __syncthreads();                 // the buffer is refilled two chunks on
+  }
+}
+
+// The slot of the lane's cb value (strip s, row n, column q) in B6's
+// shared copy: group a's 16, then group b's 32.
+__device__ __forceinline__ int cb_slot(int s, int n, int q) {
+  return n < 2 ? ((s & 1) * 2 + n) * 4 + q : 16 + (s * 2 + (n & 1)) * 4 + q;
+}
+
+__device__ __forceinline__ float& piece(float (&A)[2][2][4],
+                                        float (&B)[4][2][4], int s, int n,
+                                        int q) {
+  return n < 2 ? A[s & 1][n & 1][q] : B[s][n & 1][q];
+}
+
+// The lane's cb values into its shared slots (a lane reads back only its
+// own, so no barrier orders the two).
+__device__ __forceinline__ void keep_cb(float* cbl, float (&cbA)[2][2][4],
+                                        float (&cbB)[4][2][4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (n >= 2 || s < 2)
+          cbl[cb_slot(s, n, q) * 32] = piece(cbA, cbB, s, n, q);
+}
+
+// ---------------------------------------------------------------- B5
+// grid (ceil(H / G), B nc).  Writes y.
+template <typename E, int NPC>
+__global__ void __launch_bounds__(NT, 1)
+ssd_fwd_simt_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                    const double* __restrict__ cum, const E* __restrict__ Bm,
+                    const E* __restrict__ Cm, E* __restrict__ y, int Q, int H,
+                    int P, int N, int G, int vec) {
+  using L = Simt<NPC, false>;
+  constexpr int PW = L::PW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h0 = blockIdx.x * G, nh = min(G, H - h0);
+  const int64_t bc = blockIdx.y;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = lane >> 3, tx = lane & 7;
+  float* wb = L::bufs(smem) + w * BUF;
+  float* cbl = L::cbs(smem) + w * CB_SLOTS * 32 + lane;  // cb[slot * 32]
+  const bool multi = Q > SLAB;
+  const int64_t ldx = (int64_t)H * P;
+  const E* xb = x + bc * Q * ldx;
+  E* yb = y + bc * Q * ldx;
+
+  float acc[4][4 * NPC];
+  for (int r0 = 0; r0 < Q; r0 += SLAB) {
+    const int R = min(SLAB, Q - r0);
+    const int n_half = multi ? (min(r0 + SLAB, Q) + 63) / 64 : 1;
+    for (int hh = 0; hh < n_half; ++hh) {
+      const int c0 = multi ? 64 * hh : 0, W = multi ? min(64, Q - c0) : Q;
+      const Share sh(w, ty, r0, R, c0, W, multi);
+      auto load_head = [&](int k, int st) {   // x rows c0 .. c0 + W - 1
+        load_tile<KEY_COL>(L::tile(smem, st, 0), PW, W,
+                           xb + (int64_t)(h0 + k) * P, ldx, c0, 1, Q, P,
+                           vec & 1);
+        load_vecs(L::cum(smem, st), L::dt(smem, st), cum, dt, bc, h0 + k, Q,
+                  H);
+        cpa_commit();
+      };
+      __syncthreads();               // the last pass's readers are done
+      for (int k = 0; k < L::STAGES - 1 && k < nh; ++k) load_head(k, k);
+      {                              // cb into the lane's shared slots
+        float cbA[2][2][4], cbB[4][2][4];
+        form_cb(cbA, cbB, L::staging(smem), Cm, Bm, bc, Q, N, r0, R, r0, c0,
+                W, c0, 1, sh, tx, vec & 2);
+        keep_cb(cbl, cbA, cbB);
+      }
+
+      for (int k = 0; k < nh; ++k) {
+        const int st = k % L::STAGES;
+        if (L::STAGES == 1) {
+          __syncthreads();
+          load_head(k, 0);
+        }
+        if (L::STAGES == 3 && k + 1 < nh)
+          cpa_wait<1>();             // head k + 1 may stay in flight
+        else
+          if (L::STAGES == 3 && k + 1 < nh)
+          cpa_wait<1>();             // head k + 1 may stay in flight
+        else
+          cpa_wait<0>();
+        __syncthreads();             // head k in place, head k - 1 done
+        if (L::STAGES > 1 && k + L::STAGES - 1 < nh)
+          load_head(k + L::STAGES - 1, (k + L::STAGES - 1) % L::STAGES);
+        const float* xt = L::tile(smem, st, 0);
+        const double* sc = L::cum(smem, st);
+        const float* sd = L::dt(smem, st);
+        double ci[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) ci[n] = sc[min(sh.row(n), QMAX - 1)];
+        if (hh == 0) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int p = 0; p < 4 * NPC; ++p) acc[n][p] = 0.f;
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int cs = c0 + 32 * s;
+          const bool la = sh.la(c0, s), lb = sh.lb(c0, s);
+          if (!la && !lb) continue;
+          // att = cb exp(cum_i - cum_j) dt_j, the exponent formed in f64
+          // and taken only where j <= i; into the buffer, row j - cs
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int j = cs + 4 * tx + q;
+            const double cj = sc[j];
+            const float dj = sd[j];
+            float v[4];
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {   // no branch: the 16 interleave
+              const bool live = (n < 2 ? la : lb) && j <= sh.row(n);
+              const float e = expf(live ? (float)(ci[n] - cj) : minus_inf());
+              v[n] = cbl[cb_slot(s, n, q) * 32] * e * dj;
+            }
+            put_slots(wb, 4 * tx + q, ty, v);
+          }
+          __syncwarp();
+          const int kA = la ? min(32, sh.endA - cs) : 0;
+          const int kB = max(kA, lb ? min(32, sh.endB - cs) : 0);
+          nn_strip<NPC, NPC <= 2 ? 4 : 2>(acc, wb, xt, PW, 32 * s, kA, kB, ty,
+                                          tx);
+          __syncwarp();              // the buffer is rewritten next strip
+        }
+        if (hh == n_half - 1) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int i = sh.row(n);
+            if (sh.valid(n) && i < r0 + R)
+              store_row<NPC>(yb + (int64_t)i * ldx + (int64_t)(h0 + k) * P,
+                             acc[n], tx, P, vec & 1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- B6
+// grid (ceil(H / G), B nc).  Writes dx, ddt, dlt and the group's dcb^T,
+// summed over its heads in head order, to part (B nc, ceil(H / G), Q, Q).
+// It works in the reversed frame: row r is position j = QR - 1 - r, column
+// c is i = QR - 1 - c (QR: Q rounded up to 32), so that the live pairs i >=
+// j lie at c <= r as B5's do, and a column's sums from the bottom run
+// left to right.
+template <typename E, int NPC>
+__global__ void __launch_bounds__(NT, 1)
+ssd_bwd_simt_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                    const double* __restrict__ cum, const E* __restrict__ Bm,
+                    const E* __restrict__ Cm, const E* __restrict__ g,
+                    E* __restrict__ dx, float* __restrict__ ddt,
+                    float* __restrict__ dlt, float* __restrict__ part, int Q,
+                    int H, int P, int N, int G, int vec) {
+  using L = Simt<NPC, true>;
+  constexpr int PW = L::PW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h0 = blockIdx.x * G, nh = min(G, H - h0);
+  const int64_t bc = blockIdx.y;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = lane >> 3, tx = lane & 7;
+  float* wb = L::bufs(smem) + w * BUF;
+  float* red = L::red(smem);         // [2 heads][8 warps][QMAX]
+  float* cbl = L::cbs(smem) + w * CB_SLOTS * 32 + lane;  // cb[slot * 32]
+  const int QR = (Q + 31) & ~31, lo = QR - Q;   // columns below lo: i >= Q
+  const bool multi = Q > SLAB;
+  const int64_t ldx = (int64_t)H * P;
+  const E* xb = x + bc * Q * ldx;
+  const E* gb = g + bc * Q * ldx;
+  E* dxb = dx + bc * Q * ldx;
+  float* pb = part + ((int64_t)bc * gridDim.x + blockIdx.x) * Q * Q;
+  const int nq = (P + 3) >> 2;
+
+  for (int idx = threadIdx.x; idx < 2 * 8 * QMAX; idx += NT) red[idx] = 0.f;
+  // dlt_t = the sum over the warps of red[w][QR - 1 - t], then red is 0
+  auto flush = [&](int k) {
+    float* rd = red + (k & 1) * 8 * QMAX;
+    for (int c = threadIdx.x; c < QR; c += NT) {
+      float s = 0.f;
+#pragma unroll
+      for (int ww = 0; ww < 8; ++ww) {
+        s += rd[ww * QMAX + c];
+        rd[ww * QMAX + c] = 0.f;
+      }
+      if (c >= lo) dlt[(bc * H + h0 + k) * Q + (QR - 1 - c)] = s;
+    }
+  };
+  int pend = -1;                     // a head whose dlt waits in red
+
+  float dxa[4][4 * NPC], ddp[4], carry[4];
+  for (int r0 = 0; r0 < QR; r0 += SLAB) {
+    const int R = min(SLAB, QR - r0);
+    const int n_half = multi ? (min(r0 + SLAB, QR) + 63) / 64 : 1;
+    for (int hh = 0; hh < n_half; ++hh) {
+      const int c0 = multi ? 64 * hh : 0, W = multi ? min(64, QR - c0) : QR;
+      const bool last = hh == n_half - 1 && r0 + SLAB >= QR;
+      const Share sh(w, ty, r0, R, c0, W, multi);
+      auto load_head = [&](int k, int st) {   // x rows j, g rows i
+        const int64_t hp = (int64_t)(h0 + k) * P;
+        load_tile<KEY_ROW>(L::tile(smem, st, 0), PW, R, xb + hp, ldx,
+                           QR - 1 - r0, -1, Q, P, vec & 1);
+        load_tile<KEY_COL>(L::tile(smem, st, 1), PW, W, gb + hp, ldx,
+                           QR - 1 - c0, -1, Q, P, vec & 1);
+        load_vecs(L::cum(smem, st), L::dt(smem, st), cum, dt, bc, h0 + k, Q,
+                  H);
+        cpa_commit();
+      };
+      __syncthreads();
+      for (int k = 0; k < L::STAGES - 1 && k < nh; ++k) load_head(k, k);
+      // dcb summed over the group's heads in registers; at P > 64 (G 1: dx
+      // takes those registers) each pair's value goes straight to part
+      constexpr bool GROUPED = NPC <= 2;
+      float dcA[2][2][4], dcB[4][2][4];
+      {                              // cb into the lane's shared slots
+        float cbA[2][2][4], cbB[4][2][4];
+        form_cb(cbA, cbB, L::staging(smem), Bm, Cm, bc, Q, N, r0, R,
+                QR - 1 - r0, c0, W, QR - 1 - c0, -1, sh, tx, vec & 2);
+        keep_cb(cbl, cbA, cbB);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int s = 0; s < 2; ++s) dcA[s][e][q] = 0.f;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) dcB[s][e][q] = 0.f;
+        }
+
+      for (int k = 0; k < nh; ++k) {
+        const int st = k % L::STAGES;
+        const int h = h0 + k;
+        if (L::STAGES == 1) {
+          __syncthreads();
+          load_head(k, 0);
+        }
+        cpa_wait<0>();
+        __syncthreads();             // head k in place, head k - 1 done
+        if (pend >= 0) {
+          flush(pend);
+          pend = -1;
+        }
+        if (L::STAGES > 1 && k + L::STAGES - 1 < nh)
+          load_head(k + L::STAGES - 1, (k + L::STAGES - 1) % L::STAGES);
+        const float* xt = L::tile(smem, st, 0);
+        const float* gt = L::tile(smem, st, 1);
+        const double* sc = L::cum(smem, st);
+        const float* sd = L::dt(smem, st);
+        float* rd = red + (k & 1) * 8 * QMAX + w * QMAX;
+        int jr[4];                   // the rows' positions j (clamped)
+        float dj[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          jr[n] = max(QR - 1 - sh.row(n), 0);
+          dj[n] = sd[jr[n]];
+        }
+        if (hh == 0) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            ddp[n] = carry[n] = 0.f;
+#pragma unroll
+            for (int p = 0; p < 4 * NPC; ++p) dxa[n][p] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int cs = c0 + 32 * s;
+          const bool la = sh.la(c0, s), lb = sh.lb(c0, s);
+          if (!la && !lb) continue;
+          // datt^T = x g^T on the lane's pieces
+          float pa[2][4], pbb[2][4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) pa[e][q] = pbb[e][q] = 0.f;
+          const int b0 = 32 * s + 4 * tx;
+          // (P > 64: one group at a time, so that dx keeps its registers)
+          if (la && lb && NPC <= 2) {
+            nt_piece<2>(pa, pbb, xt, PW, sh.ra - r0, sh.rb - r0, gt, PW, b0,
+                        nq);
+          } else {
+            if (la)
+              nt_piece<1>(pa, pa, xt, PW, sh.ra - r0, sh.ra - r0, gt, PW, b0,
+                          nq);
+            if (lb)
+              nt_piece<1>(pbb, pbb, xt, PW, sh.rb - r0, sh.rb - r0, gt, PW,
+                          b0, nq);
+          }
+          // decay (the exponent in f64, taken only where i >= j), att into
+          // the buffer, dad, ddt's row sums, dseg, dcb summed over heads.
+          // dlt: each row's dseg summed from its first column (the bottom
+          // of a column of the (i, j) plane) up to c, over the rows r > c
+          // (j < t), spanning pair by spanning pair: loc, the lane's own
+          // columns so far; base, the row's columns left of the lane's (the
+          // 8 lanes of the row group by a shuffle scan, and carry, the
+          // strips and passes before)
+          float loc[4] = {0.f, 0.f, 0.f, 0.f}, v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int c = cs + 4 * tx + q;
+            const double ci = sc[QR - 1 - c];
+            float at[4];
+            v[q] = 0.f;
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {   // no branch: dead pairs add 0
+              const bool live =
+                  (n < 2 ? la : lb) && c <= sh.row(n) && c >= lo;
+              const float cb = cbl[cb_slot(s, n, q) * 32];
+              const float dec =
+                  expf(live ? (float)(ci - sc[jr[n]]) : minus_inf());
+              const float djn = dj[n];
+              at[n] = cb * dec * djn;
+              const float dad = (n < 2 ? pa : pbb)[n & 1][q] * dec;
+              const float tq = dad * cb;
+              ddp[n] += tq;
+              loc[n] += tq * djn;
+              if (GROUPED)
+                piece(dcA, dcB, s, n, q) += dad * djn;
+              else if (live)
+                pb[(int64_t)jr[n] * Q + (QR - 1 - c)] = dad * djn;
+              if (sh.valid(n) && sh.row(n) > c && c >= lo) v[q] += loc[n];
+            }
+            put_slots(wb, 4 * tx + q, ty, at);
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            float inc = loc[n];
+#pragma unroll
+            for (int off = 1; off < 8; off <<= 1) {
+              const float o = __shfl_up_sync(0xffffffffu, inc, off, 8);
+              if (tx >= off) inc += o;
+            }
+            float ex = __shfl_up_sync(0xffffffffu, inc, 1, 8);
+            if (tx == 0) ex = 0.f;
+            const float base = carry[n] + ex;
+            carry[n] += __shfl_sync(0xffffffffu, inc, 7, 8);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int c = cs + 4 * tx + q;
+              if (sh.valid(n) && sh.row(n) > c && c >= lo) v[q] += base;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int c = cs + 4 * tx + q;
+            float u = v[q];
+            u += __shfl_xor_sync(0xffffffffu, u, 8);
+            u += __shfl_xor_sync(0xffffffffu, u, 16);
+            if (ty == 0 && c >= lo) rd[c] += u;
+          }
+          __syncwarp();
+          // dx = att^T g over the strip's columns i
+          const int kA = la ? min(32, sh.endA - cs) : 0;
+          const int kB = max(kA, lb ? min(32, sh.endB - cs) : 0);
+          nn_strip<NPC, NPC <= 2 ? 4 : NPC == 3 ? 2 : 1>(dxa, wb, gt, PW,
+                                                       32 * s, kA, kB, ty,
+                                                       tx);
+          __syncwarp();
+        }
+        if (hh == n_half - 1) {      // the rows' dx and ddt are complete
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            float v = ddp[n];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            const int r = sh.row(n), j = QR - 1 - r;
+            if (!sh.valid(n) || r >= r0 + R || j >= Q) continue;
+            if (tx == 0) ddt[(bc * Q + j) * H + h] = v;
+            store_row<NPC>(dxb + (int64_t)j * ldx + (int64_t)h * P, dxa[n],
+                           tx, P, vec & 1);
+          }
+        }
+        if (last) pend = k;
+      }
+      // the group's dcb^T on this pass's live pairs
+#pragma unroll
+      for (int s = 0; s < 4 && GROUPED; ++s) {
+        const int cs = c0 + 32 * s;
+        const bool la = sh.la(c0, s), lb = sh.lb(c0, s);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = cs + 4 * tx + q;
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            if ((n < 2 ? la : lb) && c <= sh.row(n) && c >= lo)
+              pb[(int64_t)(QR - 1 - sh.row(n)) * Q + (QR - 1 - c)] =
+                  piece(dcA, dcB, s, n, q);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (pend >= 0) flush(pend);
+}
+
+// grid (ceil(Q / 16), 2, B nc).  which 0: dC rows i in [r0, r0 + 16),
+// dC_i = sum_j dcb[i][j] B_j; which 1: dB rows j, dB_j = sum_i dcb[i][j]
+// C_i; dcb = the sum of the n_grp partials (dcb^T, live where i >= j) in
+// group order.  N in chunks of 128 columns.
+constexpr int SUM_ROWS = 16;
+constexpr int SUM_NCH = 128;
+
+__host__ __device__ constexpr size_t sum_smem(int Q, int N) {
+  return sizeof(float) * ((size_t)SUM_ROWS * ((Q + 3) & ~3) +
+                          (size_t)((Q + 3) & ~3) *
+                              (N < SUM_NCH ? N : SUM_NCH));
+}
+
+template <typename E>
+__global__ void __launch_bounds__(NT)
+ssd_bwd_sum_kernel(const float* __restrict__ part, const E* __restrict__ Bm,
+                   const E* __restrict__ Cm, E* __restrict__ dB,
+                   E* __restrict__ dC, int Q, int N, int n_grp) {
+  extern __shared__ __align__(16) float hs_f[];
+  const int QP = (Q + 3) & ~3, NCH = min(N, SUM_NCH);
+  float* S = hs_f;                   // [SUM_ROWS][QP]  the rows' dcb slab
+  float* M = S + SUM_ROWS * QP;      // [QP][NCH]  B (which 0) or C (which 1)
+  const int which = blockIdx.y, r0 = blockIdx.x * SUM_ROWS;
+  const int64_t bc = blockIdx.z;
+  const int tid = threadIdx.x;
+  const float* Pb = part + bc * n_grp * (int64_t)Q * Q;
+  for (int idx = tid; idx < SUM_ROWS * QP; idx += NT) {
+    int r, c;
+    if (which) { r = idx / QP; c = idx % QP; }             // a row of dcb^T
+    else { c = idx / SUM_ROWS; r = idx % SUM_ROWS; }       // a column
+    const int row = r0 + r;
+    float s = 0.f;
+    // which 1: (j, i) = (row, c), live i >= j; which 0: (j, i) = (c, row)
+    if (row < Q && c < Q && (which ? c >= row : c <= row)) {
+      const int64_t off = which ? (int64_t)row * Q + c : (int64_t)c * Q + row;
+#pragma unroll 8
+      for (int gi = 0; gi < n_grp; ++gi) s += Pb[gi * (int64_t)Q * Q + off];
+    }
+    S[r * QP + c] = s;
+  }
+  const E* Mg = (which ? Cm : Bm) + bc * Q * N;
+  E* out = (which ? dB : dC) + bc * Q * N;
+  const int rg = (tid >> 7) * (SUM_ROWS / 2);
+  for (int n0 = 0; n0 < N; n0 += NCH) {
+    __syncthreads();                 // S written; M's last readers done
+#pragma unroll 8
+    for (int idx = tid; idx < QP * NCH; idx += NT) {
+      const int c = idx / NCH, n = idx % NCH;
+      M[idx] = c < Q && n0 + n < N ? to_f(Mg[(int64_t)c * N + n0 + n]) : 0.f;
+    }
+    __syncthreads();
+    // out[r][n] = sum over c in order of S[r][c] M[c][n]: 8 rows a thread
+    const int n = tid & 127;
+    if (n >= NCH) continue;
+    float o[SUM_ROWS / 2];
+#pragma unroll
+    for (int a = 0; a < SUM_ROWS / 2; ++a) o[a] = 0.f;
+    for (int c = 0; c < QP; c += 4) {
+      float mv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mv[u] = M[(c + u) * NCH + n];
+#pragma unroll
+      for (int a = 0; a < SUM_ROWS / 2; ++a) {
+        const float4 sv = ld4(S + (rg + a) * QP + c);
+        o[a] = fmaf(sv.x, mv[0], o[a]);
+        o[a] = fmaf(sv.y, mv[1], o[a]);
+        o[a] = fmaf(sv.z, mv[2], o[a]);
+        o[a] = fmaf(sv.w, mv[3], o[a]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < SUM_ROWS / 2; ++a) {
+      const int row = r0 + rg + a;
+      if (row < Q && n0 + n < N)
+        out[(int64_t)row * N + n0 + n] = from_f<E>(o[a]);
+    }
+  }
+}
+
+// The dynamic shared-memory limit of KERNEL, raised once per device.
+template <auto KERNEL>
+int raise_once(size_t smem) {
+  static bool raised[64] = {};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = set_smem(KERNEL, smem);
+    if (err != 0) return err;
+    raised[dev] = true;
+  }
+  return 0;
+}
+
+// bit 0: 16-byte copies and stores of the (Q, H, P) tensors (P % 4 == 0,
+// every one 16-byte aligned); bit 1: of B and C (N % 4 == 0, aligned).
+inline int vec_flags(int P, int N, const void* a, const void* b,
+                     const void* c, const void* d, const void* B,
+                     const void* C) {
+  auto al = [](const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; };
+  return (P % 4 == 0 && al(a) && al(b) && al(c) && al(d) ? 1 : 0) |
+         (N % 4 == 0 && al(B) && al(C) ? 2 : 0);
+}
+
+template <typename E, int NPC>
 int launch_fwd(const void* x, const void* dt, const void* cum, const void* B,
                const void* C, void* y, int BC, int Q, int H, int P, int N,
-               cudaStream_t stream) {
-  const size_t smem = fwd_smem<PC>(N);
-  int err = set_smem(ssd_fwd_kernel<E, PC>, smem);
+               int G, cudaStream_t stream) {
+  using L = Simt<NPC, false>;
+  int err = raise_once<ssd_fwd_simt_kernel<E, NPC>>(L::SMEM);
   if (err != 0) return err;
-  dim3 grid((Q + TL - 1) / TL, H, BC);
-  ssd_fwd_kernel<E, PC><<<grid, NT, smem, stream>>>(
+  ssd_fwd_simt_kernel<E, NPC><<<dim3((H + G - 1) / G, BC), NT, L::SMEM,
+                                stream>>>(
       (const E*)x, (const float*)dt, (const double*)cum, (const E*)B,
-      (const E*)C, (E*)y, Q, H, P, N);
+      (const E*)C, (E*)y, Q, H, P, N, G,
+      vec_flags(P, N, x, y, nullptr, nullptr, B, C));
   return (int)cudaGetLastError();
 }
 
-template <typename E, int PC>
+template <typename E, int NPC>
 int launch_bwd(const void* x, const void* dt, const void* cum, const void* B,
                const void* C, const void* g, void* dx, void* ddt, void* dlt,
-               void* dB, void* dC, void* dcb, int BC, int Q, int H, int P,
-               int N, cudaStream_t stream) {
-  const size_t smem = bwd_head_smem<PC>(Q, N);
-  int err = set_smem(ssd_bwd_head_kernel<E, PC>, smem);
+               void* dB, void* dC, void* part, int BC, int Q, int H, int P,
+               int N, int G, cudaStream_t stream) {
+  using L = Simt<NPC, true>;
+  int err = raise_once<ssd_bwd_simt_kernel<E, NPC>>(L::SMEM);
+  if (err == 0)
+    err = raise_once<ssd_bwd_sum_kernel<E>>(sum_smem(QMAX, SUM_NCH));
   if (err != 0) return err;
-  ssd_bwd_head_kernel<E, PC><<<dim3(H, BC), NT, smem, stream>>>(
+  const int n_grp = (H + G - 1) / G;
+  ssd_bwd_simt_kernel<E, NPC><<<dim3(n_grp, BC), NT, L::SMEM, stream>>>(
       (const E*)x, (const float*)dt, (const double*)cum, (const E*)B,
       (const E*)C, (const E*)g, (E*)dx, (float*)ddt, (float*)dlt,
-      (float*)dcb, Q, H, P, N);
+      (float*)part, Q, H, P, N, G, vec_flags(P, N, x, g, dx, nullptr, B, C));
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const size_t smem2 = bwd_bc_smem(Q, N);
-  err = set_smem(ssd_bwd_bc_kernel<E>, smem2);
-  if (err != 0) return err;
-  ssd_bwd_bc_kernel<E><<<dim3((Q + TL - 1) / TL, 2, BC), NT, smem2,
-                         stream>>>((const float*)dcb, (const E*)B,
-                                   (const E*)C, (E*)dB, (E*)dC, Q, H, N);
+  ssd_bwd_sum_kernel<E><<<dim3((Q + SUM_ROWS - 1) / SUM_ROWS, 2, BC), NT,
+                          sum_smem(Q, N), stream>>>(
+      (const float*)part, (const E*)B, (const E*)C, (E*)dB, (E*)dC, Q, N,
+      n_grp);
   return (int)cudaGetLastError();
 }
 
@@ -1363,49 +1848,54 @@ int launch_fwd_tc(const void* x, const void* dt, const void* cum,
   return (int)cudaGetLastError();
 }
 
-// P <= 16 / 32 / 64 / 128 -> PC 1 / 2 / 4 / 8; dtype 0 = f32, 1 = bf16
+// P <= 32 / 64 / 96 / 128 -> NPC 1 / 2 / 3 / 4; dtype 0 = f32, 1 = bf16.
+// A chunk longer than one pass (Q > 128), or P > 64, takes one head a block
+// (G = 1).
 #define SSD_DISPATCH(LAUNCH, ...)                                        \
   do {                                                                   \
-    if (P <= 0 || P > 128 || Q <= 0 || N <= 0 || H <= 0 ||              \
+    if (P <= 0 || P > 128 || Q <= 0 || Q > QMAX || N <= 0 || H <= 0 ||  \
+        G <= 0 || ((Q > SLAB || P > 64) && G != 1) ||                   \
         (dtype != 0 && dtype != 1))                                      \
       return (int)cudaErrorInvalidValue;                                 \
+    const int npc = (P + 31) / 32;                                       \
     if (dtype == 0) {                                                    \
-      if (P <= 16) return LAUNCH<float, 1>(__VA_ARGS__);                 \
-      if (P <= 32) return LAUNCH<float, 2>(__VA_ARGS__);                 \
-      if (P <= 64) return LAUNCH<float, 4>(__VA_ARGS__);                 \
-      return LAUNCH<float, 8>(__VA_ARGS__);                              \
+      if (npc == 1) return LAUNCH<float, 1>(__VA_ARGS__);                \
+      if (npc == 2) return LAUNCH<float, 2>(__VA_ARGS__);                \
+      if (npc == 3) return LAUNCH<float, 3>(__VA_ARGS__);                \
+      return LAUNCH<float, 4>(__VA_ARGS__);                              \
     }                                                                    \
-    if (P <= 16) return LAUNCH<__nv_bfloat16, 1>(__VA_ARGS__);           \
-    if (P <= 32) return LAUNCH<__nv_bfloat16, 2>(__VA_ARGS__);           \
-    if (P <= 64) return LAUNCH<__nv_bfloat16, 4>(__VA_ARGS__);           \
-    return LAUNCH<__nv_bfloat16, 8>(__VA_ARGS__);                        \
+    if (npc == 1) return LAUNCH<__nv_bfloat16, 1>(__VA_ARGS__);          \
+    if (npc == 2) return LAUNCH<__nv_bfloat16, 2>(__VA_ARGS__);          \
+    if (npc == 3) return LAUNCH<__nv_bfloat16, 3>(__VA_ARGS__);          \
+    return LAUNCH<__nv_bfloat16, 4>(__VA_ARGS__);                        \
   } while (0)
 
 }  // namespace
 
 extern "C" {
 
-// Tile size, checked by the wrapper.
-int ssd_tile() { return TL; }
+// Rows of one pass of ssd_fwd / ssd_bwd, checked by the wrapper.
+int ssd_tile() { return SLAB; }
 
-// y (B,nc,Q,H,P) in x's dtype, cum (B,nc,H,Q) f64.  Returns
-// cudaGetLastError() after the launch.
+// y (B,nc,Q,H,P) in x's dtype, cum (B,nc,H,Q) f64; G heads a block (1 if
+// Q > 128).  Returns cudaGetLastError() after the launch.
 int ssd_fwd(const void* x, const void* dt, const void* cum, const void* B,
             const void* C, void* y, int dtype, int BC, int Q, int H, int P,
-            int N, void* stream) {
-  SSD_DISPATCH(launch_fwd, x, dt, cum, B, C, y, BC, Q, H, P, N,
+            int N, int G, void* stream) {
+  SSD_DISPATCH(launch_fwd, x, dt, cum, B, C, y, BC, Q, H, P, N, G,
                (cudaStream_t)stream);
 }
 
 // cum (B,nc,H,Q) f64; dx (B,nc,Q,H,P) in x's dtype, ddt (B,nc,Q,H) f32,
-// dlt (B,nc,H,Q) f32, dB / dC (B,nc,Q,N) in their dtype; dcb is a
-// (B*nc, H, Q, Q) f32 scratch.
+// dlt (B,nc,H,Q) f32, dB / dC (B,nc,Q,N) in their dtype; part is a
+// (B*nc, ceil(H / G), Q, Q) f32 scratch.  Returns cudaGetLastError() after
+// the launches.
 int ssd_bwd(const void* x, const void* dt, const void* cum, const void* B,
             const void* C, const void* g, void* dx, void* ddt, void* dlt,
-            void* dB, void* dC, void* dcb, int dtype, int BC, int Q, int H,
-            int P, int N, void* stream) {
-  SSD_DISPATCH(launch_bwd, x, dt, cum, B, C, g, dx, ddt, dlt, dB, dC, dcb,
-               BC, Q, H, P, N, (cudaStream_t)stream);
+            void* dB, void* dC, void* part, int dtype, int BC, int Q, int H,
+            int P, int N, int G, void* stream) {
+  SSD_DISPATCH(launch_bwd, x, dt, cum, B, C, g, dx, ddt, dlt, dB, dC, part,
+               BC, Q, H, P, N, G, (cudaStream_t)stream);
 }
 
 // bf16 only (dtype 1), on the tensor cores: Q <= 128, P a multiple of 8 and

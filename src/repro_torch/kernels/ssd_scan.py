@@ -24,12 +24,13 @@ shared across heads — and a plain integer ``launches`` counter each:
 Both route by dtype and shape (:func:`fwd_route`, :func:`bwd_route`, one
 rule): bf16 with ``Q <= 128``, ``P`` a multiple of 8 up to 64 and ``N <=
 128`` (mamba2-2.7b's Q 128, P 64, N 128) goes to the tensor-core kernels
-``ssd_fwd_tc`` / ``ssd_bwd_tc`` (``wgmma`` over TMA-fed x tiles, ``cb``
-once per block of a cell and a group of :func:`head_groups` heads; the
-backward's head sum partitioned; counted also in ``launches_tc``); f32,
-and bf16 outside that reach, to ``ssd_fwd`` / ``ssd_bwd`` on the CUDA
-cores.  ``route="simt"`` forces the CUDA-core kernels (to hold one route
-against the other).
+``ssd_fwd_tc`` / ``ssd_bwd_tc`` (``wgmma`` over TMA-fed x tiles; counted
+also in ``launches_tc``); f32, and bf16 outside that reach, to ``ssd_fwd``
+/ ``ssd_bwd`` on the CUDA cores.  Both routes run a block per cell and
+group of heads (:func:`simt_groups` on the CUDA cores, :func:`head_groups`
+on the tensor cores), form ``cb`` once per block and partition the
+backward's head sum (:func:`bwd_scratch_shape`).  ``route="simt"`` forces
+the CUDA-core kernels (to hold one route against the other).
 
 ``cum = cumsum(ltT)`` is computed here, in torch, as the JAX functions do,
 and handed to the kernel or to its plain version, so both see the same
@@ -66,9 +67,11 @@ from repro_torch.kernels import _cuda
 
 __all__ = ["ssd_intra_fwd", "ssd_intra_bwd", "fwd_plain", "bwd_plain",
            "dlt_from_dcum", "span_sums", "fwd_route", "bwd_route",
-           "head_groups"]
+           "head_groups", "simt_groups", "bwd_scratch_shape"]
 
-TILE = 64             # must equal TL in csrc/ssd_scan.cu
+TILE = 128            # rows of one pass of ssd_fwd / ssd_bwd: SLAB in the .cu
+MAX_Q = 256           # chunk rows the CUDA-core kernels take (QMAX)
+SIMT_MAX_P = 64       # the widest head the CUDA-core B6 groups
 MAX_HEAD_DIM = 128    # P: the widest register tile the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ssd_fwd_tc / ssd_bwd_tc (bf16, tensor cores): what they hold, as in
@@ -92,6 +95,16 @@ def head_groups(BC: int, H: int) -> int:
         raise ValueError(f"head_groups: BC {BC}, H {H}")
     per_cell = max(1, WAVE // BC)          # groups per cell in one wave
     return min(-(-H // min(H, per_cell)), TC_MAX_HEADS)
+
+
+def simt_groups(BC: int, H: int, Q: int, P: int) -> int:
+    """Heads per block of the CUDA-core ``ssd_fwd`` / ``ssd_bwd``:
+    :func:`head_groups` where a chunk is one pass (``Q <= 128``) and the
+    backward's registers hold the group's dcb beside dx (``P <= 64``), else
+    1 (a longer chunk forms cb anew for each pass of 128 rows by 64
+    columns; a wider head writes dcb per head).  A pure function of the
+    shape."""
+    return head_groups(BC, H) if Q <= TILE and P <= SIMT_MAX_P else 1
 
 
 def bwd_route(dtype: torch.dtype, Q: int, P: int, N: int) -> str:
@@ -190,10 +203,9 @@ def _lib():
     lib = _cuda.load("ssd_scan")
     P, I = ctypes.c_void_p, ctypes.c_int
     shape = [I] * 6 + [P]          # dtype, B·nc, Q, H, P, N, stream
-    lib.ssd_fwd.argtypes = [P] * 6 + shape
-    lib.ssd_fwd_tc.argtypes = [P] * 6 + shape[:-1] + [I, P]    # ..., G
-    lib.ssd_bwd.argtypes = [P] * 12 + shape
-    lib.ssd_bwd_tc.argtypes = [P] * 12 + shape[:-1] + [I, P]   # ..., G
+    grouped = shape[:-1] + [I, P]  # ..., G, stream
+    lib.ssd_fwd.argtypes = lib.ssd_fwd_tc.argtypes = [P] * 6 + grouped
+    lib.ssd_bwd.argtypes = lib.ssd_bwd_tc.argtypes = [P] * 12 + grouped
     for fn in (lib.ssd_fwd, lib.ssd_fwd_tc, lib.ssd_bwd, lib.ssd_bwd_tc,
                lib.ssd_tile, lib.ssd_tc_max_heads, lib.ssd_tc_max_q):
         fn.restype = I
@@ -208,7 +220,8 @@ def _lib():
 
 def _check(name, xr, dtr, ltT, Br, Cr, g=None):
     """Validate CUDA operands: one device, x / B / C (/ g) of one dtype in
-    f32 or bf16, dt and ltT f32, the JAX layouts, contiguous, P <= 128."""
+    f32 or bf16, dt and ltT f32, the JAX layouts, contiguous, P <= 128, Q
+    <= 256."""
     if xr.dim() != 5:
         raise ValueError(f"{name}: xr must be (B,nc,Q,H,P), got "
                          f"{tuple(xr.shape)}")
@@ -224,6 +237,8 @@ def _check(name, xr, dtr, ltT, Br, Cr, g=None):
                              f"{tuple(t.shape)}")
     if not 0 < P <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {P} outside (0, {MAX_HEAD_DIM}]")
+    if not 0 < Q <= MAX_Q:
+        raise ValueError(f"{name}: chunk of {Q} outside (0, {MAX_Q}]")
     model = [xr, Br, Cr] + ([g] if g is not None else [])
     if xr.dtype not in _DTYPES or any(t.dtype != xr.dtype for t in model):
         raise ValueError(f"{name}: x, B, C (and g) must share a dtype in "
@@ -281,18 +296,36 @@ def _cells(xr, members: int) -> int:
     return max(1, xr.shape[0] // members * xr.shape[1])
 
 
+def _groups(xr, members: int, route: str) -> int:
+    """Heads per block on ``route`` for one member's cells."""
+    _, _, Q, H, P = xr.shape
+    cells = _cells(xr, members)
+    return head_groups(cells, H) if route == "wgmma" else \
+        simt_groups(cells, H, Q, P)
+
+
+def bwd_scratch_shape(xr, members: int = 1, route: str = "simt"
+                      ) -> Tuple[int, int, int, int]:
+    """B6's head-sum scratch on ``route``: ``(B·nc, ceil(H / G), Q, Q)``
+    f32, the group's dcb summed over its heads in head order, then summed
+    over the groups in group order by the second kernel (no float atomics:
+    every launch is bit-reproducible).  mamba2-2.7b-f32 (B 2, nc 8, H 80, Q
+    128): G 10, 8.4 MB."""
+    B, nc, Q, H, _ = xr.shape
+    return (B * nc, -(-H // _groups(xr, members, route)), Q, Q)
+
+
 def ssd_intra_fwd(xr, dtr, ltT, Br, Cr, route=None, members: int = 1):
     """B5, the counterpart of ``repro.kernels.ssd_scan.ssd_intra_pallas``.
 
     xr (B,nc,Q,H,P), dtr (B,nc,Q,H) f32, ltT (B,nc,H,Q) f32 per-step
     log-decay, Br / Cr (B,nc,Q,N) → y (B,nc,Q,H,P) in x's dtype.  On the
     route :func:`fwd_route` picks (or ``route``, ``"wgmma"`` / ``"simt"``,
-    to hold one against the other): ``ssd_fwd_tc`` (a block per cell and
-    group of heads, on the tensor cores) or ``ssd_fwd`` (a block per row
-    tile, head and cell, on the CUDA cores).  ``members``: the batch axis
-    holds that many sibling members folded together; the tensor-core
-    kernel groups heads as one member's launch would (see
-    :func:`_cells`)."""
+    to hold one against the other): ``ssd_fwd_tc`` (on the tensor cores)
+    or ``ssd_fwd`` (on the CUDA cores), each a block per cell and group of
+    heads.  ``members``: the batch axis holds that many sibling members
+    folded together; both kernels group heads as one member's launch would
+    (see :func:`_cells`)."""
     _cuda.plain("ssd_intra_fwd", xr, dtr, ltT, Br, Cr)
     if xr.device.type == "cpu":
         route = _route("ssd_intra_fwd", fwd_route, xr, Br, route)
@@ -309,13 +342,10 @@ def ssd_intra_fwd(xr, dtr, ltT, Br, Cr, route=None, members: int = 1):
         args = (xr.data_ptr(), dtr.data_ptr(), cum.data_ptr(),
                 Br.data_ptr(), Cr.data_ptr(), y.data_ptr())
         shape = _shape_args(xr, Br)
+        G = _groups(xr, members, route)
         with _cuda.on(xr.device):
-            if tc:
-                G = head_groups(_cells(xr, members), xr.shape[3])
-                _cuda.call(_lib().ssd_fwd_tc, *args, *shape[:-1], G,
-                           shape[-1])
-            else:
-                _cuda.call(_lib().ssd_fwd, *args, *shape)
+            _cuda.call(_lib().ssd_fwd_tc if tc else _lib().ssd_fwd, *args,
+                       *shape[:-1], G, shape[-1])
         ssd_intra_fwd.launches += 1
         ssd_intra_fwd.launches_tc += tc
     return y
@@ -334,11 +364,11 @@ def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None, members: int = 1
     Returns ``(dxr, ddtr, dltT, dBr, dCr)`` in the input layouts and
     dtypes.  One B6 launch is a pair of kernels: on the route
     :func:`bwd_route` picks (or ``route``, ``"wgmma"`` / ``"simt"``, to hold
-    one against the other), ``ssd_bwd_tc`` (per group of heads, with
-    dltT, the suffix sum of dcum, formed in the kernel; then the
-    partitioned head sum into dB / dC) or ``ssd_bwd`` (per head, with
-    dltT summed over the spanning pairs in the kernel, :func:`span_sums`;
-    then the head sum).  ``members`` as for :func:`ssd_intra_fwd`."""
+    one against the other), ``ssd_bwd_tc`` (dltT the suffix sum of dcum)
+    or ``ssd_bwd`` (dltT summed over the spanning pairs, :func:`span_sums`),
+    each per group of heads, then the partitioned head sum into dB / dC
+    (:func:`bwd_scratch_shape`).  ``members`` as for
+    :func:`ssd_intra_fwd`."""
     _cuda.plain("ssd_intra_bwd", xr, dtr, ltT, Br, Cr, g)
     if xr.device.type == "cpu":
         route = _route("ssd_intra_bwd", bwd_route, xr, Br, route)
@@ -354,12 +384,9 @@ def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None, members: int = 1
     dx, ddt = torch.empty_like(xr), torch.empty_like(dtr)
     dl = torch.empty((B, nc, H, Q), dtype=torch.float32, device=xr.device)
     dB, dC = torch.empty_like(Br), torch.empty_like(Cr)
-    # the head sum's scratch, summed in a fixed order by the second kernel
-    # (no float atomics: every launch is bit-reproducible): per group of G
-    # heads on the tensor cores, per head on the CUDA cores
-    G = head_groups(_cells(xr, members), H) if tc else 1
-    dcb = torch.empty((B * nc, -(-H // G), Q, Q), dtype=torch.float32,
-                      device=xr.device)
+    G = _groups(xr, members, route)
+    dcb = torch.empty(bwd_scratch_shape(xr, members, route),
+                      dtype=torch.float32, device=xr.device)
     if dx.numel():
         args = (xr.data_ptr(), dtr.data_ptr(), cum.data_ptr(),
                 Br.data_ptr(), Cr.data_ptr(), g.data_ptr(), dx.data_ptr(),
@@ -367,11 +394,8 @@ def ssd_intra_bwd(xr, dtr, ltT, Br, Cr, g, route=None, members: int = 1
                 dcb.data_ptr())
         shape = _shape_args(xr, Br)
         with _cuda.on(xr.device):
-            if tc:
-                _cuda.call(_lib().ssd_bwd_tc, *args, *shape[:-1], G,
-                           shape[-1])
-            else:
-                _cuda.call(_lib().ssd_bwd, *args, *shape)
+            _cuda.call(_lib().ssd_bwd_tc if tc else _lib().ssd_bwd, *args,
+                       *shape[:-1], G, shape[-1])
         ssd_intra_bwd.launches += 1
         ssd_intra_bwd.launches_tc += tc
         ssd_intra_bwd.scratch_bytes = dcb.numel() * dcb.element_size()

@@ -740,3 +740,178 @@ def test_b5_tensor_core_maps_reproduce_the_tile_products():
                     assert np.isnan(Y[r, p:p + 8]).all()
                     Y[r, p:p + 8] = stage[off // 2:off // 2 + 8]
     np.testing.assert_array_equal(Y, want_y)
+
+
+# ------------------------------------ B5 and B6 on the CUDA cores (f32)
+# ``ssd_fwd`` / ``ssd_bwd`` (csrc/ssd_scan.cu) run one block per (cell, group
+# of ``simt_groups`` heads): cb = C·Bᵀ formed once per block (once per pass of
+# 128 rows by 64 columns above Q 128, where a block holds one head), then
+# per head in head order.  B6 works in the reversed frame (row r = QR − 1 − j,
+# column c = QR − 1 − i, QR = Q rounded up to 32: the live pairs i >= j at
+# c <= r), sums dltT over the spanning pairs and dcb over the group's heads
+# in head order into a (B·nc, ceil(H / G), Q, Q) scratch that a second
+# kernel sums in group order.  The 8-row groups of a pass go to the 8 warps
+# in pairs (g, ng − 1 − g); above Q 128, groups g and g + 8.
+
+def simt_warp_of_row(r, QR):
+    """The warp that holds row r of B6's reversed frame."""
+    if QR > ss.TILE:                           # passes of 128 rows
+        return (r % ss.TILE) // 8 % 8
+    g, ng = r // 8, QR // 8
+    return g if 2 * g < ng else ng - 1 - g
+
+
+def simt_dlt(dseg, QR):
+    """dltT as the CUDA-core B6 sums the spanning pairs of ``dseg`` (...,
+    Q, Q) [i][j] (0 above the diagonal): in the reversed frame each row r
+    (position j) is summed from its first column c = 0 (i = Q − 1, the
+    bottom of the plane's column j) up to c — within the lane's 4 columns
+    (loc), then the lanes before it in its 32-column strip and the strips
+    before (base) — and each column c (t = QR − 1 − c) over the rows r > c
+    (j < t): per warp its rows' loc, then their base, the warps in order."""
+    *lead, Q, _ = dseg.shape
+    D = dseg.new_zeros(*lead, QR, QR)
+    D[..., QR - Q:, QR - Q:] = torch.flip(dseg.transpose(-1, -2), [-2, -1])
+    loc = torch.cumsum(D.reshape(*lead, QR, QR // 4, 4), -1)
+    lanes = loc[..., -1].reshape(*lead, QR, QR // 32, 8)
+    inc = torch.cumsum(lanes, -1)
+    ex = torch.cat([torch.zeros_like(inc[..., :1]), inc[..., :-1]], -1)
+    st = torch.cumsum(inc[..., -1], -1)
+    carry = torch.cat([torch.zeros_like(st[..., :1]), st[..., :-1]], -1)
+    base = (carry[..., None] + ex).reshape(*lead, QR, QR // 4, 1)
+    loc, base = loc.reshape(*lead, QR, QR), base.expand(
+        *lead, QR, QR // 4, 4).reshape(*lead, QR, QR)
+    below = torch.tril(torch.ones(QR, QR, dtype=torch.bool), -1)  # r > c
+    owner = torch.tensor([simt_warp_of_row(r, QR) for r in range(QR)])
+    total = dseg.new_zeros(*lead, QR)
+    for w in range(8):
+        rows = (owner == w)[:, None] & below
+        part = torch.where(rows, loc, 0.0).sum(-2) + \
+            torch.where(rows, base, 0.0).sum(-2)
+        total = total + part
+    return torch.flip(total, [-1])[..., :Q]
+
+
+def simt_emulation(xr, dtr, cum, Br, Cr, g, G):
+    """What ``ssd_fwd`` and ``ssd_bwd`` compute, in torch, in xr's dtype
+    (float32 or float64) with the exponents formed in ``cum``'s float64 and
+    rounded once to that dtype: cb once per group of G heads; per head y,
+    datt, decay, att, dad, ddt, dseg, dltT (:func:`simt_dlt`), dx; dcb
+    summed over each group's heads in head order, the groups in group
+    order, then dB and dC.  Returns ``(y, dx, ddt, dltT, dB, dC)``."""
+    B, nc, Q, H, P = xr.shape
+    QR = -(-Q // 32) * 32
+    x, gg = xr.movedim(3, 2), g.movedim(3, 2)                 # (B,nc,H,Q,P)
+    live = torch.tril(torch.ones(Q, Q, dtype=torch.bool))    # j <= i
+    seg = (cum[..., :, None] - cum[..., None, :]).to(xr.dtype)
+    dec = torch.where(live, torch.exp(torch.where(live, seg, 0.0)), 0.0)
+    dtj = dtr.movedim(-1, -2)[..., None, :]                  # (B,nc,H,1,Q)
+    ys, dxs, ddts, dlts, heads = [], [], [], [], []
+    for h0 in range(0, H, G):
+        cb = torch.matmul(Cr, Br.transpose(-1, -2))[:, :, None]  # once
+        sl = slice(h0, min(H, h0 + G))
+        att = cb * dec[:, :, sl] * dtj[:, :, sl]
+        ys.append(torch.matmul(att, x[:, :, sl]))
+        datt = torch.matmul(gg[:, :, sl], x[:, :, sl].transpose(-1, -2))
+        dad = datt * dec[:, :, sl]
+        tq = dad * cb
+        ddts.append(tq.sum(-2))
+        dlts.append(simt_dlt(tq * dtj[:, :, sl], QR))
+        dxs.append(torch.matmul(att.transpose(-1, -2), gg[:, :, sl]))
+        per_head = dad * dtj[:, :, sl]
+        acc = per_head[:, :, 0]
+        for k in range(1, per_head.shape[2]):                 # head order
+            acc = acc + per_head[:, :, k]
+        heads.append(acc)
+    dcb = heads[0]
+    for part in heads[1:]:                                    # group order
+        dcb = dcb + part
+    dB = torch.matmul(dcb.transpose(-1, -2), Cr)
+    dC = torch.matmul(dcb, Br)
+    cat = lambda ts: torch.cat(ts, 2)
+    return (cat(ys).movedim(2, 3), cat(dxs).movedim(2, 3),
+            cat(ddts).movedim(-1, -2), cat(dlts), dB, dC)
+
+
+SIMT_CASES = [      # (shape, large decay, G): the cell's Q, P and N at G 10
+    ((1, 2, 128, 10, 64, 128), True, 10), ((1, 2, 128, 6, 64, 128), False,
+                                           3),
+    ((1, 2, 96, 6, 40, 20), True, 2), ((1, 1, 40, 3, 36, 20), True, 2),
+    ((1, 2, 64, 4, 32, 160), False, 4), ((1, 1, 256, 2, 16, 8), True, 1),
+    ((1, 1, 200, 2, 16, 8), False, 1)]
+
+
+@pytest.mark.parametrize("shape, large_decay, G", SIMT_CASES)
+def test_simt_decomposition_matches_plain_and_jax(shape, large_decay, G):
+    """The CUDA-core kernels' decomposition: in float32 against the plain
+    versions on the float64 cum (f32 outputs within 1e-5 of their largest
+    value, the rule chip_smoke.py holds the kernels to on the card) and
+    against the JAX kernels under ``interpret=True`` at the grid's
+    tolerances (the forward's absolute part at y's scale); in float64 against float64 autograd through the
+    intra-chunk term (1e-10 of the largest value: the decomposition is the
+    function's, whatever its sums' order)."""
+    arrs = inputs(*shape, seed=sum(shape) + G, large_decay=large_decay)
+    (jx, jdt, jlt, jB, jC, jg), (tx, tdt, tlt, tB, tC, tg) = both(
+        arrs, "float32")
+    cum = torch.cumsum(tlt.double(), -1)
+    got = simt_emulation(tx, tdt, cum, tB, tC, tg, G)
+    assert all(bool(t.isfinite().all()) for t in got)
+    want = (ss.fwd_plain(tx, tdt, cum, tB, tC),) + ss.bwd_plain(
+        tx, tdt, cum, tB, tC, tg)
+    for name, a, b in zip(("y",) + NAMES, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * scale, name
+    # the grid's forward tolerance, its absolute part at the output's scale
+    # (at N 128 y reaches tens, where the f32 sums' order moves ~1e-5)
+    jy = f32(jax_fwd(jx, jdt, jlt, jB, jC, interpret=True))
+    np.testing.assert_allclose(f32(got[0]), jy, rtol=2e-5,
+                               atol=2e-5 * max(1.0, float(np.abs(jy).max())))
+    jwant = jax_bwd(jx, jdt, jlt, jB, jC, jg, interpret=True)
+    for name, a, b in zip(NAMES, got[1:], jwant):
+        np.testing.assert_allclose(f32(a), f32(b), err_msg=name,
+                                   **grad_tol("float32"))
+    # float64: against autograd through the term itself
+    leaves = [t.double().requires_grad_(True) for t in (tx, tdt, tlt, tB,
+                                                        tC)]
+    lx, ldt, llt, lB, lC = leaves
+    c64 = torch.cumsum(llt, -1)
+    live = torch.tril(torch.ones(shape[2], shape[2], dtype=torch.bool))
+    seg = torch.where(live, c64[..., :, None] - c64[..., None, :],
+                      float("-inf"))
+    att = torch.einsum("bcin,bcjn->bcij", lC, lB)[:, :, None] * \
+        torch.exp(seg) * ldt.movedim(-1, -2)[..., None, :]
+    y = torch.einsum("bchij,bcjhp->bcihp", att, lx)
+    truth = [y.detach()] + list(torch.autograd.grad(y, leaves,
+                                                    tg.double()))
+    got64 = simt_emulation(*(t.double() for t in (tx, tdt)), cum,
+                           tB.double(), tC.double(), tg.double(), G)
+    for name, a, b in zip(("y",) + NAMES, got64, truth):
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max()), \
+            name
+
+
+@pytest.mark.parametrize("B, nc, Q, H, P, members", [
+    (2, 8, 128, 80, 64, 1), (4, 8, 128, 80, 64, 2), (1, 16, 128, 80, 64, 1),
+    (2, 16, 128, 80, 64, 2), (1, 2, 96, 24, 40, 1), (2, 1, 256, 80, 64, 2),
+    (1, 1, 200, 6, 16, 1), (2, 8, 128, 80, 80, 2), (1, 4, 64, 12, 128, 1)])
+def test_simt_groups_and_scratch_follow_one_member(B, nc, Q, H, P, members):
+    """The CUDA-core route's G is a pure function of one member's shape
+    (the tensor cores' grouping up to Q 128 and P 64, one head a block
+    above), and B6's head-sum scratch is (B·nc, ceil(H / G), Q, Q) for one
+    member and for a group of members folded into the batch axis."""
+    x = torch.empty((B, nc, Q, H, P), device="meta")
+    cells = B // members * nc
+    G = ss.simt_groups(cells, H, Q, P)
+    assert G == ss.simt_groups(cells, H, Q, P)
+    assert G == (ss.head_groups(cells, H)
+                 if Q <= ss.TILE and P <= ss.SIMT_MAX_P else 1)
+    assert ss.bwd_scratch_shape(x, members) == (B * nc, -(-H // G), Q, Q)
+    if members > 1:                          # each member's own grouping
+        one = torch.empty((B // members, nc, Q, H, P), device="meta")
+        assert ss.bwd_scratch_shape(one)[1:] == \
+            ss.bwd_scratch_shape(x, members)[1:]
+    if (B // members, nc, Q, H, P) == (2, 8, 128, 80, 64):  # mamba2-2.7b-f32
+        assert G == 10
+        assert ss.bwd_scratch_shape(x, members)[1:] == (8, 128, 128)
+        assert 4 * 16 * 8 * 128 * 128 == 8_388_608   # 8.4 MB a member

@@ -2,6 +2,7 @@
 
     python3 tools/ssd_f32_probe.py [--seed N] [--tag NAME] [--parts ...]
     python3 tools/ssd_f32_probe.py --small --device cpu   # a CPU rehearsal
+    python3 tools/ssd_f32_probe.py --parts layer,timing   # the kernels
 
 Every number is a distance from a float64 plain computation on the same
 device, ``‖got − f64‖ / ‖f64‖`` unless said otherwise.  Three parts, at
@@ -29,7 +30,16 @@ traffic, with weights and tokens drawn by the benchmark's rules
   for the port with kernels on (B1-B6), with kernels off, the reference
   and the TF32 control; and, to show how far two float32 computations of
   the same steps part, the reference with each batch's rows in one pass
-  (``reference_batched``, ``f64_batched``) against itself row by row.
+  (``reference_batched``, ``f64_batched``) against itself row by row;
+* ``timing``: B5 and B6 on the CUDA cores (``ssd_fwd`` / ``ssd_bwd``) at
+  the configuration's shape, on the layer's inputs: ``ptxas`` registers
+  and spills of each kernel, each kernel's device time (the profiler) and
+  each launch's time by CUDA events beside its bound (float32 at 67
+  TFLOP/s, 3.35 TB/s; ``hippo_bench/flops.py``) and the share of it, the
+  launches and the scratch the head sum took, whether two identical
+  launches give identical bits, and whether a launch of two members
+  folded into the batch axis gives each member the bits of its own
+  launch.
 
 One JSON line a part on standard output; the whole is also written to
 ``chiprun_out/ssd_f32_probe_<tag>.json``.
@@ -324,6 +334,90 @@ def step_part(cfg, device, seed):
     return out
 
 
+def kernel_ms(fn, names, reps=20):
+    """``{name: milliseconds}``: each named kernel's device time a launch
+    over ``reps`` calls of ``fn``, from the profiler's trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+        n = sum(e.count for e in rows)
+        out[name] = us / 1e3 / n if n else 0.0
+    return out
+
+
+def timing_part(cfg, device, seed):
+    """B5 / B6 on the CUDA cores at the configuration's shape."""
+    import chip_smoke as cs
+    from hippo_bench import flops
+    from repro_torch.kernels import _cuda
+    x, dt, A_log, Bm, Cm, g, Q = scan_inputs(cfg, device, seed)
+    Bsz, S, H, P = x.shape
+    nc, N = S // Q, Bm.shape[-1]
+    xr = x.reshape(Bsz, nc, Q, H, P).contiguous()
+    dtr = dt.reshape(Bsz, nc, Q, H).contiguous()
+    ltT = (dtr * -torch.exp(A_log)).movedim(-1, -2).contiguous()
+    Br = Bm.reshape(Bsz, nc, Q, N).contiguous()
+    Cr = Cm.reshape(Bsz, nc, Q, N).contiguous()
+    gr = g.reshape(Bsz, nc, Q, H, P).contiguous()
+    args = (xr, dtr, ltT, Br, Cr)
+    fwd = lambda: ssd_scan.ssd_intra_fwd(*args)
+    bwd = lambda: ssd_scan.ssd_intra_bwd(*args, gr)
+    out = {"shape": dict(B=Bsz, nc=nc, Q=Q, H=H, P=P, N=N, dtype="float32"),
+           "ptxas": _cuda.ptxas_report("ssd_scan", "simt"),
+           "heads_per_block": ssd_scan.simt_groups(Bsz * nc, H, Q, P)}
+    out["ptxas"].update(_cuda.ptxas_report("ssd_scan", "sum_kernel"))
+    launches = (ssd_scan.ssd_intra_fwd.launches,
+                ssd_scan.ssd_intra_bwd.launches)
+    one = [fwd()] + list(bwd())
+    two = [fwd()] + list(bwd())
+    out["launches"] = [ssd_scan.ssd_intra_fwd.launches - launches[0],
+                       ssd_scan.ssd_intra_bwd.launches - launches[1]]
+    out["tensor_core_launches"] = [ssd_scan.ssd_intra_fwd.launches_tc,
+                                   ssd_scan.ssd_intra_bwd.launches_tc]
+    out["scratch_bytes"] = ssd_scan.ssd_intra_bwd.scratch_bytes
+    names = ["y", "dx", "ddt", "dlt", "dB", "dC"]
+    out["bit_equal_twice"] = {n: torch.equal(a, b)
+                              for n, a, b in zip(names, one, two)}
+    # two members folded into the batch axis against each one alone
+    other = [t.roll(1, dims=1).contiguous() for t in (*args, gr)]
+    fold = [torch.cat([a, b]) for a, b in zip((*args, gr), other)]
+    both = [ssd_scan.ssd_intra_fwd(*fold[:5], members=2)] + list(
+        ssd_scan.ssd_intra_bwd(*fold, members=2))
+    alone = [[ssd_scan.ssd_intra_fwd(*m[:5])] + list(
+        ssd_scan.ssd_intra_bwd(*m)) for m in ((*args, gr), other)]
+    out["folded_bits_equal"] = {
+        n: all(torch.equal(both[i][k * Bsz:(k + 1) * Bsz], alone[k][i])
+               for k in range(2)) for i, n in enumerate(names)}
+    work = flops.ssd_work(Bsz, nc, Q, H, P, N, 4)
+    rows = {}
+    for key, fn, kernels in (
+            ("B5", fwd, ["ssd_fwd_simt_kernel"]),
+            ("B6", bwd, ["ssd_bwd_simt_kernel", "ssd_bwd_sum_kernel"])):
+        bound = flops.bound_s(*work[key], "float32") * 1e3
+        dev = kernel_ms(fn, kernels)
+        total = sum(dev.values())
+        rows[key] = {"events_ms": [cs.time_ms(fn) for _ in range(2)],
+                     "device_ms": dev, "device_ms_total": total,
+                     "bound_ms": bound,
+                     "bound_by": ("operations" if work[key][0] / 67e12 >=
+                                  work[key][1] / 3.35e12 else "bytes"),
+                     "flops": work[key][0], "bytes": work[key][1],
+                     "bound_share_pct": 100 * bound / total if total else
+                     None}
+    out["kernels"] = rows
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=3141592653)
@@ -352,7 +446,8 @@ def main():
                    seed=args.seed)
     parts = {"layer": lambda: layer_part(cfg, device, args.seed),
              "intra": lambda: intra_part(cfg, device, args.seed),
-             "step": lambda: step_part(cfg, device, args.seed)}
+             "step": lambda: step_part(cfg, device, args.seed),
+             "timing": lambda: timing_part(cfg, device, args.seed)}
     for part in args.parts.split(","):
         t0 = time.perf_counter()
         summary[part] = parts[part]()

@@ -221,7 +221,7 @@ def main():
                wrapper_host_us=cs.launch_us(kern),
                simt_ms=cs.time_ms(old, reps=10),
                simt_device_ms=cs.device_ms(old, reps=5,
-                                           expect="ssd_fwd_kernel")),
+                                           expect="ssd_fwd_simt_kernel")),
           flush=True)
     if "--timeline" in sys.argv[1:]:
         timeline(args)
