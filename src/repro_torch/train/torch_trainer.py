@@ -1,34 +1,40 @@
 """Real-training backend: Hippo stages driving a PyTorch model (the §5.2
-``Trainer`` counterpart), with a fused data plane.
+``Trainer`` counterpart).
 
 ``TorchTrainer`` executes a stage as a handful of *chunks*: each chunk
-covers up to ``chunk_steps`` training steps, consuming a data slab
-prefetched in one piece (``DataPipeline.next_batches``) and uploaded once,
-and per-step hyper-parameter values uploaded once per chunk as one
-``(n_steps,)`` f32 device tensor per name and sliced on the device (the
-``setup(hp)`` hot-update of Figure 9 becomes "hp values are device values
-of the step").  No step of a chunk reads a value back to the host, so the
-host queues a whole chunk without waiting for the device.  Stage lengths
-split into descending power-of-two chunks (:func:`chunk_lengths`).
+covers up to ``chunk_steps`` training steps (stage lengths split into
+descending power-of-two chunks, :func:`chunk_lengths`), consuming a data
+slab drawn in one piece (``DataPipeline.next_batches``) and uploaded once,
+and per-step hyper-parameter values uploaded once per chunk as float32
+device rows sliced on the device (the ``setup(hp)`` hot-update of Figure 9
+becomes "hp values are device values of the step").  No step of a chunk
+reads a value back to the host, so the host queues a whole chunk without
+waiting for the device.  The package runs eagerly: there is nothing to
+compile per chunk, and ``exec_calls`` counts chunks issued.
 
-The package runs eagerly: there is nothing to compile per chunk, and
-``exec_calls`` counts chunks issued.
+**One walk.**  Every entry — :meth:`run_stage` and :meth:`run_chain` (a
+solo chain: one member), :meth:`run_stages_batched` and
+:meth:`run_chains_batched` (a sibling group of ``M``) — runs one walk over
+the members' chains, a stage level at a time.  It holds the ``(params,
+opt)`` carries and the data pipelines across every stage boundary (no
+checkpoint round-trip, no slab re-prefetch) and returns ``[member][stage]``
+boundary snapshots for the dispatcher's write-behind checkpointing.  The
+carry's layout is chosen once per call: per member (a solo chain, or a
+group's looped tier: each member's chunk as a solo run executes it) or
+member-stacked (a group's vectorised tier); see Sibling groups.
 
-Spans (:mod:`repro_torch.utils.tracing`, recorded only while a profiler
-or a ``recording()`` block is on): ``train.chain`` around a chain or a
-stage, ``train.group`` around a sibling group, ``train.evaluate`` around
-an evaluation; inside them, per chunk, ``data.slab`` (the slab drawn),
-``data.upload`` (slab, hp rows, step indices and static scalars sent to
-the device) and ``train.chunk`` (the chunk's steps, device-timed by CUDA
-events, with its member-steps and group width).
-
-Chain fusion: :meth:`run_chain` executes an entire scheduler-extracted
-chain with the ``(params, opt)`` carry and the data pipeline held live
-across every stage boundary — no checkpoint round-trip, no slab
-re-prefetch between consecutive stages — while still returning a boundary
-snapshot per stage for the dispatcher's write-behind checkpointing.
-Optimizer updates write fresh tensors, so a snapshot is just a reference
-to the carry at that boundary.
+Uploads and spans (:mod:`repro_torch.utils.tracing`, recorded only while
+a profiler or a ``recording()`` block is on): ``train.chain`` around a
+chain or a stage, ``train.group`` around a group, ``train.evaluate``
+around an evaluation.  Inside them, per stage, a ``data.upload`` of the
+static scalar hps; per chunk, ``data.slab`` (each pipeline's slab drawn,
+:meth:`_draw`), ``data.upload`` (the slab through :meth:`_upload`, one a
+pipeline or one stacked on axis 1; the step indices and hp rows through
+:meth:`_upload_rows`, an ``(n,)`` row a name and member or one step-major
+``(n, M)`` a name) and ``train.chunk`` (the steps, device-timed by CUDA
+events, with the member-steps and group width).  :meth:`run_stage_stepwise`,
+the plain per-step loop kept as the bit-exactness reference, takes its
+slab, hp rows and step index through the same helpers, a step at a time.
 
 Everything a resumed trial needs is in the state tree:
 
@@ -36,11 +42,12 @@ Everything a resumed trial needs is in the state tree:
 
 so stage-based execution is *lossless*: training a prefix once and forking
 the checkpoint yields bit-identical parameters to training each trial
-straight through, and the fused / chain-fused paths are bit-identical to
-the per-step loop (kept as :meth:`run_stage_stepwise`) on one device.
+straight through, and the chunk walk, chains included, is bit-identical to
+the per-step loop on one device.  Optimizer updates write fresh tensors,
+so a solo snapshot is just a reference to the carry at that boundary.
 
 Kernel plane: ``use_kernel`` routes the optimizer update of every step
-through the fused kernel
+through the update kernel
 (:func:`repro_torch.kernels.optim.fused_apply_update`) and, as in the JAX
 package, sets ``task.use_kernel`` on a task that has the attribute (the
 LM's attention then goes through the flash-attention kernels).  It
@@ -64,21 +71,18 @@ CUDA device sets, process-wide,
 an f32 reference computes) and ``torch.backends.cudnn.deterministic =
 True``, ``benchmark = False`` (the losslessness claim is bitwise).
 
-Sibling groups: :meth:`run_stages_batched` executes a group of sibling
-stages — same ``[start, stop)``, static hps, hp names and batch-size
-schedule, divergent hp *values* — as one call, and
-:meth:`run_chains_batched` a group of parallel sibling chains, one stage
-level at a time, with the group's carry and pipelines held across
-boundaries; both return ``[member][stage]`` boundary snapshots.  A
-mismatch raises ``ValueError``, which the dispatcher answers with
-member-sequential chains.  Members whose data states are equal (siblings
-forked from one checkpoint) share one pipeline and one slab.  Two tiers,
-as in the JAX package, chosen by ``vectorize_groups`` (on for a CUDA
-device, off on the CPU; an explicit value overrides):
+Sibling groups: the members share ``[start, stop)``, static hps, hp names
+and the batch-size schedule, and differ in hp *values*.  A mismatch raises
+``ValueError``, which the dispatcher answers with member-sequential chains;
+a solo chain whose stages are not contiguous raises ``ChainNotFusable``,
+answered with the per-stage loop.  Members whose data states are equal
+(siblings forked from one checkpoint) share one pipeline and one slab.
+The tier, as in the JAX package, is chosen by ``vectorize_groups`` (on for
+a CUDA device, off on the CPU; an explicit value overrides):
 
-* **vectorised** — the carry is member-stacked ``(M, ...)``; each step
-  is the task's loss under ``torch.func.vmap`` over it (the shared slab
-  broadcast with ``in_dims=None``, never stacked) and one ordinary
+* **vectorised** (member-stacked) — each step is the task's loss under
+  ``torch.func.vmap`` over the stacked carry (the shared slab broadcast
+  with ``in_dims=None``, never stacked) and one ordinary
   ``torch.autograd.grad`` of the members' summed losses
   (:func:`group_value_and_grad`), so the task's kernels fold the group
   into one launch each, backward included (:mod:`repro_torch.kernels.ops`);
@@ -87,8 +91,8 @@ device, off on the CPU; an explicit value overrides):
   per tree) with per-member hp values as ``(M,)`` device rows of
   step-major ``(n, M)`` tensors.  Member-stacked matrix products and
   convolutions (``bmm``, a grouped convolution) need not give solo's bits;
-* **looped** — each member's chunk exactly as a solo run executes it,
-  bit-equal to solo by construction.
+* **looped** (per member) — each member's chunk exactly as a solo run
+  executes it, bit-equal to solo by construction.
 
 A boundary snapshot of the stacked carry is a per-member **copy**, not a
 view: a view ``x[g]`` would pin the whole stack for as long as any
@@ -207,6 +211,91 @@ def value_and_grad(loss_fn, params: Any, batch: Any):
     return (loss.detach(), aux), tree_map(lambda _: next(grads), params)
 
 
+class _PerMember:
+    """The walk's carry, one per member (``n_lead`` 0 at rest): a solo
+    chain, or a group's looped tier.  Each member's chunk runs as a solo
+    run executes it (:meth:`TorchTrainer._run_chunk`, the solo update),
+    with its own ``(n,)`` hp rows and its pipeline's slab."""
+
+    def __init__(self, tr: "TorchTrainer", carries: List[Any], shared: bool):
+        self.tr, self.shared = tr, shared
+        self.carries = [tr._at_rest(c, 0) for c in carries]
+
+    def switch(self, opt_name: str) -> None:
+        """Fresh optimizer slots, back in the at-rest layout."""
+        tr = self.tr
+        self.carries = [tr._at_rest((p, init_opt_state(opt_name, p)), 0)
+                        for p in (tr._whole(c[0]) for c in self.carries)]
+
+    def scalars(self, static_hp: Dict[str, float]):
+        return self.tr._scalars(static_hp)
+
+    def rows(self, rows: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        return rows
+
+    def slab(self, slabs: List[Dict[str, np.ndarray]]):
+        return [self.tr._upload(sl) for sl in slabs]
+
+    def run(self, opt_name: str, static, hps, slabs, steps) -> None:
+        tr, carries = self.tr, self.carries
+        for m, hp in enumerate(hps):
+            work = tr._whole(carries[m])
+            carries[m] = None        # the shards are not pinned
+            carries[m] = tr._at_rest(tr._run_chunk(
+                opt_name, work, static, hp, slabs[0 if self.shared else m],
+                steps), 0)
+            del work
+
+    def snapshots(self) -> List[Any]:
+        return [self.tr._whole(c) for c in self.carries]
+
+
+class _Stacked:
+    """The walk's carry on a group's vectorised tier: member-stacked
+    ``(M, ...)`` (``n_lead`` 1 at rest: the member axis never splits), a
+    list in a chunk, updated in place step by step
+    (:meth:`TorchTrainer._run_group_chunk`); static hps as ``(M,)`` rows,
+    hp rows step-major ``(n, M)``, the slab shared or stacked on axis 1."""
+
+    def __init__(self, tr: "TorchTrainer", carries: List[Any], shared: bool):
+        self.tr, self.shared, self.group = tr, shared, len(carries)
+        self.carry = tr._at_rest(tuple(
+            _stack([c[i] for c in carries]) for i in (0, 1)), 1)
+
+    def switch(self, opt_name: str) -> None:
+        """Fresh optimizer slots, back in the at-rest layout."""
+        params = self.tr._whole(self.carry[0])
+        self.carry = self.tr._at_rest(
+            (params, init_opt_state(opt_name, params)), 1)
+
+    def scalars(self, static_hp: Dict[str, float]):
+        return {k: torch.full((self.group,), v, dtype=torch.float32,
+                              device=self.tr._home)
+                for k, v in static_hp.items()}
+
+    def rows(self, rows: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        # step-major (n, M): row i is one contiguous (M,) vector, the
+        # kernel's per-member operand
+        return [{k: np.asarray([r[k] for r in rows], np.float32).T
+                 for k in rows[0]}]
+
+    def slab(self, slabs: List[Dict[str, np.ndarray]]):
+        return self.tr._upload(slabs[0] if self.shared else {
+            k: np.stack([sl[k] for sl in slabs], axis=1) for k in slabs[0]})
+
+    def run(self, opt_name: str, static, hps, slab, steps) -> None:
+        work = list(self.tr._whole(self.carry))
+        self.carry = None            # pins neither input nor shards
+        self.tr._run_group_chunk(opt_name, work, static, hps[0], slab, steps,
+                                 self.shared)
+        self.carry = self.tr._at_rest(tuple(work), 1)
+
+    def snapshots(self) -> List[Any]:
+        whole = self.tr._whole(self.carry)
+        return [tuple(tree_map(lambda x, m=m: x[m].clone(), c) for c in whole)
+                for m in range(self.group)]
+
+
 class TorchTrainer(TrainerBackend):
     """Stage executor over any task exposing ``init(rng)`` and
     ``loss(params, batch) -> (scalar, metrics)``."""
@@ -214,8 +303,7 @@ class TorchTrainer(TrainerBackend):
     def __init__(self, task, pipeline_factory: Callable[[], DataPipeline],
                  eval_batch: Dict[str, np.ndarray],
                  default_optimizer: str = "momentum", seed: int = 0,
-                 objective_from: str = "acc", fused: bool = True,
-                 chunk_steps: int = 8,
+                 objective_from: str = "acc", chunk_steps: int = 8,
                  use_kernel: Optional[bool] = None,
                  device: Union[str, torch.device, None] = None,
                  vectorize_groups: Optional[bool] = None):
@@ -238,7 +326,6 @@ class TorchTrainer(TrainerBackend):
         self.default_optimizer = default_optimizer
         self.seed = seed
         self.objective_from = objective_from
-        self.fused = fused
         self.chunk_steps = int(chunk_steps)
         if self.chunk_steps < 1:
             raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
@@ -272,13 +359,8 @@ class TorchTrainer(TrainerBackend):
         """Kernel→plain-version fallbacks since construction."""
         return kernel_ops.KERNEL_STATS.fallbacks - self._kernel_stats0[1]
 
-    @property
-    def supports_batched_stages(self) -> bool:  # type: ignore[override]
-        return self.fused
-
-    @property
-    def supports_chain_fusion(self) -> bool:  # type: ignore[override]
-        return self.fused
+    supports_batched_stages = True
+    supports_chain_fusion = True
 
     @property
     def batched_bitwise_solo(self) -> bool:  # type: ignore[override]
@@ -479,6 +561,37 @@ class TorchTrainer(TrainerBackend):
             opt = init_opt_state(opt_name, state["params"])
         return opt
 
+    # ------------------------------------------------------------ chunk parts
+    def _windows(self, pipes: List[DataPipeline], vals: Dict[str, List[float]],
+                 n: int):
+        """A stage's chunk windows ``(w0, w1)``: its runs of one batch size
+        (every pipeline set to the run's size before its first chunk), each
+        cut by :func:`chunk_lengths`."""
+        for i0, i1, bs in self._bs_runs(vals, n):
+            if bs is not None:
+                for pipe in pipes:
+                    pipe.set_batch_size(bs)
+            for k_len in chunk_lengths(i1 - i0, self.chunk_steps):
+                yield i0, i0 + k_len
+                i0 += k_len
+
+    @staticmethod
+    def _draw(pipes: List[DataPipeline], n: int
+              ) -> List[Dict[str, np.ndarray]]:
+        """Each pipeline's next ``n`` batches as one host slab."""
+        with tracing.span("data.slab"):
+            return [pipe.next_batches(n) for pipe in pipes]
+
+    def _upload_rows(self, t0: int, t1: int, rows: List[Dict[str, Any]]
+                     ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+        """The step indices ``[t0, t1)`` and the hp rows on the device: one
+        float32 tensor for each value array of ``rows`` (a dict a member,
+        or one for a member-stacked group), each one transfer."""
+        steps = torch.arange(t0, t1, dtype=torch.int32, device=self._home)
+        return steps, [{k: torch.from_numpy(np.ascontiguousarray(
+            v, np.float32)).to(self._home) for k, v in r.items()}
+            for r in rows]
+
     # ------------------------------------------------------------- chunk body
     def _run_chunk(self, opt_name: str, carry, static_hp, hp_xs, slab, steps):
         """``len(steps)`` training steps over device-resident slab / hp /
@@ -493,273 +606,6 @@ class TorchTrainer(TrainerBackend):
                                        steps[i])
         self.exec_calls += 1
         return params, opt
-
-    # -------------------------------------------------------------- execute
-    def run_stage(self, state: Dict[str, Any], ctx: StageContext
-                  ) -> Dict[str, Any]:
-        if not self.fused:
-            return self.run_stage_stepwise(state, ctx)
-        return self._run_fused_chain(state, [ctx])[-1]
-
-    def run_chain(self, state: Dict[str, Any],
-                  ctxs: Sequence[StageContext]) -> List[Dict[str, Any]]:
-        """Chain-fused execution: the carry stays on device across every
-        stage boundary (one persistent pipeline, no host round-trip) and a
-        boundary snapshot is returned per stage — bit-identical to running
-        :meth:`run_stage` per stage."""
-        if not self.fused:
-            return super().run_chain(state, ctxs)
-        return self._run_fused_chain(state, list(ctxs))
-
-    def run_stages_batched(self, states: Sequence[Dict[str, Any]],
-                           ctxs: Sequence[StageContext]
-                           ) -> List[Dict[str, Any]]:
-        """A sibling group of stages as one call (see the module
-        docstring); one boundary state per member."""
-        if not self.fused:
-            return [self.run_stage_stepwise(s, c)
-                    for s, c in zip(states, ctxs)]
-        return [b[-1] for b in self._run_group(list(states),
-                                               [[c] for c in ctxs])]
-
-    def run_chains_batched(self, states: Sequence[Dict[str, Any]],
-                           chains: Sequence[Sequence[StageContext]]
-                           ) -> List[List[Dict[str, Any]]]:
-        """A group of parallel sibling chains of equal depth, one stage
-        level at a time over the group's carry, which persists across
-        boundaries; ``[member][stage]`` boundary states."""
-        if not self.fused:
-            return [self.run_chain(s, c) for s, c in zip(states, chains)]
-        return self._run_group(list(states), [list(c) for c in chains])
-
-    @tracing.traced("train.chain")
-    def _run_fused_chain(self, state: Dict[str, Any],
-                         chain: List[StageContext]) -> List[Dict[str, Any]]:
-        """Run one chain, returning the boundary state of every stage.  The
-        carry ``(params, opt)`` and the data pipeline persist across stage
-        boundaries; each boundary only snapshots the carry so the
-        dispatcher can checkpoint it, then execution continues."""
-        plans = [self._stage_plan(c) for c in chain]
-        step = chain[0].start
-        for c in chain:   # stages of one chain must be contiguous
-            if c.start != step:
-                raise ChainNotFusable(
-                    f"chain stages must be contiguous: stage starts at "
-                    f"{c.start}, previous stopped at {step}")
-            step = c.stop
-        assert state["step"] == chain[0].start, (state["step"], chain[0].start)
-        state, = self.on_device(state)
-
-        opt_name = plans[0][2]
-        carry = self._at_rest(
-            (state["params"], self._init_opt(state, opt_name)), 0)
-        pipe = self.pipeline_factory()
-        pipe.restore(state["data"])
-        boundaries: List[Dict[str, Any]] = []
-
-        for ctx, (vals, static_hp, stage_opt, names) in zip(chain, plans):
-            if stage_opt != opt_name:
-                # optimizer switch at the boundary: fresh slots, exactly as
-                # run_stage would re-init on the restored state (and back
-                # to the mesh's at-rest layout)
-                params = self._whole(carry[0])
-                carry = self._at_rest(
-                    (params, init_opt_state(stage_opt, params)), 0)
-                opt_name = stage_opt
-            with tracing.span("data.upload"):
-                static_dev = self._scalars(static_hp)
-            for i0, i1, bs in self._bs_runs(vals, ctx.stop - ctx.start):
-                if bs is not None:
-                    pipe.set_batch_size(bs)
-                w0 = i0
-                for k_len in chunk_lengths(i1 - i0, self.chunk_steps):
-                    w1 = w0 + k_len
-                    with tracing.span("data.slab"):
-                        batches = pipe.next_batches(k_len)
-                    with tracing.span("data.upload"):
-                        slab = self._upload(batches)
-                        steps = torch.arange(ctx.start + w0, ctx.start + w1,
-                                             dtype=torch.int32,
-                                             device=self._home)
-                        hp_xs = {k: torch.tensor(
-                            np.asarray(vals[k][w0:w1], np.float32),
-                            device=self._home) for k in names}
-                    work = self._whole(carry)
-                    carry = None         # the shards are not pinned
-                    with tracing.span("train.chunk", device=self._home,
-                                      steps=k_len, members=1):
-                        work = self._run_chunk(opt_name, work, static_dev,
-                                               hp_xs, slab, steps)
-                    carry = self._at_rest(work, 0)
-                    del work
-                    w0 = w1
-            # a snapshot leaves the trainer whole, on the mesh's first
-            # device: the store, evaluation and the handoff see one device
-            params, opt = self._whole(carry)
-            boundaries.append(
-                {"params": params, "opt": opt, "opt_name": opt_name,
-                 "data": pipe.state(), "step": ctx.stop})
-        return boundaries
-
-    # --------------------------------------------------------- sibling groups
-    def _check_group(self, states, chains, plans) -> None:
-        """The conditions under which members run as one group; a
-        ``ValueError`` names the first one broken."""
-        depth = len(chains[0])
-        if any(len(ch) != depth for ch in chains):
-            raise ValueError("batched chains must share their depth")
-        for s, ch in zip(states, chains):
-            step = ch[0].start
-            assert s["step"] == step, (s["step"], step)
-            for c in ch:
-                if c.start != step:
-                    raise ValueError(
-                        f"chain stages must be contiguous: stage starts at "
-                        f"{c.start}, previous stopped at {step}")
-                step = c.stop
-        for j in range(depth):
-            ctx0 = chains[0][j]
-            vals0, static0, opt0, names0 = plans[0][j]
-            runs = self._bs_runs(vals0, ctx0.stop - ctx0.start)
-            for ch, pl in zip(chains[1:], plans[1:]):
-                c = ch[j]
-                vals, static, opt_n, names = pl[j]
-                if (c.start, c.stop) != (ctx0.start, ctx0.stop):
-                    raise ValueError("batched stages must share [start, stop)")
-                if opt_n != opt0 or static != static0:
-                    raise ValueError("batched stages must share static hps")
-                if names != names0:
-                    raise ValueError("batched stages must share hp names")
-                if self._bs_runs(vals, c.stop - c.start) != runs:
-                    raise ValueError(
-                        "batched stages must share the bs schedule")
-
-    @tracing.traced("train.group")
-    def _run_group(self, states: List[Dict[str, Any]],
-                   chains: List[List[StageContext]]
-                   ) -> List[List[Dict[str, Any]]]:
-        """Run ``M`` parallel chains (one per member) of equal depth,
-        returning ``[member][stage]`` boundary states: the group's carry —
-        member-stacked on the vectorised tier, one per member on the looped
-        tier — and its pipelines persist across stage boundaries."""
-        group = len(states)
-        plans = [[self._stage_plan(c) for c in ch] for ch in chains]
-        self._check_group(states, chains, plans)
-        states = self.on_device(*states)
-        # siblings forked from one checkpoint share the data stream: one
-        # pipeline and one slab serve them all
-        shared = all(tuple(s["data"]) == tuple(states[0]["data"])
-                     for s in states[1:])
-        pipes = []
-        for s in (states[:1] if shared else states):
-            pipe = self.pipeline_factory()
-            pipe.restore(s["data"])
-            pipes.append(pipe)
-        if (plans[0][0][0].get("bs") is None
-                and len({p.batch_size for p in pipes}) > 1):
-            raise ValueError("batched stages must share the batch size")
-
-        opt_name = plans[0][0][2]
-        carries = [(s["params"], self._init_opt(s, opt_name))
-                   for s in states]
-        vec = self.vectorize_groups
-        if vec:
-            # at rest on a mesh with the member axis whole (n_lead 1); a
-            # list in a chunk, updated in place step by step (see
-            # _run_group_chunk)
-            carry = self._at_rest(tuple(
-                _stack([c[i] for c in carries]) for i in (0, 1)), 1)
-        else:
-            carries = [self._at_rest(c, 0) for c in carries]
-        boundaries: List[List[Dict[str, Any]]] = [[] for _ in range(group)]
-
-        for j, ctx0 in enumerate(chains[0]):
-            vals0, static_hp, stage_opt, names = plans[0][j]
-            if stage_opt != opt_name:
-                # optimizer switch at the boundary: fresh slots, exactly as
-                # run_stage would re-init on the restored state (and back
-                # to the mesh's at-rest layout)
-                opt_name = stage_opt
-                if vec:
-                    params = self._whole(carry[0])
-                    carry = self._at_rest(
-                        (params, init_opt_state(opt_name, params)), 1)
-                else:
-                    carries = [self._at_rest(
-                        (p, init_opt_state(opt_name, p)), 0) for p in
-                        (self._whole(c[0]) for c in carries)]
-            with tracing.span("data.upload"):
-                if vec:
-                    static_dev = {k: torch.full(
-                        (group,), v, dtype=torch.float32, device=self._home)
-                        for k, v in static_hp.items()}
-                else:
-                    static_dev = self._scalars(static_hp)
-            for i0, i1, bs in self._bs_runs(vals0, ctx0.stop - ctx0.start):
-                if bs is not None:
-                    for pipe in pipes:
-                        pipe.set_batch_size(bs)
-                w0 = i0
-                for k_len in chunk_lengths(i1 - i0, self.chunk_steps):
-                    w1 = w0 + k_len
-                    with tracing.span("data.slab"):
-                        slabs = [pipe.next_batches(k_len) for pipe in pipes]
-                    with tracing.span("data.upload"):
-                        steps = torch.arange(ctx0.start + w0, ctx0.start + w1,
-                                             dtype=torch.int32,
-                                             device=self._home)
-                        if vec:
-                            # step-major (n, M): row i is one contiguous
-                            # (M,) vector, the kernel's per-member operand
-                            hp_xs = {k: torch.from_numpy(
-                                np.ascontiguousarray(np.asarray(
-                                    [pl[j][0][k][w0:w1] for pl in plans],
-                                    np.float32).T)).to(self._home)
-                                for k in names}
-                            slab = self._upload(slabs[0] if shared else {
-                                k: np.stack([sl[k] for sl in slabs], axis=1)
-                                for k in slabs[0]})
-                        else:
-                            up = [self._upload(sl) for sl in slabs]
-                            hps = [{k: torch.tensor(
-                                np.asarray(pl[j][0][k][w0:w1], np.float32),
-                                device=self._home) for k in names}
-                                for pl in plans]
-                    chunk = tracing.span("train.chunk", device=self._home,
-                                         steps=k_len * group, members=group)
-                    if vec:
-                        work = list(self._whole(carry))
-                        carry = None     # pins neither input nor shards
-                        with chunk:
-                            self._run_group_chunk(opt_name, work, static_dev,
-                                                  hp_xs, slab, steps, shared)
-                        carry = self._at_rest(tuple(work), 1)
-                    else:
-                        with chunk:
-                            for m, hp_m in enumerate(hps):
-                                work = self._whole(carries[m])
-                                carries[m] = None    # nor are member m's
-                                carries[m] = self._at_rest(self._run_chunk(
-                                    opt_name, work, static_dev, hp_m,
-                                    up[0 if shared else m], steps), 0)
-                                del work
-                    w0 = w1
-            # snapshots leave the trainer whole, on the mesh's first device
-            if vec:
-                whole = self._whole(carry)
-                snaps = [tuple(tree_map(lambda x, m=m: x[m].clone(), c)
-                               for c in whole) for m in range(group)]
-                del whole
-            else:
-                snaps = [self._whole(c) for c in carries]
-            datas = [pipes[0].state()] * group if shared \
-                else [p.state() for p in pipes]
-            for m in range(group):
-                boundaries[m].append(
-                    {"params": snaps[m][0], "opt": snaps[m][1],
-                     "opt_name": opt_name, "data": datas[m],
-                     "step": ctx0.stop})
-        return boundaries
 
     def _run_group_chunk(self, opt_name: str, carry: List[Any], static_hp,
                          hp_xs, slab, steps, shared: bool) -> None:
@@ -780,13 +626,144 @@ class TorchTrainer(TrainerBackend):
             del grads
         self.exec_calls += 1
 
+    # -------------------------------------------------------------- execute
+    @tracing.traced("train.chain")
+    def run_stage(self, state: Dict[str, Any], ctx: StageContext
+                  ) -> Dict[str, Any]:
+        return self._walk([state], [[ctx]], batched=False)[0][-1]
+
+    @tracing.traced("train.chain")
+    def run_chain(self, state: Dict[str, Any],
+                  ctxs: Sequence[StageContext]) -> List[Dict[str, Any]]:
+        """Chain-fused execution: the carry stays on device across every
+        stage boundary (one persistent pipeline, no host round-trip) and a
+        boundary snapshot is returned per stage — bit-identical to running
+        :meth:`run_stage` per stage."""
+        return self._walk([state], [list(ctxs)], batched=False)[0]
+
+    @tracing.traced("train.group")
+    def run_stages_batched(self, states: Sequence[Dict[str, Any]],
+                           ctxs: Sequence[StageContext]
+                           ) -> List[Dict[str, Any]]:
+        """A sibling group of stages as one call (see the module
+        docstring); one boundary state per member."""
+        return [b[-1] for b in self._walk(list(states), [[c] for c in ctxs],
+                                          batched=True)]
+
+    @tracing.traced("train.group")
+    def run_chains_batched(self, states: Sequence[Dict[str, Any]],
+                           chains: Sequence[Sequence[StageContext]]
+                           ) -> List[List[Dict[str, Any]]]:
+        """A group of parallel sibling chains of equal depth, one stage
+        level at a time over the group's carry, which persists across
+        boundaries; ``[member][stage]`` boundary states."""
+        return self._walk(list(states), [list(c) for c in chains],
+                          batched=True)
+
+    def _admit(self, states, chains, plans, refuse) -> None:
+        """The conditions under which members' chains run as one walk: each
+        chain contiguous (else ``refuse``), and siblings agreeing (else
+        ``ValueError``); the first one broken raises, naming it."""
+        for s, ch in zip(states, chains):
+            step = ch[0].start
+            for c in ch:
+                if c.start != step:
+                    raise refuse(
+                        f"chain stages must be contiguous: stage starts at "
+                        f"{c.start}, previous stopped at {step}")
+                step = c.stop
+            assert s["step"] == ch[0].start, (s["step"], ch[0].start)
+        if len(chains) == 1:
+            return
+        depth = len(chains[0])
+        if any(len(ch) != depth for ch in chains):
+            raise ValueError("batched chains must share their depth")
+        for j in range(depth):
+            ctx0 = chains[0][j]
+            vals0, static0, opt0, names0 = plans[0][j]
+            runs = self._bs_runs(vals0, ctx0.stop - ctx0.start)
+            for ch, pl in zip(chains[1:], plans[1:]):
+                c = ch[j]
+                vals, static, opt_n, names = pl[j]
+                if (c.start, c.stop) != (ctx0.start, ctx0.stop):
+                    raise ValueError("batched stages must share [start, stop)")
+                if opt_n != opt0 or static != static0:
+                    raise ValueError("batched stages must share static hps")
+                if names != names0:
+                    raise ValueError("batched stages must share hp names")
+                if self._bs_runs(vals, c.stop - c.start) != runs:
+                    raise ValueError(
+                        "batched stages must share the bs schedule")
+
+    def _walk(self, states: List[Dict[str, Any]],
+              chains: List[List[StageContext]], batched: bool
+              ) -> List[List[Dict[str, Any]]]:
+        """Run ``M >= 1`` members' chains of equal depth, one stage level at
+        a time, returning ``[member][stage]`` boundary states; the carries
+        and pipelines persist across stage boundaries.  A solo chain
+        (``batched`` False) is refused with ``ChainNotFusable``, a group
+        with ``ValueError``; a group on the vectorised tier carries its
+        members stacked."""
+        plans = [[self._stage_plan(c) for c in ch] for ch in chains]
+        self._admit(states, chains, plans,
+                    ValueError if batched else ChainNotFusable)
+        states = self.on_device(*states)
+        # siblings forked from one checkpoint share the data stream: one
+        # pipeline and one slab serve them all
+        shared = all(tuple(s["data"]) == tuple(states[0]["data"])
+                     for s in states[1:])
+        pipes = []
+        for s in (states[:1] if shared else states):
+            pipe = self.pipeline_factory()
+            pipe.restore(s["data"])
+            pipes.append(pipe)
+        if (plans[0][0][0].get("bs") is None
+                and len({p.batch_size for p in pipes}) > 1):
+            raise ValueError("batched stages must share the batch size")
+
+        opt_name = plans[0][0][2]
+        layout = (_Stacked if batched and self.vectorize_groups
+                  else _PerMember)(self, [(s["params"],
+                                           self._init_opt(s, opt_name))
+                                          for s in states], shared)
+        members = len(states)
+        boundaries: List[List[Dict[str, Any]]] = [[] for _ in states]
+        for j, ctx in enumerate(chains[0]):
+            vals, static_hp, stage_opt, names = plans[0][j]
+            if stage_opt != opt_name:
+                # optimizer switch at the boundary: fresh slots, exactly as
+                # run_stage would re-init on the restored state
+                opt_name = stage_opt
+                layout.switch(opt_name)
+            with tracing.span("data.upload"):
+                static_dev = layout.scalars(static_hp)
+            for w0, w1 in self._windows(pipes, vals, ctx.stop - ctx.start):
+                slabs = self._draw(pipes, w1 - w0)
+                with tracing.span("data.upload"):
+                    slab = layout.slab(slabs)
+                    steps, hp_xs = self._upload_rows(
+                        ctx.start + w0, ctx.start + w1, layout.rows(
+                            [{k: pl[j][0][k][w0:w1] for k in names}
+                             for pl in plans]))
+                with tracing.span("train.chunk", device=self._home,
+                                  steps=(w1 - w0) * members, members=members):
+                    layout.run(opt_name, static_dev, hp_xs, slab, steps)
+            datas = [pipes[0].state()] * members if shared \
+                else [p.state() for p in pipes]
+            for m, (params, opt) in enumerate(layout.snapshots()):
+                boundaries[m].append(
+                    {"params": params, "opt": opt, "opt_name": opt_name,
+                     "data": datas[m], "step": ctx.stop})
+        return boundaries
+
     # ---------------------------------------------------- per-step reference
     @tracing.traced("train.chain")
     def run_stage_stepwise(self, state: Dict[str, Any], ctx: StageContext
                            ) -> Dict[str, Any]:
-        """The plain data plane: one batch materialised on the host and
-        uploaded per training step, hp values uploaded per step.  Kept as
-        the bit-exactness reference for the fused paths."""
+        """The plain data plane: one batch drawn and uploaded per training
+        step, hp values uploaded per step (the walk's helpers with a
+        one-step window).  Kept as the bit-exactness reference for the
+        walk."""
         assert state["step"] == ctx.start, (state["step"], ctx.start)
         state, = self.on_device(state)
         vals, static_hp, opt_name, names = self._stage_plan(ctx)
@@ -799,14 +776,11 @@ class TorchTrainer(TrainerBackend):
         for i, step in enumerate(range(ctx.start, ctx.stop)):
             if "bs" in vals:
                 pipe.set_batch_size(int(round(vals["bs"][i])))
-            with tracing.span("data.slab"):
-                batch = pipe.next_batch()
+            batch, = self._draw([pipe], 1)
             with tracing.span("data.upload"):
-                slab = self._upload({k: v[None] for k, v in batch.items()})
-                hp_xs = {k: torch.tensor([vals[k][i]], dtype=torch.float32,
-                                         device=self._home) for k in names}
-                steps = torch.tensor([step], dtype=torch.int32,
-                                     device=self._home)
+                slab = self._upload(batch)
+                steps, (hp_xs,) = self._upload_rows(
+                    step, step + 1, [{k: vals[k][i:i + 1] for k in names}])
             with tracing.span("train.chunk", device=self._home, steps=1,
                               members=1):
                 carry = self._run_chunk(opt_name, carry, static_dev, hp_xs,

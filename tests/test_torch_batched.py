@@ -50,6 +50,7 @@ from repro_torch.train.torch_trainer import (TorchTrainer, _stack,
                                              value_and_grad)
 from repro_torch.utils.convert import state_from_numpy, tree_to_numpy
 from repro_torch.utils.tree import tree_leaves
+from test_torch_trainer import StepwiseTrainer
 
 # the suite runs several worker processes side by side: one intra-op
 # thread each, or the workers fight over the cores
@@ -226,11 +227,11 @@ def test_batched_siblings_equal_stepwise_bitwise():
     """An engine run over ResNet8 siblings: the group reproduces each
     member's straight-through per-step training exactly (looped tier)."""
     data, ev = synthetic_cifar(256, seed=0), synthetic_cifar(64, seed=1)
-    mk = lambda fused: TorchTrainer(
+    mk = lambda trainer: trainer(
         ResNet(n=1, width=8), lambda: DataPipeline(data, batch_size=32,
                                                    seed=3),
-        ev, default_optimizer="momentum", fused=fused, device="cpu")
-    fused, stepwise = mk(True), mk(False)
+        ev, default_optimizer="momentum", device="cpu")
+    fused, stepwise = mk(TorchTrainer), mk(StepwiseTrainer)
     trials = [Trial(HpConfig({"lr": MultiStep(0.05, [12], values=[0.05, v]),
                               "bs": Constant(32)}), 24)
               for v in (0.02, 0.01, 0.005)]

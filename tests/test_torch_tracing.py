@@ -9,12 +9,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import Constant, HpConfig, MultiStep, SearchPlanDB, Study
+from repro_torch.core.trainer import StageContext
 from repro_torch.core.trial import Trial
 from repro_torch.core.tuners import GridTuner
 from repro_torch.data import DataPipeline
 from repro_torch.train.checkpoint import CheckpointStore
 from repro_torch.train.torch_trainer import TorchTrainer
 from repro_torch.utils import tracing
+from test_torch_trainer import StepwiseTrainer
 
 # the suite runs several worker processes side by side: one intra-op
 # thread each, or the workers fight over the cores
@@ -45,7 +47,7 @@ def tiny_dataset(n=128, seed=0):
 TIERS = {"solo": dict(batch_siblings=False),
          "looped": dict(batch_siblings=True),
          "vectorised": dict(batch_siblings=True, vectorize_groups=True),
-         "stepwise": dict(batch_siblings=False, fused=False)}
+         "stepwise": dict(batch_siblings=False, trainer=StepwiseTrainer)}
 
 
 def study(tier):
@@ -54,11 +56,12 @@ def study(tier):
     two meet as a group where the tier groups); ``(backend, stats)``."""
     kw = dict(TIERS[tier])
     batch = kw.pop("batch_siblings")
+    trainer = kw.pop("trainer", TorchTrainer)
     data = tiny_dataset()
-    backend = TorchTrainer(TinyTask(),
-                           lambda: DataPipeline(data, batch_size=8, seed=3),
-                           tiny_dataset(seed=1), default_optimizer="momentum",
-                           device="cpu", chunk_steps=4, **kw)
+    backend = trainer(TinyTask(),
+                      lambda: DataPipeline(data, batch_size=8, seed=3),
+                      tiny_dataset(seed=1), default_optimizer="momentum",
+                      device="cpu", chunk_steps=4, **kw)
     trials = [Trial(HpConfig({"lr": MultiStep(0.05, [12], values=[0.05, v]),
                               "bs": Constant(8)}), 24)
               for v in (0.02, 0.01, 0.005)]
@@ -185,6 +188,79 @@ def test_span_tree_holds_the_engine_counts(watched, how, tier):
     backend.evaluate(backend.init_state(), None)
     assert len(tracing.records()) == len(recs)
     assert tracing.dropped() == 0 and CountingEvent.made == 0
+
+
+def lr_ctx(lr, start, stop):
+    return StageContext("n", {"hps": {"lr": {"kind": "const", "value": lr}},
+                              "static": {"optimizer": "momentum"}},
+                        0, start, stop, "n")
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_chunk_uploads_go_through_one_seam(watched, tier):
+    """Every chunk draws its slabs, uploads them, its step indices and its
+    hp rows, then runs: one ``_upload`` a pipeline (two members on
+    distinct data streams; one stacked on axis 1 on the vectorised tier)
+    and one ``_upload_rows`` a chunk — an ``(n,)`` row a member, or one
+    step-major ``(n, M)`` — both inside ``data.upload``, and the spans
+    open in the order ``data.slab``, ``data.upload``, ``train.chunk``."""
+    kw = dict(TIERS[tier])
+    kw.pop("batch_siblings")
+    data = tiny_dataset()
+    backend = kw.pop("trainer", TorchTrainer)(
+        TinyTask(), lambda: DataPipeline(data, batch_size=8, seed=3),
+        tiny_dataset(seed=1), default_optimizer="momentum", device="cpu",
+        chunk_steps=4, **kw)
+    s0 = backend.init_state()
+    s1 = dict(s0, data=(3, 0, 16, 8))     # another position in the stream
+    chain = lambda lr: [lr_ctx(lr, 0, 6), lr_ctx(lr, 6, 12)]
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            top = tracing._local.top
+            chunks = sum(r.name == "train.chunk" for r in tracing.records())
+            calls.append((name, top.name, chunks, args, out))
+            return out
+        setattr(backend, name, wrapped)
+
+    spy("_upload", backend._upload)
+    spy("_upload_rows", backend._upload_rows)
+    with tracing.recording():
+        if tier == "stepwise":
+            backend.run_stage_stepwise(s0, lr_ctx(0.05, 0, 6))
+        elif tier == "solo":
+            backend.run_chain(s0, chain(0.05))
+        else:
+            backend.run_chains_batched([s0, s1], [chain(0.05), chain(0.02)])
+    members, slabs = {"solo": (1, 1), "stepwise": (1, 1), "looped": (2, 2),
+                      "vectorised": (2, 1)}[tier]
+    recs = tracing.records()
+    chunks = [r for r in recs if r.name == "train.chunk"]
+    lengths = [1] * 6 if tier == "stepwise" else [4, 2, 4, 2]
+    assert [c.attrs["steps"] for c in chunks] == [n * members
+                                                  for n in lengths]
+    assert all(c.attrs["members"] == members for c in chunks)
+    assert {top for _, top, *_ in calls} == {"data.upload"}
+    for i, n in enumerate(lengths):
+        mine = [c for c in calls if c[2] == i]
+        ups = [out for name, *_, out in mine if name == "_upload"]
+        rows = [out for name, *_, out in mine if name == "_upload_rows"]
+        assert len(ups) == slabs and len(rows) == 1
+        lead = (n, 2) if tier == "vectorised" else (n,)
+        assert all(u["x"].shape[:len(lead) + 1] == lead + (8,) for u in ups)
+        steps, hps = rows[0]
+        assert steps.shape == (n,) and steps.dtype == torch.int32
+        shapes = [tuple(h["lr"].shape) for h in hps]
+        assert shapes == ([(n, 2)] if tier == "vectorised"
+                          else [(n,)] * members)
+    # per chunk, in the order the spans open under the entry's span
+    kids = children(recs)
+    for c in chunks:
+        sibs = kids[c.parent]
+        k = sibs.index(c)
+        assert [r.name for r in sibs[k - 2:k]] == ["data.slab", "data.upload"]
 
 
 def test_ssd_scan_spans_nest_in_the_chunks(watched):

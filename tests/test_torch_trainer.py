@@ -23,7 +23,7 @@ from repro.train.jax_trainer import JaxTrainer
 from repro_torch.core import (Constant, HpConfig, MultiStep, SearchPlanDB,
                               Study)
 from repro_torch.core.searchplan import SearchPlan
-from repro_torch.core.trainer import StageContext
+from repro_torch.core.trainer import StageContext, TrainerBackend
 from repro_torch.core.trial import Trial
 from repro_torch.core.tuners import GridTuner
 from repro_torch.data import DataPipeline, synthetic_cifar
@@ -46,10 +46,23 @@ def pipe():
     return DataPipeline(DATA, batch_size=32, seed=3)
 
 
-def make(fused=True, **kw):
-    return TorchTrainer(ResNet(n=1, width=8), pipe, EVAL,
-                        default_optimizer="momentum", fused=fused,
-                        device="cpu", **kw)
+class StepwiseTrainer(TorchTrainer):
+    """The per-step reference as a backend: every stage through
+    ``run_stage_stepwise``, chains and groups through ``TrainerBackend``'s
+    per-stage defaults, and neither capability claimed, so an engine over
+    it runs stage by stage."""
+
+    supports_batched_stages = False
+    supports_chain_fusion = False
+    run_stage = TorchTrainer.run_stage_stepwise
+    run_stages_batched = TrainerBackend.run_stages_batched
+    run_chain = TrainerBackend.run_chain
+    run_chains_batched = TrainerBackend.run_chains_batched
+
+
+def make(trainer=TorchTrainer, **kw):
+    return trainer(ResNet(n=1, width=8), pipe, EVAL,
+                   default_optimizer="momentum", device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +72,7 @@ def fused():
 
 @pytest.fixture(scope="module")
 def stepwise():
-    return make(fused=False)
+    return make(StepwiseTrainer)
 
 
 def trial_stages(trial, steps):
@@ -102,7 +115,7 @@ def assert_states_identical(a, b):
                     "bs": MultiStep(32, [10], values=[32, 64])}), 16),
 ], ids=["lr_drop_mid_chunk", "bs_change_mid_chunk"])
 def test_fused_equals_stepwise_bitwise(fused, stepwise, trial):
-    assert fused.fused and fused.chunk_steps == 8
+    assert fused.supports_chain_fusion and fused.chunk_steps == 8
     f_state, f_metrics = straight_through(fused, trial, trial.total_steps)
     s_state, s_metrics = straight_through(stepwise, trial, trial.total_steps)
     assert_states_identical(f_state, s_state)
